@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check their kernels.
 
 Run from the repository root on a machine with one NVIDIA H100 (or another
 sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
@@ -10,10 +11,12 @@ Phases, each of which fails the run when it fails:
 
 1. build   — compiles ``mga_yolo_tpu_torch/csrc/*.cu`` with nvcc, one
              process per source, all at once.
-2. kernels — every kernel of the serving path against its plain PyTorch
-             version on the card, on the shapes the path gives it (and on
-             ragged / tiny-mask / no-pixel / tie cases), with its median
-             time beside the plain version's and its bound.
+2. kernels — every kernel of both paths against its plain PyTorch version
+             on the card, on the shapes the paths give it (and on ragged /
+             tiny-mask / no-pixel / tie / integer-target / +-40-logit cases,
+             every accepted R, both aux layouts of the DFL backward), with
+             its median time beside the plain version's and its bound; the
+             CAM gate's autograd gradients against plain autograd.
 3. parity  — one 640 px batch through the engine in float32 with TF32 off,
              kernels against the plain versions patched in.
 4. path    — the flagship YOLOv8n-MGA (MaskCBAM), 640 px, random weights from
@@ -21,6 +24,14 @@ Phases, each of which fails the run when it fails:
              ``MicroBatcher`` from 4 threads on images of mixed sizes; the
              kernels' launch counters are zeroed just before and read just
              after; then the steady-state batch latency and images/s.
+5. train-parity — one train step of the flagship, 640 px, batch 2, float32
+             with TF32 off: kernels against the plain versions patched in
+             (loss items, every gradient, the updated parameters).
+6. train   — the flagship's train step at full width, 640 px, micro-batch
+             16, bf16 autocast, accumulate 4 (nbs 64) inside the warmup ramp,
+             8 micro-steps with the launch counters zeroed just before and
+             read just after; then the steady-state step time, images/s and
+             a profile of one step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -41,9 +52,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 IMGSZ, BATCH = 640, 8
+TRAIN_BATCH, NBS, MAX_BOXES = 16, 64, 8  # config.py defaults: batch 16, nbs 64
 CAM_SHAPES = ((80, 80, 64, 4), (40, 40, 128, 8), (20, 20, 256, 16))  # (H, W, C, hidden) at 640 px
 CAM_TOL = 2e-5     # float32 sums in another order; the gate is a sigmoid in (0, 1)
 PATH_RTOL, PATH_ATOL = 1e-4, 1e-3  # decoded pixels (<= ~1000) after 28 float32 layers
+DFL_TOL = {"f32": (2e-6, 2e-6), "bf16": (8e-3, 2e-4)}  # (rtol, atol): one ulp; one bf16 ulp
+DFL_REG_MAX = (8, 16, 32, 64)
+# train-parity, kernels vs plain in float32: the CAM gate's and dz's last-bit
+# differences pass a 640 px backward through 60 train-mode BNs
+TRAIN_ITEMS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3, 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -192,6 +209,82 @@ def kernel_phase_nms(torch) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+def dfl_inputs(torch, b, a, r, dtype, planar=False, seed=0):
+    """pd (B, A, 4, R) with +-40 logits, float32 aux with integer targets;
+    aux (B, A, 4), or permuted views of planar (4, B, A) tensors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pd = 3 * torch.randn((b, a, 4, r), generator=g, device="cuda")
+    pd[0, 0], pd[0, 1] = 40.0, -40.0
+    shape = (4, b, a) if planar else (b, a, 4)
+    ltrb = r / 2 + 3 * torch.randn(shape, generator=g, device="cuda")
+    g_ltrb = torch.randn(shape, generator=g, device="cuda")
+    target = (r - 1) * torch.rand(shape, generator=g, device="cuda")
+    if planar:
+        ltrb, g_ltrb, target = (t.permute(1, 2, 0) for t in (ltrb, g_ltrb, target))
+    target[0, :4] = target[0, :4].floor()
+    g_ce = 2 * torch.rand((b, a), generator=g, device="cuda")
+    return pd.to(dtype), ltrb, g_ltrb, g_ce, target
+
+
+def kernel_phase_dfl(torch) -> dict:
+    from mga_yolo_tpu_torch.ops import dfl_bwd as db
+
+    b, a, r = TRAIN_BATCH, 8400, 16  # the train path: B=16, A=8400 at 640 px, R=16
+    cases = [(b, a, r, dt, planar) for dt in ("f32", "bf16") for planar in (False, True)]
+    cases += [(1, 1050, r, "f32", False), (1, 1050, r, "bf16", True)]  # ragged tail
+    cases += [(2, 84, rr, dt, False) for rr in DFL_REG_MAX for dt in ("f32", "bf16")]
+    max_err = 0.0
+    for i, (bb, aa, rr, dt, planar) in enumerate(cases):
+        args = dfl_inputs(torch, bb, aa, rr, getattr(torch, {"f32": "float32", "bf16": "bfloat16"}[dt]),
+                          planar, seed=i)
+        got = db.dfl_decode_ce_bwd(*args)
+        want = db.dfl_decode_ce_bwd_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rtol, atol = DFL_TOL[dt]
+        ok = bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
+        print(f"[kernels] dfl_bwd B={bb} A={aa} R={rr} {dt} {'planar' if planar else 'BA4'} aux: "
+              f"max_abs_err={err:.3e}")
+        check(ok, f"dfl_bwd disagrees with its plain version (rtol {rtol}, atol {atol}): {err}")
+        max_err = max(max_err, err)
+
+    times = {}
+    for planar in (False, True):  # the path's (B, A, 4) aux, then planar views
+        args = dfl_inputs(torch, b, a, r, torch.bfloat16, planar)
+        times[planar] = time_ms(torch, lambda: db.dfl_decode_ce_bwd(*args), iters=50)
+    p_ms = time_ms(torch, lambda: db.dfl_decode_ce_bwd_ref(*args), iters=5)
+    n_el = b * a * 4 * r
+    n_bytes = 2 * n_el * 2 + 3 * b * a * 4 * 4 + b * a * 4  # pd in, dz out (bf16); 3 aux + g_ce f32
+    b_ms, by = bound_ms(n_bytes, 10 * n_el)  # ~10 float32 operations per logit
+    print(f"[kernels] dfl_bwd B={b} A={a} R={r} bf16: {times[False] * 1e3:.1f} us with (B,A,4) aux, "
+          f"{times[True] * 1e3:.1f} us with planar aux (plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+          f"by {by})")
+    return {"name": "dfl_bwd", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/dfl_bwd.cu",
+            "replaces": "mga_yolo_tpu/ops/pallas/dfl_bwd.py:155",
+            "also_replaces": "mga_yolo_tpu/ops/pallas/dfl_bwd.py:53", "max_abs_err": max_err,
+            "ms": times[False], "ms_planar_aux": times[True], "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
+
+
+def kernel_phase_cam_grad(torch) -> None:
+    """The CAM gate's autograd Function (kernel forward, recomputed plain
+    backward) against autograd through the plain version: six gradients."""
+    from mga_yolo_tpu_torch.ops import cam_gate as cg
+
+    for i, (h, w, c, hid) in enumerate(CAM_SHAPES):
+        args = cam_inputs(torch, 4, h, w, c, hid, torch.float32, seed=10 + i)
+        g = torch.randn((4, c), device="cuda")
+        grads = []
+        for fn in (cg.cam_gate, cg.cam_gate_ref):
+            leaves = [t.clone().requires_grad_(True) for t in args]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+        torch.cuda.synchronize()
+        errs = [float((x - y).abs().max()) for x, y in zip(*grads)]
+        print(f"[kernels] cam_gate grad B=4 {h}x{w} C={c} f32: max_abs_err per input {[f'{e:.1e}' for e in errs]}")
+        for x, y in zip(*grads):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+
+
 # --------------------------------------------------------------------- path
 
 
@@ -304,30 +397,182 @@ def path_phase(torch, np, model) -> dict:
     p50 = lat[len(lat) // 2]
     print(f"[path] batch {BATCH}x{IMGSZ} bf16 latency p50 {p50:.2f} ms, max {lat[-1]:.2f} ms "
           f"({len(lat)} batches) -> {BATCH * 1e3 / p50:.1f} img/s")
-    profile_phase(torch, eng, list(lbs), list(metas), p50)
+    profile_phase(torch, lambda: eng.infer_batch(list(lbs), list(metas)), p50)
     return launches
 
 
-def profile_phase(torch, eng, lbs, metas, batch_ms: float, n: int = 5) -> None:
-    """Device time of one steady-state batch by kernel (torch.profiler), and
-    the device's busy share of the unprofiled batch latency."""
+def profile_phase(torch, run, step_ms: float, what: str = "batch", tag: str = "profile", n: int = 5) -> None:
+    """Device time of one steady-state ``run()`` by kernel (torch.profiler),
+    and the device's busy share of its unprofiled wall time ``step_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            eng.infer_batch(lbs, metas)
+            run()
+        torch.cuda.synchronize()
     rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
     if not rows or dev_ms == 0:
-        print("[profile] the profiler saw no device time: busy share not measured")
+        print(f"[{tag}] the profiler saw no device time: busy share not measured")
         return
     launches = sum(e.count for e in rows) / n
-    print(f"[profile] per batch: device busy {dev_ms:.3f} ms in {launches:.0f} device ops "
-          f"= {100 * dev_ms / batch_ms:.1f}% of the {batch_ms:.2f} ms batch latency")
+    print(f"[{tag}] per {what}: device busy {dev_ms:.3f} ms in {launches:.0f} device ops "
+          f"= {100 * dev_ms / step_ms:.1f}% of the {step_ms:.2f} ms {what} time")
     for e in rows[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms  x{e.count / n:5.0f}  {e.key[:90]}")
+        print(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.3f} ms  x{e.count / n:5.0f}  {e.key[:90]}")
+
+
+# -------------------------------------------------------------------- train
+
+
+def train_batch(np, torch, b: int, seed: int = 0) -> dict:
+    """Synthetic train batch on the card: uint8 images, 1-8 boxes per image
+    (the rest padding), and the masks those boxes draw at strides 8/16/32."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((b, MAX_BOXES, 4), np.float32)
+    mask_gt = np.zeros((b, MAX_BOXES), np.float32)
+    for i in range(b):
+        n = int(rng.integers(1, MAX_BOXES + 1))
+        xy = rng.uniform(0, 0.7 * IMGSZ, (n, 2))
+        boxes[i, :n] = np.concatenate([xy, xy + rng.uniform(IMGSZ / 40, 0.3 * IMGSZ, (n, 2))], -1)
+        mask_gt[i, :n] = 1
+    masks = []
+    for s in (8, 16, 32):
+        c = (np.arange(IMGSZ // s) + 0.5) * s
+        m = np.zeros((b, IMGSZ // s, IMGSZ // s, 1), np.float32)
+        for i in range(b):
+            for x1, y1, x2, y2 in boxes[i, mask_gt[i] > 0]:
+                m[i, (c[:, None] >= y1) & (c[:, None] <= y2) & (c[None] >= x1) & (c[None] <= x2), 0] = 1
+        masks.append(m)
+    host = {"image": rng.integers(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8), "gt_boxes": boxes,
+            "gt_labels": np.zeros((b, MAX_BOXES), np.int32), "mask_gt": mask_gt, "masks": masks}
+    return {k: [torch.from_numpy(x).cuda() for x in v] if isinstance(v, list) else torch.from_numpy(v).cuda()
+            for k, v in host.items()}
+
+
+def make_step(torch, model, accumulate: int, dtype, warmup_steps: int = 0):
+    from mga_yolo_tpu_torch.losses import DetLossConfig, SegLossConfig
+    from mga_yolo_tpu_torch.train import state as S
+
+    # weight decay scaled as the trainer does: wd * batch * accumulate / nbs
+    wd = 5e-4 * TRAIN_BATCH * accumulate / NBS
+    return S.make_train_step(model, model.det_strides, 1, DetLossConfig(), SegLossConfig(), weight_decay=wd,
+                             ema_decay=0.9999, ema_tau=2000, accumulate=accumulate, compute_dtype=dtype,
+                             warmup_steps=warmup_steps)
+
+
+def train_parity_phase(torch, np, model) -> None:
+    """One train step, 640 px, batch 2, float32, TF32 off: kernels against
+    the plain versions patched in, from the same weights and batch."""
+    import copy
+    from unittest import mock
+
+    from mga_yolo_tpu_torch.losses import detection
+    from mga_yolo_tpu_torch.models import attention
+    from mga_yolo_tpu_torch.ops import cam_gate as cg
+    from mga_yolo_tpu_torch.ops import dfl_bwd as db
+    from mga_yolo_tpu_torch.train import state as S
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = train_batch(np, torch, 2, seed=3)
+    results = []
+    for plain in (False, True):
+        m = copy.deepcopy(model).train()
+        st = S.create_train_state(m)
+        step = make_step(torch, m, 1, torch.float32)
+        n_cam, n_dfl = cg.launches, db.launches
+        with mock.patch.object(attention, "cam_gate", cg.cam_gate_ref if plain else cg.cam_gate), \
+                mock.patch.object(detection, "dfl_decode_ce_bwd",
+                                  db.dfl_decode_ce_bwd_ref if plain else db.dfl_decode_ce_bwd):
+            st, metrics = step(st, batch, 0.01, 0.1, 0.8)
+        torch.cuda.synchronize()
+        launched = (cg.launches - n_cam, db.launches - n_dfl)
+        check(launched == ((0, 0) if plain else (3, 1)),
+              f"train-parity: cam_gate / dfl_bwd launched {launched}, want {(0, 0) if plain else (3, 1)}")
+        results.append((metrics["items"], st.opt_state["m"], {k: p.detach() for k, p in st.params().items()}))
+    (items_k, m_k, p_k), (items_p, m_p, p_p) = results
+    torch.testing.assert_close(items_k, items_p, rtol=TRAIN_ITEMS_RTOL, atol=0)
+    g_err = p_err = 0.0
+    for k in m_p:  # first step from zero momentum: m = clipped gradient + decay
+        scale = float(m_p[k].abs().max())
+        g_err = max(g_err, float((m_k[k] - m_p[k]).abs().max()) / max(scale, 1e-30))
+        torch.testing.assert_close(m_k[k], m_p[k], rtol=0, atol=TRAIN_GRAD_TOL * scale, msg=lambda s: f"{k}: {s}")
+        p_err = max(p_err, float((p_k[k] - p_p[k]).abs().max()))
+        torch.testing.assert_close(p_k[k], p_p[k], rtol=0, atol=TRAIN_PARAM_ATOL, msg=lambda s: f"{k}: {s}")
+    print(f"[train-parity] f32 step B=2x{IMGSZ}: items max rel err "
+          f"{float(((items_k - items_p).abs() / items_p.abs()).max()):.2e} (rtol {TRAIN_ITEMS_RTOL}); "
+          f"{len(m_p)} gradients max err {g_err:.2e} x max|g| (tol {TRAIN_GRAD_TOL}); "
+          f"params max abs err {p_err:.2e} (atol {TRAIN_PARAM_ATOL}); kernels launched 3 + 1")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def train_phase(torch, np, model) -> dict:
+    """The flagship's bf16 train step at micro-batch 16 and accumulate 4."""
+    from mga_yolo_tpu_torch.ops import cam_gate as cg
+    from mga_yolo_tpu_torch.ops import dfl_bwd as db
+    from mga_yolo_tpu_torch.train import optim
+    from mga_yolo_tpu_torch.train import state as S
+
+    model.train()
+    accumulate = max(round(NBS / TRAIN_BATCH), 1)
+    sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                           warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+    step = make_step(torch, model, accumulate, torch.bfloat16, warmup_steps=sched.warmup_steps)
+    st = S.create_train_state(model)
+    # start inside the warmup, where the ramp's accumulate has reached 4, as a
+    # run resumed at micro-step 96 of its 100-step warmup
+    st.step = st.last_apply = sched.warmup_steps - 4
+    batch = train_batch(np, torch, TRAIN_BATCH, seed=4)
+    ema0 = {k: v.clone() for k, v in st.ema_params.items()}
+    bn0 = {k: v.clone() for k, v in st.bn_stats().items()}
+    t0 = time.perf_counter()
+    step(st, batch, *sched.at(st.step))  # first use: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    print(f"[train] first micro-step {time.perf_counter() - t0:.2f} s")
+    st.step = st.last_apply = sched.warmup_steps - 4  # forget the first-use micro-step
+    torch._foreach_zero_(list(st.accum_grads.values()))
+    n_steps, applies = 8, []
+    cg.launches = 0
+    db.launches = 0
+    for _ in range(n_steps):
+        before = [p.detach().clone() for p in st.params().values()]
+        opt_before = st.opt_step
+        st, metrics = step(st, batch, *sched.at(st.step))
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss) and bool(torch.isfinite(metrics["items"]).all()), f"non-finite loss {loss}")
+        moved = any(not torch.equal(a, p) for a, p in zip(before, st.params().values()))
+        applied = st.opt_step > opt_before
+        check(moved == applied, f"micro-step {st.step}: parameters moved={moved}, applied={applied}")
+        applies.append(applied)
+    launches = {"cam_gate": cg.launches, "dfl_bwd": db.launches}
+    print(f"[train] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16, accumulate {accumulate}: applies at "
+          f"{[i + 1 for i, a in enumerate(applies) if a]}, last loss {loss:.4f}, items "
+          f"{[round(float(x), 4) for x in metrics['items']]}; launches {launches}")
+    check(sum(applies) == 2, f"{sum(applies)} applies in {n_steps} micro-steps, want 2")
+    check(launches["dfl_bwd"] == n_steps, f"dfl_bwd launched {launches['dfl_bwd']} times in {n_steps} micro-steps")
+    check(launches["cam_gate"] == 3 * n_steps, f"cam_gate launched {launches['cam_gate']} times in {n_steps} micro-steps")
+    check(any(not torch.equal(ema0[k], v) for k, v in st.ema_params.items()), "the EMA did not move")
+    check(any(not torch.equal(bn0[k], v) for k, v in st.bn_stats().items()), "BN running statistics did not move")
+
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, _ = step(st, batch, *sched.at(st.step))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    lat = sorted(times)
+    p50 = lat[len(lat) // 2]
+    img_s = TRAIN_BATCH * len(times) * 1e3 / sum(times)
+    print(f"[train] steady state over {len(times)} micro-steps ({sum(times) / len(times):.2f} ms mean, "
+          f"{len(times) // accumulate} applies): p50 {p50:.2f} ms, max {lat[-1]:.2f} ms -> {img_s:.1f} img/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_phase(torch, lambda: step(st, batch, *sched.at(st.step)), sum(times) / len(times),
+                  what="micro-step", tag="train-profile", n=accumulate)
+    return launches
 
 
 def main() -> int:
@@ -347,7 +592,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    secs = _build.build(["cam_gate", "nms_suppress"])
+    secs = _build.build(["cam_gate", "nms_suppress", "dfl_bwd"])
     print(f"[build] {time.perf_counter() - t0:.2f} s wall, per source {secs}")
     for name in secs:
         log = _build.library_path(name).with_suffix(".log").read_text().strip()
@@ -355,15 +600,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    kernels = [kernel_phase_cam(torch), kernel_phase_nms(torch)]
+    kernels = [kernel_phase_cam(torch), kernel_phase_nms(torch), kernel_phase_dfl(torch)]
+    kernel_phase_cam_grad(torch)
 
     torch.manual_seed(0)
     model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1)
     parity_phase(torch, np, model)
-    launches = path_phase(torch, np, model)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} was not launched on the serving path")
+    serve = path_phase(torch, np, model)
+    train_parity_phase(torch, np, model)
+    train = train_phase(torch, np, model)
+    for k in kernels:  # each kernel's launches on this slice's path (training) or the serving path
+        k["launches"] = train.get(k["name"], serve.get(k["name"], 0))
+        k["launches_by_path"] = {"serve": serve.get(k["name"], 0), "train": train.get(k["name"], 0)}
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

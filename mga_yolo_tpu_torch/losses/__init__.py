@@ -1,0 +1,81 @@
+"""Loss package: detection (TAL/CIoU/DFL/BCE), segmentation (BCE+Dice/UFL),
+Kendall MTL, and :func:`mga_loss`, the full multi-task criterion
+(counterpart of ``mga_yolo_tpu/losses/__init__.py``) with the reference's
+10-item ``loss_items`` vector :data:`LOSS_ITEM_NAMES`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from mga_yolo_tpu_torch.losses.detection import DetLossConfig, v8_detection_loss
+from mga_yolo_tpu_torch.losses.mtl import kendall_combine
+from mga_yolo_tpu_torch.losses.segmentation import SegLossConfig, segmentation_loss
+
+__all__ = [
+    "DetLossConfig",
+    "SegLossConfig",
+    "v8_detection_loss",
+    "segmentation_loss",
+    "kendall_combine",
+    "mga_loss",
+    "LOSS_ITEM_NAMES",
+]
+
+LOSS_ITEM_NAMES = (
+    "box_loss",
+    "cls_loss",
+    "dfl_loss",
+    "p3_bce",
+    "p3_dice",
+    "p4_bce",
+    "p4_dice",
+    "p5_bce",
+    "p5_dice",
+    "seg_total",
+)
+
+
+def mga_loss(
+    outputs: dict,
+    batch: dict,
+    strides: Sequence[int],
+    nc: int,
+    mtl_log_vars: torch.Tensor,
+    det_cfg: DetLossConfig = DetLossConfig(),
+    seg_cfg: SegLossConfig = SegLossConfig(),
+):
+    """Full multi-task loss.
+
+    Args:
+        outputs: the model's ``{"det": maps or (decoded, maps), "seg": {...}}``.
+        batch: {"gt_labels" (B, M), "gt_bboxes" (B, M, 4) xyxy px, "mask_gt"
+            (B, M), "masks": per-scale (B, 1, H, W)}.
+        strides: detect strides (8, 16, 32).
+        mtl_log_vars: (2,) Kendall log-variances (trainable).
+
+    Returns:
+        (total, loss_items (10,), logs dict)
+    """
+    det_maps = outputs["det"]
+    if isinstance(det_maps, tuple):  # eval-mode output (decoded, maps)
+        det_maps = det_maps[1]
+    # loss math in float32; the det maps keep their storage type and
+    # v8_detection_loss casts per consumer (the DFL tensor stays bf16)
+    seg = {k: v.float() for k, v in outputs["seg"].items()}
+    l_det, det_comps = v8_detection_loss(
+        det_maps, strides, batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], nc, det_cfg
+    )
+    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg)
+    total, mtl_logs = kendall_combine(l_det, l_seg, mtl_log_vars)
+
+    z = torch.zeros((), device=l_det.device)
+    items = torch.stack([
+        det_comps["box"], det_comps["cls"], det_comps["dfl"],
+        *(seg_logs.get(k, z) for k in LOSS_ITEM_NAMES[3:]),
+    ])
+    logs = {**{f"det/{k}": v for k, v in det_comps.items()},
+            **{f"seg/{k}": v for k, v in seg_logs.items()}, **mtl_logs}
+    return total, items, logs

@@ -18,8 +18,9 @@ class MaskCBAM(nn.Module):
     """Mask-guided CBAM: masked channel gate, then mask-aware spatial gate.
 
     out = feat + softplus(beta) * (SAM(CAM(feat)) - feat). The channel gate
-    is the fused CAM-gate kernel on CUDA (its plain version on the CPU); the
-    SAM conv reads [channel max, channel mean, mask] in that order.
+    is the fused CAM-gate kernel on CUDA (its plain version on the CPU), and
+    differentiable on both; the SAM conv reads [channel max, channel mean,
+    mask] in that order.
     """
 
     def __init__(self, channels: int, r: int = 16, spatial_k: int = 7, use_sigmoid_mask: bool = True,
@@ -40,8 +41,12 @@ class MaskCBAM(nn.Module):
 
     def forward(self, feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         fc1, fc2 = self.cam_mlp[0], self.cam_mlp[2]
-        gate = cam_gate(feat, self._prob(mask), fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                        self.tiny_mask_thr, self.eps).to(feat.dtype)
+        # under autocast feat is bf16 and the masters float32: the gate reads
+        # the MLP in the activations' type, as the JAX package's bf16 step
+        # casts its parameters (the casts are no-ops in float32 and serving)
+        dt = feat.dtype
+        gate = cam_gate(feat, self._prob(mask).to(dt), fc1.weight.to(dt), fc1.bias.to(dt),
+                        fc2.weight.to(dt), fc2.bias.to(dt), self.tiny_mask_thr, self.eps).to(dt)
         cam_out = feat * gate[:, :, None, None]
 
         x_max = cam_out.amax(1, keepdim=True)

@@ -2,19 +2,21 @@
 
 * :class:`MGAMaskHead` — 1x1 conv -> BN -> SiLU -> 3x3 conv to mask logits at
   feature resolution (keys ``proj.0``, ``proj.1``, ``head``).
-* :class:`Detect` — anchor-free DFL head. ``forward`` returns
-  ``(decoded (B, A, 4+nc), maps)``: xywh in input pixels ++ sigmoid class
-  probabilities, and the raw per-level maps (B, 4*reg_max+nc, H, W).
+* :class:`Detect` — anchor-free DFL head. ``forward`` returns, in eval
+  mode, ``(decoded (B, A, 4+nc), maps)``: xywh in input pixels ++ sigmoid
+  class probabilities, and the raw per-level maps (B, 4*reg_max+nc, H, W);
+  in train mode the maps alone.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
-from mga_yolo_tpu_torch.models.layers import BN_EPS, ConvBN, DWConv
+from mga_yolo_tpu_torch.models.layers import BatchNorm2d, ConvBN, DWConv
 from mga_yolo_tpu_torch.ops.boxes import dist2bbox, make_anchors
 
 
@@ -25,7 +27,7 @@ class MGAMaskHead(nn.Module):
         super().__init__()
         self.proj = nn.Sequential(
             nn.Conv2d(c1, hidden, 1, bias=False),
-            nn.BatchNorm2d(hidden, eps=BN_EPS, momentum=0.03),
+            BatchNorm2d(hidden),
             nn.SiLU(),
         )
         self.head = nn.Conv2d(hidden, out_ch, 3, padding=1, bias=True)
@@ -88,9 +90,16 @@ class Detect(nn.Module):
                 for x in ch
             )
         self.dfl = DFL(reg_max)
+        with torch.no_grad():  # reference bias_init, as the JAX package initialises them
+            for box, cls, s in zip(self.cv2, self.cv3, self.strides):
+                box[-1].bias.fill_(1.0)
+                cls[-1].bias.fill_(math.log(5 / nc / (640 / s) ** 2))
 
     def forward(self, xs: Sequence[torch.Tensor]):
+        """Train mode: the raw maps. Eval mode: ``(decoded, maps)``."""
         maps = [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]
+        if self.training:
+            return maps
         return self.decode(maps), maps
 
     def decode(self, maps: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -4,9 +4,11 @@ Counterpart of ``mga_yolo_tpu/models/layers.py``. Attribute names follow the
 reference state_dict (``cv1.conv.weight``, ``m.0.cv2.bn.running_var``, ...)
 so converted weights load with ``strict=True``.
 
-Eval only: the virtual-concat 1x1 (ConvBNSum) of the JAX package equals
-concat + 1x1 conv in eval, which is what these modules do, and the
-separable SPPF pool exists there only for the training backward.
+The virtual-concat 1x1 (ConvBNSum) and the separable SPPF pool of the JAX
+package's train mode are TPU memory devices: they compute what concat +
+1x1 conv and one k x k pool compute, which is what these modules do in both
+modes. Train mode differs from PyTorch's default only in the BatchNorm's
+running variance (:class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,37 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3  # reference initialize_weights sets eps=1e-3 on every BatchNorm2d
+BN_MOMENTUM = 0.03  # torch convention; flax's momentum=0.97
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose train-mode update follows the JAX package (flax).
+
+    flax moves ``running_var`` toward the *biased* batch variance,
+    ``torch.nn.BatchNorm2d`` toward the unbiased one, n/(n-1) times larger
+    (n = B*H*W values per channel: 8/7 at P5 of a 64 px batch of 2). After
+    PyTorch's own update, made on a copy, this rescales its variance term to
+    the biased one:
+    new = (1-m)*old + m*n/(n-1)*var  ->  (1-m)*old + m*var
+        = new*(n-1)/n + (1-m)*old/n,
+    a few (C,) operations and no second pass over the activations. (The
+    copy matters: autograd saves the variance tensor that batch_norm
+    updates.) Keys, eval mode and normalisation are PyTorch's.
+    """
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        new = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, new, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - self.momentum) / n).add_(new, alpha=(n - 1) / n)
+        return y
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -38,7 +71,7 @@ class ConvBN(nn.Module):
                  g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
+        self.bn = BatchNorm2d(c2)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +182,19 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize to (H, W), half-pixel centres (align_corners=False)."""
+    """Bilinear resize to (H, W), half-pixel centres (align_corners=False).
+
+    ``jax.image.resize`` antialiases when it shrinks an axis, so does this.
+    """
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
-    return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+    shrink = hw[0] < x.shape[-2] or hw[1] < x.shape[-1]
+    return F.interpolate(x, size=hw, mode="bilinear", align_corners=False, antialias=shrink)
+
+
+def resize_nearest(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize to (H, W) with half-pixel centres, as ``jax.image.resize``
+    'nearest' (PyTorch's ``"nearest"`` mode floors without the half pixel)."""
+    if tuple(x.shape[-2:]) == tuple(hw):
+        return x
+    return F.interpolate(x, size=hw, mode="nearest-exact")

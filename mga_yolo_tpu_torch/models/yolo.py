@@ -1,8 +1,9 @@
 """MGAModel: the detection + segmentation graph as one ``nn.Module``.
 
-Counterpart of ``mga_yolo_tpu/models/yolo.py`` for eval. The graph walk
-returns ``{"det": (decoded (B, A, 4+nc), maps), "seg": {"p3", "p4", "p5"}}``
-with NCHW maps and (B, 1, H/s, W/s) mask logits. Layers live in
+Counterpart of ``mga_yolo_tpu/models/yolo.py``. The graph walk returns
+``{"det": (decoded (B, A, 4+nc), maps), "seg": {"p3", "p4", "p5"}}`` in eval
+mode and ``{"det": maps, "seg": ...}`` in train mode, with NCHW maps and
+(B, 1, H/s, W/s) mask logits. Layers live in
 ``self.model[i]`` as in the reference, so state_dict keys are
 ``model.{i}.…`` and converted weights load with ``strict=True``.
 """
@@ -79,7 +80,7 @@ def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int]) -> nn.M
 
 
 class MGAModel(nn.Module):
-    """Graph-walking eval forward returning det outputs and seg logits."""
+    """Graph-walking forward returning det outputs and seg logits."""
 
     def __init__(self, spec: GraphSpec):
         super().__init__()
@@ -120,16 +121,20 @@ def create_model(
     lane_pack: Any = False,
     lane_pack_regions: str = "auto",
     remat: Any = False,
+    training: bool = False,
 ) -> tuple[MGAModel, GraphSpec]:
-    """Parse the config and build the model in eval mode on ``device``
-    (CUDA when None; raises if CUDA is absent).
+    """Parse the config and build the model on ``device`` (CUDA when None;
+    raises if CUDA is absent), in train mode when ``training`` else in eval
+    mode (``model.train()`` / ``model.eval()`` switch it later).
 
     Weights are PyTorch's default initialisation from the global generator
     (seed it with ``torch.manual_seed``), or load converted ones with
     ``load_state_dict``. ``lane_pack``, ``lane_pack_regions`` and ``remat``
     are accepted for config compatibility with the JAX package and do
-    nothing: lane packing is a TPU layout and remat a training lever.
+    nothing: lane packing is a TPU layout and remat a TPU memory lever. In
+    the JAX package ``training`` only picks kernels; here it sets the mode,
+    and its default stays eval, which the serving path builds on.
     """
     dev = resolve_device(device)
     spec = parse_graph(cfg, scale=scale, nc=nc)
-    return MGAModel(spec).to(dev).eval(), spec
+    return MGAModel(spec).to(dev).train(training), spec

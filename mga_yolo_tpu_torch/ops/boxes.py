@@ -1,7 +1,8 @@
-"""Box geometry for the eval decode and NMS (counterpart of ``ops/boxes.py``)."""
+"""Box geometry for the decode, NMS and loss (counterpart of ``ops/boxes.py``)."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -39,7 +40,43 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     return torch.cat([x1y1, x2y2], -1)
 
 
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes -> ltrb distances, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:]
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
+
+
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     xy, wh = x[..., :2], x[..., 2:4]
     half = wh / 2
     return torch.cat([xy - half, xy + half], -1)
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    x1y1, x2y2 = x[..., :2], x[..., 2:4]
+    return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
+
+
+def bbox_iou_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Complete-IoU of broadcastable xyxy boxes (last dim 4) -> broadcast shape.
+
+    The aspect-ratio coupling ``alpha`` is a constant (detached), as in the
+    JAX package (``stop_gradient``) and the reference (``torch.no_grad``).
+    The JAX package's planar (4, B, A) variant is a TPU layout device with
+    the same values.
+    """
+    b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
+    b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
+    w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+    w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+    inter = ((torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1)).clamp_min(0)
+             * (torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1)).clamp_min(0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    c2 = cw**2 + ch**2 + eps
+    rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2 + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+    v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)

@@ -12,7 +12,9 @@ Kernel: ``csrc/cam_gate.cu``, which replaces the TPU kernel
 x and m once and does a few operations per byte, so its bound is the bytes
 (B*N*C + B*N elements) over the card's memory rate; see the source for the
 design. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-:func:`cam_gate_ref`. ``launches`` counts kernel launches.
+:func:`cam_gate_ref`. Under autograd the kernel's gradient is that of
+:func:`cam_gate_ref`, recomputed in the backward. ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -106,11 +108,33 @@ def _launch(x, m, w1, b1, w2, b2, tiny_thr: float, eps: float) -> torch.Tensor:
     return gate
 
 
+class _CamGate(torch.autograd.Function):
+    """Forward: the kernel. Backward: recompute :func:`cam_gate_ref` on the
+    saved inputs and differentiate it, as the JAX package's ``_cam_bwd``
+    does (it has no backward kernel: the gate's activations are O(B*C))."""
+
+    @staticmethod
+    def forward(ctx, x, m, w1, b1, w2, b2, tiny_thr, eps):
+        ctx.save_for_backward(x, m, w1, b1, w2, b2)
+        ctx.consts = (tiny_thr, eps)
+        return _launch(x, m, w1, b1, w2, b2, tiny_thr, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = cam_gate_ref(*inputs, *ctx.consts)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
 def cam_gate(x, m, w1, b1, w2, b2, tiny_thr: float = 1e-4, eps: float = 1e-6) -> torch.Tensor:
-    """(B, C, H, W) features x (B, 1, H, W) mask probabilities -> (B, C) float32 gate."""
+    """(B, C, H, W) features x (B, 1, H, W) mask probabilities -> (B, C) float32
+    gate, differentiable on both devices."""
     if x.device.type == "cpu":
         return cam_gate_ref(x, m, w1, b1, w2, b2, tiny_thr, eps)
     if x.device.type != "cuda":
         raise ValueError(f"cam_gate: no kernel for device {x.device}")
     _check(x, m, w1, b1, w2, b2)
-    return _launch(x, m, w1, b1, w2, b2, tiny_thr, eps)
+    return _CamGate.apply(x, m, w1, b1, w2, b2, tiny_thr, eps)

@@ -12,6 +12,11 @@ nothing of the JAX package:
     bn scale/bias + mean/var   -> BatchNorm weight/bias/running_mean/running_var
                                   (+ num_batches_tracked = 0)
     analytic DFL projection    -> fixed dfl.conv.weight = arange(reg_max)
+
+The same mapping carries trees with the params' structure (gradients,
+optimizer slots, the EMA: :func:`params_from_jax`) and BN statistics
+(:func:`bn_stats_from_jax`), so a JAX train state can be compared with, or
+loaded into, the port's.
 """
 
 from __future__ import annotations
@@ -128,3 +133,28 @@ def state_dict_from_jax(variables: dict[str, Any], spec: GraphSpec, reg_max: int
         k: torch.tensor(np.ascontiguousarray(v if v.dtype == np.int64 else np.asarray(v, np.float32)))
         for k, v in out.items()
     }
+
+
+_NOT_PARAMS = ("running_mean", "running_var", "num_batches_tracked", "dfl.conv.weight")
+
+
+def params_from_jax(tree: dict[str, Any], spec: GraphSpec, reg_max: int = 16) -> dict[str, torch.Tensor]:
+    """Any tree with the JAX params' structure (parameters, gradients,
+    optimizer slots, the EMA, group tags) -> {port parameter name: tensor},
+    with the same key mapping and transposes as :func:`state_dict_from_jax`.
+    ``mtl_log_vars`` is kept under its own name; the frozen DFL projection,
+    which is no parameter in JAX, has no entry."""
+    sd = state_dict_from_jax({"params": tree}, spec, reg_max)
+    out = {k: v for k, v in sd.items() if not k.endswith(_NOT_PARAMS)}
+    if "mtl_log_vars" in tree:
+        out["mtl_log_vars"] = torch.tensor(np.asarray(tree["mtl_log_vars"], np.float32))
+    return out
+
+
+def bn_stats_from_jax(params: dict[str, Any], batch_stats: dict[str, Any], spec: GraphSpec,
+                      reg_max: int = 16) -> dict[str, torch.Tensor]:
+    """JAX ``batch_stats`` (a state's or its EMA's) -> {port buffer name:
+    tensor} for every ``running_mean`` / ``running_var``; ``params`` gives
+    the structure."""
+    sd = state_dict_from_jax({"params": params, "batch_stats": batch_stats}, spec, reg_max)
+    return {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}

@@ -1,4 +1,4 @@
-"""PyTorch port, the two CUDA kernels against their plain versions.
+"""PyTorch port, the CUDA kernels against their plain versions.
 
 This file imports neither JAX nor the JAX package, so the ``cuda``-marked
 tests also run on a machine with a card and no JAX:
@@ -9,8 +9,13 @@ Without a card they skip (the kernels have no CPU or interpret mode); the
 wrapper's input checks, which are plain Python, run everywhere.
 
 Tolerances on the card: the CAM gate to atol 1e-5 in float32 and bfloat16
-(both sum in float32, in another order; the gate is a sigmoid in (0, 1));
-NMS exactly (the kernel rounds its IoU as the plain version does).
+(both sum in float32, in another order; the gate is a sigmoid in (0, 1)),
+its autograd gradients rtol 1e-4 / atol 1e-5 (the backward recomputes the
+plain version); NMS exactly (the kernel rounds its IoU as the plain version
+does); the DFL backward rtol/atol 2e-6 in float32 (dz rounded op for op;
+the softmax sum and expf differ in the last ulp) and rtol 8e-3 / atol 2e-4
+in bfloat16 (one bf16 ulp across a rounding boundary), the tolerances of
+tests/test_dfl_bwd_pallas.py.
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ import pytest
 import torch
 
 from mga_yolo_tpu_torch.ops import cam_gate as tcg
+from mga_yolo_tpu_torch.ops import dfl_bwd as tdfl
 from mga_yolo_tpu_torch.ops import nms as tnms
 
 
@@ -112,6 +118,90 @@ def test_cam_gate_checks_refuse_what_the_kernel_cannot_take():
         tcg._check(x, m, w1.double(), b1, w2, b2)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tcg._check(*(a.half() for a in (x, m, w1, b1, w2, b2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "tiny", "p3_width", "p5_width"])
+def test_cam_gate_gradient_matches_plain_autograd(card, case):
+    """The autograd Function (kernel forward, recomputed plain backward)
+    against autograd through the plain version, all six input gradients."""
+    args = [a.to(card) for a in _cam_case(**CAM_CASES[case])]
+    g = torch.randn(args[0].shape[:2], device=card)
+    grads = []
+    for fn in (tcg.cam_gate, tcg.cam_gate_ref):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = tcg.launches
+        out = fn(*leaves)
+        assert tcg.launches == before + (fn is tcg.cam_gate)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _dfl_case(b=2, a=84, r=16, dtype=torch.float32, seed=0, planar=False, device="cpu"):
+    """pd (B, A, 4, R) with +-40 logits and integer targets; aux (B, A, 4)
+    or permuted views of planar (4, B, A) tensors."""
+    rng = np.random.default_rng(seed)
+    pd = rng.normal(0, 3, (b, a, 4, r)).astype(np.float32)
+    pd[0, 0], pd[0, 1] = 40.0, -40.0
+    aux = [rng.normal(r / 2, 3, (b, a, 4)), rng.normal(0, 1, (b, a, 4)), rng.uniform(0, r - 1, (b, a, 4))]
+    aux[2][0, :4] = np.floor(aux[2][0, :4])
+    ltrb, g_ltrb, target = (torch.from_numpy(x.astype(np.float32)).to(device) for x in aux)
+    if planar:
+        ltrb, g_ltrb, target = (t.permute(2, 0, 1).contiguous().permute(1, 2, 0) for t in (ltrb, g_ltrb, target))
+    g_ce = torch.from_numpy(rng.uniform(0, 2, (b, a)).astype(np.float32)).to(device)
+    return torch.from_numpy(pd).to(device, dtype), ltrb, g_ltrb, g_ce, target
+
+
+DFL_CASES = {
+    "B2A84": dict(),
+    "ragged_A1050": dict(b=1, a=1050, seed=1),
+    "path_level": dict(b=3, a=400, seed=2),
+    "R8": dict(r=8, seed=3), "R32": dict(r=32, seed=4), "R64": dict(r=64, seed=5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True], ids=["BA4", "planar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(DFL_CASES))
+def test_dfl_bwd_kernel_matches_plain(card, case, dtype, planar):
+    args = _dfl_case(dtype=dtype, planar=planar, device=card, **DFL_CASES[case])
+    before = tdfl.launches
+    got = tdfl.dfl_decode_ce_bwd(*args)
+    want = tdfl.dfl_decode_ce_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert tdfl.launches == before + 1 and got.dtype == dtype and got.shape == args[0].shape
+    # the kernel rounds dz op for op as the plain version; softmax sums and
+    # expf differ in the last ulp. bf16: one bf16 ulp across a boundary.
+    rtol, atol = (2e-6, 2e-6) if dtype == torch.float32 else (8e-3, 2e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_dfl_bwd_checks_refuse_what_the_kernel_cannot_take():
+    pd, ltrb, g_ltrb, g_ce, target = _dfl_case()
+    tdfl._check(pd, ltrb, g_ltrb, g_ce, target)
+    tdfl._check(pd.bfloat16(), ltrb, g_ltrb, g_ce, target)
+    tdfl._check(pd, *(t.permute(2, 0, 1).contiguous().permute(1, 2, 0) for t in (ltrb, g_ltrb)), g_ce, target)
+    for r in (4, 12, 128):  # R without a template instance
+        p = torch.zeros(2, 84, 4, r)
+        with pytest.raises(ValueError, match="R in"):
+            tdfl._check(p, ltrb, g_ltrb, g_ce, target)
+    with pytest.raises(ValueError, match="must be \\(B, A, 4, R\\)"):
+        tdfl._check(pd.reshape(2, 84, 64), ltrb, g_ltrb, g_ce, target)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tdfl._check(pd.half(), ltrb, g_ltrb, g_ce, target)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdfl._check(pd.transpose(0, 1).contiguous().transpose(0, 1), ltrb, g_ltrb, g_ce, target)
+    misaligned = torch.zeros(pd.numel() + 1)[1:].reshape(pd.shape)  # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="contiguous and 16-byte aligned"):
+        tdfl._check(misaligned, ltrb, g_ltrb, g_ce, target)
+    with pytest.raises(ValueError, match="g_ce must be"):
+        tdfl._check(pd, ltrb, g_ltrb, g_ce[:, :10], target)
+    with pytest.raises(TypeError, match="target must be float32"):
+        tdfl._check(pd, ltrb, g_ltrb, g_ce, target.double())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tdfl.dfl_decode_ce_bwd(pd.to("meta"), ltrb, g_ltrb, g_ce, target)
 
 
 def test_suppress_checks_refuse_what_the_kernel_cannot_take():
