@@ -11,27 +11,30 @@ Phases, each of which fails the run when it fails:
 
 1. build   — compiles ``mga_yolo_tpu_torch/csrc/*.cu`` with nvcc, one
              process per source, all at once.
-2. kernels — every kernel of both paths against its plain PyTorch version
+2. kernels — every kernel of the paths against its plain PyTorch version
              on the card, on the shapes the paths give it (and on ragged /
              tiny-mask / no-pixel / tie / integer-target / +-40-logit cases,
              every accepted R, both aux layouts of the DFL backward), with
              its median time beside the plain version's and its bound; the
-             CAM gate's autograd gradients against plain autograd.
+             CAM gate's and the masked pool's autograd gradients against
+             plain autograd.
+Then, for each of two models at full width and depth, 640 px, random weights
+from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM, tags
+``[parity]`` ... ``[train]``) and YOLOv8n-MGA-ECA (MaskECA, the same tags
+with ``-eca``):
 3. parity  — one 640 px batch through the engine in float32 with TF32 off,
              kernels against the plain versions patched in.
-4. path    — the flagship YOLOv8n-MGA (MaskCBAM), 640 px, random weights from
-             ``torch.manual_seed(0)``, BN-folded, bfloat16, through
-             ``MicroBatcher`` from 4 threads on images of mixed sizes; the
-             kernels' launch counters are zeroed just before and read just
-             after; then the steady-state batch latency and images/s.
-5. train-parity — one train step of the flagship, 640 px, batch 2, float32
-             with TF32 off: kernels against the plain versions patched in
-             (loss items, every gradient, the updated parameters).
-6. train   — the flagship's train step at full width, 640 px, micro-batch
-             16, bf16 autocast, accumulate 4 (nbs 64) inside the warmup ramp,
-             8 micro-steps with the launch counters zeroed just before and
-             read just after; then the steady-state step time, images/s and
-             a profile of one step.
+4. path    — BN-folded, bfloat16, batch 8, through ``MicroBatcher`` from
+             several threads on images of mixed sizes; the kernels' launch
+             counters are zeroed just before and read just after; then the
+             steady-state batch latency, images/s and a profile of a batch.
+5. train-parity — one train step, 640 px, batch 2, float32 with TF32 off:
+             kernels against the plain versions patched in (loss items,
+             every gradient, the updated parameters).
+6. train   — the train step at micro-batch 16, bf16 autocast, accumulate 4
+             (nbs 64) inside the warmup ramp, 8 micro-steps with the launch
+             counters zeroed just before and read just after; then the
+             steady-state step time, images/s and a profile of one step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -55,6 +58,8 @@ IMGSZ, BATCH = 640, 8
 TRAIN_BATCH, NBS, MAX_BOXES = 16, 64, 8  # config.py defaults: batch 16, nbs 64
 CAM_SHAPES = ((80, 80, 64, 4), (40, 40, 128, 8), (20, 20, 256, 16))  # (H, W, C, hidden) at 640 px
 CAM_TOL = 2e-5     # float32 sums in another order; the gate is a sigmoid in (0, 1)
+POOL_SHAPES = tuple((h, w, c) for h, w, c, _ in CAM_SHAPES)  # MaskECA's (H, W, C) at 640 px
+POOL_TOL = {"f32": (1e-5, 1e-6), "bf16": (2 ** -7, 1e-6)}  # float32 sums in another order; one bf16 ulp
 PATH_RTOL, PATH_ATOL = 1e-4, 1e-3  # decoded pixels (<= ~1000) after 28 float32 layers
 DFL_TOL = {"f32": (2e-6, 2e-6), "bf16": (8e-3, 2e-4)}  # (rtol, atol): one ulp; one bf16 ulp
 DFL_REG_MAX = (8, 16, 32, 64)
@@ -66,6 +71,27 @@ TRAIN_ITEMS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3, 1e-6
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def kernel_modules() -> dict:
+    """The wrapper module of each kernel, which holds its launch counter."""
+    from mga_yolo_tpu_torch.ops import cam_gate, dfl_bwd, masked_pool, nms
+
+    return {"cam_gate": cam_gate, "nms_suppress": nms, "dfl_bwd": dfl_bwd, "masked_pool": masked_pool}
+
+
+def zero_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def want_launches(**counts) -> dict:
+    """Every kernel's count 0 but those given."""
+    return {name: counts.get(name, 0) for name in kernel_modules()}
 
 
 def gpu_name_and_power() -> str:
@@ -285,6 +311,78 @@ def kernel_phase_cam_grad(torch) -> None:
             torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
 
 
+def pool_inputs(torch, b, h, w, c, dtype, kind="random", seed=0):
+    x, m, *_ = cam_inputs(torch, b, h, w, c, 1, dtype, kind, seed)
+    return x, m
+
+
+def kernel_phase_pool(torch) -> dict:
+    from mga_yolo_tpu_torch.ops import masked_pool as mp
+
+    max_err = 0.0
+    cases = [(BATCH, h, w, c, dt, "random") for (h, w, c) in POOL_SHAPES for dt in ("f32", "bf16")]
+    cases += [(2, 7, 16, 64, "bf16", "random"),          # N = 16*7: ragged tail
+              (3, 41, 43, 72, "f32", "random"),          # N prime-ish, C = 72: ragged channel tile
+              (BATCH, 80, 80, 64, "bf16", "tiny"),       # tiny-mask GAP blend for avg
+              (BATCH, 40, 40, 128, "f32", "no_pixel")]   # masked-max GAP fallback
+    for i, (b, h, w, c, dt, kind) in enumerate(cases):
+        x, m = pool_inputs(torch, b, h, w, c, getattr(torch, {"f32": "float32", "bf16": "bfloat16"}[dt]), kind,
+                           seed=20 + i)
+        got = mp.masked_pool(x, m)
+        want = mp.masked_pool_ref(x, m)
+        torch.cuda.synchronize()
+        rtol, atol = POOL_TOL[dt]
+        errs = []
+        for g, wnt in zip(got, want):
+            check(g.dtype == x.dtype and g.shape == (b, c), f"masked_pool output {g.dtype} {tuple(g.shape)}")
+            errs.append(float((g.float() - wnt.float()).abs().max()))
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=rtol, atol=atol)
+        any_sel = (m.float() > 0.5).flatten(1).any(1)  # max descriptors exactly equal where a pixel is selected
+        torch.testing.assert_close(got[1][any_sel], want[1][any_sel], rtol=0, atol=0)
+        print(f"[kernels] masked_pool B={b} {h}x{w} C={c} {dt} {kind}: max_abs_err avg {errs[0]:.3e}, "
+              f"max {errs[1]:.3e}")
+        max_err = max(max_err, *errs)
+
+    ms = plain = bound = 0.0
+    for h, w, c in POOL_SHAPES:  # the serving path's shapes and type
+        x, m = pool_inputs(torch, BATCH, h, w, c, torch.bfloat16)
+        k_ms = time_ms(torch, lambda: mp.masked_pool(x, m), iters=50)
+        p_ms = time_ms(torch, lambda: mp.masked_pool_ref(x, m), iters=10)
+        n = h * w
+        n_bytes = 2 * (BATCH * n * c + BATCH * n) + 2 * 2 * BATCH * c  # x, m in; avg, max out (bf16)
+        b_ms, _ = bound_ms(n_bytes, BATCH * (4 * n * c + 2 * n))
+        print(f"[kernels] masked_pool B={BATCH} {h}x{w} C={c} bf16: {k_ms * 1e3:.1f} us "
+              f"(plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by bytes)")
+        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
+    return {"name": "masked_pool", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/masked_pool.cu",
+            "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:36", "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def kernel_phase_pool_grad(torch) -> None:
+    """The masked pool's autograd Function (kernel forward, analytic plain
+    backward) against autograd through the plain version: x and m gradients,
+    with a cotangent on the average only (as MaskECA gives) and on both."""
+    from mga_yolo_tpu_torch.ops import masked_pool as mp
+
+    for i, (h, w, c) in enumerate(POOL_SHAPES):
+        x, m = pool_inputs(torch, 4, h, w, c, torch.float32, seed=30 + i)
+        ga, gm = torch.randn((2, 4, c), device="cuda")
+        for both in (False, True):
+            grads = []
+            for fn in (mp.masked_pool, mp.masked_pool_ref):
+                leaves = [x.clone().requires_grad_(True), m.clone().requires_grad_(True)]
+                avg, mx = fn(*leaves)
+                loss = (avg * ga).sum() + ((mx * gm).sum() if both else 0)
+                grads.append(torch.autograd.grad(loss, leaves))
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
+            print(f"[kernels] masked_pool grad B=4 {h}x{w} C={c} f32, cotangent on {'both' if both else 'avg'}: "
+                  f"max_abs_err dx {errs[0]:.1e}, dm {errs[1]:.1e}")
+            for a, b in zip(*grads):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
 # --------------------------------------------------------------------- path
 
 
@@ -294,12 +392,14 @@ def make_images(np, n: int, seed: int = 0):
     return [rng.integers(0, 256, shapes[i % len(shapes)]).astype(np.uint8) for i in range(n)]
 
 
-def parity_phase(torch, np, model) -> None:
-    """One 640 px batch in float32 (TF32 off): kernels vs plain versions."""
+def parity_phase(torch, np, model, attn: str, sfx: str = "") -> None:
+    """One 640 px batch in float32 (TF32 off): kernels vs plain versions.
+    ``attn`` names the model's attention kernel (3 launches, the other 0)."""
     from unittest import mock
 
     from mga_yolo_tpu_torch.models import attention
     from mga_yolo_tpu_torch.ops import cam_gate as cg
+    from mga_yolo_tpu_torch.ops import masked_pool as mp
     from mga_yolo_tpu_torch.ops import nms as tn
     from mga_yolo_tpu_torch.serve import InferenceEngine
 
@@ -308,53 +408,56 @@ def parity_phase(torch, np, model) -> None:
     eng = InferenceEngine(model, imgsz=IMGSZ, batch=BATCH, conf=0.001, dtype=torch.float32)
     imgs = [eng.preprocess(im)[0] for im in make_images(np, BATCH, seed=1)]
     x = torch.from_numpy(np.stack(imgs)).cuda().permute(0, 3, 1, 2).contiguous().float() / 255
-    n_cam, n_nms = cg.launches, tn.launches
+    zero_launches()
     with torch.inference_mode():
         out_k = eng.model(x)
-        with mock.patch.object(attention, "cam_gate", cg.cam_gate_ref):
+        with mock.patch.object(attention, "cam_gate", cg.cam_gate_ref), \
+                mock.patch.object(attention, "masked_pool", mp.masked_pool_ref):
             out_p = eng.model(x)
         dec = out_k["det"][0].float()
         nms_k = tn.nms(dec, conf_thres=0.001)
         with mock.patch.object(tn, "suppress", tn.suppress_ref):
             nms_p = tn.nms(dec, conf_thres=0.001)
     torch.cuda.synchronize()
-    check((cg.launches - n_cam, tn.launches - n_nms) == (3, 1),
-          f"parity: kernels launched {cg.launches - n_cam} / {tn.launches - n_nms} times, want 3 / 1")
+    launched, want = read_launches(), want_launches(**{attn: 3, "nms_suppress": 1})
+    check(launched == want, f"parity{sfx}: kernels launched {launched}, want {want}")
     torch.testing.assert_close(out_k["det"][0], out_p["det"][0], rtol=PATH_RTOL, atol=PATH_ATOL)
     for key in ("p3", "p4", "p5"):
         torch.testing.assert_close(out_k["seg"][key], out_p["seg"][key], rtol=PATH_RTOL, atol=1e-4)
     for a, b in zip(nms_k, nms_p):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     err = float((out_k["det"][0] - out_p["det"][0]).abs().max())
-    print(f"[parity] f32 engine batch {BATCH}x{IMGSZ}: decoded max_abs_err {err:.3e} "
-          f"(rtol {PATH_RTOL}, atol {PATH_ATOL}); NMS kept {int((nms_k[1] > 0).sum())} identical")
+    print(f"[parity{sfx}] f32 engine batch {BATCH}x{IMGSZ}: decoded max_abs_err {err:.3e} "
+          f"(rtol {PATH_RTOL}, atol {PATH_ATOL}); NMS kept {int((nms_k[1] > 0).sum())} identical; "
+          f"launches {launched}")
     torch.backends.cudnn.allow_tf32 = True
 
 
-def path_phase(torch, np, model) -> dict:
-    from mga_yolo_tpu_torch.ops import cam_gate as cg
-    from mga_yolo_tpu_torch.ops import nms as tn
+def path_phase(torch, np, model, attn: str, sfx: str = "", n_requests: int = 24, n_threads: int = 4) -> dict:
+    """``n_requests`` images of mixed sizes from ``n_threads`` threads through
+    ``MicroBatcher`` (bf16, BN-folded), then the steady-state batch and a
+    profile. ``attn`` names the model's attention kernel."""
     from mga_yolo_tpu_torch.serve import InferenceEngine, MicroBatcher
 
+    tag = f"path{sfx}"
     eng = InferenceEngine(model, imgsz=IMGSZ, batch=BATCH, conf=0.001)  # bf16, BN-folded
     check(eng.dtype == torch.bfloat16, f"engine dtype {eng.dtype}")
-    print(f"[path] warmup {eng.warmup():.2f} s")
-    imgs = make_images(np, 24, seed=2)
+    print(f"[{tag}] warmup {eng.warmup():.2f} s")
+    imgs = make_images(np, n_requests, seed=2)
     results: list = [None] * len(imgs)
     errors: list = []
 
     def client(t: int) -> None:
-        for i in range(t, len(imgs), 4):
+        for i in range(t, len(imgs), n_threads):
             try:
                 results[i] = mb.submit(imgs[i], timeout=120)
             except Exception as e:  # recorded and failed below
                 errors.append(e)
 
-    cg.launches = 0
-    tn.launches = 0
+    zero_launches()
     mb = MicroBatcher(eng, max_wait_ms=5.0)
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
     try:
         for th in threads:
             th.start()
@@ -363,16 +466,14 @@ def path_phase(torch, np, model) -> dict:
     finally:
         mb.close()
     wall = time.perf_counter() - t0
-    launches = {"cam_gate": cg.launches, "nms_suppress": tn.launches}
+    launches = read_launches()
     stats = mb.stats()
     check(not errors and not any(th.is_alive() for th in threads), f"requests failed: {errors[:3]}")
     n_batches = stats["batches"]
-    print(f"[path] {len(imgs)} requests from 4 threads in {n_batches} batches, {wall:.2f} s; "
+    print(f"[{tag}] {len(imgs)} requests from {n_threads} threads in {n_batches} batches, {wall:.2f} s; "
           f"stats {stats}; launches {launches}")
-    check(n_batches > 0 and launches["cam_gate"] == 3 * n_batches,
-          f"cam_gate launched {launches['cam_gate']} times for {n_batches} batches (want 3 each)")
-    check(launches["nms_suppress"] == n_batches,
-          f"nms_suppress launched {launches['nms_suppress']} times for {n_batches} batches")
+    want = want_launches(**{attn: 3 * n_batches, "nms_suppress": n_batches})
+    check(n_batches > 0 and launches == want, f"launches {launches} for {n_batches} batches, want {want}")
     n_boxes = 0
     for img, p in zip(imgs, results):
         h, w = img.shape[:2]
@@ -384,10 +485,10 @@ def path_phase(torch, np, model) -> dict:
         check(bool((b[:, 4] > 0.001).all() and (b[:, 5] == 0).all()), "bad scores or classes")
         n_boxes += len(b)
     check(n_boxes > 0, "no detections at conf 0.001")
-    print(f"[path] {n_boxes} boxes, all finite and inside their images")
+    print(f"[{tag}] {n_boxes} boxes, all finite and inside their images")
 
     # steady state: full batches through the engine, one at a time
-    lbs, metas = zip(*(eng.preprocess(im) for im in imgs[:BATCH]))
+    lbs, metas = zip(*(eng.preprocess(im) for im in make_images(np, BATCH, seed=2)))
     lat = []
     for _ in range(20):
         t1 = time.perf_counter()
@@ -395,15 +496,16 @@ def path_phase(torch, np, model) -> dict:
         lat.append((time.perf_counter() - t1) * 1e3)
     lat = sorted(lat[2:])
     p50 = lat[len(lat) // 2]
-    print(f"[path] batch {BATCH}x{IMGSZ} bf16 latency p50 {p50:.2f} ms, max {lat[-1]:.2f} ms "
+    print(f"[{tag}] batch {BATCH}x{IMGSZ} bf16 latency p50 {p50:.2f} ms, max {lat[-1]:.2f} ms "
           f"({len(lat)} batches) -> {BATCH * 1e3 / p50:.1f} img/s")
-    profile_phase(torch, lambda: eng.infer_batch(list(lbs), list(metas)), p50)
+    profile_phase(torch, lambda: eng.infer_batch(list(lbs), list(metas)), p50, tag=f"profile{sfx}")
     return launches
 
 
 def profile_phase(torch, run, step_ms: float, what: str = "batch", tag: str = "profile", n: int = 5) -> None:
-    """Device time of one steady-state ``run()`` by kernel (torch.profiler),
-    and the device's busy share of its unprofiled wall time ``step_ms``."""
+    """Host time of one steady-state ``run()`` by operator and device time by
+    kernel (torch.profiler), and the device's busy share of its unprofiled
+    wall time ``step_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -411,8 +513,16 @@ def profile_phase(torch, run, step_ms: float, what: str = "batch", tag: str = "p
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=lambda e: -e.self_device_time_total)
+    events = prof.key_averages()
+    # the host side: operators and CUDA runtime calls by self time on the
+    # host (under the profiler, which adds its own cost to each)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    print(f"[{tag}] per {what}: host self time {sum(e.self_cpu_time_total for e in host) / 1e3 / n:.3f} ms "
+          f"in {sum(e.count for e in host) / n:.0f} host events (profiled)")
+    for e in host[:10]:
+        print(f"[{tag}]   host {e.self_cpu_time_total / 1e3 / n:8.3f} ms  x{e.count / n:5.0f}  {e.key[:80]}")
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
     if not rows or dev_ms == 0:
         print(f"[{tag}] the profiler saw no device time: busy share not measured")
@@ -463,7 +573,7 @@ def make_step(torch, model, accumulate: int, dtype, warmup_steps: int = 0):
                              warmup_steps=warmup_steps)
 
 
-def train_parity_phase(torch, np, model) -> None:
+def train_parity_phase(torch, np, model, attn: str, sfx: str = "") -> None:
     """One train step, 640 px, batch 2, float32, TF32 off: kernels against
     the plain versions patched in, from the same weights and batch."""
     import copy
@@ -473,6 +583,7 @@ def train_parity_phase(torch, np, model) -> None:
     from mga_yolo_tpu_torch.models import attention
     from mga_yolo_tpu_torch.ops import cam_gate as cg
     from mga_yolo_tpu_torch.ops import dfl_bwd as db
+    from mga_yolo_tpu_torch.ops import masked_pool as mp
     from mga_yolo_tpu_torch.train import state as S
 
     torch.backends.cudnn.allow_tf32 = False
@@ -483,15 +594,16 @@ def train_parity_phase(torch, np, model) -> None:
         m = copy.deepcopy(model).train()
         st = S.create_train_state(m)
         step = make_step(torch, m, 1, torch.float32)
-        n_cam, n_dfl = cg.launches, db.launches
+        zero_launches()
         with mock.patch.object(attention, "cam_gate", cg.cam_gate_ref if plain else cg.cam_gate), \
+                mock.patch.object(attention, "masked_pool", mp.masked_pool_ref if plain else mp.masked_pool), \
                 mock.patch.object(detection, "dfl_decode_ce_bwd",
                                   db.dfl_decode_ce_bwd_ref if plain else db.dfl_decode_ce_bwd):
             st, metrics = step(st, batch, 0.01, 0.1, 0.8)
         torch.cuda.synchronize()
-        launched = (cg.launches - n_cam, db.launches - n_dfl)
-        check(launched == ((0, 0) if plain else (3, 1)),
-              f"train-parity: cam_gate / dfl_bwd launched {launched}, want {(0, 0) if plain else (3, 1)}")
+        launched = read_launches()
+        want = want_launches() if plain else want_launches(**{attn: 3, "dfl_bwd": 1})
+        check(launched == want, f"train-parity{sfx}: launched {launched}, want {want}")
         results.append((metrics["items"], st.opt_state["m"], {k: p.detach() for k, p in st.params().items()}))
     (items_k, m_k, p_k), (items_p, m_p, p_p) = results
     torch.testing.assert_close(items_k, items_p, rtol=TRAIN_ITEMS_RTOL, atol=0)
@@ -502,20 +614,20 @@ def train_parity_phase(torch, np, model) -> None:
         torch.testing.assert_close(m_k[k], m_p[k], rtol=0, atol=TRAIN_GRAD_TOL * scale, msg=lambda s: f"{k}: {s}")
         p_err = max(p_err, float((p_k[k] - p_p[k]).abs().max()))
         torch.testing.assert_close(p_k[k], p_p[k], rtol=0, atol=TRAIN_PARAM_ATOL, msg=lambda s: f"{k}: {s}")
-    print(f"[train-parity] f32 step B=2x{IMGSZ}: items max rel err "
+    print(f"[train-parity{sfx}] f32 step B=2x{IMGSZ}: items max rel err "
           f"{float(((items_k - items_p).abs() / items_p.abs()).max()):.2e} (rtol {TRAIN_ITEMS_RTOL}); "
           f"{len(m_p)} gradients max err {g_err:.2e} x max|g| (tol {TRAIN_GRAD_TOL}); "
-          f"params max abs err {p_err:.2e} (atol {TRAIN_PARAM_ATOL}); kernels launched 3 + 1")
+          f"params max abs err {p_err:.2e} (atol {TRAIN_PARAM_ATOL}); kernels launched {attn} 3 + dfl_bwd 1")
     torch.backends.cudnn.allow_tf32 = True
 
 
-def train_phase(torch, np, model) -> dict:
-    """The flagship's bf16 train step at micro-batch 16 and accumulate 4."""
-    from mga_yolo_tpu_torch.ops import cam_gate as cg
-    from mga_yolo_tpu_torch.ops import dfl_bwd as db
+def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -> dict:
+    """The bf16 train step at micro-batch 16 and accumulate 4: 8 counted
+    micro-steps, then ``n_timed`` timed ones and a profile."""
     from mga_yolo_tpu_torch.train import optim
     from mga_yolo_tpu_torch.train import state as S
 
+    tag = f"train{sfx}"
     model.train()
     accumulate = max(round(NBS / TRAIN_BATCH), 1)
     sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
@@ -531,12 +643,11 @@ def train_phase(torch, np, model) -> dict:
     t0 = time.perf_counter()
     step(st, batch, *sched.at(st.step))  # first use: cuDNN plans, allocator
     torch.cuda.synchronize()
-    print(f"[train] first micro-step {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] first micro-step {time.perf_counter() - t0:.2f} s")
     st.step = st.last_apply = sched.warmup_steps - 4  # forget the first-use micro-step
     torch._foreach_zero_(list(st.accum_grads.values()))
     n_steps, applies = 8, []
-    cg.launches = 0
-    db.launches = 0
+    zero_launches()
     for _ in range(n_steps):
         before = [p.detach().clone() for p in st.params().values()]
         opt_before = st.opt_step
@@ -547,18 +658,18 @@ def train_phase(torch, np, model) -> dict:
         applied = st.opt_step > opt_before
         check(moved == applied, f"micro-step {st.step}: parameters moved={moved}, applied={applied}")
         applies.append(applied)
-    launches = {"cam_gate": cg.launches, "dfl_bwd": db.launches}
-    print(f"[train] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16, accumulate {accumulate}: applies at "
+    launches = read_launches()
+    print(f"[{tag}] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16, accumulate {accumulate}: applies at "
           f"{[i + 1 for i, a in enumerate(applies) if a]}, last loss {loss:.4f}, items "
           f"{[round(float(x), 4) for x in metrics['items']]}; launches {launches}")
     check(sum(applies) == 2, f"{sum(applies)} applies in {n_steps} micro-steps, want 2")
-    check(launches["dfl_bwd"] == n_steps, f"dfl_bwd launched {launches['dfl_bwd']} times in {n_steps} micro-steps")
-    check(launches["cam_gate"] == 3 * n_steps, f"cam_gate launched {launches['cam_gate']} times in {n_steps} micro-steps")
+    want = want_launches(**{attn: 3 * n_steps, "dfl_bwd": n_steps})
+    check(launches == want, f"launches {launches} in {n_steps} micro-steps, want {want}")
     check(any(not torch.equal(ema0[k], v) for k, v in st.ema_params.items()), "the EMA did not move")
     check(any(not torch.equal(bn0[k], v) for k, v in st.bn_stats().items()), "BN running statistics did not move")
 
     times = []
-    for _ in range(12):
+    for _ in range(n_timed):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         st, _ = step(st, batch, *sched.at(st.step))
@@ -567,11 +678,11 @@ def train_phase(torch, np, model) -> dict:
     lat = sorted(times)
     p50 = lat[len(lat) // 2]
     img_s = TRAIN_BATCH * len(times) * 1e3 / sum(times)
-    print(f"[train] steady state over {len(times)} micro-steps ({sum(times) / len(times):.2f} ms mean, "
+    print(f"[{tag}] steady state over {len(times)} micro-steps ({sum(times) / len(times):.2f} ms mean, "
           f"{len(times) // accumulate} applies): p50 {p50:.2f} ms, max {lat[-1]:.2f} ms -> {img_s:.1f} img/s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_phase(torch, lambda: step(st, batch, *sched.at(st.step)), sum(times) / len(times),
-                  what="micro-step", tag="train-profile", n=accumulate)
+                  what="micro-step", tag=f"train-profile{sfx}", n=accumulate)
     return launches
 
 
@@ -583,7 +694,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM, YOLOV8_ECA
     from mga_yolo_tpu_torch.kernels import _build
     from mga_yolo_tpu_torch.models.yolo import create_model
 
@@ -592,7 +703,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    secs = _build.build(["cam_gate", "nms_suppress", "dfl_bwd"])
+    secs = _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])
     print(f"[build] {time.perf_counter() - t0:.2f} s wall, per source {secs}")
     for name in secs:
         log = _build.library_path(name).with_suffix(".log").read_text().strip()
@@ -600,18 +711,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    kernels = [kernel_phase_cam(torch), kernel_phase_nms(torch), kernel_phase_dfl(torch)]
+    kernels = [kernel_phase_cam(torch), kernel_phase_nms(torch), kernel_phase_dfl(torch),
+               kernel_phase_pool(torch)]
     kernel_phase_cam_grad(torch)
+    kernel_phase_pool_grad(torch)
 
-    torch.manual_seed(0)
-    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1)
-    parity_phase(torch, np, model)
-    serve = path_phase(torch, np, model)
-    train_parity_phase(torch, np, model)
-    train = train_phase(torch, np, model)
-    for k in kernels:  # each kernel's launches on this slice's path (training) or the serving path
-        k["launches"] = train.get(k["name"], serve.get(k["name"], 0))
-        k["launches_by_path"] = {"serve": serve.get(k["name"], 0), "train": train.get(k["name"], 0)}
+    # (path-name suffix, config, attention kernel, tag suffix, MicroBatcher round, timed micro-steps)
+    paths = {}
+    for name, cfg, attn, sfx, serve_kw, n_timed in (
+            ("", YOLOV8_CBAM, "cam_gate", "", {}, 12),
+            ("_eca", YOLOV8_ECA, "masked_pool", "-eca", dict(n_requests=8, n_threads=2), 8)):
+        torch.manual_seed(0)
+        model, _ = create_model(cfg, scale="n", nc=1)
+        parity_phase(torch, np, model, attn, sfx)
+        paths["serve" + name] = path_phase(torch, np, model, attn, sfx, **serve_kw)
+        train_parity_phase(torch, np, model, attn, sfx)
+        paths["train" + name] = train_phase(torch, np, model, attn, sfx, n_timed=n_timed)
+        del model
+    for k in kernels:  # launches on this slice's paths (ECA) first, else on the flagship's
+        by_path = {p: counts[k["name"]] for p, counts in paths.items()}
+        k["launches_by_path"] = by_path
+        k["launches"] = next((by_path[p] for p in ("train_eca", "serve_eca", "train", "serve") if by_path[p]), 0)
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
 
     print(card)

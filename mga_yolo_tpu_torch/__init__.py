@@ -5,10 +5,12 @@ A second implementation of the serving path and the train step of
 tested against). The module
 layout mirrors the JAX package so each counterpart is easy to find:
 
-    graph.py, configs.py        model-graph parser + the flagship config
-    models/                     ConvBN/C2f/C3k2/SPPF, heads, MaskCBAM, MGAModel
-    ops/                        boxes, CAM gate, NMS and DFL-backward wrappers
-                                (kernel + plain)
+    graph.py, configs.py        model-graph parser + the shipped configs
+                                (flagship MaskCBAM, MaskECA)
+    models/                     ConvBN/C2f/C3k2/SPPF, heads, MaskCBAM, MaskECA,
+                                MGAModel
+    ops/                        boxes, CAM gate, masked pool, NMS and
+                                DFL-backward wrappers (kernel + plain)
     losses/                     TAL assigner + v8 detection loss, seg loss, Kendall
     train/                      optimizers, schedule, EMA, train and eval steps
     csrc/, kernels/_build.py    CUDA C++ sources and their nvcc/ctypes build

@@ -15,98 +15,14 @@
 // Bound: the kernel must read x and m once (B*N*C + B*N elements), a few
 // operations per byte, so it is memory-bound on this card. Design: the TPU
 // kernel carried its sums across a sequential grid; Hopper blocks run in no
-// order, so pass 1 splits (B, channel tiles, pixel chunks) over blocks, each
-// writing float32 partial sums to a small workspace, and pass 2 (one block
-// per image) combines the chunks and runs the MLP. Within a channel the
-// pixels are contiguous (NCHW), so a warp's loads coalesce. The last chunk
-// is masked, so N need not divide anything.
+// order, so pass 1 (masked_reduce.cuh, shared with masked_pool.cu) splits
+// (B, channel tiles, pixel chunks) over blocks, each writing float32 partial
+// sums to a small workspace, and pass 2 (one block per image) combines the
+// chunks and runs the MLP.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "masked_reduce.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChanTile = 32;   // channels per pass-1 block
-constexpr int kPixChunk = 512;  // pixels per pass-1 block
-constexpr float kNeg = -3.0e38f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Workspace layout (float32), S = number of pixel chunks:
-//   wsum (B, S, C) | gsum (B, S, C) | mmax (B, S, C) | msum (B, S) | cnt (B, S)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cam_reduce_kernel(const T* __restrict__ x, const T* __restrict__ m,
-                  int64_t x_sb, int64_t x_sc, int64_t m_sb, int C, int N, int S,
-                  float* __restrict__ ws) {
-  const int b = blockIdx.x, ct = blockIdx.y, s = blockIdx.z;
-  const int n0 = s * kPixChunk;
-  const int len = min(kPixChunk, N - n0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  __shared__ float sm[kPixChunk];
-  __shared__ float red_m[kWarps], red_c[kWarps];
-
-  const T* mb = m + b * m_sb + n0;
-  float msum = 0.f, cnt = 0.f;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    const float v = to_f32(mb[i]);
-    sm[i] = v;
-    msum += v;
-    cnt += v > 0.5f ? 1.f : 0.f;
-  }
-  if (ct == 0) {  // one channel tile writes the per-chunk mask sums
-    msum = warp_sum(msum);
-    cnt = warp_sum(cnt);
-    if (lane == 0) { red_m[warp] = msum; red_c[warp] = cnt; }
-  }
-  __syncthreads();
-  if (ct == 0 && threadIdx.x == 0) {
-    float a = 0.f, c = 0.f;
-    for (int w = 0; w < kWarps; ++w) { a += red_m[w]; c += red_c[w]; }
-    float* ws_msum = ws + (int64_t)3 * gridDim.x * S * C;
-    ws_msum[b * S + s] = a;
-    ws_msum[(int64_t)gridDim.x * S + b * S + s] = c;
-  }
-
-  const int64_t plane = (int64_t)gridDim.x * S * C;
-  for (int cc = warp; cc < kChanTile; cc += kWarps) {
-    const int c = ct * kChanTile + cc;
-    if (c >= C) break;
-    const T* xc = x + b * x_sb + c * x_sc + n0;
-    float w = 0.f, g = 0.f, mx = kNeg;
-    for (int i = lane; i < len; i += 32) {
-      const float xv = to_f32(xc[i]);
-      const float mv = sm[i];
-      w += xv * mv;
-      g += xv;
-      if (mv > 0.5f) mx = fmaxf(mx, xv);
-    }
-    w = warp_sum(w);
-    g = warp_sum(g);
-    mx = warp_max(mx);
-    if (lane == 0) {
-      const int64_t idx = ((int64_t)b * S + s) * C + c;
-      ws[idx] = w;
-      ws[plane + idx] = g;
-      ws[2 * plane + idx] = mx;
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -189,11 +105,8 @@ int launch(const void* x, const void* m, const void* w1, const void* b1, const v
            const void* b2, long long x_sb, long long x_sc, long long m_sb, int B, int C,
            int N, int H, float tiny_thr, float eps, void* ws, void* gate, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int S = (N + kPixChunk - 1) / kPixChunk;
-  dim3 grid1(B, (C + kChanTile - 1) / kChanTile, S);
-  cam_reduce_kernel<T><<<grid1, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(m), x_sb, x_sc, m_sb, C, N, S,
-      static_cast<float*>(ws));
+  const int S = masked_reduce_chunks(N);
+  launch_masked_reduce<T>(x, m, x_sb, x_sc, m_sb, B, C, N, ws, st);
   const size_t shmem = sizeof(float) * (2 * (size_t)C + 2 * (size_t)H);
   cam_combine_kernel<T><<<B, kThreads, shmem, st>>>(
       static_cast<const float*>(ws), static_cast<const T*>(w1), static_cast<const T*>(b1),

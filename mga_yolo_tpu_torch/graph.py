@@ -5,8 +5,10 @@ args]`` rows, depth/width/max_channels compound scaling, make_divisible
 channel rounding, the MGA channel-inference branches (MGAMaskHead and the
 attention modules), and the save-list of outputs read by later layers.
 
-``yaml`` is imported only when a path is given: the CUDA host may lack PyYAML,
-so the flagship config also ships as a dict (``mga_yolo_tpu_torch.configs``).
+``yaml`` is imported only for a path that names no shipped config: the CUDA
+host may lack PyYAML, so the shipped configs are dicts
+(``mga_yolo_tpu_torch.configs``), and a path whose stem is one of theirs
+(``yolov8_cbam``, ``yolov8_eca``) reads the dict.
 """
 
 from __future__ import annotations
@@ -82,12 +84,17 @@ def parse_graph(cfg: dict | str | Path, ch: int = 3, scale: str | None = None, n
     """Parse a model YAML path or pre-loaded dict into a GraphSpec."""
     yaml_path = None
     if isinstance(cfg, (str, Path)):
-        import yaml
+        from mga_yolo_tpu_torch.configs import SHIPPED
 
         yaml_path = str(cfg)
         stem = Path(cfg).stem
-        with open(cfg) as f:
-            cfg = yaml.safe_load(f)
+        if stem in SHIPPED:  # a shipped config: its dict, no PyYAML and no file needed
+            cfg = SHIPPED[stem]
+        else:
+            import yaml
+
+            with open(cfg) as f:
+                cfg = yaml.safe_load(f)
         if scale is None:
             for s in ("n", "s", "m", "l", "x"):
                 if stem.startswith("yolov8" + s) or stem.endswith("-" + s) or stem.endswith("_" + s):

@@ -19,7 +19,7 @@ from torch import nn
 from mga_yolo_tpu_torch.device import resolve_device
 from mga_yolo_tpu_torch.graph import GraphSpec, NodeSpec, parse_graph
 from mga_yolo_tpu_torch.models import layers as L
-from mga_yolo_tpu_torch.models.attention import MaskCBAM
+from mga_yolo_tpu_torch.models.attention import MaskCBAM, MaskECA
 from mga_yolo_tpu_torch.models.heads import Detect, MGAMaskHead
 
 
@@ -67,8 +67,10 @@ def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int]) -> nn.M
         return MGAMaskHead(c1, hidden=a[0], out_ch=a[1] if len(a) > 1 else 1)
     if m == "MaskCBAM":
         return MaskCBAM(channels=a[0])
-    if m in ("MaskECA", "MaskSPADE"):
-        raise NotImplementedError(f"{m} comes with a later slice of the port")
+    if m == "MaskECA":
+        return MaskECA(channels=a[0])
+    if m == "MaskSPADE":
+        raise NotImplementedError("MaskSPADE comes with a later slice of the port")
     if m == "Detect":
         return Detect(spec.nc, ch=tuple(a[1]), strides=tuple(strides[i] for i in node.inputs),
                       legacy=spec.legacy_detect)

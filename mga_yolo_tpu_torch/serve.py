@@ -370,7 +370,9 @@ def build_server(
     writes: ``ema_state_dict`` or ``model_state_dict`` + ``train_args``).
 
     The graph comes from ``model`` if given, else ``train_args["model"]``,
-    else the flagship config. ``device`` defaults to CUDA.
+    else the flagship config; a path naming a shipped config
+    (``yolov8_cbam``, ``yolov8_eca``) reads its dict, so no PyYAML is needed
+    (``graph.parse_graph``). ``device`` defaults to CUDA.
     """
     from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
     from mga_yolo_tpu_torch.models.yolo import create_model

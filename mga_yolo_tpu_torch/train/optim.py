@@ -6,8 +6,9 @@ and ``ModelEMA``):
 
 * :func:`resolve_optimizer` with the reference's ``auto`` rule;
 * three parameter groups by name (:func:`param_groups`): 0 = weights with
-  ndim > 1 (decayed), 1 = the rest (BN weights, MaskCBAM ``beta``,
-  ``mtl_log_vars``), 2 = biases (no decay, their own warmup lr);
+  ndim > 1 (decayed; MaskECA's ``conv1d.weight`` too), 1 = the rest (BN
+  weights, the attention blocks' ``beta``, ``mtl_log_vars``), 2 = biases
+  (no decay, their own warmup lr);
 * SGD (Nesterov), Adam / AdamW and RMSProp updates (:func:`make_update_fn`)
   with the JAX package's decay conventions, :func:`clip_by_global_norm`;
 * :class:`Schedule` (lr / bias lr / momentum per iteration) and the ramped

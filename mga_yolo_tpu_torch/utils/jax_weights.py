@@ -9,6 +9,7 @@ nothing of the JAX package:
 
     conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw)
     dense kernel (I, O)        -> Linear weight (O, I)
+    conv1d kernel (k, I, O)    -> Conv1d weight (O, I, k)   (MaskECA)
     bn scale/bias + mean/var   -> BatchNorm weight/bias/running_mean/running_var
                                   (+ num_batches_tracked = 0)
     analytic DFL projection    -> fixed dfl.conv.weight = arange(reg_max)
@@ -76,6 +77,12 @@ def _cbam(out: dict, prefix: str, p: dict) -> None:
     out[prefix + ".beta"] = np.asarray(p["beta"], np.float32).reshape(())
 
 
+def _eca(out: dict, prefix: str, p: dict) -> None:
+    out[prefix + ".conv1d.weight"] = np.transpose(np.asarray(p["conv1d"]["kernel"]), (2, 1, 0))
+    if "beta" in p:
+        out[prefix + ".beta"] = np.asarray(p["beta"], np.float32).reshape(())
+
+
 def _detect(out: dict, prefix: str, p: dict, s: dict | None, legacy: bool, reg_max: int) -> None:
     s = s or {}
     for key in sorted(p):
@@ -125,8 +132,10 @@ def state_dict_from_jax(variables: dict[str, Any], spec: GraphSpec, reg_max: int
             _mask_head(out, prefix, p, s)
         elif module == "MaskCBAM":
             _cbam(out, prefix, p)
-        elif module in ("MaskECA", "MaskSPADE"):
-            raise NotImplementedError(f"{module} comes with a later slice of the port")
+        elif module == "MaskECA":
+            _eca(out, prefix, p)
+        elif module == "MaskSPADE":
+            raise NotImplementedError("MaskSPADE comes with a later slice of the port")
         else:
             _generic(out, prefix, p, s)
     return {

@@ -15,7 +15,11 @@ plain version); NMS exactly (the kernel rounds its IoU as the plain version
 does); the DFL backward rtol/atol 2e-6 in float32 (dz rounded op for op;
 the softmax sum and expf differ in the last ulp) and rtol 8e-3 / atol 2e-4
 in bfloat16 (one bf16 ulp across a rounding boundary), the tolerances of
-tests/test_dfl_bwd_pallas.py.
+tests/test_dfl_bwd_pallas.py; the masked pool's max descriptors exactly
+where a pixel has m > 0.5 (a max is the same in any order), the rest rtol
+1e-5 / atol 1e-6 in float32 (float32 sums in another order) and one bf16 ulp
+in bfloat16 (the same sums rounded once to bf16), its x and m gradients
+rtol 1e-4 / atol 1e-5 of autograd through the plain version.
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ import torch
 
 from mga_yolo_tpu_torch.ops import cam_gate as tcg
 from mga_yolo_tpu_torch.ops import dfl_bwd as tdfl
+from mga_yolo_tpu_torch.ops import masked_pool as tmp
 from mga_yolo_tpu_torch.ops import nms as tnms
 
 
@@ -212,3 +217,88 @@ def test_suppress_checks_refuse_what_the_kernel_cannot_take():
         with pytest.raises(err):
             tnms._check(*bad)
     tnms._check(boxes, scores)
+
+
+def _pool_case(kind="random", b=2, h=8, w=8, c=32, seed=0):
+    x, m, *_ = _cam_case(kind, b, h, w, c, seed)
+    return x, m
+
+
+POOL_CASES = {
+    **{k: CAM_CASES[k] for k in ("random", "tiny", "no_pixel", "ragged_16x7", "p3_width", "p5_width")},
+    "channel_tile_72": dict(h=10, w=12, c=72, seed=8),  # C not a multiple of the 32-channel tile
+    "p4_width_b8": dict(h=40, w=40, c=128, b=8, seed=9),
+}
+
+
+def _assert_pool_close(got, want, m):
+    """Max descriptors exact where a pixel has m > 0.5; the rest within the
+    float32 tolerance, or one bf16 ulp."""
+    (avg, mx), (avg_w, mx_w) = got, want
+    assert avg.dtype == mx.dtype == avg_w.dtype and avg.shape == avg_w.shape
+    if avg.dtype == torch.float32:
+        torch.testing.assert_close(avg, avg_w, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(mx, mx_w, rtol=1e-5, atol=1e-6)
+    else:  # one bf16 ulp: 2^-7 relative
+        for g, w in ((avg, avg_w), (mx, mx_w)):
+            torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -7, atol=1e-6)
+    any_sel = (m.float() > 0.5).flatten(1).any(1)
+    torch.testing.assert_close(mx[any_sel], mx_w[any_sel], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_masked_pool_kernel_matches_plain(card, case, dtype):
+    x, m = (a.to(card, dtype) for a in _pool_case(**POOL_CASES[case]))
+    before = tmp.launches
+    got = tmp.masked_pool(x, m)
+    want = tmp.masked_pool_ref(x, m)
+    torch.cuda.synchronize()
+    assert tmp.launches == before + 1
+    _assert_pool_close(got, want, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotangent", ["avg", "both"])
+@pytest.mark.parametrize("case", ["random", "tiny", "no_pixel", "p3_width", "p5_width"])
+def test_masked_pool_gradient_matches_plain_autograd(card, case, cotangent):
+    """The autograd Function (kernel forward, analytic plain backward)
+    against autograd through the plain version, x and m gradients, with a
+    cotangent on the average only (as MaskECA gives) and on both outputs."""
+    x, m = (a.to(card) for a in _pool_case(**POOL_CASES[case]))
+    ga, gm = torch.randn((2,) + x.shape[:2], device=card)
+    grads = []
+    for fn in (tmp.masked_pool, tmp.masked_pool_ref):
+        leaves = [x.clone().requires_grad_(True), m.clone().requires_grad_(True)]
+        before = tmp.launches
+        avg, mx = fn(*leaves)
+        assert tmp.launches == before + (fn is tmp.masked_pool)
+        loss = (avg * ga).sum() + ((mx * gm).sum() if cotangent == "both" else 0)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_masked_pool_checks_refuse_what_the_kernel_cannot_take():
+    x, m = _pool_case()
+    tmp.check_pool_inputs("masked_pool", x, m)  # NCHW-contiguous: taken
+    tmp.check_pool_inputs("masked_pool", x[:, :16], m)  # channel slice: batch/channel strides go to the kernel
+    with pytest.raises(ValueError, match="contiguous H\\*W planes"):
+        tmp.check_pool_inputs("masked_pool", x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), m)
+    with pytest.raises(ValueError, match="contiguous H\\*W planes"):
+        tmp.check_pool_inputs("masked_pool", x, m.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="m must be"):
+        tmp.check_pool_inputs("masked_pool", x, m[:, :, :4])
+    with pytest.raises(ValueError, match="m must be"):
+        tmp.check_pool_inputs("masked_pool", x, m.expand(-1, 2, -1, -1))
+    with pytest.raises(ValueError, match="m is torch.bfloat16"):  # mixed types: the caller casts the mask
+        tmp.check_pool_inputs("masked_pool", x, m.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tmp.check_pool_inputs("masked_pool", x.half(), m.half())
+    with pytest.raises(ValueError, match="x must be"):
+        tmp.check_pool_inputs("masked_pool", x[0], m)
+    with pytest.raises(ValueError, match="empty"):
+        tmp.check_pool_inputs("masked_pool", x[:, :0], m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tmp.masked_pool(x.to("meta"), m.to("meta"))

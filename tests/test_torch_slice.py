@@ -20,7 +20,7 @@ import pytest
 import torch
 import yaml
 
-from tests._torch_port import perturb_bn
+from tests._torch_port import assert_dets_match, model_pair
 
 CFG = "configs/models/yolov8_cbam.yaml"
 IMGSZ = 64
@@ -28,25 +28,7 @@ IMGSZ = 64
 
 @pytest.fixture(scope="module")
 def pair():
-    from mga_yolo_tpu.models.yolo import create_model as jcreate
-    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
-    from mga_yolo_tpu_torch.models.yolo import create_model
-    from mga_yolo_tpu_torch.utils.jax_weights import state_dict_from_jax
-
-    jmodel, jspec = jcreate(CFG, scale="n", nc=1)
-    variables = jax.jit(lambda r, x: jmodel.init(r, x, train=False))(
-        jax.random.PRNGKey(0), np.zeros((1, IMGSZ, IMGSZ, 3), np.float32)
-    )
-    v = perturb_bn(variables, seed=1)
-    # class bias 0 instead of the prior's -8.7, so every anchor clears the
-    # confidence threshold and NMS has real work
-    for k, p in v["params"]["l28_Detect"].items():
-        if k.startswith("cv3_") and k.endswith("_2"):
-            p["bias"] = np.zeros_like(p["bias"])
-    tmodel, tspec = create_model(YOLOV8_CBAM, scale="n", nc=1, device="cpu")
-    tmodel.load_state_dict(state_dict_from_jax(v, tspec), strict=True)
-    x = np.random.default_rng(2).random((2, IMGSZ, IMGSZ, 3)).astype(np.float32)
-    return dict(jmodel=jmodel, jspec=jspec, v=v, tmodel=tmodel, tspec=tspec, x=x)
+    return model_pair(CFG, IMGSZ)
 
 
 def test_config_dict_and_graph_match_yaml():
@@ -116,16 +98,6 @@ def engines(pair):
     return JEngine(pair["jmodel"], pair["v"], **kw), InferenceEngine(pair["tmodel"], **kw)
 
 
-def _assert_dets_match(got, want):
-    """Same detections, matched by nearest box (near-equal scores may swap rank)."""
-    assert got.shape == want.shape, (got.shape, want.shape)
-    for row in got:
-        err = np.abs(want[:, :5] - row[:5]).max(1)
-        j = int(np.argmin(err))
-        np.testing.assert_allclose(row[:5], want[j, :5], rtol=1e-3, atol=2e-3)
-        assert row[5] == want[j, 5]
-
-
 def test_engine_matches_jax_engine(engines):
     jeng, teng = engines
     rng = np.random.default_rng(3)
@@ -136,7 +108,7 @@ def test_engine_matches_jax_engine(engines):
     n_boxes = 0
     for a, b in zip(pt, pj):
         assert a.orig_shape == b.orig_shape
-        _assert_dets_match(a.boxes, b.boxes)
+        assert_dets_match(a.boxes, b.boxes)
         n_boxes += len(a.boxes)
         for k in ("p3", "p4", "p5"):
             np.testing.assert_allclose(a.masks[k], b.masks[k], rtol=1e-3, atol=1e-4)

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port import perturb_bn, to_numpy_tree
+from tests._torch_port import close_dict, train_step_run
 
 CFG = "configs/models/yolov8_cbam.yaml"
 IMGSZ, B = 128, 2
@@ -41,101 +41,21 @@ LR, LR_BIAS, MOM = 1e-3, 1e-2, 0.9
 KW = dict(weight_decay=5e-4, ema_decay=0.9999, ema_tau=2000.0)
 
 
-def _batch():
-    rng = np.random.default_rng(7)
-    boxes = np.zeros((B, 4, 4), np.float32)
-    mask_gt = np.zeros((B, 4), np.float32)
-    for b, n in enumerate((3, 1)):
-        xy = rng.uniform(0, 36, (n, 2))
-        boxes[b, :n] = np.concatenate([xy, xy + rng.uniform(16, 28, (n, 2))], -1)
-        mask_gt[b, :n] = 1
-    masks = []
-    for s in (8, 16, 32):
-        m = np.zeros((B, IMGSZ // s, IMGSZ // s, 1), np.float32)
-        c = (np.arange(IMGSZ // s) + 0.5) * s
-        for b in range(B):
-            for x1, y1, x2, y2 in boxes[b, mask_gt[b] > 0]:
-                m[b, (c[:, None] >= y1) & (c[:, None] <= y2) & (c[None] >= x1) & (c[None] <= x2), 0] = 1
-        masks.append(m)
-    return {"image": rng.integers(0, 256, (B, IMGSZ, IMGSZ, 3)).astype(np.uint8), "gt_boxes": boxes,
-            "gt_labels": np.zeros((B, 4), np.int32), "mask_gt": mask_gt, "masks": masks}
-
-
 @pytest.fixture(scope="module")
 def run():
     """Both packages' states after each of three micro-steps, and eval outputs."""
     from mga_yolo_tpu.losses.detection import DetLossConfig as JDet
     from mga_yolo_tpu.losses.segmentation import SegLossConfig as JSeg
-    from mga_yolo_tpu.models.yolo import create_model as jcreate
-    from mga_yolo_tpu.train import optim as JO
     from mga_yolo_tpu.train import state as JS
-    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
     from mga_yolo_tpu_torch.losses import DetLossConfig, SegLossConfig
-    from mga_yolo_tpu_torch.models.yolo import create_model
     from mga_yolo_tpu_torch.train import state as TS
-    from mga_yolo_tpu_torch.utils.jax_weights import bn_stats_from_jax, params_from_jax, state_dict_from_jax
 
-    jmodel, _ = jcreate(CFG, scale="n", nc=1)
-    st = JS.create_train_state(jmodel, jax.random.PRNGKey(0), imgsz=IMGSZ)
-    v = perturb_bn({"params": {k: p for k, p in st.params.items() if k != "mtl_log_vars"},
-                    "batch_stats": st.batch_stats}, seed=3)
-    mtl = np.array([0.2, -0.3], np.float32)
-    params = {**v["params"], "mtl_log_vars": mtl}
-    st = st.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
-                    batch_stats=jax.tree_util.tree_map(jnp.asarray, v["batch_stats"]),
-                    ema_params=JO.flatten_tree(params), ema_batch_stats=JO.flatten_tree(v["batch_stats"]),
-                    accum_grads=jnp.zeros((JO.FlatMeta(params).total,), jnp.float32))
-    jstep = jax.jit(JS.make_train_step(jmodel, (8, 16, 32), 1, JDet(), JSeg(), accumulate=2, warmup_steps=4,
-                                       **KW))
-    tmodel, tspec = create_model(YOLOV8_CBAM, scale="n", nc=1, device="cpu", training=True)
-    tmodel.load_state_dict(state_dict_from_jax(v, tspec), strict=True)
-    ts = TS.create_train_state(tmodel)
-    with torch.no_grad():
-        ts.mtl_log_vars.copy_(torch.from_numpy(mtl))
-        ts.ema_params["mtl_log_vars"].copy_(torch.from_numpy(mtl))
-    tstep = TS.make_train_step(tmodel, (8, 16, 32), 1, DetLossConfig(), SegLossConfig(), accumulate=2,
-                               warmup_steps=4, **KW)
-    batch = _batch()
-
-    def jax_view(s, metrics):
-        p = to_numpy_tree(s.params)
-        meta = JO.FlatMeta(s.params)
-        return {
-            "loss": float(metrics["loss"]), "items": np.asarray(metrics["items"]),
-            "params": params_from_jax(p, tspec),
-            "bn": bn_stats_from_jax(p, to_numpy_tree(s.batch_stats), tspec),
-            "m": params_from_jax(to_numpy_tree(meta.unflatten(s.opt_state["m"])), tspec),
-            "ema": params_from_jax(to_numpy_tree(meta.unflatten(s.ema_params)), tspec),
-            "ema_bn": bn_stats_from_jax(p, to_numpy_tree(JO.FlatMeta(s.batch_stats).unflatten(s.ema_batch_stats)),
-                                        tspec),
-            "opt_step": int(s.opt_step),
-        }
-
-    def torch_view(s, metrics):
-        clone = lambda d: {k: t.detach().clone() for k, t in d.items()}  # noqa: E731
-        return {"loss": float(metrics["loss"]), "items": metrics["items"].numpy(), "params": clone(s.params()),
-                "bn": clone(s.bn_stats()), "m": clone(s.opt_state["m"]), "ema": clone(s.ema_params),
-                "ema_bn": clone(s.ema_bn_stats), "opt_step": s.opt_step}
-
-    jbatch = {**batch, "masks": [jnp.asarray(m) for m in batch["masks"]]}
-    views = []
-    for _ in range(3):
-        st, jm = jstep(st, jbatch, LR, LR_BIAS, MOM, jax.random.PRNGKey(1))
-        ts, tm = tstep(ts, batch, LR, LR_BIAS, MOM)
-        views.append((torch_view(ts, tm), jax_view(st, jm)))
-
-    jeval = jax.jit(JS.make_eval_step(jmodel, (8, 16, 32), 1, JDet(), JSeg(), nms_conf=1e-5, nms_iou=0.5, max_det=32))
-    teval = TS.make_eval_step(tmodel, (8, 16, 32), 1, DetLossConfig(), SegLossConfig(), nms_conf=1e-5, nms_iou=0.5, max_det=32)
-    return {"views": views, "eval": (teval(ts, batch), jeval(st, jbatch)), "tmodel": tmodel, "batch": batch,
-            "v": v, "tspec": tspec, "mtl": mtl}
-
-
-def _close_dict(got, want, what, rtol=0.0, atol=1e-6, rel_to_max=False):
-    assert set(got) == set(want), what
-    for k in want:
-        w = want[k].numpy()
-        a = atol * max(float(np.abs(w).max()), 1e-30) if rel_to_max else atol
-        np.testing.assert_allclose(got[k].numpy(), w, rtol=rtol, atol=a, err_msg=f"{what} {k}")
+    r = train_step_run(CFG, IMGSZ, dict(accumulate=2, warmup_steps=4, **KW), (LR, LR_BIAS, MOM))
+    jeval = jax.jit(JS.make_eval_step(r["jmodel"], (8, 16, 32), 1, JDet(), JSeg(), nms_conf=1e-5, nms_iou=0.5,
+                                      max_det=32))
+    teval = TS.make_eval_step(r["tmodel"], (8, 16, 32), 1, DetLossConfig(), SegLossConfig(), nms_conf=1e-5,
+                              nms_iou=0.5, max_det=32)
+    return {**r, "eval": (teval(r["tstate"], r["batch"]), jeval(r["jstate"], r["jbatch"]))}
 
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["step1_apply", "step2_accumulate", "step3_apply"])
@@ -145,11 +65,11 @@ def test_train_step_matches_jax(run, i):
     assert t["opt_step"] == j["opt_step"] == (1, 1, 2)[i]
     np.testing.assert_allclose(t["loss"], j["loss"], rtol=1e-4 if first else 1e-3)
     np.testing.assert_allclose(t["items"], j["items"], rtol=1e-4 if first else 1e-3)
-    _close_dict(t["params"], j["params"], "params", atol=1e-6)
-    _close_dict(t["m"], j["m"], "momentum", atol=1e-3 if first else 2e-2, rel_to_max=True)
-    _close_dict(t["bn"], j["bn"], "bn stats", rtol=1e-5 if first else 1e-4, atol=1e-6 if first else 1e-5)
-    _close_dict(t["ema"], j["ema"], "ema", atol=1e-6)
-    _close_dict(t["ema_bn"], j["ema_bn"], "ema bn", rtol=1e-5 if first else 1e-4, atol=1e-6 if first else 1e-5)
+    close_dict(t["params"], j["params"], "params", atol=1e-6)
+    close_dict(t["m"], j["m"], "momentum", atol=1e-3 if first else 2e-2, rel_to_max=True)
+    close_dict(t["bn"], j["bn"], "bn stats", rtol=1e-5 if first else 1e-4, atol=1e-6 if first else 1e-5)
+    close_dict(t["ema"], j["ema"], "ema", atol=1e-6)
+    close_dict(t["ema_bn"], j["ema_bn"], "ema bn", rtol=1e-5 if first else 1e-4, atol=1e-6 if first else 1e-5)
 
 
 def test_accumulate_applies_on_the_second_micro_step_only(run):
