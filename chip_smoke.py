@@ -14,10 +14,13 @@ Phases, each of which fails the run when it fails:
 2. kernels — every kernel of the paths against its plain PyTorch version
              on the card, on the shapes the paths give it (and on ragged /
              tiny-mask / no-pixel / tie / integer-target / +-40-logit cases,
-             every accepted R, both aux layouts of the DFL backward), with
-             its median time beside the plain version's and its bound; the
-             CAM gate's and the masked pool's autograd gradients against
-             plain autograd.
+             every accepted R, both aux layouts of the DFL backward, NMS at
+             k = 1 ... 2048 and on chains where each decision rests on the
+             last), with its median time beside the plain version's and its
+             bound; the CAM gate computed by the timed graph replays against
+             the plain version; the device kernels one CAM-gate call and one
+             NMS call run (torch.profiler: 1 and 2); the CAM gate's and the
+             masked pool's autograd gradients against plain autograd.
 Then, for each of two models at full width and depth, 640 px, random weights
 from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM, tags
 ``[parity]`` ... ``[train]``) and YOLOv8n-MGA-ECA (MaskECA, the same tags
@@ -102,10 +105,11 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, reps: int = 5) -> float:
+def time_ms(torch, fn, iters: int, reps: int = 5, after=None) -> float:
     """Median device ms of one ``fn()`` call: ``iters`` calls captured in a
     CUDA graph, replayed ``reps`` times between CUDA events (so host launch
-    overhead is not counted)."""
+    overhead is not counted). ``after()``, if given, runs once the timed
+    replays are done, while the graph's outputs are alive."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -126,8 +130,26 @@ def time_ms(torch, fn, iters: int, reps: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
+    if after is not None:
+        after()
     del g
     return sorted(times)[len(times) // 2]
+
+
+def device_kernels(torch, fn, n: int = 10) -> tuple[float, dict]:
+    """Device kernels that one ``fn()`` call runs, and device ms per call by
+    kernel name (torch.profiler over ``n`` calls, after a warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in rows) / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -175,10 +197,30 @@ def kernel_phase_cam(torch) -> dict:
         max_err = max(max_err, err)
 
     ms = plain = bound = 0.0
+    per_call = []
     for h, w, c, hid in CAM_SHAPES:  # the serving path's shapes and type
         args = cam_inputs(torch, BATCH, h, w, c, hid, torch.bfloat16)
-        k_ms = time_ms(torch, lambda: cg.cam_gate(*args), iters=50)
+        out = {}
+
+        def run():
+            out["gate"] = cg.cam_gate(*args)
+
+        def replayed():  # the gate the last replay wrote, against the plain version
+            torch.cuda.synchronize()
+            err = float((out["gate"] - cg.cam_gate_ref(*args)).abs().max())
+            print(f"[kernels] cam_gate B={BATCH} {h}x{w} C={c} bf16 after the timed graph replays: "
+                  f"max_abs_err={err:.3e}")
+            check(err <= CAM_TOL, f"cam_gate after graph replays disagrees: {err} > {CAM_TOL}")
+            out["err"] = err
+
+        k_ms = time_ms(torch, run, iters=50, after=replayed)
+        max_err = max(max_err, out["err"])
         p_ms = time_ms(torch, lambda: cg.cam_gate_ref(*args), iters=10)
+        n_kern, by_name = device_kernels(torch, lambda: cg.cam_gate(*args))
+        print(f"[kernels] cam_gate B={BATCH} {h}x{w} C={c} bf16: {n_kern:g} device kernels per call "
+              f"(profiler: {', '.join(f'{k} {v * 1e3:.2f} us' for k, v in by_name.items())})")
+        check(n_kern == 1, f"cam_gate ran {n_kern} device kernels per call, want 1")
+        per_call.append(n_kern)
         n = h * w
         n_bytes = 2 * (BATCH * n * c + BATCH * n + 2 * c * hid + hid + c) + 4 * BATCH * c
         n_ops = BATCH * (4 * n * c + 2 * n + 8 * c * hid)
@@ -188,7 +230,8 @@ def kernel_phase_cam(torch) -> dict:
         ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
     return {"name": "cam_gate", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/cam_gate.cu",
             "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:227", "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "device_kernels_per_call": max(per_call)}
 
 
 def nms_candidates(torch, b=BATCH, k=1024, nc=3, seed=0):
@@ -203,18 +246,32 @@ def nms_candidates(torch, b=BATCH, k=1024, nc=3, seed=0):
     return torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous(), scores.contiguous()
 
 
+def nms_chain(torch, b=BATCH, k=2048):
+    """Box i overlaps box i + 1 above 0.45 (IoU 7/13) and box i + 2 below
+    (4/16): the keep mask alternates, each decision resting on the last."""
+    x = 3.0 * torch.arange(k, device="cuda", dtype=torch.float32)
+    boxes = torch.stack([x, torch.zeros_like(x), x + 10, torch.full_like(x, 10.0)], -1)
+    scores = 1.0 - torch.arange(k, device="cuda", dtype=torch.float32) / (2 * k)
+    return boxes.expand(b, k, 4).contiguous(), scores.expand(b, k).contiguous()
+
+
 def kernel_phase_nms(torch) -> dict:
     from mga_yolo_tpu_torch.ops import nms as tn
 
     mismatches = 0
-    for seed, (k, iou, conf) in enumerate(((1024, 0.45, 0.001), (1024, 0.7, 0.25), (84, 0.45, 0.01),
-                                           (1000, 0.3, 0.1))):
-        boxes, scores = nms_candidates(torch, k=k, seed=seed)
+    cases = [(k, iou, conf, False) for k, iou, conf in ((1024, 0.45, 0.001), (1024, 0.7, 0.25), (84, 0.45, 0.01),
+                                                         (1000, 0.3, 0.1), (1, 0.45, 0.01), (65, 0.45, 0.01),
+                                                         (2048, 0.45, 0.001))]
+    cases += [(130, 0.45, 0.0, True), (2048, 0.45, 0.0, True)]  # chains across word boundaries
+    for seed, (k, iou, conf, chain) in enumerate(cases):
+        boxes, scores = nms_chain(torch, k=k) if chain else nms_candidates(torch, k=k, seed=seed)
         got = tn.suppress(boxes, scores, iou, conf)
         want = tn.suppress_ref(boxes, scores, iou, conf)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
-        print(f"[kernels] nms_suppress B={BATCH} k={k} iou={iou} conf={conf}: "
+        if chain:
+            bad += int((want != (torch.arange(k, device="cuda") % 2 == 0)).sum())
+        print(f"[kernels] nms_suppress B={BATCH} k={k} iou={iou} conf={conf}{' chain' if chain else ''}: "
               f"kept {int(got.sum())}, mismatches {bad}")
         mismatches += bad
     check(mismatches == 0, f"nms_suppress disagrees with its plain version on {mismatches} candidates")
@@ -229,10 +286,15 @@ def kernel_phase_nms(torch) -> dict:
     n_bytes = boxes.numel() * 4 + scores.numel() * 4 + keep.numel()
     b_ms, by = bound_ms(n_bytes, n_ops)
     print(f"[kernels] nms_suppress B={BATCH} k=1024: {k_ms * 1e3:.1f} us "
-          f"(plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us by {by})")
+          f"(plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us by {by}); kept {int(keep.sum())}")
+    n_kern, by_name = device_kernels(torch, lambda: tn.suppress(boxes, scores, 0.45, 0.001))
+    print(f"[kernels] nms_suppress B={BATCH} k=1024: {n_kern:g} device kernels per call "
+          f"(profiler: {', '.join(f'{k} {v * 1e3:.2f} us' for k, v in by_name.items())})")
+    check(n_kern == 2, f"nms_suppress ran {n_kern} device kernels per call, want 2 (mask, scan)")
     return {"name": "nms_suppress", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/nms_suppress.cu",
             "replaces": "mga_yolo_tpu/ops/pallas/nms.py:32", "max_abs_err": float(mismatches),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "device_kernels_per_call": n_kern}
 
 
 def dfl_inputs(torch, b, a, r, dtype, planar=False, seed=0):

@@ -8,11 +8,14 @@ average with the tiny-mask GAP blend and max the masked max (pixels with
 m > 0.5) with the GAP fallback.
 
 Kernel: ``csrc/cam_gate.cu``, which replaces the TPU kernel
-``mga_yolo_tpu/ops/pallas/masked_pool.py`` ``_cam_kernel_factory``; its
-first pass is the masked pool's (``csrc/masked_reduce.cuh``). It reads x and
-m once and does a few operations per byte, so its bound is the bytes
-(B*N*C + B*N elements) over the card's memory rate; see the source for the
-design. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+``mga_yolo_tpu/ops/pallas/masked_pool.py`` ``_cam_kernel_factory``: one
+device kernel per call, whose blocks write float32 partial sums and whose
+last block of each image, found by a counter, combines them and runs the
+MLP. It reads x and m once and does a few operations per byte, so its bound
+is the bytes (B*N*C + B*N elements) over the card's memory rate; see the
+source for the design. Each launch takes B counters of its own from a ring
+of zeroed int32 counters on the device, which the launch leaves at zero. A
+CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`cam_gate_ref`. Under autograd the kernel's gradient is that of
 :func:`cam_gate_ref`, recomputed in the backward. ``launches`` counts kernel
 launches.
@@ -21,6 +24,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -53,29 +57,64 @@ def _check(x, m, w1, b1, w2, b2) -> None:
             raise ValueError(f"cam_gate: {name} must be contiguous")
 
 
+_lib = None
+_RING = 1 << 20  # int32 counters of a device that its launches take B at a time, in turn
+_rings: dict[int, list] = {}  # device index -> [counters, next free]
+_ring_lock = threading.Lock()
+_ws_floats: dict[tuple, int] = {}
+
+
+def _library():
+    """The built library, its entry points typed once."""
+    global _lib
+    if _lib is None:
+        from mga_yolo_tpu_torch.kernels import _build
+
+        lib = _build.load("cam_gate")
+        lib.cam_gate_workspace_floats.restype = ctypes.c_longlong
+        lib.cam_gate_workspace_floats.argtypes = [ctypes.c_int] * 3
+        lib.cam_gate_launch.restype = ctypes.c_int
+        lib.cam_gate_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
+            + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
+        )
+        _lib = lib
+    return _lib
+
+
+def _counters(device: torch.device, b: int) -> int:
+    """Address of the next b counters of the device's ring: zero, and held by
+    no launch in flight unless 2**20 / b launches are."""
+    with _ring_lock:
+        ring = _rings.get(device.index)
+        if ring is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("cam_gate: call it once on this device before capturing a CUDA graph")
+            ring = _rings[device.index] = [torch.zeros(_RING, dtype=torch.int32, device=device), 0]
+            torch.cuda.synchronize(device)  # zeroed before a launch on any stream reads it
+        off = ring[1] if ring[1] + b <= _RING else 0
+        ring[1] = off + b
+    return ring[0].data_ptr() + 4 * off
+
+
 def _launch(x, m, w1, b1, w2, b2, tiny_thr: float, eps: float) -> torch.Tensor:
     global launches
     from mga_yolo_tpu_torch.kernels import _build
 
-    lib = _build.load("cam_gate")
-    lib.cam_gate_pix_chunk.restype = ctypes.c_int
-    lib.cam_gate_pix_chunk.argtypes = []
-    lib.cam_gate_launch.restype = ctypes.c_int
-    lib.cam_gate_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
-    )
+    lib = _library()
     B, C, H, W = x.shape
-    N, hdim = H * W, w1.shape[0]
-    splits = -(-N // lib.cam_gate_pix_chunk())
     with torch.cuda.device(x.device):
-        ws = torch.empty(B * splits * (3 * C + 2), dtype=torch.float32, device=x.device)
+        key = (x.device.index, B, C, H * W)
+        if key not in _ws_floats:
+            _ws_floats[key] = lib.cam_gate_workspace_floats(B, C, H * W)
+        ws = torch.empty(_ws_floats[key], dtype=torch.float32, device=x.device)
         gate = torch.empty((B, C), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cam_gate_launch(
             DTYPES[x.dtype], x.data_ptr(), m.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), x.stride(0), x.stride(1), m.stride(0),
-            B, C, N, hdim, tiny_thr, eps, ws.data_ptr(), gate.data_ptr(), stream,
+            B, C, H * W, w1.shape[0], tiny_thr, eps, ws.data_ptr(), _counters(x.device, B),
+            gate.data_ptr(), stream,
         )
     _build.check(err, "cam_gate_launch")
     launches += 1

@@ -14,7 +14,10 @@ The suppression step, :func:`suppress`, is the kernel ``csrc/nms_suppress.cu``
 (it replaces ``mga_yolo_tpu/ops/pallas/nms.py`` ``_suppress_kernel_factory``)
 on CUDA tensors and :func:`suppress_ref` on CPU tensors. The greedy chain of
 k dependent steps bounds it; a plain PyTorch loop would take several small
-launches for each of the k steps. ``launches`` counts kernel launches.
+launches for each of the k steps. The kernel is two device kernels: an IoU
+bitmask of all pairs over many blocks into a (B, k, ceil(k / 64)) 64-bit
+workspace that the wrapper allocates, then a word-blocked greedy scan, one
+block per image. ``launches`` counts calls of the launch function.
 """
 
 from __future__ import annotations
@@ -65,25 +68,41 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
         raise ValueError("suppress: boxes and scores must be contiguous, boxes 16-byte aligned")
 
 
+_lib = None
+
+
+def _library():
+    """The built library, its entry points typed once."""
+    global _lib
+    if _lib is None:
+        from mga_yolo_tpu_torch.kernels import _build
+
+        lib = _build.load("nms_suppress")
+        lib.nms_suppress_max_k.restype = ctypes.c_int
+        lib.nms_suppress_max_k.argtypes = []
+        lib.nms_suppress_launch.restype = ctypes.c_int
+        lib.nms_suppress_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        )
+        lib.max_k = lib.nms_suppress_max_k()
+        _lib = lib
+    return _lib
+
+
 def _launch(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
             conf_thres: float) -> torch.Tensor:
     global launches
     from mga_yolo_tpu_torch.kernels import _build
 
-    lib = _build.load("nms_suppress")
-    lib.nms_suppress_max_k.restype = ctypes.c_int
-    lib.nms_suppress_max_k.argtypes = []
-    lib.nms_suppress_launch.restype = ctypes.c_int
-    lib.nms_suppress_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    )
+    lib = _library()
     b, k = scores.shape
-    if k > lib.nms_suppress_max_k():
-        raise ValueError(f"suppress: k={k} exceeds the kernel's {lib.nms_suppress_max_k()}")
+    if k > lib.max_k:
+        raise ValueError(f"suppress: k={k} exceeds the kernel's {lib.max_k}")
     with torch.cuda.device(boxes.device):
         keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+        ws = torch.empty((b, k, -(-k // 64)), dtype=torch.int64, device=boxes.device)
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.nms_suppress_launch(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+        err = lib.nms_suppress_launch(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), ws.data_ptr(),
                                       b, k, iou_thres, conf_thres, stream)
     _build.check(err, "nms_suppress_launch")
     launches += 1

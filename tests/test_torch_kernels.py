@@ -55,6 +55,8 @@ CAM_CASES = {
     "p3_width": dict(h=80, w=80, c=64, b=2, seed=5),
     "p5_width": dict(h=20, w=20, c=256, b=2, seed=6),
     "odd_channels": dict(h=9, w=11, c=40, seed=7),
+    "p4_width": dict(h=40, w=40, c=128, b=2, seed=11),
+    "odd_plane_41x43": dict(h=41, w=43, c=24, seed=12),  # N odd: one element a lane, no 16-byte loads
 }
 
 
@@ -109,6 +111,64 @@ def test_nms_kernel_matches_plain(card, case):
     assert tnms.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", [(8, 8), (5, 7)], ids=["plane_64", "plane_35"])
+def test_cam_gate_kernel_on_channel_slice(card, dtype, hw):
+    """Channels 1..32 of 33: the batch stride is 33*N, not 32*N. With N = 64
+    every plane starts on 16 bytes (vector loads); with N = 35 none does."""
+    x, m, w1, b1, w2, b2 = _cam_case(b=3, h=hw[0], w=hw[1], c=33, seed=13)
+    x = x.to(card, dtype)[:, 1:]
+    m, b1 = m.to(card, dtype), b1.to(card, dtype)
+    w1, w2, b2 = (a.to(card, dtype).contiguous() for a in (w1[:, 1:], w2[1:], b2[1:]))
+    got = tcg.cam_gate(x, m, w1, b1, w2, b2)
+    torch.testing.assert_close(got, tcg.cam_gate_ref(x, m, w1, b1, w2, b2), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cam_gate_kernel_repeated_calls_and_graph_replays(card):
+    """Ten calls in a row, then a captured CUDA graph replayed on new inputs
+    copied in place: each result equals the plain version (nothing of one
+    call is left for the next)."""
+    args = [a.to(card, torch.bfloat16) for a in _cam_case(h=40, w=40, c=128, b=8, seed=14)]
+    want = tcg.cam_gate_ref(*args)
+    for _ in range(10):
+        torch.testing.assert_close(tcg.cam_gate(*args), want, rtol=0, atol=1e-5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tcg.cam_gate(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tcg.cam_gate(*args)
+    for seed in (15, 16, 17):
+        fresh = [a.to(card, torch.bfloat16) for a in _cam_case(h=40, w=40, c=128, b=8, seed=seed)]
+        for a, f in zip(args, fresh):
+            a.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, tcg.cam_gate_ref(*args), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cam_gate_kernel_on_two_streams_at_once(card):
+    cases = [[a.to(card, torch.bfloat16) for a in _cam_case(h=80, w=80, c=64, b=8, seed=s)] for s in (18, 19)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(5):
+        for s, args in zip(streams, cases):
+            with torch.cuda.stream(s):
+                outs.append(tcg.cam_gate(*args))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        torch.testing.assert_close(out, tcg.cam_gate_ref(*cases[i % 2]), rtol=0, atol=1e-5)
 
 
 def test_cam_gate_checks_refuse_what_the_kernel_cannot_take():
@@ -207,6 +267,70 @@ def test_dfl_bwd_checks_refuse_what_the_kernel_cannot_take():
         tdfl._check(pd, ltrb, g_ltrb, g_ce, target.double())
     with pytest.raises(ValueError, match="no kernel for device"):
         tdfl.dfl_decode_ce_bwd(pd.to("meta"), ltrb, g_ltrb, g_ce, target)
+
+
+def _sorted_candidates(b, k, seed, n_classes=3):
+    """Score-sorted, class-offset candidates (B, k, 4), (B, k), with ties."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 600, (b, k, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(10, 160, (b, k, 2))], -1)
+    boxes += (rng.integers(0, n_classes, (b, k)) * 7680.0)[..., None]
+    scores = np.round(rng.uniform(0, 1, (b, k)) * 64) / 64
+    order = np.argsort(-scores, axis=1, kind="stable")
+    return (torch.from_numpy(np.take_along_axis(boxes, order[..., None], 1).astype(np.float32)),
+            torch.from_numpy(np.take_along_axis(scores, order, 1).astype(np.float32)))
+
+
+def _chain(b, k):
+    """Box i overlaps box i + 1 above 0.45 (IoU 7/13) and box i + 2 below
+    (IoU 4/16): keep alternates, each decision resting on the one before."""
+    x = 3.0 * np.arange(k)
+    boxes = np.stack([x, np.zeros(k), x + 10, np.full(k, 10.0)], -1)
+    scores = 1.0 - np.arange(k) / (2 * k)
+    return (torch.from_numpy(np.tile(boxes, (b, 1, 1)).astype(np.float32)),
+            torch.from_numpy(np.tile(scores, (b, 1)).astype(np.float32)))
+
+
+SUPPRESS_CASES = {
+    **{f"k{k}": dict(k=k, conf=0.01) for k in (1, 63, 64, 65, 2048)},
+    "k1024_path": dict(k=1024, conf=0.001),
+    "conf_cut_in_word": dict(k=300, cut=100),  # the first 100 live: word 1 is cut at bit 36
+    "chain_130": dict(k=130, chain=True),
+    "chain_2048": dict(k=2048, chain=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SUPPRESS_CASES))
+def test_suppress_kernel_matches_plain(card, case):
+    spec = SUPPRESS_CASES[case]
+    k = spec["k"]
+    if spec.get("chain"):
+        boxes, scores = _chain(3, k)
+        conf = 0.0
+    else:
+        boxes, scores = _sorted_candidates(3, k, seed=k)
+        conf = spec.get("conf", 0.5)
+        if "cut" in spec:  # scores 1 .. 0 evenly, conf between candidates cut - 1 and cut
+            scores = torch.linspace(1, 0, k).expand(3, k).contiguous()
+            conf = 1 - (spec["cut"] - 0.5) / (k - 1)
+    before = tnms.launches
+    got = tnms.suppress(boxes.to(card), scores.to(card), 0.45, conf)
+    torch.cuda.synchronize()
+    assert tnms.launches == before + 1
+    want = tnms.suppress_ref(boxes, scores, 0.45, conf)
+    assert torch.equal(got.cpu(), want), f"{int((got.cpu() != want).sum())} candidates differ"
+    if spec.get("chain"):
+        assert torch.equal(want[0], torch.arange(k) % 2 == 0)
+    if "cut" in spec:
+        assert not bool(want[:, spec["cut"]:].any()) and bool(want[:, :spec["cut"]].any())
+
+
+@pytest.mark.cuda
+def test_suppress_kernel_refuses_k_above_its_limit(card):
+    boxes, scores = _chain(1, 2049)
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        tnms.suppress(boxes.to(card), scores.to(card), 0.45, 0.0)
 
 
 def test_suppress_checks_refuse_what_the_kernel_cannot_take():

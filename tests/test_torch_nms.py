@@ -62,6 +62,11 @@ CASES = {
     "score_ties": dict(pred=dict(nc=2, seed=5, ties=True), kw=dict(conf_thres=0.1)),
     "multi_label": dict(pred=dict(nc=3, seed=6), kw=dict(conf_thres=0.1, multi_label=True)),
     "class_agnostic": dict(pred=dict(nc=3, seed=7), kw=dict(conf_thres=0.1, class_agnostic=True)),
+    # k at the card kernel's 64-candidate word boundaries, and its largest k
+    **{f"k_{a}": dict(pred=dict(a=a, nc=1, seed=8 + i), kw=dict(conf_thres=0.01))
+       for i, a in enumerate((63, 64, 65, 129))},
+    "k_2048_multi_label": dict(pred=dict(a=700, nc=3, seed=12),
+                               kw=dict(conf_thres=0.001, multi_label=True, max_nms=2048, max_det=2048)),
 }
 
 
