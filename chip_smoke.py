@@ -18,9 +18,12 @@ Phases, each of which fails the run when it fails:
              k = 1 ... 2048 and on chains where each decision rests on the
              last), with its median time beside the plain version's and its
              bound; the CAM gate computed by the timed graph replays against
-             the plain version; the device kernels one CAM-gate call and one
-             NMS call run (torch.profiler: 1 and 2); the CAM gate's and the
-             masked pool's autograd gradients against plain autograd.
+             the plain version; the masked pool's launch plan per shape, its
+             descriptors computed by the timed graph replays against the
+             plain version, and its time at the train batch too; the device
+             kernels one call runs (torch.profiler: CAM gate 1, NMS 2,
+             masked pool 1); the CAM gate's and the masked pool's autograd
+             gradients against plain autograd.
 Then, for each of two models at full width and depth, 640 px, random weights
 from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM, tags
 ``[parity]`` ... ``[train]``) and YOLOv8n-MGA-ECA (MaskECA, the same tags
@@ -381,44 +384,82 @@ def pool_inputs(torch, b, h, w, c, dtype, kind="random", seed=0):
 def kernel_phase_pool(torch) -> dict:
     from mga_yolo_tpu_torch.ops import masked_pool as mp
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (BATCH, TRAIN_BATCH):
+        for h, w, c in POOL_SHAPES:
+            tile, wpc, blocks = mp.pool_plan(b, c, n_sm)
+            print(f"[kernels] masked_pool plan B={b} {h}x{w} C={c}: tile {tile} channel(s) a block, "
+                  f"{wpc} warp(s) a channel, {blocks} blocks on {n_sm} SMs")
+
     max_err = 0.0
-    cases = [(BATCH, h, w, c, dt, "random") for (h, w, c) in POOL_SHAPES for dt in ("f32", "bf16")]
+
+    def compare(got, want, x, m, what: str) -> list:
+        """Output types and shapes, max descriptors exact where a pixel has
+        m > 0.5, the rest within POOL_TOL; returns the two max abs errors."""
+        rtol, atol = POOL_TOL["f32" if x.dtype == torch.float32 else "bf16"]
+        errs = []
+        for g, wnt in zip(got, want):
+            check(g.dtype == x.dtype and g.shape == x.shape[:2], f"masked_pool output {g.dtype} {tuple(g.shape)}")
+            errs.append(float((g.float() - wnt.float()).abs().max()))
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=rtol, atol=atol, msg=lambda e: f"{what}: {e}")
+        any_sel = (m.float() > 0.5).flatten(1).any(1)
+        torch.testing.assert_close(got[1][any_sel], want[1][any_sel], rtol=0, atol=0, msg=lambda e: f"{what}: {e}")
+        return errs
+
+    cases = [(b, h, w, c, dt, "random") for b in (BATCH, TRAIN_BATCH) for (h, w, c) in POOL_SHAPES
+             for dt in ("f32", "bf16")]
     cases += [(2, 7, 16, 64, "bf16", "random"),          # N = 16*7: ragged tail
-              (3, 41, 43, 72, "f32", "random"),          # N prime-ish, C = 72: ragged channel tile
+              (3, 41, 43, 72, "f32", "random"),          # N odd: one element a load; C = 72
+              (1, 80, 80, 64, "bf16", "random"),         # B = 1: 64 blocks, fewer than the SMs
+              (16, 9, 11, 37, "bf16", "random"),         # C = 37: a ragged last tile
               (BATCH, 80, 80, 64, "bf16", "tiny"),       # tiny-mask GAP blend for avg
               (BATCH, 40, 40, 128, "f32", "no_pixel")]   # masked-max GAP fallback
     for i, (b, h, w, c, dt, kind) in enumerate(cases):
         x, m = pool_inputs(torch, b, h, w, c, getattr(torch, {"f32": "float32", "bf16": "bfloat16"}[dt]), kind,
                            seed=20 + i)
-        got = mp.masked_pool(x, m)
-        want = mp.masked_pool_ref(x, m)
-        torch.cuda.synchronize()
-        rtol, atol = POOL_TOL[dt]
-        errs = []
-        for g, wnt in zip(got, want):
-            check(g.dtype == x.dtype and g.shape == (b, c), f"masked_pool output {g.dtype} {tuple(g.shape)}")
-            errs.append(float((g.float() - wnt.float()).abs().max()))
-            torch.testing.assert_close(g.float(), wnt.float(), rtol=rtol, atol=atol)
-        any_sel = (m.float() > 0.5).flatten(1).any(1)  # max descriptors exactly equal where a pixel is selected
-        torch.testing.assert_close(got[1][any_sel], want[1][any_sel], rtol=0, atol=0)
-        print(f"[kernels] masked_pool B={b} {h}x{w} C={c} {dt} {kind}: max_abs_err avg {errs[0]:.3e}, "
-              f"max {errs[1]:.3e}")
+        what = f"masked_pool B={b} {h}x{w} C={c} {dt} {kind}"
+        errs = compare(mp.masked_pool(x, m), mp.masked_pool_ref(x, m), x, m, what)
+        print(f"[kernels] {what}: max_abs_err avg {errs[0]:.3e}, max {errs[1]:.3e}")
         max_err = max(max_err, *errs)
 
-    ms = plain = bound = 0.0
-    for h, w, c in POOL_SHAPES:  # the serving path's shapes and type
-        x, m = pool_inputs(torch, BATCH, h, w, c, torch.bfloat16)
-        k_ms = time_ms(torch, lambda: mp.masked_pool(x, m), iters=50)
-        p_ms = time_ms(torch, lambda: mp.masked_pool_ref(x, m), iters=10)
-        n = h * w
-        n_bytes = 2 * (BATCH * n * c + BATCH * n) + 2 * 2 * BATCH * c  # x, m in; avg, max out (bf16)
-        b_ms, _ = bound_ms(n_bytes, BATCH * (4 * n * c + 2 * n))
-        print(f"[kernels] masked_pool B={BATCH} {h}x{w} C={c} bf16: {k_ms * 1e3:.1f} us "
-              f"(plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by bytes)")
-        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
+    times = {}
+    bound = plain = 0.0
+    for b in (BATCH, TRAIN_BATCH):  # the serving path's batch, then the train path's
+        for h, w, c in POOL_SHAPES:
+            x, m = pool_inputs(torch, b, h, w, c, torch.bfloat16, seed=b + c)
+            out = {}
+
+            def run():
+                out["pool"] = mp.masked_pool(x, m)
+
+            def replayed():  # the descriptors the last replay wrote, against the plain version
+                torch.cuda.synchronize()
+                what = f"masked_pool B={b} {h}x{w} C={c} bf16 after the timed graph replays"
+                out["errs"] = compare(out["pool"], mp.masked_pool_ref(x, m), x, m, what)
+                print(f"[kernels] {what}: max_abs_err avg {out['errs'][0]:.3e}, max {out['errs'][1]:.3e}")
+
+            k_ms = time_ms(torch, run, iters=50, after=replayed)
+            max_err = max(max_err, *out["errs"])
+            n_kern, by_name = device_kernels(torch, lambda: mp.masked_pool(x, m))
+            check(n_kern == 1, f"masked_pool ran {n_kern} device kernels per call at B={b} {h}x{w}, want 1")
+            n = h * w
+            b_ms, _ = bound_ms(2 * (b * n * c + b * n) + 2 * 2 * b * c, b * (4 * n * c + 2 * n))
+            msg = f"bound {b_ms * 1e3:.2f} us by bytes"
+            if b == BATCH:
+                p_ms = time_ms(torch, lambda: mp.masked_pool_ref(x, m), iters=10)
+                plain, bound = plain + p_ms, bound + b_ms
+                msg = f"plain {p_ms * 1e3:.1f} us, {msg}"
+            times[(b, c)] = k_ms
+            print(f"[kernels] masked_pool B={b} {h}x{w} C={c} bf16: {k_ms * 1e3:.1f} us ({msg}); {n_kern:g} device "
+                  f"kernel per call (profiler: {', '.join(f'{k} {v * 1e3:.2f} us' for k, v in by_name.items())})")
+    ms = sum(times[(BATCH, c)] for _, _, c in POOL_SHAPES)
+    ms_train = sum(times[(TRAIN_BATCH, c)] for _, _, c in POOL_SHAPES)
+    print(f"[kernels] masked_pool, three calls: {ms * 1e3:.1f} us at B={BATCH}, {ms_train * 1e3:.1f} us at "
+          f"B={TRAIN_BATCH} (bf16)")
     return {"name": "masked_pool", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/masked_pool.cu",
             "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:36", "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "ms_train_batch": ms_train, "device_kernels_per_call": 1}
 
 
 def kernel_phase_pool_grad(torch) -> None:

@@ -30,34 +30,17 @@
 // share one, and a CUDA graph's replays, which never overlap each other,
 // find theirs at 0 again.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
+
+#include "masked_reduce.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // channels per tile: one a warp
-constexpr int kI = 4;                  // loads of x (and of m) a lane has in flight
 constexpr int kMinChunk = 256;         // fewest pixels a block's chunk is cut to
 constexpr int kBlocksPerSM = 2;        // what the grid aims at
 constexpr int kStageBytes = 32 * 1024; // MLP weights staged in shared memory up to this
-constexpr float kNeg = -3.0e38f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Adds 1 to *counter at device scope, releasing this thread's (and, after a
 // barrier, its block's) earlier writes and acquiring those released by earlier
@@ -74,80 +57,6 @@ __device__ __forceinline__ int arrive_acq_rel(int* counter) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// V consecutive elements of T as floats, from one 16-byte vector (V > 1) or one element.
-template <typename T, int V>
-struct Vec {
-  using Raw = T;
-  __device__ static Raw load(const T* p) { return *p; }
-  __device__ static void unpack(Raw r, float* out) { out[0] = to_f32(r); }
-};
-
-template <>
-struct Vec<float, 4> {
-  using Raw = float4;
-  __device__ static Raw load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-  __device__ static void unpack(Raw r, float* out) {
-    out[0] = r.x;
-    out[1] = r.y;
-    out[2] = r.z;
-    out[3] = r.w;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  __device__ static Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ static void unpack(Raw r, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      out[2 * q] = f.x;
-      out[2 * q + 1] = f.y;
-    }
-  }
-};
-
-// The five sums of one warp over pixels [0, n) of one channel row; lane l
-// takes vectors l, l + 32, ...; kI vectors of x and of m in flight a lane.
-template <typename T, int V>
-__device__ __forceinline__ void reduce_row(const T* x_row, const T* m_row, int n, int lane,
-                                           bool count_m, float& w, float& g, float& mx,
-                                           float& msum, float& cnt) {
-  using R = Vec<T, V>;
-  for (int q0 = lane * V; q0 < n; q0 += 32 * V * kI) {
-    typename R::Raw xr[kI], mr[kI];
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int q = q0 + 32 * V * i;
-      if (q < n) {
-        xr[i] = R::load(x_row + q);
-        mr[i] = R::load(m_row + q);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      if (q0 + 32 * V * i >= n) break;
-      float xv[V], mv[V];
-      R::unpack(xr[i], xv);
-      R::unpack(mr[i], mv);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        w += xv[e] * mv[e];
-        g += xv[e];
-        if (mv[e] > 0.5f) mx = fmaxf(mx, xv[e]);
-        if (count_m) {
-          msum += mv[e];
-          cnt += mv[e] > 0.5f ? 1.f : 0.f;
-        }
-      }
-    }
-  }
 }
 
 // Block (tile cs, chunk ps) of image b: warp w reduces channel cs * kWarps + w
@@ -173,8 +82,8 @@ cam_gate_kernel(const T* __restrict__ x, const T* __restrict__ m, const T* __res
 
   if (c < C) {
     float w = 0.f, g = 0.f, mx = kNeg, msum = 0.f, cnt = 0.f;
-    reduce_row<T, V>(x + b * x_sb + c * x_sc + n0, m + b * m_sb + n0, len, lane, c == 0, w, g,
-                     mx, msum, cnt);
+    reduce_row<T, V>(x + b * x_sb + c * x_sc + n0, m + b * m_sb + n0, len, lane, 32, c == 0, w,
+                     g, mx, msum, cnt);
     w = warp_sum(w);
     g = warp_sum(g);
     mx = warp_max(mx);
@@ -330,9 +239,7 @@ int launch_typed(const void* x, const void* m, const void* w1, const void* b1, c
                  int N, int H, float tiny_thr, float eps, void* ws, void* counters, void* gate,
                  void* stream) {
   constexpr int V = 16 / sizeof(T);
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(m) % 16 == 0 && x_sb % V == 0 && x_sc % V == 0 &&
-                   m_sb % V == 0 && N % V == 0;
+  const bool vec = vector_rows(x, m, x_sb, x_sc, m_sb, N, V);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       vec ? launch<T, V>(x, m, w1, b1, w2, b2, x_sb, x_sc, m_sb, B, C, N, H, tiny_thr, eps, ws,

@@ -9,14 +9,16 @@ fallback where no pixel has m > 0.5. Counterpart of the JAX package's
 ``masked_pool_fused`` (``ops/pallas/masked_pool.py``).
 
 Kernel: ``csrc/masked_pool.cu``, which replaces the TPU kernel
-``mga_yolo_tpu/ops/pallas/masked_pool.py`` ``_kernel`` and its ``_combine``;
-its first pass is the CAM gate's (``csrc/masked_reduce.cuh``). It reads x
-and m once and does a few operations per element, so its bound is the bytes
-(B*N*C + B*N elements in, 2*B*C out) over the card's memory rate. A CUDA
-tensor launches the kernel (or raises); a CPU tensor takes
-:func:`masked_pool_ref`. The kernel's gradient is :func:`masked_pool_bwd_ref`,
-the analytic VJP of the JAX package's ``_bwd`` (it has no backward kernel
-either). ``launches`` counts kernel launches.
+``mga_yolo_tpu/ops/pallas/masked_pool.py`` ``_kernel`` and its ``_combine``:
+one device kernel per call, whose blocks each own ``tile`` channels of one
+image over their whole planes (no workspace, no counter); :func:`pool_plan`
+picks ``tile`` and the warps per channel. It reads x and m once and does a
+few operations per element, so its bound is the bytes (B*N*C + B*N elements
+in, 2*B*C out) over the card's memory rate. A CUDA tensor launches the
+kernel (or raises); a CPU tensor takes :func:`masked_pool_ref`. The kernel's
+gradient is :func:`masked_pool_bwd_ref`, the analytic VJP of the JAX
+package's ``_bwd`` (it has no backward kernel either). ``launches`` counts
+kernel launches.
 
 Types: both routes sum in float32 and cast the descriptors to x's type, in
 eval and under autograd alike. The JAX package's ``"auto"`` mode takes the
@@ -101,7 +103,7 @@ def masked_pool_bwd_ref(x, m, g_avg, g_max, tiny_thr: float = 1e-4, eps: float =
 
 
 def check_pool_inputs(op: str, x: torch.Tensor, m: torch.Tensor) -> None:
-    """Raise on features and mask the pass-1 kernel cannot take: not (B, C,
+    """Raise on features and mask the kernels cannot take: not (B, C,
     H, W) and (B, 1, H, W), other types or devices, empty, or H*W planes that
     are not contiguous (NCHW; batch and channel strides go to the kernel)."""
     if x.dim() != 4:
@@ -120,29 +122,60 @@ def check_pool_inputs(op: str, x: torch.Tensor, m: torch.Tensor) -> None:
             raise ValueError(f"{op}: {name} needs contiguous H*W planes, strides {t.stride()}")
 
 
+WARPS = 8             # warps a block of the kernel (256 threads)
+BLOCKS_PER_SM = 2     # what the grid aims at
+MAX_TILE = 64         # channels a block, at most (the kernel's partial slots)
+
+
+def pool_plan(B: int, C: int, n_sm: int) -> tuple[int, int, int]:
+    """Launch plan of a call on B images of C channels (any plane size) on a
+    card of ``n_sm`` SMs: (tile, warps per channel, blocks). Block i takes image i // tiles and channels
+    [(i % tiles) * tile, + tile), tiles = ceil(C / tile). ``tile`` is the
+    smallest power of two that keeps the grid within BLOCKS_PER_SM blocks
+    per SM (at most MAX_TILE, and no wider than C needs); a tile of
+    fewer than WARPS channels gives each channel WARPS // tile warps, which
+    split its pixels, and a wider one gives each warp tile // WARPS channels
+    in turn."""
+    target = BLOCKS_PER_SM * n_sm
+    tile = 1
+    while tile < MAX_TILE and tile < C and B * -(-C // tile) > target:
+        tile *= 2
+    return tile, max(1, WARPS // tile), B * -(-C // tile)
+
+
+_lib = None
+
+
+def _library():
+    """The built library, its entry point typed once."""
+    global _lib
+    if _lib is None:
+        from mga_yolo_tpu_torch.kernels import _build
+
+        lib = _build.load("masked_pool")
+        lib.masked_pool_launch.restype = ctypes.c_int
+        lib.masked_pool_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+            + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
+        )
+        _lib = lib
+    return _lib
+
+
 def _launch(x: torch.Tensor, m: torch.Tensor, tiny_thr: float, eps: float):
     global launches
     from mga_yolo_tpu_torch.kernels import _build
 
-    lib = _build.load("masked_pool")
-    lib.masked_pool_pix_chunk.restype = ctypes.c_int
-    lib.masked_pool_pix_chunk.argtypes = []
-    lib.masked_pool_launch.restype = ctypes.c_int
-    lib.masked_pool_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
-    )
+    lib = _library()
     B, C, H, W = x.shape
-    N = H * W
-    splits = -(-N // lib.masked_pool_pix_chunk())
+    tile, wpc, _ = pool_plan(B, C, torch.cuda.get_device_properties(x.device).multi_processor_count)
     with torch.cuda.device(x.device):
-        ws = torch.empty(B * splits * (3 * C + 2), dtype=torch.float32, device=x.device)
         avg = torch.empty((B, C), dtype=x.dtype, device=x.device)
         mx = torch.empty((B, C), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.masked_pool_launch(
             DTYPES[x.dtype], x.data_ptr(), m.data_ptr(), x.stride(0), x.stride(1), m.stride(0),
-            B, C, N, tiny_thr, eps, ws.data_ptr(), avg.data_ptr(), mx.data_ptr(), stream,
+            B, C, H * W, tile, wpc, tiny_thr, eps, avg.data_ptr(), mx.data_ptr(), stream,
         )
     _build.check(err, "masked_pool_launch")
     launches += 1

@@ -350,8 +350,18 @@ def _pool_case(kind="random", b=2, h=8, w=8, c=32, seed=0):
 
 POOL_CASES = {
     **{k: CAM_CASES[k] for k in ("random", "tiny", "no_pixel", "ragged_16x7", "p3_width", "p5_width")},
-    "channel_tile_72": dict(h=10, w=12, c=72, seed=8),  # C not a multiple of the 32-channel tile
+    "channel_tile_72": dict(h=10, w=12, c=72, seed=8),
     "p4_width_b8": dict(h=40, w=40, c=128, b=8, seed=9),
+    "p3_width_b1": dict(h=80, w=80, c=64, b=1, seed=40),  # 64 blocks: fewer than the card's SMs
+    "p3_width_b16": dict(h=80, w=80, c=64, b=16, seed=41),  # the train path's shapes
+    "p4_width_b16": dict(h=40, w=40, c=128, b=16, seed=42),
+    "p5_width_b16": dict(h=20, w=20, c=256, b=16, seed=43),  # 16 channels a block, 2 a warp
+    "odd_plane_41x43": dict(h=41, w=43, c=24, seed=12),  # N odd: one element a load, no 16-byte loads
+    "one_channel": dict(h=9, w=16, c=1, seed=44),
+    "c37_b16": dict(h=9, w=11, c=37, b=16, seed=45),  # C a multiple of no tile > 1: a ragged last tile
+    "plane_5x5": dict(h=5, w=5, c=16, seed=46),  # N < 32, odd
+    "plane_4x4": dict(h=4, w=4, c=16, seed=47),  # N < 32, 16-byte loads
+    "tile_64": dict(h=4, w=5, c=1024, b=16, seed=48),  # the widest tile: 8 channels a warp
 }
 
 
@@ -381,6 +391,50 @@ def test_masked_pool_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert tmp.launches == before + 1
     _assert_pool_close(got, want, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("view", ["slice_plane_64", "slice_plane_35", "offset_one"])
+def test_masked_pool_kernel_on_unaligned_views(card, dtype, view):
+    """Channels 3..34 of 35 (x[:, 3:]): with N = 64 every plane starts on 16
+    bytes (16-byte loads), with N = 35 none does; and a contiguous tensor
+    one element past a 16-byte boundary (one element a load)."""
+    hw = (5, 7) if view == "slice_plane_35" else (8, 8)
+    x, m = (a.to(card, dtype) for a in _pool_case(b=3, h=hw[0], w=hw[1], c=35, seed=49))
+    if view == "offset_one":
+        buf = torch.empty(x.numel() + 1, device=card, dtype=dtype)
+        x = buf[1:].view(x.shape).copy_(x)
+    else:
+        x = x[:, 3:]
+    got = tmp.masked_pool(x, m)
+    _assert_pool_close(got, tmp.masked_pool_ref(x, m), m)
+
+
+@pytest.mark.cuda
+def test_masked_pool_kernel_repeated_calls_and_graph_replays(card):
+    """Ten calls in a row, then a captured CUDA graph replayed on new inputs
+    copied in place: each result equals the plain version (nothing of one
+    call is left for the next)."""
+    x, m = (a.to(card, torch.bfloat16) for a in _pool_case(h=40, w=40, c=128, b=8, seed=50))
+    want = tmp.masked_pool_ref(x, m)
+    for _ in range(10):
+        _assert_pool_close(tmp.masked_pool(x, m), want, m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmp.masked_pool(x, m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmp.masked_pool(x, m)
+    for seed in (51, 52, 53):
+        fresh = [a.to(card, torch.bfloat16) for a in _pool_case(h=40, w=40, c=128, b=8, seed=seed)]
+        x.copy_(fresh[0])
+        m.copy_(fresh[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_pool_close(out, tmp.masked_pool_ref(x, m), m)
 
 
 @pytest.mark.cuda
@@ -426,3 +480,83 @@ def test_masked_pool_checks_refuse_what_the_kernel_cannot_take():
         tmp.check_pool_inputs("masked_pool", x[:, :0], m)
     with pytest.raises(ValueError, match="no kernel for device"):
         tmp.masked_pool(x.to("meta"), m.to("meta"))
+
+
+# The masked pool's launch plan (CPU: plain Python). Shapes (B, C, N): the
+# serving path's (B=8) and the train path's (B=16) at P3/P4/P5, and odd ones.
+PLAN_SHAPES = {
+    **{f"{p}_b{b}": (b, c, n) for b in (8, 16) for p, c, n in (("p3", 64, 6400), ("p4", 128, 1600), ("p5", 256, 400))},
+    "p3_b1": (1, 64, 6400), "p5_b2": (2, 256, 400), "one_channel": (2, 1, 144), "c37_b16": (16, 37, 99),
+    "c1024_b16": (16, 1024, 20), "b300_c64": (300, 64, 400), "b1_c4096": (1, 4096, 25),
+}
+KI = 4  # loads a thread has in flight (csrc/masked_reduce.cuh kI)
+
+
+def _kernel_reads(B, C, N, tile, wpc, V):
+    """How often csrc/masked_pool.cu reads each pixel of x (B, C, N) and
+    counts each pixel of m into msum / cnt, per (image, tile) block, as its
+    blocks, warps and reduce_row index them."""
+    tiles = -(-C // tile)
+    xs, ms = np.zeros((B, C, N), int), np.zeros((B, tiles, N), int)
+    nt = 32 * wpc
+    for blk in range(B * tiles):
+        b, ct = divmod(blk, tiles)
+        for warp in range(tmp.WARPS):
+            s = warp % wpc
+            for j in range(warp // wpc, tile, tmp.WARPS // wpc):
+                c = ct * tile + j
+                if c >= C:
+                    continue
+                for t in range(s * 32, s * 32 + 32):
+                    for q0 in range(t * V, N, nt * V * KI):
+                        for q in range(q0, min(q0 + nt * V * KI, N), nt * V):
+                            xs[b, c, q:q + V] += 1
+                            ms[b, ct, q:q + V] += j == 0
+    return xs, ms
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_pool_plan_fills_the_card_and_covers_each_channel_once(shape, n_sm):
+    """Every channel of every image falls in exactly one block; the warps per
+    channel divide the block; the grid holds at most BLOCKS_PER_SM blocks
+    per SM, and more than half that unless the tile cannot narrow (T = 1) or
+    widen (C or MAX_TILE reached)."""
+    B, C, N = PLAN_SHAPES[shape]
+    tile, wpc, blocks = tmp.pool_plan(B, C, n_sm)
+    assert tile & (tile - 1) == 0 and 1 <= tile <= tmp.MAX_TILE
+    assert tmp.WARPS % wpc == 0 and (wpc == tmp.WARPS // tile if tile < tmp.WARPS else wpc == 1)
+    assert tile * wpc <= 64  # the kernel's partial slots (kSlots)
+    tiles = -(-C // tile)
+    assert blocks == B * tiles
+    owner = np.zeros((B, C), int)
+    for blk in range(blocks):
+        b, ct = divmod(blk, tiles)
+        owner[b, ct * tile:(ct + 1) * tile] += 1
+    assert (owner == 1).all()
+    target = tmp.BLOCKS_PER_SM * n_sm
+    widest = min(tmp.MAX_TILE, 1 << (C - 1).bit_length())
+    assert blocks <= target or tile == widest
+    assert tile == 1 or B * -(-C // (tile // 2)) > target  # the narrowest tile that fits
+    if tile > 1 and tile < widest:
+        assert blocks > target // 2
+
+
+def test_pool_plan_at_the_serving_and_train_shapes():
+    """On 132 SMs: two channels a block at P3, four at P4, eight at P5 for a
+    batch of 8, twice as many for 16; 256 blocks each time."""
+    for b, tiles in ((8, (2, 4, 8)), (16, (4, 8, 16))):
+        for c, tile in zip((64, 128, 256), tiles):
+            assert tmp.pool_plan(b, c, 132) == (tile, max(1, 8 // tile), 256)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 8), (2, 64, 35, 1), (3, 37, 25, 4), (16, 37, 99, 1),
+                                   (2, 1, 16, 8), (16, 1024, 20, 4), (16, 256, 400, 8), (1, 64, 800, 8)],
+                         ids=lambda s: "B{}_C{}_N{}_V{}".format(*s))
+def test_pool_kernel_indexing_reads_each_pixel_once(shape):
+    """The kernel's block / warp / thread indexing, replayed on the CPU: each
+    pixel of x read once, each pixel of m counted once per block."""
+    B, C, N, V = shape
+    tile, wpc, _ = tmp.pool_plan(B, C, 132)
+    xs, ms = _kernel_reads(B, C, N, tile, wpc, V)
+    assert (xs == 1).all() and (ms == 1).all()
