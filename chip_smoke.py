@@ -24,10 +24,12 @@ Phases, each of which fails the run when it fails:
              kernels one call runs (torch.profiler: CAM gate 1, NMS 2,
              masked pool 1); the CAM gate's and the masked pool's autograd
              gradients against plain autograd.
-Then, for each of two models at full width and depth, 640 px, random weights
-from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM, tags
-``[parity]`` ... ``[train]``) and YOLOv8n-MGA-ECA (MaskECA, the same tags
-with ``-eca``):
+Then, for each of four models at full width and depth, 640 px, random
+weights from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM,
+tags ``[parity]`` ... ``[train]``), YOLOv8n-MGA-ECA (MaskECA, the same tags
+with ``-eca``), YOLOv8n-MGA-SPADE (MaskSPADE, no attention kernel, ``-spade``)
+and the plain YOLOv8n baseline (no mask heads, ``[path-base]`` and
+``[train-base]`` only):
 3. parity  — one 640 px batch through the engine in float32 with TF32 off,
              kernels against the plain versions patched in.
 4. path    — BN-folded, bfloat16, batch 8, through ``MicroBatcher`` from
@@ -39,8 +41,24 @@ with ``-eca``):
              every gradient, the updated parameters).
 6. train   — the train step at micro-batch 16, bf16 autocast, accumulate 4
              (nbs 64) inside the warmup ramp, 8 micro-steps with the launch
-             counters zeroed just before and read just after; then the
-             steady-state step time, images/s and a profile of one step.
+             counters zeroed just before and read just after (plain YOLOv8:
+             every seg loss item exactly 0); then the steady-state step
+             time, images/s and a profile of one step.
+7. train-prob — the flagship with ``prob_mode``: a gumbel ProbMaskGater,
+             drawing from a seeded torch.Generator on the card, in front of
+             each MaskCBAM; its samples checked in [0, 1], then phase 6.
+8. data    — the data stack without OpenCV or PyYAML: a synthetic
+             ARCADE-shaped dataset (256 grey 512 px PNGs, vessel masks, 1-8
+             boxes each) written by the port, read through MGADataset and
+             DataLoader (8 threads) on the shipped cbam_defaults profile,
+             as a 64-image split (``fraction`` 0.25, 4 batches an epoch)
+             and whole (16 batches an epoch); the host pipeline's images/s
+             alone on each, then 12 bf16 micro-steps of the flagship fed by
+             the loader through the pinned copy on each, with the share of
+             each spent waiting on the loader (on the 64-image split also
+             without the micro-steps that begin an epoch); one batch of
+             the MGA_PROB_MODE path. Fails unless the host C++ library of
+             ``mga_yolo_tpu_torch/native`` builds and loads.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -95,8 +113,11 @@ def read_launches() -> dict:
     return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
-def want_launches(**counts) -> dict:
-    """Every kernel's count 0 but those given."""
+def want_launches(counts: dict | None = None) -> dict:
+    """Every kernel's count 0 but those given; a None key (the attention
+    kernel of a model that has none: SPADE, plain YOLOv8) is dropped."""
+    counts = {k: v for k, v in (counts or {}).items() if k is not None}
+    check(set(counts) <= set(kernel_modules()), f"unknown kernels in {counts}")
     return {name: counts.get(name, 0) for name in kernel_modules()}
 
 
@@ -141,17 +162,24 @@ def time_ms(torch, fn, iters: int, reps: int = 5, after=None) -> float:
 
 def device_kernels(torch, fn, n: int = 10) -> tuple[float, dict]:
     """Device kernels that one ``fn()`` call runs, and device ms per call by
-    kernel name (torch.profiler over ``n`` calls, after a warm call)."""
+    kernel name (torch.profiler over ``n`` calls, after a warm call). Now
+    and then the profiler's trace comes back without a single device event
+    (one session of about fifty on the card, on code that traced before and
+    after); such a session is profiled again, at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if rows:
+            break
+        print("[kernels] the profiler saw no device event; profiling again")
     return sum(e.count for e in rows) / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
 
 
@@ -522,10 +550,10 @@ def parity_phase(torch, np, model, attn: str, sfx: str = "") -> None:
         with mock.patch.object(tn, "suppress", tn.suppress_ref):
             nms_p = tn.nms(dec, conf_thres=0.001)
     torch.cuda.synchronize()
-    launched, want = read_launches(), want_launches(**{attn: 3, "nms_suppress": 1})
+    launched, want = read_launches(), want_launches({attn: 3, "nms_suppress": 1})
     check(launched == want, f"parity{sfx}: kernels launched {launched}, want {want}")
     torch.testing.assert_close(out_k["det"][0], out_p["det"][0], rtol=PATH_RTOL, atol=PATH_ATOL)
-    for key in ("p3", "p4", "p5"):
+    for key in out_p["seg"]:  # p3, p4, p5; none for plain YOLOv8
         torch.testing.assert_close(out_k["seg"][key], out_p["seg"][key], rtol=PATH_RTOL, atol=1e-4)
     for a, b in zip(nms_k, nms_p):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -575,7 +603,7 @@ def path_phase(torch, np, model, attn: str, sfx: str = "", n_requests: int = 24,
     n_batches = stats["batches"]
     print(f"[{tag}] {len(imgs)} requests from {n_threads} threads in {n_batches} batches, {wall:.2f} s; "
           f"stats {stats}; launches {launches}")
-    want = want_launches(**{attn: 3 * n_batches, "nms_suppress": n_batches})
+    want = want_launches({attn: 3 * n_batches, "nms_suppress": n_batches})
     check(n_batches > 0 and launches == want, f"launches {launches} for {n_batches} batches, want {want}")
     n_boxes = 0
     for img, p in zip(imgs, results):
@@ -665,13 +693,13 @@ def train_batch(np, torch, b: int, seed: int = 0) -> dict:
             for k, v in host.items()}
 
 
-def make_step(torch, model, accumulate: int, dtype, warmup_steps: int = 0):
+def make_step(torch, model, accumulate: int, dtype, warmup_steps: int = 0, seg_cfg=None):
     from mga_yolo_tpu_torch.losses import DetLossConfig, SegLossConfig
     from mga_yolo_tpu_torch.train import state as S
 
     # weight decay scaled as the trainer does: wd * batch * accumulate / nbs
     wd = 5e-4 * TRAIN_BATCH * accumulate / NBS
-    return S.make_train_step(model, model.det_strides, 1, DetLossConfig(), SegLossConfig(), weight_decay=wd,
+    return S.make_train_step(model, model.det_strides, 1, DetLossConfig(), seg_cfg or SegLossConfig(), weight_decay=wd,
                              ema_decay=0.9999, ema_tau=2000, accumulate=accumulate, compute_dtype=dtype,
                              warmup_steps=warmup_steps)
 
@@ -705,8 +733,10 @@ def train_parity_phase(torch, np, model, attn: str, sfx: str = "") -> None:
             st, metrics = step(st, batch, 0.01, 0.1, 0.8)
         torch.cuda.synchronize()
         launched = read_launches()
-        want = want_launches() if plain else want_launches(**{attn: 3, "dfl_bwd": 1})
+        want = want_launches() if plain else want_launches({attn: 3, "dfl_bwd": 1})
         check(launched == want, f"train-parity{sfx}: launched {launched}, want {want}")
+        if not plain:
+            kernel_launches = launched
         results.append((metrics["items"], st.opt_state["m"], {k: p.detach() for k, p in st.params().items()}))
     (items_k, m_k, p_k), (items_p, m_p, p_p) = results
     torch.testing.assert_close(items_k, items_p, rtol=TRAIN_ITEMS_RTOL, atol=0)
@@ -720,13 +750,16 @@ def train_parity_phase(torch, np, model, attn: str, sfx: str = "") -> None:
     print(f"[train-parity{sfx}] f32 step B=2x{IMGSZ}: items max rel err "
           f"{float(((items_k - items_p).abs() / items_p.abs()).max()):.2e} (rtol {TRAIN_ITEMS_RTOL}); "
           f"{len(m_p)} gradients max err {g_err:.2e} x max|g| (tol {TRAIN_GRAD_TOL}); "
-          f"params max abs err {p_err:.2e} (atol {TRAIN_PARAM_ATOL}); kernels launched {attn} 3 + dfl_bwd 1")
+          f"params max abs err {p_err:.2e} (atol {TRAIN_PARAM_ATOL}); kernels launched {kernel_launches}")
     torch.backends.cudnn.allow_tf32 = True
 
 
-def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -> dict:
+def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12, gen=None,
+                seg: bool = True) -> dict:
     """The bf16 train step at micro-batch 16 and accumulate 4: 8 counted
-    micro-steps, then ``n_timed`` timed ones and a profile."""
+    micro-steps, then ``n_timed`` timed ones and a profile. ``gen`` is the
+    torch.Generator of a prob_mode model's mask gates; without ``seg`` (no
+    mask heads) every seg loss item must be exactly 0."""
     from mga_yolo_tpu_torch.train import optim
     from mga_yolo_tpu_torch.train import state as S
 
@@ -744,7 +777,7 @@ def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -
     ema0 = {k: v.clone() for k, v in st.ema_params.items()}
     bn0 = {k: v.clone() for k, v in st.bn_stats().items()}
     t0 = time.perf_counter()
-    step(st, batch, *sched.at(st.step))  # first use: cuDNN plans, allocator
+    step(st, batch, *sched.at(st.step), gen)  # first use: cuDNN plans, allocator
     torch.cuda.synchronize()
     print(f"[{tag}] first micro-step {time.perf_counter() - t0:.2f} s")
     st.step = st.last_apply = sched.warmup_steps - 4  # forget the first-use micro-step
@@ -754,9 +787,11 @@ def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -
     for _ in range(n_steps):
         before = [p.detach().clone() for p in st.params().values()]
         opt_before = st.opt_step
-        st, metrics = step(st, batch, *sched.at(st.step))
+        st, metrics = step(st, batch, *sched.at(st.step), gen)
         loss = float(metrics["loss"])
         check(np.isfinite(loss) and bool(torch.isfinite(metrics["items"]).all()), f"non-finite loss {loss}")
+        check(seg or bool((metrics["items"][3:] == 0).all()), f"seg items of a model without mask heads: "
+              f"{metrics['items'][3:].tolist()}")
         moved = any(not torch.equal(a, p) for a, p in zip(before, st.params().values()))
         applied = st.opt_step > opt_before
         check(moved == applied, f"micro-step {st.step}: parameters moved={moved}, applied={applied}")
@@ -766,7 +801,7 @@ def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -
           f"{[i + 1 for i, a in enumerate(applies) if a]}, last loss {loss:.4f}, items "
           f"{[round(float(x), 4) for x in metrics['items']]}; launches {launches}")
     check(sum(applies) == 2, f"{sum(applies)} applies in {n_steps} micro-steps, want 2")
-    want = want_launches(**{attn: 3 * n_steps, "dfl_bwd": n_steps})
+    want = want_launches({attn: 3 * n_steps, "dfl_bwd": n_steps})
     check(launches == want, f"launches {launches} in {n_steps} micro-steps, want {want}")
     check(any(not torch.equal(ema0[k], v) for k, v in st.ema_params.items()), "the EMA did not move")
     check(any(not torch.equal(bn0[k], v) for k, v in st.bn_stats().items()), "BN running statistics did not move")
@@ -775,7 +810,7 @@ def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -
     for _ in range(n_timed):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        st, _ = step(st, batch, *sched.at(st.step))
+        st, _ = step(st, batch, *sched.at(st.step), gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
     lat = sorted(times)
@@ -784,8 +819,203 @@ def train_phase(torch, np, model, attn: str, sfx: str = "", n_timed: int = 12) -
     print(f"[{tag}] steady state over {len(times)} micro-steps ({sum(times) / len(times):.2f} ms mean, "
           f"{len(times) // accumulate} applies): p50 {p50:.2f} ms, max {lat[-1]:.2f} ms -> {img_s:.1f} img/s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_phase(torch, lambda: step(st, batch, *sched.at(st.step)), sum(times) / len(times),
+    profile_phase(torch, lambda: step(st, batch, *sched.at(st.step), gen), sum(times) / len(times),
                   what="micro-step", tag=f"train-profile{sfx}", n=accumulate)
+    return launches
+
+
+def train_prob_phase(torch, np) -> dict:
+    """The flagship with ``prob_mode``: each MaskCBAM's mask goes through a
+    gumbel ProbMaskGater that draws from a seeded torch.Generator on the
+    card; then the train phase (3 CAM-gate launches a micro-step)."""
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.models.attention import MaskCBAM
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.train.state import normalize_images
+
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, prob_approach="gumbel")
+    gates = [m.gater for m in model.modules() if isinstance(m, MaskCBAM)]
+    check(len(gates) == 3 and all(g is not None and g.mode == "gumbel" for g in gates), "prob_mode gates missing")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    samples = []
+    hooks = [g.register_forward_hook(lambda mod, inp, out: samples.append(out.detach())) for g in gates]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model.train()(normalize_images(train_batch(np, torch, 2, seed=5)["image"]), generator=gen)
+    for h in hooks:
+        h.remove()
+    inside = [float(((x > 0) & (x < 1)).float().mean()) for x in samples]
+    check(len(samples) == 3 and all(x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+                                    and float(x.min()) >= 0 and float(x.max()) <= 1 for x in samples),
+          "gumbel samples outside [0, 1]")
+    check(all(f > 0.05 for f in inside), f"gumbel samples all but binary: {inside}")
+    print(f"[train-prob] gumbel gate samples at P3/P4/P5 in [0, 1]; share strictly inside (0, 1) "
+          f"{', '.join(f'{f:.3f}' for f in inside)} (float32 rounds sigmoid(x > 17) to 1)")
+    return train_phase(torch, np, model, "cam_gate", "-prob", n_timed=4, gen=gen)
+
+
+def check_batch(np, batch: dict, b: int, prob: bool = False) -> int:
+    """A loader batch has the shapes, types and box counts of the train
+    step's batch dict; returns its number of boxes."""
+    want = {"image": ((b, IMGSZ, IMGSZ, 3), np.uint8), "gt_boxes": ((b, MAX_BOXES, 4), np.float32),
+            "gt_labels": ((b, MAX_BOXES), np.int32), "mask_gt": ((b, MAX_BOXES), np.float32),
+            "index": ((b,), np.int32)}
+    for k, (shape, dtype) in want.items():
+        check(batch[k].shape == shape and batch[k].dtype == dtype, f"batch {k}: {batch[k].shape} {batch[k].dtype}")
+    for m, st in zip(batch["masks"], (8, 16, 32)):
+        check(m.shape == (b, IMGSZ // st, IMGSZ // st, 1) and m.dtype == np.float32, f"masks /{st}: {m.shape}")
+        check(bool(((m >= 0) & (m <= 1)).all()) and (prob or bool(np.isin(m, (0.0, 1.0)).all())),
+              f"mask values at /{st}")
+    valid = batch["mask_gt"]
+    check(bool(np.isin(valid, (0.0, 1.0)).all()) and bool((np.diff(valid, axis=1) <= 0).all()),
+          "mask_gt is not a prefix of ones")
+    boxes = batch["gt_boxes"][valid > 0]
+    check(bool((boxes[:, 2:] > boxes[:, :2]).all() and (boxes >= 0).all() and (boxes <= IMGSZ).all()),
+          "boxes outside the image or empty")
+    check(len(boxes) > 0, "a batch without boxes")
+    return len(boxes)
+
+
+def host_rate(np, loader, epochs: int) -> tuple[float, int, int]:
+    """The loader alone over ``epochs`` epochs from epoch 0: (images/s,
+    images, boxes), every batch checked."""
+    n_img, n_boxes, t0 = 0, 0, time.perf_counter()
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            n_boxes += check_batch(np, batch, TRAIN_BATCH)
+            n_img += len(batch["image"])
+    return n_img / (time.perf_counter() - t0), n_img, n_boxes
+
+
+def in_flight(loader) -> int:
+    """Batches the loader builds at once, one thread each: at most
+    ``prefetch`` (one more while a finished batch is handed over), never more
+    than an epoch holds or than ``workers``."""
+    return min(loader.workers, loader.prefetch + 1, len(loader))
+
+
+def fed_steps(torch, np, loader, step, st, sched, n_steps: int):
+    """``n_steps`` micro-steps of ``step`` fed by ``loader`` through
+    ``to_device``, from a new epoch, after one untimed step. Returns the
+    state, the last metrics and, per timed micro-step, (ms, ms waiting on
+    the loader, whether its batch began an epoch)."""
+    def batches():
+        epoch = 1000
+        while True:
+            loader.set_epoch(epoch)
+            for bi, batch in enumerate(loader):
+                yield batch, bi == 0
+            epoch += 1
+
+    it = batches()
+    st, _ = step(st, loader.to_device(next(it)[0]), *sched.at(st.step))  # first use: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        batch, first = next(it)
+        check_batch(np, batch, TRAIN_BATCH)
+        dev = loader.to_device(batch)
+        t2 = time.perf_counter()
+        st, metrics = step(st, dev, *sched.at(st.step))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rows.append(((t3 - t1) * 1e3, (t2 - t1) * 1e3, first))
+        check(bool(torch.isfinite(metrics["loss"])), f"non-finite loss {float(metrics['loss'])}")
+    return st, metrics, rows
+
+
+def fed_summary(rows) -> str:
+    """p50 (max), mean, img/s and the waiting share of micro-steps."""
+    tot = sorted(r[0] for r in rows)
+    wait = sorted(r[1] for r in rows)
+    n, s_tot = len(rows), sum(tot)
+    return (f"p50 {tot[n // 2]:.2f} ms, max {tot[-1]:.2f} ms, mean {s_tot / n:.2f} ms -> "
+            f"{TRAIN_BATCH * n * 1e3 / s_tot:.1f} img/s; waiting on the loader (next batch + pinned copy "
+            f"enqueued) p50 {wait[n // 2]:.2f} ms, {100 * sum(wait) / s_tot:.1f}% of the micro-step time")
+
+
+def data_phase(torch, np, n_steps: int = 12) -> dict:
+    """The port's data stack on the card's host (no OpenCV, no PyYAML):
+    write a synthetic ARCADE-shaped dataset, read it through MGADataset and
+    DataLoader on the shipped cbam_defaults profile, time the host pipeline
+    alone, then feed the flagship's bf16 train step from the loader through
+    the pinned ``to_device`` copy. The 64-image split has 4 batches an
+    epoch, so the loader builds at most 4 at once and every fourth
+    micro-step begins an epoch; the 256-image split (16 batches an epoch)
+    shows the loader in its steady state, at its default prefetch and with
+    all 8 threads at work."""
+    import tempfile
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.config import load_config, seg_loss_config
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.data.dataset import MGADataset
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+    from mga_yolo_tpu_torch.data.synthetic import write_synthetic_dataset
+    from mga_yolo_tpu_torch.kernels import _build
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.train import optim
+    from mga_yolo_tpu_torch.train import state as S
+
+    native.load()  # raises with the compiler's message when g++ cannot build it
+    print(f"[data] host C++ library loaded: {native.library_path().name}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:  # a scratch directory git ignores
+        t0 = time.perf_counter()
+        data_yaml = write_synthetic_dataset(tmp, n=256, size=512, max_boxes=MAX_BOXES, seed=0)
+        print(f"[data] wrote 256 grey 512x512 PNGs, their masks and labels in {time.perf_counter() - t0:.2f} s")
+        kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
+        cfg = load_config("configs/hyperparams/cbam_defaults.yaml", fraction=0.25, **kw)
+        big_cfg = load_config("configs/hyperparams/cbam_defaults.yaml", **kw)
+        a = cfg.augment
+        print(f"[data] profile cbam_defaults: translate {a.translate} scale {a.scale} fliplr {a.fliplr} mosaic "
+              f"{a.mosaic} hsv {(a.hsv_h, a.hsv_s, a.hsv_v)}; mask {cfg.mask.method}; {IMGSZ} px, batch "
+              f"{TRAIN_BATCH}, {cfg.data.workers} workers, max_boxes {MAX_BOXES}")
+        loader = DataLoader(MGADataset(cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=cfg.data.workers)
+        big = DataLoader(MGADataset(big_cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
+        big8 = DataLoader(big.dataset, TRAIN_BATCH, seed=0, workers=8, prefetch=8)
+        check(len(loader.dataset) == 64 and len(big.dataset) == 256, "the splits are not 64 and 256 images")
+
+        for name, ld, epochs in (("64 images", loader, 2), ("256 images", big, 1),
+                                 ("256 images, prefetch 8", big8, 1)):
+            rate, n_img, n_boxes = host_rate(np, ld, epochs)
+            print(f"[data] host pipeline alone, {name}: {n_img} images in {len(ld) * epochs} batches "
+                  f"({len(ld)} an epoch, prefetch {ld.prefetch}, at most {in_flight(ld)} of {ld.workers} threads "
+                  f"at work) -> {rate:.1f} images/s ({n_boxes} boxes)")
+
+        torch.manual_seed(0)
+        model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
+        accumulate = max(round(NBS / TRAIN_BATCH), 1)
+        sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                               warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+        step = make_step(torch, model, accumulate, torch.bfloat16, warmup_steps=sched.warmup_steps)
+        st = S.create_train_state(model)
+        st.step = st.last_apply = sched.warmup_steps - 4
+        zero_launches()
+        st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+        launches = read_launches()
+        want = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+        check(launches == want, f"[data] launches {launches} in {n_steps} + 1 micro-steps, want {want}")
+        steady = [r for r in rows if not r[2]]
+        print(f"[data] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by the loader, 64 images: "
+              f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}; launches {launches}")
+        print(f"[data]   of which the {len(steady)} that begin no epoch: {fed_summary(steady)}")
+        st, metrics, rows = fed_steps(torch, np, big, step, st, sched, n_steps)
+        check(not any(r[2] for r in rows), "a timed micro-step of the 256-image split began an epoch")
+        print(f"[data] {n_steps} micro-steps fed by the loader, 256 images (inside one epoch): "
+              f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}")
+
+        pcfg = load_config("configs/hyperparams/cbam_defaults.yaml", MGA_PROB_MODE=True, fraction=0.25, **kw)
+        ploader = DataLoader(MGADataset(pcfg, "train", augment=True), TRAIN_BATCH, seed=1, workers=8)
+        pbatch = next(iter(ploader))
+        check_batch(np, pbatch, TRAIN_BATCH, prob=True)
+        pstep = make_step(torch, model, 1, torch.bfloat16, seg_cfg=seg_loss_config(pcfg))
+        _, pm = pstep(st, ploader.to_device(pbatch), *sched.at(st.step))
+        check(seg_loss_config(pcfg).prob_mode and bool(torch.isfinite(pm["loss"])), "MGA_PROB_MODE batch failed")
+        print(f"[data] MGA_PROB_MODE batch (prob masks, method {pcfg.mask.prob_method}): loss "
+              f"{float(pm['loss']):.4f}, seg items {[round(float(x), 4) for x in pm['items'][3:]]}")
     return launches
 
 
@@ -797,10 +1027,11 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM, YOLOV8_ECA
+    from mga_yolo_tpu_torch.configs import YOLOV8, YOLOV8_CBAM, YOLOV8_ECA, YOLOV8_SPADE
     from mga_yolo_tpu_torch.kernels import _build
     from mga_yolo_tpu_torch.models.yolo import create_model
 
+    t_start = time.perf_counter()
     card = gpu_name_and_power()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -819,24 +1050,38 @@ def main() -> int:
     kernel_phase_cam_grad(torch)
     kernel_phase_pool_grad(torch)
 
-    # (path-name suffix, config, attention kernel, tag suffix, MicroBatcher round, timed micro-steps)
+    # (path-name suffix, config, attention kernel, tag suffix, MicroBatcher round, timed micro-steps,
+    #  parity phases); SPADE and plain YOLOv8 have no attention kernel
     paths = {}
-    for name, cfg, attn, sfx, serve_kw, n_timed in (
-            ("", YOLOV8_CBAM, "cam_gate", "", {}, 12),
-            ("_eca", YOLOV8_ECA, "masked_pool", "-eca", dict(n_requests=8, n_threads=2), 8)):
+    short = dict(n_requests=8, n_threads=2)
+    for name, cfg, attn, sfx, serve_kw, n_timed, parity in (
+            ("", YOLOV8_CBAM, "cam_gate", "", {}, 12, True),
+            ("_eca", YOLOV8_ECA, "masked_pool", "-eca", short, 8, True),
+            ("_spade", YOLOV8_SPADE, None, "-spade", short, 8, True),
+            ("_base", YOLOV8, None, "-base", short, 8, False)):
         torch.manual_seed(0)
         model, _ = create_model(cfg, scale="n", nc=1)
-        parity_phase(torch, np, model, attn, sfx)
+        if parity:
+            parity_phase(torch, np, model, attn, sfx)
         paths["serve" + name] = path_phase(torch, np, model, attn, sfx, **serve_kw)
-        train_parity_phase(torch, np, model, attn, sfx)
-        paths["train" + name] = train_phase(torch, np, model, attn, sfx, n_timed=n_timed)
+        if parity:
+            train_parity_phase(torch, np, model, attn, sfx)
+        paths["train" + name] = train_phase(torch, np, model, attn, sfx, n_timed=n_timed, seg=name != "_base")
         del model
-    for k in kernels:  # launches on this slice's paths (ECA) first, else on the flagship's
+    paths["train_prob"] = train_prob_phase(torch, np)
+    paths["train_data"] = data_phase(torch, np)
+    # each kernel's launches are those of this slice's paths first (the
+    # loader-fed train step, prob_mode, SPADE, plain YOLOv8), else MaskECA's,
+    # else the flagship's
+    order = ("train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base", "train_eca",
+             "serve_eca", "train", "serve")
+    for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path
-        k["launches"] = next((by_path[p] for p in ("train_eca", "serve_eca", "train", "serve") if by_path[p]), 0)
+        k["launches"] = next((by_path[p] for p in order if by_path[p]), 0)
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
 
+    print(f"[done] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

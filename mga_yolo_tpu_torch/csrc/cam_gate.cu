@@ -28,9 +28,15 @@
 // and puts the counter back to 0. Each launch gets counters of its own from
 // the wrapper (a ring, zeroed once), so launches on concurrent streams never
 // share one, and a CUDA graph's replays, which never overlap each other,
-// find theirs at 0 again.
+// find theirs at 0 again. A launch captured into a graph keeps its counters
+// while the graph lives: cam_gate_hold_counters ties a CUDA user object to
+// the graph under capture, whose destructor queues the counters' offset,
+// and cam_gate_released hands the queue to the wrapper's ring.
 
 #include <algorithm>
+#include <cstdint>
+#include <mutex>
+#include <vector>
 
 #include "masked_reduce.cuh"
 
@@ -249,9 +255,47 @@ int launch_typed(const void* x, const void* m, const void* w1, const void* b1, c
   return static_cast<int>(err);
 }
 
+std::mutex g_released_mu;
+std::vector<long long> g_released;  // offsets of counters whose graph is gone
+
+// Runs on a CUDA thread once the graph and every executable made from it
+// are destroyed; it may call no CUDA function.
+void release_counters(void* offset_plus_one) {
+  std::lock_guard<std::mutex> lock(g_released_mu);
+  g_released.push_back(static_cast<long long>(reinterpret_cast<intptr_t>(offset_plus_one)) - 1);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Ties the counters at ring offset `offset` to the graph being captured on
+// `stream`: when that graph and its executables are destroyed, the offset
+// is queued for cam_gate_released. Returns a cudaError_t (0 = success).
+int cam_gate_hold_counters(void* stream, long long offset) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  // the trailing outputs default to none (their number differs between CUDA 12 and 13)
+  cudaError_t err = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, nullptr, &graph);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive || graph == nullptr)
+    return static_cast<int>(cudaErrorIllegalState);
+  cudaUserObject_t obj;
+  err = cudaUserObjectCreate(&obj, reinterpret_cast<void*>(static_cast<intptr_t>(offset + 1)),
+                             release_counters, 1, cudaUserObjectNoDestructorSync);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGraphRetainUserObject(graph, obj, 1, cudaGraphUserObjectMove));
+}
+
+// Moves up to `cap` queued offsets of released counters into `out`;
+// returns how many.
+int cam_gate_released(long long* out, int cap) {
+  std::lock_guard<std::mutex> lock(g_released_mu);
+  int n = std::min(cap, static_cast<int>(g_released.size()));
+  std::copy(g_released.end() - n, g_released.end(), out);
+  g_released.resize(g_released.size() - n);
+  return n;
+}
 
 // Floats of workspace a (B, C, N) call needs: B * PS * (3C + 2).
 long long cam_gate_workspace_floats(int B, int C, int N) {

@@ -5,10 +5,10 @@ args]`` rows, depth/width/max_channels compound scaling, make_divisible
 channel rounding, the MGA channel-inference branches (MGAMaskHead and the
 attention modules), and the save-list of outputs read by later layers.
 
-``yaml`` is imported only for a path that names no shipped config: the CUDA
-host may lack PyYAML, so the shipped configs are dicts
-(``mga_yolo_tpu_torch.configs``), and a path whose stem is one of theirs
-(``yolov8_cbam``, ``yolov8_eca``) reads the dict.
+The CUDA host has no PyYAML: a path whose stem names a shipped config
+(``yolov8``, ``yolov8_cbam``, ``yolov8_eca``, ``yolov8_spade``) reads its
+dict from ``mga_yolo_tpu_torch.configs``, any other path is read by the
+port's own YAML reader (``utils/yaml_lite.py``).
 """
 
 from __future__ import annotations
@@ -88,13 +88,12 @@ def parse_graph(cfg: dict | str | Path, ch: int = 3, scale: str | None = None, n
 
         yaml_path = str(cfg)
         stem = Path(cfg).stem
-        if stem in SHIPPED:  # a shipped config: its dict, no PyYAML and no file needed
+        if stem in SHIPPED and not Path(cfg).exists():  # a shipped config without its file
             cfg = SHIPPED[stem]
         else:
-            import yaml
+            from mga_yolo_tpu_torch.utils import yaml_lite
 
-            with open(cfg) as f:
-                cfg = yaml.safe_load(f)
+            cfg = yaml_lite.load(cfg)
         if scale is None:
             for s in ("n", "s", "m", "l", "x"):
                 if stem.startswith("yolov8" + s) or stem.endswith("-" + s) or stem.endswith("_" + s):

@@ -68,7 +68,8 @@ def mga_loss(
     l_det, det_comps = v8_detection_loss(
         det_maps, strides, batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], nc, det_cfg
     )
-    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg)
+    # a model without mask heads (plain YOLOv8) has seg items of exactly 0
+    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg, device=l_det.device)
     total, mtl_logs = kendall_combine(l_det, l_seg, mtl_log_vars)
 
     z = torch.zeros((), device=l_det.device)

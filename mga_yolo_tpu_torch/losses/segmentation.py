@@ -71,11 +71,17 @@ def segmentation_loss(
     preds: Dict[str, torch.Tensor],     # {"p3", "p4", "p5"}: (B, 1, H, W) logits
     targets: Sequence[torch.Tensor],    # per-scale GT masks (B, 1, H, W) or (B, H, W)
     cfg: SegLossConfig = SegLossConfig(),
+    device: torch.device | None = None,
 ):
-    """Returns (total, logs {sk_bce, sk_dice, sk_combined, seg_total})."""
+    """Returns (total, logs {sk_bce, sk_dice, sk_combined, seg_total}).
+
+    The total is a zero on ``device`` (by default the predictions') when the
+    loss is disabled or the model has no mask heads (plain YOLOv8)."""
+    if device is None:
+        device = next((v.device for v in preds.values()), None)
+    total = torch.zeros((), device=device)
     if not cfg.enabled:
-        return torch.zeros(()), {}
-    total = torch.zeros(())
+        return total, {}
     logs: Dict[str, torch.Tensor] = {}
     for i, sk in enumerate(("p3", "p4", "p5")):
         if sk not in preds or i >= len(targets):

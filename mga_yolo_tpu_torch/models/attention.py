@@ -1,7 +1,9 @@
 """Mask-guided attention (counterpart of ``models/attention.py``), NCHW.
 
-MaskCBAM and MaskECA. MaskSPADE and the probabilistic mask gate
-(``prob_mode``) come with a later slice of the port.
+MaskCBAM (with the probabilistic mask gate :class:`ProbMaskGater` under
+``prob_mode``), MaskECA and MaskSPADE. Every random draw takes the
+``torch.Generator`` its caller passes (the train step's), as the JAX package
+draws from the ``"gater"`` RNG collection.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mga_yolo_tpu_torch.models.layers import resize_bilinear
+from mga_yolo_tpu_torch.models.layers import BatchNorm2d, resize_bilinear
 from mga_yolo_tpu_torch.ops.cam_gate import cam_gate
 from mga_yolo_tpu_torch.ops.masked_pool import masked_pool
 
@@ -19,20 +21,63 @@ def _prob(mask: torch.Tensor, use_sigmoid: bool) -> torch.Tensor:
     return torch.sigmoid(mask) if use_sigmoid else mask
 
 
+GATER_MODES = ("deterministic", "gumbel", "hard_st", "bernoulli_detach")
+
+
+class ProbMaskGater(nn.Module):
+    """Differentiable spatial gate over probability masks, float32.
+
+    deterministic: M = p; gumbel: M = sigmoid((logit(p) + L) / tau) with
+    logistic noise L = -log(-log U1) + log(-log U2); hard_st: the gumbel
+    sample thresholded, with the soft sample's gradient (straight through);
+    bernoulli_detach: M ~ Bernoulli(p), no gradient to p. p is clipped to
+    [0, 1] (and to at least ``p_min``). Eval mode is always deterministic,
+    as is ``deterministic`` mode; the others need ``generator``.
+    """
+
+    def __init__(self, mode: str = "gumbel", tau: float = 1.0, p_min: float = 0.0, threshold: float = 0.5):
+        super().__init__()
+        if mode not in GATER_MODES:
+            raise ValueError(f"ProbMaskGater: mode {mode!r} is not one of {GATER_MODES}")
+        self.mode, self.tau, self.p_min, self.threshold = mode, tau, p_min, threshold
+
+    def forward(self, p: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        p = p.float().clamp(0.0, 1.0)
+        if self.p_min > 0:
+            p = p.clamp_min(self.p_min)
+        if not self.training or self.mode == "deterministic":
+            return p
+        if generator is None:
+            raise ValueError(f"ProbMaskGater: mode {self.mode!r} in train mode draws from a generator; pass one")
+        if self.mode == "bernoulli_detach":
+            return torch.bernoulli(p.detach(), generator=generator)
+        eps = 1e-6
+        u = torch.rand((2, *p.shape), generator=generator, device=p.device).clamp(eps, 1 - eps)
+        g = -torch.log(-torch.log(u[0])) + torch.log(-torch.log(u[1]))
+        pc = p.clamp(eps, 1 - eps)
+        m_soft = torch.sigmoid((torch.log(pc) - torch.log1p(-pc) + g) / self.tau)
+        if self.mode == "gumbel":
+            return m_soft
+        m_hard = (m_soft > self.threshold).to(m_soft.dtype)
+        return m_hard + (m_soft - m_soft.detach())
+
+
 class MaskCBAM(nn.Module):
     """Mask-guided CBAM: masked channel gate, then mask-aware spatial gate.
 
     out = feat + softplus(beta) * (SAM(CAM(feat)) - feat). The channel gate
     is the fused CAM-gate kernel on CUDA (its plain version on the CPU), and
     differentiable on both; the SAM conv reads [channel max, channel mean,
-    mask] in that order.
+    mask] in that order. With ``prob_mode`` the mask first goes through a
+    :class:`ProbMaskGater` of mode ``prob_approach`` (it has no parameters,
+    so the state_dict is the same).
     """
 
     def __init__(self, channels: int, r: int = 16, spatial_k: int = 7, use_sigmoid_mask: bool = True,
-                 tiny_mask_thr: float = 1e-4, eps: float = 1e-6, prob_mode: bool = False):
+                 tiny_mask_thr: float = 1e-4, eps: float = 1e-6, prob_mode: bool = False,
+                 prob_approach: str = "gumbel"):
         super().__init__()
-        if prob_mode:
-            raise NotImplementedError("MaskCBAM prob_mode (ProbMaskGater) comes with a later slice of the port")
+        self.gater = ProbMaskGater(prob_approach) if prob_mode else None
         hidden = max(1, channels // r)
         self.use_sigmoid_mask = use_sigmoid_mask
         self.tiny_mask_thr, self.eps = tiny_mask_thr, eps
@@ -41,7 +86,10 @@ class MaskCBAM(nn.Module):
         self.sam_conv = nn.Conv2d(3, 1, k, padding=k // 2, bias=False)
         self.beta = nn.Parameter(torch.zeros(()))
 
-    def forward(self, feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.gater is not None:
+            mask = self.gater(mask, generator)
         fc1, fc2 = self.cam_mlp[0], self.cam_mlp[2]
         # under autocast feat is bf16 and the masters float32: the gate reads
         # the MLP in the activations' type, as the JAX package's bf16 step
@@ -90,7 +138,8 @@ class MaskECA(nn.Module):
         self.conv1d = nn.Conv1d(1, 1, k, padding=k // 2, bias=False)
         self.beta = nn.Parameter(torch.zeros(()))
 
-    def forward(self, feat: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if mask is None:
             y = feat.mean((2, 3))
         else:
@@ -104,3 +153,44 @@ class MaskECA(nn.Module):
         a = F.softplus(self.beta).to(w.dtype)
         g = (1.0 + a * (w - 0.5)).to(feat.dtype)
         return feat * g[:, :, None, None]
+
+
+class MaskSPADE(nn.Module):
+    """SPADE/FiLM normalisation conditioned on the mask.
+
+    out = gamma(m) * norm(feat) + beta(m), where norm is the affine-free
+    instance norm over H x W (eps ``eps``) or, with ``norm_type="bn"``, a
+    scale- and bias-free BatchNorm (eps 1e-3, flax momentum 0.97, the biased
+    running variance of :class:`BatchNorm2d`); m is the mask resized
+    bilinearly to the feature's H x W and sigmoided, and ``shared`` (3x3,
+    ReLU) feeds the 3x3 ``conv_gamma`` / ``conv_beta``. Without a mask it
+    returns norm(feat). Convs start as the JAX package's (Kaiming normal,
+    fan out, zero bias).
+    """
+
+    def __init__(self, channels: int, hidden: int = 64, mask_channels: int = 1, norm_type: str = "in",
+                 use_sigmoid_mask: bool = True, eps: float = 1e-6):
+        super().__init__()
+        if norm_type not in ("in", "bn"):
+            raise ValueError(f"MaskSPADE: norm_type {norm_type!r} is not 'in' or 'bn'")
+        self.use_sigmoid_mask, self.eps = use_sigmoid_mask, eps
+        self.norm = BatchNorm2d(channels, affine=False) if norm_type == "bn" else None
+        self.shared = nn.Sequential(nn.Conv2d(mask_channels, hidden, 3, padding=1), nn.ReLU())
+        self.conv_gamma = nn.Conv2d(hidden, channels, 3, padding=1)
+        self.conv_beta = nn.Conv2d(hidden, channels, 3, padding=1)
+        for conv in (self.shared[0], self.conv_gamma, self.conv_beta):
+            nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, feat: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.norm is not None:
+            x_hat = self.norm(feat)
+        else:
+            var, mu = torch.var_mean(feat, (2, 3), correction=0, keepdim=True)
+            x_hat = (feat - mu) * torch.rsqrt(var + self.eps)
+        if mask is None:
+            return x_hat
+        m = _prob(resize_bilinear(mask, tuple(feat.shape[-2:])), self.use_sigmoid_mask)
+        h = self.shared(m)
+        return self.conv_gamma(h).to(feat.dtype) * x_hat + self.conv_beta(h).to(feat.dtype)

@@ -38,8 +38,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     updates.) Keys, eval mode and normalisation are PyTorch's.
     """
 
-    def __init__(self, c: int):
-        super().__init__(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+    def __init__(self, c: int, affine: bool = True):
+        super().__init__(c, eps=BN_EPS, momentum=BN_MOMENTUM, affine=affine)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:

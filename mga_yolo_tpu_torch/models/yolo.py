@@ -19,7 +19,7 @@ from torch import nn
 from mga_yolo_tpu_torch.device import resolve_device
 from mga_yolo_tpu_torch.graph import GraphSpec, NodeSpec, parse_graph
 from mga_yolo_tpu_torch.models import layers as L
-from mga_yolo_tpu_torch.models.attention import MaskCBAM, MaskECA
+from mga_yolo_tpu_torch.models.attention import MaskCBAM, MaskECA, MaskSPADE
 from mga_yolo_tpu_torch.models.heads import Detect, MGAMaskHead
 
 
@@ -48,8 +48,11 @@ class Concat(nn.Module):
         return torch.cat(xs, 1)
 
 
-def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int]) -> nn.Module:
-    """The module of one graph node (parameter-free modules for Upsample/Concat)."""
+def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int],
+               prob_approach: str | None = None) -> nn.Module:
+    """The module of one graph node (parameter-free modules for Upsample/Concat).
+    ``prob_approach`` puts a ProbMaskGater of that mode in front of each
+    MaskCBAM (its ``prob_mode``)."""
     m, a, c1 = node.module, node.args, node.c_in
     if m == "Conv":
         return L.ConvBN(c1, a[0], a[1] if len(a) > 1 else 1, a[2] if len(a) > 2 else 1)
@@ -66,11 +69,12 @@ def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int]) -> nn.M
     if m == "MGAMaskHead":
         return MGAMaskHead(c1, hidden=a[0], out_ch=a[1] if len(a) > 1 else 1)
     if m == "MaskCBAM":
-        return MaskCBAM(channels=a[0])
+        return MaskCBAM(channels=a[0], prob_mode=prob_approach is not None,
+                        prob_approach=prob_approach or "gumbel")
     if m == "MaskECA":
         return MaskECA(channels=a[0])
     if m == "MaskSPADE":
-        raise NotImplementedError("MaskSPADE comes with a later slice of the port")
+        return MaskSPADE(channels=a[0])
     if m == "Detect":
         return Detect(spec.nc, ch=tuple(a[1]), strides=tuple(strides[i] for i in node.inputs),
                       legacy=spec.legacy_detect)
@@ -84,14 +88,16 @@ def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int]) -> nn.M
 class MGAModel(nn.Module):
     """Graph-walking forward returning det outputs and seg logits."""
 
-    def __init__(self, spec: GraphSpec):
+    def __init__(self, spec: GraphSpec, prob_approach: str | None = None):
         super().__init__()
         self.spec = spec
         strides = compute_strides(spec)
-        self.model = nn.ModuleList(build_node(n, spec, strides) for n in spec.nodes)
+        self.model = nn.ModuleList(build_node(n, spec, strides, prob_approach) for n in spec.nodes)
         self.det_strides = tuple(strides[i] for i in spec.nodes[spec.detect_index].inputs)
 
-    def forward(self, x: torch.Tensor) -> dict[str, Any]:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> dict[str, Any]:
+        """``generator`` feeds the random draws of the attention modules'
+        mask gates in train mode (``prob_mode``)."""
         save = set(self.spec.save)
         cache: dict[int, torch.Tensor] = {}
         seg: dict[str, torch.Tensor] = {}
@@ -102,7 +108,7 @@ class MGAModel(nn.Module):
             if node.module in ("Concat", "Detect"):
                 out = mod(ins)
             elif node.module in ("MaskCBAM", "MaskECA", "MaskSPADE"):
-                out = mod(*ins)
+                out = mod(*ins, generator=generator)
             else:
                 out = mod(ins[0])
             if node.module == "Detect":
@@ -124,6 +130,7 @@ def create_model(
     lane_pack_regions: str = "auto",
     remat: Any = False,
     training: bool = False,
+    prob_approach: str | None = None,
 ) -> tuple[MGAModel, GraphSpec]:
     """Parse the config and build the model on ``device`` (CUDA when None;
     raises if CUDA is absent), in train mode when ``training`` else in eval
@@ -136,7 +143,10 @@ def create_model(
     nothing: lane packing is a TPU layout and remat a TPU memory lever. In
     the JAX package ``training`` only picks kernels; here it sets the mode,
     and its default stays eval, which the serving path builds on.
+    ``prob_approach`` (``"deterministic"``, ``"gumbel"``, ``"hard_st"`` or
+    ``"bernoulli_detach"``) builds every MaskCBAM with ``prob_mode``, its
+    mask gated by a ProbMaskGater of that mode; None builds none.
     """
     dev = resolve_device(device)
     spec = parse_graph(cfg, scale=scale, nc=nc)
-    return MGAModel(spec).to(dev).train(training), spec
+    return MGAModel(spec, prob_approach).to(dev).train(training), spec

@@ -14,7 +14,10 @@ last block of each image, found by a counter, combines them and runs the
 MLP. It reads x and m once and does a few operations per byte, so its bound
 is the bytes (B*N*C + B*N elements) over the card's memory rate; see the
 source for the design. Each launch takes B counters of its own from a ring
-of zeroed int32 counters on the device, which the launch leaves at zero. A
+of zeroed int32 counters on the device, which the launch leaves at zero
+(:class:`CounterRing` hands them out; a launch captured in a CUDA graph
+keeps its counters for every replay, so the ring never hands them out
+again). A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`cam_gate_ref`. Under autograd the kernel's gradient is that of
 :func:`cam_gate_ref`, recomputed in the backward. ``launches`` counts kernel
@@ -23,6 +26,7 @@ launches.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import threading
 
@@ -57,9 +61,52 @@ def _check(x, m, w1, b1, w2, b2) -> None:
             raise ValueError(f"cam_gate: {name} must be contiguous")
 
 
+class CounterRing:
+    """Offsets of blocks of counters in a ring of ``size``, taken in turn.
+
+    An eager launch's counters are free again once the launch has ended, so
+    the cursor wraps to 0 and hands them out anew after ``size / b`` further
+    launches. A launch taken during CUDA-graph capture (``captured=True``)
+    keeps its counters for every replay of the graph, which may run while an
+    eager launch runs on another stream: its range stays reserved, and every
+    take skips it, until :meth:`release` gives it back once the graph is
+    destroyed.
+    """
+
+    def __init__(self, size: int):
+        self.size = size
+        self.cursor = 0
+        self.reserved: list[tuple[int, int]] = []  # sorted, disjoint [start, end)
+
+    def take(self, b: int, captured: bool = False) -> int:
+        if not 0 < b <= self.size:
+            raise ValueError(f"cam_gate: {b} counters do not fit a ring of {self.size}")
+        off, wraps = self.cursor, 0
+        while True:
+            if off + b > self.size:
+                off, wraps = 0, wraps + 1
+                if wraps > 1:
+                    raise RuntimeError("cam_gate: captured CUDA graphs hold the whole counter ring")
+            i = bisect.bisect_right(self.reserved, (off + b, -1))  # ranges that start before off + b
+            if i == 0 or self.reserved[i - 1][1] <= off:
+                break
+            off = self.reserved[i - 1][1]
+        self.cursor = off + b
+        if captured:
+            bisect.insort(self.reserved, (off, off + b))
+        return off
+
+    def release(self, off: int) -> None:
+        """Give back the captured range that starts at ``off``."""
+        i = bisect.bisect_left(self.reserved, (off, -1))
+        if i == len(self.reserved) or self.reserved[i][0] != off:
+            raise ValueError(f"cam_gate: no captured counters at offset {off}")
+        del self.reserved[i]
+
+
 _lib = None
-_RING = 1 << 20  # int32 counters of a device that its launches take B at a time, in turn
-_rings: dict[int, list] = {}  # device index -> [counters, next free]
+_RING = 1 << 20  # int32 counters of a device
+_rings: dict[int, tuple[torch.Tensor, CounterRing]] = {}  # device index -> (counters, allocator)
 _ring_lock = threading.Lock()
 _ws_floats: dict[tuple, int] = {}
 
@@ -73,6 +120,10 @@ def _library():
         lib = _build.load("cam_gate")
         lib.cam_gate_workspace_floats.restype = ctypes.c_longlong
         lib.cam_gate_workspace_floats.argtypes = [ctypes.c_int] * 3
+        lib.cam_gate_hold_counters.restype = ctypes.c_int
+        lib.cam_gate_hold_counters.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.cam_gate_released.restype = ctypes.c_int
+        lib.cam_gate_released.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
         lib.cam_gate_launch.restype = ctypes.c_int
         lib.cam_gate_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
@@ -82,19 +133,40 @@ def _library():
     return _lib
 
 
-def _counters(device: torch.device, b: int) -> int:
-    """Address of the next b counters of the device's ring: zero, and held by
-    no launch in flight unless 2**20 / b launches are."""
+def _counters(lib, device: torch.device, b: int, stream: int) -> int:
+    """Address of b zeroed counters of the device's ring that no launch in
+    flight holds (unless 2**20 / b eager launches are) and no living
+    captured graph keeps. Counters taken during capture are tied to the
+    graph on ``stream``, and come back to the ring once it is destroyed."""
+    from mga_yolo_tpu_torch.kernels import _build
+
+    capturing = torch.cuda.is_current_stream_capturing()
     with _ring_lock:
-        ring = _rings.get(device.index)
-        if ring is None:
-            if torch.cuda.is_current_stream_capturing():
+        entry = _rings.get(device.index)
+        if entry is None:
+            if capturing:
                 raise RuntimeError("cam_gate: call it once on this device before capturing a CUDA graph")
-            ring = _rings[device.index] = [torch.zeros(_RING, dtype=torch.int32, device=device), 0]
+            entry = _rings[device.index] = (torch.zeros(_RING, dtype=torch.int32, device=device),
+                                            CounterRing(_RING))
             torch.cuda.synchronize(device)  # zeroed before a launch on any stream reads it
-        off = ring[1] if ring[1] + b <= _RING else 0
-        ring[1] = off + b
-    return ring[0].data_ptr() + 4 * off
+        counters, ring = entry
+        for off in _released(lib):  # graphs of any device: the offset names its ring
+            _rings[off >> 40][1].release(off & ((1 << 40) - 1))
+        off = ring.take(b, captured=capturing)
+        if capturing:
+            _build.check(lib.cam_gate_hold_counters(stream, (device.index << 40) | off), "cam_gate_hold_counters")
+    return counters.data_ptr() + 4 * off
+
+
+def _released(lib) -> list[int]:
+    """Offsets (device index << 40 | ring offset) of the counters of
+    destroyed graphs, queued by the library since the last call."""
+    out, buf = [], (ctypes.c_longlong * 64)()
+    while True:
+        n = lib.cam_gate_released(buf, len(buf))
+        out += buf[:n]
+        if n < len(buf):
+            return out
 
 
 def _launch(x, m, w1, b1, w2, b2, tiny_thr: float, eps: float) -> torch.Tensor:
@@ -113,7 +185,7 @@ def _launch(x, m, w1, b1, w2, b2, tiny_thr: float, eps: float) -> torch.Tensor:
         err = lib.cam_gate_launch(
             DTYPES[x.dtype], x.data_ptr(), m.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), x.stride(0), x.stride(1), m.stride(0),
-            B, C, H * W, w1.shape[0], tiny_thr, eps, ws.data_ptr(), _counters(x.device, B),
+            B, C, H * W, w1.shape[0], tiny_thr, eps, ws.data_ptr(), _counters(lib, x.device, B, stream),
             gate.data_ptr(), stream,
         )
     _build.check(err, "cam_gate_launch")

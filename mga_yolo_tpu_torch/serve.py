@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from mga_yolo_tpu_torch.data.image_io import encode_png, imdecode
 from mga_yolo_tpu_torch.data.transforms import letterbox, scale_boxes
 from mga_yolo_tpu_torch.ops.nms import nms
 from mga_yolo_tpu_torch.utils.model_utils import fuse_model
@@ -129,7 +130,8 @@ class InferenceEngine:
             boxes = d[d[:, 4] > 0].copy()  # drop empty slots (zero score)
             if len(boxes):
                 boxes[:, :4] = scale_boxes(boxes[:, :4], ratio_pad, orig_shape)
-            masks = {k: seg_np[k][i, 0] for k in seg_np} if self.with_masks else None
+            # a model without mask heads (plain YOLOv8) has no masks to return
+            masks = {k: seg_np[k][i, 0] for k in seg_np} if self.with_masks and seg_np else None
             out.append(Prediction(boxes, orig_shape, masks, dt))
         return out
 
@@ -261,14 +263,8 @@ def _json_prediction(p: Prediction, want_masks: bool) -> dict:
         "batch_ms": round(p.latency_ms, 2),
     }
     if want_masks and p.masks is not None:
-        import cv2
-
-        enc = {}
-        for k, m in p.masks.items():
-            ok, png = cv2.imencode(".png", (m * 255).astype(np.uint8))
-            if ok:
-                enc[k] = base64.b64encode(png.tobytes()).decode()
-        out["mga_masks_png"] = enc
+        out["mga_masks_png"] = {k: base64.b64encode(encode_png((m * 255).astype(np.uint8))).decode()
+                                for k, m in p.masks.items()}
     return out
 
 
@@ -276,7 +272,7 @@ class MGAServer:
     """Threaded HTTP server over a MicroBatcher.
 
     Endpoints:
-      POST /predict        image bytes (png/jpg) -> detections JSON
+      POST /predict        PNG image bytes -> detections JSON (another format: 400)
                            (?masks=1 adds base64-PNG sigmoid masks)
       GET  /healthz        200 once warm
       GET  /stats          micro-batcher statistics
@@ -310,16 +306,15 @@ class MGAServer:
                 if not self.path.startswith("/predict"):
                     self._send(404, {"error": "not found"})
                     return
-                import cv2
-
                 n = int(self.headers.get("Content-Length", 0))
                 if n > MAX_UPLOAD_BYTES:
                     self._send(413, {"error": f"payload too large (max {MAX_UPLOAD_BYTES} bytes)"})
                     return
                 raw = self.rfile.read(n)
-                img = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
-                if img is None:
-                    self._send(400, {"error": "could not decode image"})
+                try:
+                    img = imdecode(raw, "upload")
+                except ValueError as e:
+                    self._send(400, {"error": f"could not decode image: {e}"})
                     return
                 t0 = time.perf_counter()
                 try:
@@ -370,9 +365,11 @@ def build_server(
     writes: ``ema_state_dict`` or ``model_state_dict`` + ``train_args``).
 
     The graph comes from ``model`` if given, else ``train_args["model"]``,
-    else the flagship config; a path naming a shipped config
-    (``yolov8_cbam``, ``yolov8_eca``) reads its dict, so no PyYAML is needed
-    (``graph.parse_graph``). ``device`` defaults to CUDA.
+    else the flagship config; a file that exists is read by the port's own
+    YAML reader, and an absent path naming a shipped config (``yolov8``,
+    ``yolov8_cbam``, ``yolov8_eca``, ``yolov8_spade``) gives its dict
+    (``graph.parse_graph``).
+    ``device`` defaults to CUDA.
     """
     from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
     from mga_yolo_tpu_torch.models.yolo import create_model

@@ -106,10 +106,10 @@ def _loss_batch(batch: dict, device: torch.device) -> dict:
     }
 
 
-def _forward(model, batch, device, compute_dtype):
+def _forward(model, batch, device, compute_dtype, generator=None):
     images = normalize_images(torch.as_tensor(batch["image"]).to(device, non_blocking=True))
     with torch.autocast(device.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32):
-        return model(images)
+        return model(images, generator=generator)
 
 
 def make_train_step(
@@ -129,6 +129,11 @@ def make_train_step(
     max_grad_norm: float = 10.0,
 ) -> Callable:
     """Build the train step (the JAX package's arguments, same meaning).
+
+    ``train_step(state, batch, lr, lr_bias, momentum, generator=None)``:
+    ``generator`` (a ``torch.Generator`` on the model's device) feeds the
+    random draws of the mask gates of a ``prob_mode`` model, as the JAX
+    step's ``rng`` feeds its ``"gater"`` collection.
 
     Gradient accumulation follows the reference's *summed* convention: the
     v8 loss is already scaled by the micro-batch size, so micro-batch
@@ -162,9 +167,10 @@ def make_train_step(
                          [stats[k] for k in state.ema_bn_stats], state.opt_step, ema_decay, ema_tau)
         state.last_apply = state.step
 
-    def train_step(state: TrainState, batch: dict, lr: float, lr_bias: float, momentum: float):
+    def train_step(state: TrainState, batch: dict, lr: float, lr_bias: float, momentum: float,
+                   generator: Optional[torch.Generator] = None):
         state.model.train()
-        out = _forward(state.model, batch, device, compute_dtype)
+        out = _forward(state.model, batch, device, compute_dtype, generator)
         total, items, logs = mga_loss(out, _loss_batch(batch, device), strides, nc,
                                       state.mtl_log_vars, det_cfg, seg_cfg)
         params = state.params()

@@ -10,6 +10,8 @@ nothing of the JAX package:
     conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw)
     dense kernel (I, O)        -> Linear weight (O, I)
     conv1d kernel (k, I, O)    -> Conv1d weight (O, I, k)   (MaskECA)
+    MaskSPADE shared/conv_gamma/conv_beta -> shared.0 / conv_gamma / conv_beta
+                                  (+ norm running statistics with norm_type="bn")
     bn scale/bias + mean/var   -> BatchNorm weight/bias/running_mean/running_var
                                   (+ num_batches_tracked = 0)
     analytic DFL projection    -> fixed dfl.conv.weight = arange(reg_max)
@@ -83,6 +85,19 @@ def _eca(out: dict, prefix: str, p: dict) -> None:
         out[prefix + ".beta"] = np.asarray(p["beta"], np.float32).reshape(())
 
 
+def _spade(out: dict, prefix: str, p: dict, s: dict | None) -> None:
+    out[prefix + ".shared.0.weight"] = _conv2d(p["shared"]["kernel"])
+    out[prefix + ".shared.0.bias"] = np.asarray(p["shared"]["bias"])
+    for name in ("conv_gamma", "conv_beta"):
+        out[f"{prefix}.{name}.weight"] = _conv2d(p[name]["kernel"])
+        out[f"{prefix}.{name}.bias"] = np.asarray(p[name]["bias"])
+    norm = (s or {}).get("norm")
+    if norm is not None:  # norm_type="bn": statistics only (no scale, no bias)
+        out[prefix + ".norm.running_mean"] = np.asarray(norm["mean"])
+        out[prefix + ".norm.running_var"] = np.asarray(norm["var"])
+        out[prefix + ".norm.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
 def _detect(out: dict, prefix: str, p: dict, s: dict | None, legacy: bool, reg_max: int) -> None:
     s = s or {}
     for key in sorted(p):
@@ -135,7 +150,7 @@ def state_dict_from_jax(variables: dict[str, Any], spec: GraphSpec, reg_max: int
         elif module == "MaskECA":
             _eca(out, prefix, p)
         elif module == "MaskSPADE":
-            raise NotImplementedError("MaskSPADE comes with a later slice of the port")
+            _spade(out, prefix, p, s)
         else:
             _generic(out, prefix, p, s)
     return {

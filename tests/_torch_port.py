@@ -79,7 +79,8 @@ def model_pair(cfg: str, imgsz: int, jax_kw: dict | None = None) -> dict:
         jax.random.PRNGKey(0), np.zeros((1, imgsz, imgsz, 3), np.float32)
     )
     v = perturb_bn(variables, seed=1)
-    for k, p in v["params"]["l28_Detect"].items():
+    detect = next(k for k in v["params"] if k.endswith("_Detect"))
+    for k, p in v["params"][detect].items():
         if k.startswith("cv3_") and k.endswith("_2"):
             p["bias"] = np.zeros_like(p["bias"])
     tmodel, tspec = create_model(cfg, scale="n", nc=1, device="cpu")
@@ -121,11 +122,12 @@ def train_batch(b: int, imgsz: int, seed: int = 7) -> dict:
 
 
 def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict | None = None,
-                   n_steps: int = 3, b: int = 2) -> dict:
+                   n_steps: int = 3, b: int = 2, port_kw: dict | None = None) -> dict:
     """Both packages' train states after each of ``n_steps`` micro-steps
     from the same state: the JAX model's weights with perturbed BN statistics
     and ``mtl_log_vars`` = (0.2, -0.3). ``step_kw`` goes to both
-    ``make_train_step``s, ``lr`` = (lr, lr_bias, momentum) to every step.
+    ``make_train_step``s, ``lr`` = (lr, lr_bias, momentum) to every step;
+    ``jax_kw`` / ``port_kw`` go to the two packages' ``create_model``.
 
     Returns ``views`` [(port view, JAX view)] per micro-step (each a dict of
     loss, items, params, bn, m, ema, ema_bn, opt_step) and the states, steps
@@ -151,7 +153,7 @@ def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict 
                     ema_params=JO.flatten_tree(params), ema_batch_stats=JO.flatten_tree(v["batch_stats"]),
                     accum_grads=jnp.zeros((JO.FlatMeta(params).total,), jnp.float32))
     jstep = jax.jit(JS.make_train_step(jmodel, (8, 16, 32), 1, JDet(), JSeg(), **step_kw))
-    tmodel, tspec = create_model(cfg, scale="n", nc=1, device="cpu", training=True)
+    tmodel, tspec = create_model(cfg, scale="n", nc=1, device="cpu", training=True, **(port_kw or {}))
     tmodel.load_state_dict(state_dict_from_jax(v, tspec), strict=True)
     ts = TS.create_train_state(tmodel)
     with torch.no_grad():

@@ -1,7 +1,8 @@
 """PyTorch port: it stands alone and never drops to the CPU on its own.
 
 * Importing every module of ``mga_yolo_tpu_torch`` (in a fresh interpreter)
-  pulls in neither JAX nor the JAX package.
+  pulls in neither JAX nor the JAX package, nor OpenCV, PyYAML or PIL,
+  which the card's host does not have.
 * No source of the port, nor ``chip_smoke.py``, imports them.
 * Entry points given no ``device`` raise when CUDA is absent.
 * ``chip_smoke.py`` exits non-zero with no result line without a card, and
@@ -20,7 +21,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mga_yolo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mga_yolo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mga_yolo_tpu", "cv2", "yaml", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -72,6 +73,10 @@ def test_entry_points_raise_without_cuda():
         create_model(YOLOV8_CBAM, scale="n", nc=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DataLoader(None, 1)  # the loader's batches go to the card by default
     assert resolve_device("cpu") == torch.device("cpu")
 
 

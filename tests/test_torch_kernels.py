@@ -171,6 +171,132 @@ def test_cam_gate_kernel_on_two_streams_at_once(card):
         torch.testing.assert_close(out, tcg.cam_gate_ref(*cases[i % 2]), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("b", [1, 8, 16, 48])
+def test_counter_ring_never_hands_out_a_captured_range(b):
+    """A range taken during capture is never handed out again: not by the
+    next 2**20 / b + 1 takes (more than one wrap of the cursor), nor by a
+    second capture; eager ranges are reused after a wrap."""
+    ring = tcg.CounterRing(1 << 20)
+    ring.cursor = ring.size - 3 * b  # just before the wrap
+    lo = ring.take(b, captured=True)
+    first = ring.take(b)
+    offs = [first] + [ring.take(b) for _ in range(ring.size // b)]
+    offs = np.array(offs)
+    assert ((offs + b <= lo) | (offs >= lo + b)).all()
+    assert ((offs >= 0) & (offs + b <= ring.size)).all()
+    assert first in offs[1:]  # eager ranges come round again
+    other = ring.take(b, captured=True)
+    assert other + b <= lo or other >= lo + b
+    assert ring.reserved == sorted([(lo, lo + b), (other, other + b)])
+
+
+def test_counter_ring_takes_a_released_capture_range_again():
+    """Once its graph is gone, a captured range goes back into turn; a
+    release of a range that is not reserved is refused."""
+    ring = tcg.CounterRing(64)
+    held = [ring.take(16, captured=True) for _ in range(4)]
+    ring.release(held[1])
+    assert ring.reserved == [(0, 16), (32, 48), (48, 64)]
+    assert ring.take(16) == 16  # the only free range
+    with pytest.raises(ValueError, match="no captured counters at offset 16"):
+        ring.release(16)
+    for off in (held[0], held[2], held[3]):
+        ring.release(off)
+    assert ring.reserved == [] and [ring.take(16) for _ in range(4)] == [32, 48, 0, 16]
+
+
+def test_counter_ring_refuses_when_captures_hold_it_all():
+    ring = tcg.CounterRing(64)
+    for _ in range(4):
+        ring.take(16, captured=True)
+    with pytest.raises(RuntimeError, match="whole counter ring"):
+        ring.take(16)
+    with pytest.raises(ValueError):
+        tcg.CounterRing(8).take(9)
+
+
+@pytest.mark.cuda
+def test_cam_gate_graph_replays_beside_eager_calls_after_a_wrap(card):
+    """The captured graph's counters under a wrap: the cursor is moved to
+    just before the wrap, a graph of k calls is captured, one wrap's worth
+    of eager calls follows (so the cursor reaches the captured range again),
+    then the graph replays on one stream while k eager calls run on another,
+    three times: both streams first spin ~10 ms on the card, so every launch
+    is queued before either starts and the two run side by side. Every gate
+    equals the plain version. A smoke check of the ring on the card: the
+    ring of the parent, which handed the captured range out again, passed
+    it too; the guard against that is the CPU test
+    test_counter_ring_never_hands_out_a_captured_range."""
+    b, k = 64, 32
+    args = [a.to(card) for a in _cam_case(b=b, h=8, w=8, c=64, seed=20)]
+    other = [a.to(card) for a in _cam_case(b=b, h=8, w=8, c=64, seed=21)]
+    want, want_other = tcg.cam_gate_ref(*args), tcg.cam_gate_ref(*other)
+    tcg.cam_gate(*args)  # the ring exists before capture
+    counters, ring = tcg._rings[args[0].device.index]
+    ring.cursor = ring.size - k * b
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=cap):
+        outs = [tcg.cam_gate(*args) for _ in range(k)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    eager = []
+    for _ in range(3):
+        # a ring that hands out counters in turn gives the next k eager calls
+        # the captured range
+        torch.cuda.synchronize()
+        for _ in range(ring.size // b - k):
+            tcg.cam_gate(*other)
+        for s in (s1, s2):
+            s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            torch.cuda._sleep(20_000_000)
+            graph.replay()
+        with torch.cuda.stream(s2):
+            torch.cuda._sleep(20_000_000)
+            eager += [tcg.cam_gate(*other) for _ in range(k)]
+        torch.cuda.synchronize()
+        for out in outs:
+            torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    for out in eager:
+        torch.testing.assert_close(out, want_other, rtol=0, atol=1e-5)
+    assert int(counters.abs().sum()) == 0  # every launch left its counters at zero
+
+
+@pytest.mark.cuda
+def test_cam_gate_counters_of_a_destroyed_graph_return_to_the_ring(card):
+    """A graph's captured calls reserve their counters while it lives; once
+    the graph is destroyed, the library queues their release, and the next
+    call gives them back to the ring."""
+    import gc
+    import time
+
+    args = [a.to(card) for a in _cam_case(b=4, h=8, w=8, c=64, seed=22)]
+    want = tcg.cam_gate_ref(*args)
+    tcg.cam_gate(*args)  # the ring exists before capture
+    ring = tcg._rings[args[0].device.index][1]
+    before = list(ring.reserved)
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=cap):
+        out = tcg.cam_gate(*args)
+    mine = sorted(set(ring.reserved) - set(before))
+    assert len(mine) == 1 and mine[0][1] - mine[0][0] == 4
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    del graph, out
+    gc.collect()
+    torch.cuda.synchronize()
+    deadline = time.monotonic() + 5.0
+    while mine[0] in ring.reserved and time.monotonic() < deadline:
+        time.sleep(0.01)
+        tcg.cam_gate(*args)  # each call collects the released ranges
+    assert mine[0] not in ring.reserved
+    assert ring.reserved == before
+
+
 def test_cam_gate_checks_refuse_what_the_kernel_cannot_take():
     x, m, w1, b1, w2, b2 = _cam_case()
     tcg._check(x, m, w1, b1, w2, b2)  # NCHW-contiguous: taken
