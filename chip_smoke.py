@@ -58,7 +58,25 @@ and the plain YOLOv8n baseline (no mask heads, ``[path-base]`` and
              each spent waiting on the loader (on the 64-image split also
              without the micro-steps that begin an epoch); one batch of
              the MGA_PROB_MODE path. Fails unless the host C++ library of
-             ``mga_yolo_tpu_torch/native`` builds and loads.
+             ``mga_yolo_tpu_torch/native`` builds and loads. The dataset
+             also has a 64-image val split, drawn from another seed.
+9. fit     — a whole training run of the flagship through ``MGA.train``:
+             3 epochs on the 256 images at 640 px, batch 16, nbs 64, bf16,
+             a validation of the 64 val images each epoch and of the EMA at
+             the end, results.csv, best / last checkpoints; the launch
+             counters zeroed just before and read just after (CAM gate 3
+             per micro-step and per validation batch, DFL backward 1 per
+             micro-step, NMS 1 per validation batch, exactly); a resume to
+             epoch 4 in the same directory (from the first run's last step,
+             no duplicate results.csv row); the val CLI on best.pt (float32)
+             within ``FIT_VAL_TOL`` mAP of the trainer's evaluation (bf16),
+             and its decoded boxes, scores and mask logits of the first
+             val batch within the path tolerances of a float32 eval step
+             of the trainer's model on best.pt (other random weights fall
+             outside), from the same letterboxed images;
+             best.pt served through ``build_server`` and ``MicroBatcher``.
+             Per epoch it prints the wall time, images/s, the share spent
+             waiting on the loader, the val speed per phase and mAP50.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -70,8 +88,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM3 bytes/s and float32 operations/s outside the tensor cores.
@@ -87,6 +107,9 @@ POOL_TOL = {"f32": (1e-5, 1e-6), "bf16": (2 ** -7, 1e-6)}  # float32 sums in ano
 PATH_RTOL, PATH_ATOL = 1e-4, 1e-3  # decoded pixels (<= ~1000) after 28 float32 layers
 DFL_TOL = {"f32": (2e-6, 2e-6), "bf16": (8e-3, 2e-4)}  # (rtol, atol): one ulp; one bf16 ulp
 DFL_REG_MAX = (8, 16, 32, 64)
+FIT_EPOCHS = 3
+FIT_VAL_TOL = 0.02  # mAP: the val CLI in float32 against the trainer's evaluation in bf16
+FIT_WRONG_SEED = 1234  # the random weights a wrong reading of best.pt is shown to differ from
 # train-parity, kernels vs plain in float32: the CAM gate's and dz's last-bit
 # differences pass a 640 px backward through 60 train-mode BNs
 TRAIN_ITEMS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3, 1e-6
@@ -936,86 +959,241 @@ def fed_summary(rows) -> str:
             f"enqueued) p50 {wait[n // 2]:.2f} ms, {100 * sum(wait) / s_tot:.1f}% of the micro-step time")
 
 
-def data_phase(torch, np, n_steps: int = 12) -> dict:
+def data_phase(torch, np, data_yaml, n_steps: int = 12) -> dict:
     """The port's data stack on the card's host (no OpenCV, no PyYAML):
-    write a synthetic ARCADE-shaped dataset, read it through MGADataset and
-    DataLoader on the shipped cbam_defaults profile, time the host pipeline
-    alone, then feed the flagship's bf16 train step from the loader through
-    the pinned ``to_device`` copy. The 64-image split has 4 batches an
-    epoch, so the loader builds at most 4 at once and every fourth
-    micro-step begins an epoch; the 256-image split (16 batches an epoch)
-    shows the loader in its steady state, at its default prefetch and with
-    all 8 threads at work."""
-    import tempfile
-
+    read the synthetic ARCADE-shaped dataset ``data_yaml`` (written by the
+    port) through MGADataset and DataLoader on the shipped cbam_defaults
+    profile, time the host pipeline alone, then feed the flagship's bf16
+    train step from the loader through the pinned ``to_device`` copy. The
+    64-image split has 4 batches an epoch, so the loader builds at most 4 at
+    once and every fourth micro-step begins an epoch; the 256-image split
+    (16 batches an epoch) shows the loader in its steady state, at its
+    default prefetch and with all 8 threads at work."""
     from mga_yolo_tpu_torch import native
     from mga_yolo_tpu_torch.config import load_config, seg_loss_config
     from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
     from mga_yolo_tpu_torch.data.dataset import MGADataset
     from mga_yolo_tpu_torch.data.loader import DataLoader
-    from mga_yolo_tpu_torch.data.synthetic import write_synthetic_dataset
-    from mga_yolo_tpu_torch.kernels import _build
     from mga_yolo_tpu_torch.models.yolo import create_model
     from mga_yolo_tpu_torch.train import optim
     from mga_yolo_tpu_torch.train import state as S
 
     native.load()  # raises with the compiler's message when g++ cannot build it
     print(f"[data] host C++ library loaded: {native.library_path().name}")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:  # a scratch directory git ignores
-        t0 = time.perf_counter()
-        data_yaml = write_synthetic_dataset(tmp, n=256, size=512, max_boxes=MAX_BOXES, seed=0)
-        print(f"[data] wrote 256 grey 512x512 PNGs, their masks and labels in {time.perf_counter() - t0:.2f} s")
-        kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
-        cfg = load_config("configs/hyperparams/cbam_defaults.yaml", fraction=0.25, **kw)
-        big_cfg = load_config("configs/hyperparams/cbam_defaults.yaml", **kw)
-        a = cfg.augment
-        print(f"[data] profile cbam_defaults: translate {a.translate} scale {a.scale} fliplr {a.fliplr} mosaic "
-              f"{a.mosaic} hsv {(a.hsv_h, a.hsv_s, a.hsv_v)}; mask {cfg.mask.method}; {IMGSZ} px, batch "
-              f"{TRAIN_BATCH}, {cfg.data.workers} workers, max_boxes {MAX_BOXES}")
-        loader = DataLoader(MGADataset(cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=cfg.data.workers)
-        big = DataLoader(MGADataset(big_cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
-        big8 = DataLoader(big.dataset, TRAIN_BATCH, seed=0, workers=8, prefetch=8)
-        check(len(loader.dataset) == 64 and len(big.dataset) == 256, "the splits are not 64 and 256 images")
+    kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
+    cfg = load_config("configs/hyperparams/cbam_defaults.yaml", fraction=0.25, **kw)
+    big_cfg = load_config("configs/hyperparams/cbam_defaults.yaml", **kw)
+    a = cfg.augment
+    print(f"[data] profile cbam_defaults: translate {a.translate} scale {a.scale} fliplr {a.fliplr} mosaic "
+          f"{a.mosaic} hsv {(a.hsv_h, a.hsv_s, a.hsv_v)}; mask {cfg.mask.method}; {IMGSZ} px, batch "
+          f"{TRAIN_BATCH}, {cfg.data.workers} workers, max_boxes {MAX_BOXES}")
+    loader = DataLoader(MGADataset(cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=cfg.data.workers)
+    big = DataLoader(MGADataset(big_cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
+    big8 = DataLoader(big.dataset, TRAIN_BATCH, seed=0, workers=8, prefetch=8)
+    check(len(loader.dataset) == 64 and len(big.dataset) == 256, "the splits are not 64 and 256 images")
 
-        for name, ld, epochs in (("64 images", loader, 2), ("256 images", big, 1),
-                                 ("256 images, prefetch 8", big8, 1)):
-            rate, n_img, n_boxes = host_rate(np, ld, epochs)
-            print(f"[data] host pipeline alone, {name}: {n_img} images in {len(ld) * epochs} batches "
-                  f"({len(ld)} an epoch, prefetch {ld.prefetch}, at most {in_flight(ld)} of {ld.workers} threads "
-                  f"at work) -> {rate:.1f} images/s ({n_boxes} boxes)")
+    for name, ld, epochs in (("64 images", loader, 2), ("256 images", big, 1),
+                             ("256 images, prefetch 8", big8, 1)):
+        rate, n_img, n_boxes = host_rate(np, ld, epochs)
+        print(f"[data] host pipeline alone, {name}: {n_img} images in {len(ld) * epochs} batches "
+              f"({len(ld)} an epoch, prefetch {ld.prefetch}, at most {in_flight(ld)} of {ld.workers} threads "
+              f"at work) -> {rate:.1f} images/s ({n_boxes} boxes)")
 
-        torch.manual_seed(0)
-        model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
-        accumulate = max(round(NBS / TRAIN_BATCH), 1)
-        sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
-                               warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
-        step = make_step(torch, model, accumulate, torch.bfloat16, warmup_steps=sched.warmup_steps)
-        st = S.create_train_state(model)
-        st.step = st.last_apply = sched.warmup_steps - 4
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
+    accumulate = max(round(NBS / TRAIN_BATCH), 1)
+    sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                           warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+    step = make_step(torch, model, accumulate, torch.bfloat16, warmup_steps=sched.warmup_steps)
+    st = S.create_train_state(model)
+    st.step = st.last_apply = sched.warmup_steps - 4
+    zero_launches()
+    st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+    launches = read_launches()
+    want = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+    check(launches == want, f"[data] launches {launches} in {n_steps} + 1 micro-steps, want {want}")
+    steady = [r for r in rows if not r[2]]
+    print(f"[data] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by the loader, 64 images: "
+          f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}; launches {launches}")
+    print(f"[data]   of which the {len(steady)} that begin no epoch: {fed_summary(steady)}")
+    st, metrics, rows = fed_steps(torch, np, big, step, st, sched, n_steps)
+    check(not any(r[2] for r in rows), "a timed micro-step of the 256-image split began an epoch")
+    print(f"[data] {n_steps} micro-steps fed by the loader, 256 images (inside one epoch): "
+          f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}")
+
+    pcfg = load_config("configs/hyperparams/cbam_defaults.yaml", MGA_PROB_MODE=True, fraction=0.25, **kw)
+    ploader = DataLoader(MGADataset(pcfg, "train", augment=True), TRAIN_BATCH, seed=1, workers=8)
+    pbatch = next(iter(ploader))
+    check_batch(np, pbatch, TRAIN_BATCH, prob=True)
+    pstep = make_step(torch, model, 1, torch.bfloat16, seg_cfg=seg_loss_config(pcfg))
+    _, pm = pstep(st, ploader.to_device(pbatch), *sched.at(st.step))
+    check(seg_loss_config(pcfg).prob_mode and bool(torch.isfinite(pm["loss"])), "MGA_PROB_MODE batch failed")
+    print(f"[data] MGA_PROB_MODE batch (prob masks, method {pcfg.mask.prob_method}): loss "
+          f"{float(pm['loss']):.4f}, seg items {[round(float(x), 4) for x in pm['items'][3:]]}")
+    return launches
+
+
+def fit_decode_agreement(torch, best: Path, data_yaml, trainer) -> None:
+    """The val CLI and the trainer read best.pt alike: the CLI's eval
+    function and a float32 eval step of the trainer's model on its state
+    loaded from best.pt give the same decoded boxes and scores and mask
+    logits on the first val batch, within the path tolerances, from the same
+    letterboxed images. The mAP check alone cannot tell while both read 0;
+    a model of other random weights must fail the same comparison (images
+    mirrored cannot show a wrong letterbox: after a few tens of steps the
+    eval-mode outputs hardly depend on the image, hence the input check)."""
+    from mga_yolo_tpu_torch.cli import val as cli_val
+    from mga_yolo_tpu_torch.config import det_loss_config, seg_loss_config
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.train.state import make_eval_step, normalize_images
+    from mga_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    def first(loader) -> dict:
+        batch = dict(next(iter(loader)))
+        batch.pop("index", None)
+        return loader.to_device(batch)
+
+    cli = cli_val.build_validator(cli_val.parse_args(["--weights", str(best), "--data", str(data_yaml),
+                                                      "--batch", str(TRAIN_BATCH)]))
+    batch, batch_t = first(cli.loader), first(trainer.val_loader)
+    check(batch["image"].shape == batch_t["image"].shape and torch.equal(batch["image"], batch_t["image"]),
+          "[fit] the val CLI's images differ from the trainer's (size or letterbox)")
+    load_checkpoint(best, trainer.state)
+    step = make_eval_step(trainer.model, trainer.strides, trainer.spec.nc, det_loss_config(trainer.cfg),
+                          seg_loss_config(trainer.cfg))
+    want = step(trainer.state, batch_t)
+    torch.manual_seed(FIT_WRONG_SEED)
+    other, _ = create_model("configs/models/yolov8_cbam.yaml", scale="n", nc=1)
+    with torch.no_grad():
+        out = other(normalize_images(batch["image"]))
+    readings = {"val CLI": cli.eval_fn(None, batch),
+                "other random weights": {"decoded": out["det"][0].float(), "seg": out["seg"]},
+                "mirrored images": cli.eval_fn(None, {**batch, "image": batch["image"].flip(2)})}  # (B, H, W, 3)
+
+    def errors(got) -> tuple:
+        """Max abs errors (decoded, mask logits) and whether both are within tolerance."""
+        pairs = [(got["decoded"], want["decoded"], PATH_ATOL)] + [
+            (got["seg"][k].float(), want["seg"][k].float(), 1e-4) for k in want["seg"]]
+        close = all(a.shape == b.shape and torch.allclose(a, b, rtol=PATH_RTOL, atol=atol) for a, b, atol in pairs)
+        err = [float((a - b).abs().max()) if a.shape == b.shape else float("inf") for a, b, _ in pairs]
+        return err[0], max(err[1:]), close
+
+    res = {name: errors(got) for name, got in readings.items()}
+    print(f"[fit] best.pt on {len(batch['image'])} val images (the same letterboxed images in both loaders) "
+          f"against the trainer's float32 eval step, max abs "
+          f"error (decoded px, mask logits) at rtol {PATH_RTOL}, atol {PATH_ATOL} / 1e-4: " + "; ".join(
+              f"{name} {d:.4g}, {m:.4g} ({'within' if ok else 'outside'})" for name, (d, m, ok) in res.items()))
+    check(res["val CLI"][2], "[fit] the val CLI's reading of best.pt disagrees with the trainer's")
+    check(not res["other random weights"][2], "[fit] other random weights pass the comparison: it cannot tell "
+                                              "a wrong checkpoint")
+
+
+def fit_phase(torch, np, data_yaml, project) -> dict:
+    """A whole training run of the flagship through the port's entry points:
+    ``MGA(...).train`` on the 256-image set, validating on the 64-image val
+    split each epoch, 3 epochs at 640 px, batch 16, nbs 64, bf16, 8 loader
+    threads, the shipped cbam_defaults profile; the launch counters zeroed
+    just before and read just after, and held to the run's micro-steps and
+    validation batches exactly. Then a resume to epoch 4 in the same
+    directory, the val CLI on best.pt (float32) against the trainer's own
+    evaluation of the epoch that wrote it (bf16), and best.pt served through
+    ``build_server`` and ``MicroBatcher``. Returns the first run's launches."""
+    import csv
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mga_yolo_tpu_torch.api import MGA
+    from mga_yolo_tpu_torch.cli import val as cli_val
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.serve import build_server
+    from mga_yolo_tpu_torch.utils.csvlog import HEADER_ORDER
+
+    kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, nbs=NBS, workers=8, max_boxes=MAX_BOXES,
+              val=True, save=True, amp=True, project=str(project), name="fit")
+    evals = {}  # epoch (0-based) -> the trainer's (mAP50, mAP50-95) of it, bf16
+
+    def run(epochs: int, resume: bool):
+        m = MGA("configs/models/yolov8_cbam.yaml", scale="n")
         zero_launches()
-        st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+        t0 = time.perf_counter()
+        final = m.train("configs/hyperparams/cbam_defaults.yaml", epochs=epochs, resume=resume, **kw)
+        wall = time.perf_counter() - t0
         launches = read_launches()
-        want = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
-        check(launches == want, f"[data] launches {launches} in {n_steps} + 1 micro-steps, want {want}")
-        steady = [r for r in rows if not r[2]]
-        print(f"[data] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by the loader, 64 images: "
-              f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}; launches {launches}")
-        print(f"[data]   of which the {len(steady)} that begin no epoch: {fed_summary(steady)}")
-        st, metrics, rows = fed_steps(torch, np, big, step, st, sched, n_steps)
-        check(not any(r[2] for r in rows), "a timed micro-step of the 256-image split began an epoch")
-        print(f"[data] {n_steps} micro-steps fed by the loader, 256 images (inside one epoch): "
-              f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}")
+        tr = m._trainer
+        for st in tr.epoch_stats:
+            evals[st["epoch"]] = (st["map50"], st["map"])
+            v, secs = st["val_speed"], st["train_s"]
+            print(f"[fit] epoch {st['epoch'] + 1}/{epochs}: train {secs:.2f} s, {st['images']} images in "
+                  f"{st['steps']} micro-steps from step {st['step_start']} -> {st['images'] / secs:.1f} img/s, "
+                  f"{100 * st['wait_s'] / secs:.1f}% waiting on the loader; val {st['val_s']:.2f} s, ms per image: "
+                  f"preprocess {v['preprocess']:.2f}, inference {v['inference']:.2f}, postprocess "
+                  f"{v['postprocess']:.2f}; mAP50 {st['map50']:.4f}, mAP50-95 {st['map']:.4f}; the checkpoint "
+                  f"saves held the run {st['save_ms']:.1f} ms")
+        steps = sum(st["steps"] for st in tr.epoch_stats)
+        val_batches = (len(tr.epoch_stats) + 1) * len(tr.val_loader)  # each epoch's and the final evaluation
+        want = want_launches({"cam_gate": 3 * (steps + val_batches), "dfl_bwd": steps, "nms_suppress": val_batches})
+        check(launches == want, f"[fit] launches {launches} in {steps} micro-steps and {val_batches} validation "
+                                f"batches, want {want}")
+        v = final.speed
+        print(f"[fit] to epoch {epochs}: {wall:.1f} s wall; final EMA evaluation mAP50 {final.metrics.map50:.4f}, "
+              f"mAP50-95 {final.metrics.map:.4f}, ms per image preprocess {v['preprocess']:.2f}, inference "
+              f"{v['inference']:.2f}, postprocess {v['postprocess']:.2f}; launches {launches} ({steps} micro-steps, "
+              f"{val_batches} validation batches)")
+        return tr, launches
 
-        pcfg = load_config("configs/hyperparams/cbam_defaults.yaml", MGA_PROB_MODE=True, fraction=0.25, **kw)
-        ploader = DataLoader(MGADataset(pcfg, "train", augment=True), TRAIN_BATCH, seed=1, workers=8)
-        pbatch = next(iter(ploader))
-        check_batch(np, pbatch, TRAIN_BATCH, prob=True)
-        pstep = make_step(torch, model, 1, torch.bfloat16, seg_cfg=seg_loss_config(pcfg))
-        _, pm = pstep(st, ploader.to_device(pbatch), *sched.at(st.step))
-        check(seg_loss_config(pcfg).prob_mode and bool(torch.isfinite(pm["loss"])), "MGA_PROB_MODE batch failed")
-        print(f"[data] MGA_PROB_MODE batch (prob masks, method {pcfg.mask.prob_method}): loss "
-              f"{float(pm['loss']):.4f}, seg items {[round(float(x), 4) for x in pm['items'][3:]]}")
+    def rows(tr) -> list:
+        with open(tr.save_dir / "results.csv", newline="") as f:
+            out = list(csv.DictReader(f))
+        check(bool(out) and list(out[0])[:len(HEADER_ORDER)] == HEADER_ORDER, "results.csv lacks the reference columns")
+        losses = [float(r[k]) for r in out for k in HEADER_ORDER if k.startswith(("train/", "val/"))]
+        check(all(np.isfinite(losses)), "a non-finite loss item in results.csv")
+        return out
+
+    tr, launches = run(FIT_EPOCHS, False)
+    check(tr.start_epoch == 0 and len(tr.epoch_stats) == FIT_EPOCHS
+          and [st["steps"] for st in tr.epoch_stats] == [len(tr.train_loader)] * FIT_EPOCHS,
+          f"[fit] ran epochs {[st['epoch'] for st in tr.epoch_stats]}")
+    check(len(rows(tr)) == FIT_EPOCHS, "[fit] results.csv does not have a row per epoch")
+    weights = tr.save_dir / "weights"
+    for name in ("best.pt", "best.meta.json", "last.pt", "last.meta.json"):
+        check((weights / name).is_file(), f"[fit] {weights / name} missing")
+
+    res, _ = run(FIT_EPOCHS + 1, True)
+    epochs = [r["epoch"] for r in rows(res)]
+    check(res.save_dir == tr.save_dir and res.start_epoch == FIT_EPOCHS
+          and res.epoch_stats[0]["step_start"] == tr.state.step, f"[fit] resume started at epoch {res.start_epoch}, "
+          f"step {res.epoch_stats[0]['step_start']} (the first run ended at step {tr.state.step})")
+    check(epochs == [f"{e + 1}.0" for e in range(FIT_EPOCHS + 1)], f"[fit] results.csv epochs {epochs} after resume")
+    print(f"[fit] resume: started at epoch {res.start_epoch} (0-based) from step {res.epoch_stats[0]['step_start']} "
+          f"in {res.save_dir.name}; results.csv epochs {epochs}")
+
+    best = weights / "best.pt"
+    best_epoch = json.loads((weights / "best.meta.json").read_text())["epoch"]
+    val = cli_val.main(["--weights", str(best), "--data", str(data_yaml), "--batch", str(TRAIN_BATCH)])
+    got, want = (val.metrics.map50, val.metrics.map), evals[best_epoch]
+    print(f"[fit] val CLI on best.pt (epoch {best_epoch + 1}), float32: mAP50 {got[0]:.4f}, mAP50-95 {got[1]:.4f}; "
+          f"the trainer's evaluation of that epoch, bf16: mAP50 {want[0]:.4f}, mAP50-95 {want[1]:.4f}")
+    check(all(np.isfinite(got)) and all(0 <= x <= 1 for x in got)
+          and all(abs(a - b) <= FIT_VAL_TOL for a, b in zip(got, want)), "[fit] the val CLI disagrees with the trainer")
+
+    fit_decode_agreement(torch, best, data_yaml, res)
+
+    server = build_server(best, imgsz=IMGSZ, batch=BATCH, conf=0.001, port=0)
+    try:
+        imgs = [image_io.imread(p) for p in sorted((Path(data_yaml).parent / "images" / "val").iterdir())[:8]]
+        with ThreadPoolExecutor(4) as pool:
+            preds = list(pool.map(server.batcher.submit, imgs))
+        n_boxes = 0
+        for img, pred in zip(imgs, preds):
+            b = pred.boxes
+            h, w = img.shape[:2]
+            check(bool(np.isfinite(b).all()) and bool((b[:, :4] >= 0).all()) and bool((b[:, [0, 2]] <= w).all())
+                  and bool((b[:, [1, 3]] <= h).all()), "[fit] a served box is not finite or outside its image")
+            n_boxes += len(b)
+        print(f"[fit] served best.pt: {len(imgs)} requests through MicroBatcher, {n_boxes} boxes, all finite and "
+              f"inside their images; {server.batcher.stats()}")
+    finally:
+        server.httpd.server_close()
+        server.batcher.close()
     return launches
 
 
@@ -1028,6 +1206,7 @@ def main() -> int:
     import numpy as np
 
     from mga_yolo_tpu_torch.configs import YOLOV8, YOLOV8_CBAM, YOLOV8_ECA, YOLOV8_SPADE
+    from mga_yolo_tpu_torch.data.synthetic import write_synthetic_dataset
     from mga_yolo_tpu_torch.kernels import _build
     from mga_yolo_tpu_torch.models.yolo import create_model
 
@@ -1069,12 +1248,20 @@ def main() -> int:
         paths["train" + name] = train_phase(torch, np, model, attn, sfx, n_timed=n_timed, seg=name != "_base")
         del model
     paths["train_prob"] = train_prob_phase(torch, np)
-    paths["train_data"] = data_phase(torch, np)
-    # each kernel's launches are those of this slice's paths first (the
-    # loader-fed train step, prob_mode, SPADE, plain YOLOv8), else MaskECA's,
-    # else the flagship's
-    order = ("train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base", "train_eca",
-             "serve_eca", "train", "serve")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:  # a scratch directory git ignores
+        t0 = time.perf_counter()
+        data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=256, size=512, max_boxes=MAX_BOXES, seed=0,
+                                            n_val=64)
+        print(f"[data] wrote 256 + 64 (val) grey 512x512 PNGs, their masks and labels in "
+              f"{time.perf_counter() - t0:.2f} s")
+        paths["train_data"] = data_phase(torch, np, data_yaml)
+        paths["fit"] = fit_phase(torch, np, data_yaml, Path(tmp) / "runs")
+    # each kernel's launches are those of this slice's path first (the
+    # training run), then the earlier slices' (the loader-fed train step,
+    # prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
+    order = ("fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base",
+             "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path

@@ -13,14 +13,18 @@ JAX package so each counterpart is easy to find:
     ops/                        boxes, CAM gate, masked pool, NMS and
                                 DFL-backward wrappers (kernel + plain)
     losses/                     TAL assigner + v8 detection loss, seg loss, Kendall
-    train/                      optimizers, schedule, EMA, train and eval steps
+    train/                      optimizers, schedule, EMA, train and eval steps,
+                                the trainer and the validator
     csrc/, kernels/_build.py    CUDA C++ sources and their nvcc/ctypes build
     native/                     host C++ of the data pipeline (g++/ctypes)
     data/                       PNG I/O, mask pyramid, transforms, dataset,
                                 loader, k-fold, a synthetic dataset
-    utils/                      BN fold, JAX -> port weight conversion, the
-                                YAML subset reader/writer
+    utils/                      BN fold, model_info, JAX -> port weight
+                                conversion, the YAML subset reader/writer,
+                                metrics, checkpoints, results.csv, callbacks,
+                                run directories, COCO export
     serve.py                    InferenceEngine, MicroBatcher, MGAServer
+    api.py, cli/                the MGA facade; the train and val CLIs
 
 The package imports torch and numpy; it never imports jax, ``mga_yolo_tpu``,
 OpenCV, PyYAML or PIL. Entry points run on CUDA unless the caller passes

@@ -4,7 +4,8 @@ Grey angiogram-like PNGs (dark vessels on a noisy bright background), a
 binary vessel mask per image, 1 to ``max_boxes`` YOLO boxes per image on
 the vessels (where a stenosis would be marked), and a data YAML with the MGA
 ``dataset`` / ``masks_dir`` keys, in the layout ``data/dataset.py`` reads:
-``images/train``, ``labels/train``, ``masks``. It needs neither OpenCV nor
+``images/train``, ``labels/train``, ``masks`` (and ``images/val``,
+``labels/val`` for a val split). It needs neither OpenCV nor
 PyYAML, so the card's host can make it.
 """
 
@@ -57,19 +58,28 @@ def vessel_image(rng: np.random.Generator, size: int, max_boxes: int):
 
 
 def write_synthetic_dataset(root: str | Path, n: int = 64, size: int = 512, max_boxes: int = 8,
-                            seed: int = 0) -> Path:
-    """Write ``n`` images of ``size`` px under ``root``; returns the data YAML."""
+                            seed: int = 0, n_val: int = 0) -> Path:
+    """Write ``n`` training images of ``size`` px under ``root``; returns the
+    data YAML. With ``n_val`` > 0 a val split of ``n_val`` more images, drawn
+    from ``seed + 1``, goes to ``images/val`` and the YAML names it; else the
+    YAML validates on the training images."""
     root = Path(root)
-    img_dir, lbl_dir, mask_dir = root / "images" / "train", root / "labels" / "train", root / "masks"
-    for d in (img_dir, lbl_dir, mask_dir):
-        d.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    for i in range(n):
-        img, mask, rows = vessel_image(rng, size, max_boxes)
-        image_io.imwrite(img_dir / f"im{i:04d}.png", img)
-        image_io.imwrite(mask_dir / f"im{i:04d}.png", mask)
-        (lbl_dir / f"im{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    mask_dir = root / "masks"
+    mask_dir.mkdir(parents=True, exist_ok=True)
+    splits = [("train", n, seed, "im")]
+    if n_val > 0:
+        splits.append(("val", n_val, seed + 1, "val"))
+    for split, count, split_seed, prefix in splits:
+        img_dir, lbl_dir = root / "images" / split, root / "labels" / split
+        for d in (img_dir, lbl_dir):
+            d.mkdir(parents=True, exist_ok=True)
+        rng = np.random.default_rng(split_seed)
+        for i in range(count):
+            img, mask, rows = vessel_image(rng, size, max_boxes)
+            image_io.imwrite(img_dir / f"{prefix}{i:04d}.png", img)
+            image_io.imwrite(mask_dir / f"{prefix}{i:04d}.png", mask)
+            (lbl_dir / f"{prefix}{i:04d}.txt").write_text("\n".join(rows) + "\n")
     data_yaml = root / "data.yaml"
-    yaml_lite.dump({"path": str(root), "train": "images/train", "val": "images/train", "dataset": str(root),
-                    "masks_dir": "masks", "names": {0: "stenosis"}, "nc": 1}, data_yaml)
+    yaml_lite.dump({"path": str(root), "train": "images/train", "val": "images/val" if n_val > 0 else "images/train",
+                    "dataset": str(root), "masks_dir": "masks", "names": {0: "stenosis"}, "nc": 1}, data_yaml)
     return data_yaml

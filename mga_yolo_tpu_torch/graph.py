@@ -67,6 +67,18 @@ class GraphSpec:
     legacy_detect: bool            # False when C3k2 present (YOLO11-style cls branch)
     yaml_path: str | None = None
 
+    @property
+    def attention_taps(self) -> dict[str, str]:
+        """Module name (``model.{i}``) -> pyramid tag ("P3"/"P4"/"P5") of
+        every attention node: the registry the trainer's per-epoch gate and
+        SPADE statistics read, so a re-indexed layer still reports under its
+        pyramid level."""
+        return {
+            f"model.{n.index}": (n.scale_name or f"L{n.index}").upper()
+            for n in self.nodes
+            if n.index in self.attention_indices
+        }
+
 
 def layer_param_name(node: NodeSpec) -> str:
     """The JAX package's parameter-collection name for a graph node."""

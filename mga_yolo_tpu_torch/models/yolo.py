@@ -3,7 +3,9 @@
 Counterpart of ``mga_yolo_tpu/models/yolo.py``. The graph walk returns
 ``{"det": (decoded (B, A, 4+nc), maps), "seg": {"p3", "p4", "p5"}}`` in eval
 mode and ``{"det": maps, "seg": ...}`` in train mode, with NCHW maps and
-(B, 1, H/s, W/s) mask logits. Layers live in
+(B, 1, H/s, W/s) mask logits; a model built with ``tap_indices`` adds
+``"taps"``: {layer index: that layer's output}, the reference validator's
+forward hooks as plain outputs. Layers live in
 ``self.model[i]`` as in the reference, so state_dict keys are
 ``model.{i}.…`` and converted weights load with ``strict=True``.
 """
@@ -88,9 +90,10 @@ def build_node(node: NodeSpec, spec: GraphSpec, strides: dict[int, int],
 class MGAModel(nn.Module):
     """Graph-walking forward returning det outputs and seg logits."""
 
-    def __init__(self, spec: GraphSpec, prob_approach: str | None = None):
+    def __init__(self, spec: GraphSpec, prob_approach: str | None = None, tap_indices: tuple = ()):
         super().__init__()
         self.spec = spec
+        self.tap_indices = frozenset(tap_indices)
         strides = compute_strides(spec)
         self.model = nn.ModuleList(build_node(n, spec, strides, prob_approach) for n in spec.nodes)
         self.det_strides = tuple(strides[i] for i in spec.nodes[spec.detect_index].inputs)
@@ -101,6 +104,7 @@ class MGAModel(nn.Module):
         save = set(self.spec.save)
         cache: dict[int, torch.Tensor] = {}
         seg: dict[str, torch.Tensor] = {}
+        taps: dict[int, torch.Tensor] = {}
         prev: Any = x
         det_out = None
         for node, mod in zip(self.spec.nodes, self.model):
@@ -115,10 +119,15 @@ class MGAModel(nn.Module):
                 det_out = out
             if node.module == "MGAMaskHead" and node.scale_name:
                 seg[node.scale_name] = out
+            if node.index in self.tap_indices:
+                taps[node.index] = out
             if node.index in save:
                 cache[node.index] = out
             prev = out
-        return {"det": det_out, "seg": seg}
+        out = {"det": det_out, "seg": seg}
+        if self.tap_indices:
+            out["taps"] = taps
+        return out
 
 
 def create_model(
@@ -131,6 +140,7 @@ def create_model(
     remat: Any = False,
     training: bool = False,
     prob_approach: str | None = None,
+    tap_indices: tuple = (),
 ) -> tuple[MGAModel, GraphSpec]:
     """Parse the config and build the model on ``device`` (CUDA when None;
     raises if CUDA is absent), in train mode when ``training`` else in eval
@@ -146,7 +156,8 @@ def create_model(
     ``prob_approach`` (``"deterministic"``, ``"gumbel"``, ``"hard_st"`` or
     ``"bernoulli_detach"``) builds every MaskCBAM with ``prob_mode``, its
     mask gated by a ProbMaskGater of that mode; None builds none.
+    ``tap_indices`` adds those layers' outputs to the forward's ``"taps"``.
     """
     dev = resolve_device(device)
     spec = parse_graph(cfg, scale=scale, nc=nc)
-    return MGAModel(spec, prob_approach).to(dev).train(training), spec
+    return MGAModel(spec, prob_approach, tuple(tap_indices)).to(dev).train(training), spec

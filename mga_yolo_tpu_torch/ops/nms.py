@@ -18,12 +18,16 @@ launches for each of the k steps. The kernel is two device kernels: an IoU
 bitmask of all pairs over many blocks into a (B, k, ceil(k / 64)) 64-bit
 workspace that the wrapper allocates, then a word-blocked greedy scan, one
 block per image. ``launches`` counts calls of the launch function.
+
+:func:`nms_numpy` is the JAX package's one-image host NMS, in numpy: the
+validator's artifacts use it, and the tests hold the device NMS to it.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from mga_yolo_tpu_torch.ops.boxes import xywh2xyxy
@@ -173,3 +177,50 @@ def nms(
     sel_cls = torch.gather(top_cls, 1, sel)
     sel_cls = torch.where(sel_scores > 0, sel_cls, -1.0)
     return sel_boxes, sel_scores, sel_cls
+
+
+def nms_numpy(
+    pred: np.ndarray,            # (A, 4+nc) decoded: xywh px + class probs
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    multi_label: bool = False,
+    class_agnostic: bool = False,
+    max_wh: float = 7680.0,
+) -> np.ndarray:
+    """One image's host NMS -> (N, 6) float32 [x1, y1, x2, y2, conf, cls]."""
+    nc = pred.shape[-1] - 4
+    xy, half = pred[:, :2], pred[:, 2:4] / 2
+    boxes = np.concatenate([xy - half, xy + half], -1)
+    probs = pred[:, 4:]
+
+    if multi_label and nc > 1:
+        ii, jj = np.nonzero(probs > conf_thres)
+        cand = np.concatenate([boxes[ii], probs[ii, jj][:, None], jj[:, None].astype(np.float32)], 1)
+    else:
+        conf = probs.max(-1)
+        cls = probs.argmax(-1).astype(np.float32)
+        keep = conf > conf_thres
+        cand = np.concatenate([boxes[keep], conf[keep][:, None], cls[keep][:, None]], 1)
+    if not len(cand):
+        return np.zeros((0, 6), np.float32)
+
+    cand = cand[np.argsort(-cand[:, 4])][:30000]
+    off = np.zeros(len(cand)) if class_agnostic else cand[:, 5] * max_wh
+    b = cand[:, :4] + off[:, None]
+    keep_idx = []
+    order = np.arange(len(cand))
+    while order.size:
+        i = order[0]
+        keep_idx.append(i)
+        if len(keep_idx) >= max_det or order.size == 1:
+            break
+        rest = order[1:]
+        lt = np.maximum(b[i, :2], b[rest, :2])
+        rb = np.minimum(b[i, 2:], b[rest, 2:])
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        area_i = (b[i, 2:] - b[i, :2]).prod()
+        area_r = (b[rest, 2:] - b[rest, :2]).prod(-1)
+        iou = inter / (area_i + area_r - inter + 1e-7)
+        order = rest[iou <= iou_thres]
+    return cand[np.array(keep_idx, int)].astype(np.float32)

@@ -361,25 +361,22 @@ def build_server(
     scale: str | None = None,
     device: str | torch.device | None = None,
 ) -> MGAServer:
-    """Serve a reference-format checkpoint (what ``mga-ckpt export-torch``
-    writes: ``ema_state_dict`` or ``model_state_dict`` + ``train_args``).
+    """Serve a checkpoint: the trainer's ``weights/best.pt`` (or ``last.pt``)
+    or a reference-format file (what ``mga-ckpt export-torch`` writes), as
+    they are: ``ema_state_dict`` (else ``model_state_dict``) + ``train_args``.
 
-    The graph comes from ``model`` if given, else ``train_args["model"]``,
-    else the flagship config; a file that exists is read by the port's own
-    YAML reader, and an absent path naming a shipped config (``yolov8``,
-    ``yolov8_cbam``, ``yolov8_eca``, ``yolov8_spade``) gives its dict
-    (``graph.parse_graph``).
+    The graph comes from ``model`` if given, else from the checkpoint
+    (``utils.checkpoint.model_config``: its metadata's YAML, else
+    ``train_args["model"]``, else the flagship config); a file that exists is
+    read by the port's own YAML reader, and an absent path naming a shipped
+    config (``yolov8``, ``yolov8_cbam``, ``yolov8_eca``, ``yolov8_spade``)
+    gives its dict (``graph.parse_graph``). The scale is ``scale`` if given,
+    else ``train_args["model_scale"]``, else ``train_args["scale"]``.
     ``device`` defaults to CUDA.
     """
-    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
-    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.utils.checkpoint import rebuild_from_checkpoint
 
-    ckpt = torch.load(str(weights), map_location="cpu", weights_only=True)
-    state = ckpt.get("ema_state_dict") or ckpt["model_state_dict"]
-    train_args = ckpt.get("train_args", {})
-    cfg = model or train_args.get("model") or YOLOV8_CBAM
-    net, _ = create_model(cfg, scale=scale, nc=int(train_args.get("nc", 1)), device=device)
-    net.load_state_dict(state, strict=True)
+    net, _ = rebuild_from_checkpoint(weights, model_yaml=model, scale=scale, device=device)
     engine = InferenceEngine(net, imgsz=imgsz, batch=batch, conf=conf, iou=iou,
                              max_det=max_det, with_masks=with_masks)
     warm_s = engine.warmup()

@@ -199,35 +199,52 @@ def make_eval_step(
     det_cfg: DetLossConfig,
     seg_cfg: SegLossConfig,
     compute_dtype: torch.dtype = torch.float32,
-    nms_on_device: bool = True,
     nms_conf: float = 0.001,
     nms_iou: float = 0.7,
     max_det: int = 300,
     nms_multi_label: bool = False,
 ) -> Callable:
     """Eval step on the EMA weights: decoded predictions, seg logits, the
-    val loss items and (``nms_on_device``) the fixed-shape NMS detections
-    ``dets`` (B, max_det', 6) = xyxy, score, class. ``model`` is copied once
-    into an eval-mode twin that each call loads with the state's EMA."""
+    val loss items and the device NMS's fixed-shape detections
+    ``dets`` (B, max_det', 6) = xyxy, score, class; with a model built with
+    ``tap_indices``, its ``taps`` too. ``model`` is copied once into an
+    eval-mode twin.
+
+    ``eval_step(state, batch)`` loads the state's EMA into the twin and runs
+    the batch. A validation pass, whose EMA does not change between batches,
+    calls ``eval_step.load(state)`` once and then ``eval_step.run(state,
+    batch)`` for each batch."""
     twin = copy.deepcopy(model).eval()
     device = next(twin.parameters()).device
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: dict) -> dict:
+    def load(state: TrainState) -> None:
+        dst, src = [], []
         for name, t in (*twin.named_parameters(), *twin.named_buffers()):
-            src = state.ema_params.get(name, state.ema_bn_stats.get(name))
-            if src is not None:
-                t.copy_(src)
+            ema = state.ema_params.get(name, state.ema_bn_stats.get(name))
+            if ema is not None:
+                dst.append(t)
+                src.append(ema)
+        torch._foreach_copy_(dst, src)
+
+    @torch.no_grad()
+    def run(state: TrainState, batch: dict) -> dict:
         out = _forward(twin, batch, device, compute_dtype)
         decoded, raw = out["det"]
         decoded = decoded.float()
         _, items, _ = mga_loss({"det": raw, "seg": out["seg"]}, _loss_batch(batch, device), strides,
                                nc, state.ema_params["mtl_log_vars"], det_cfg, seg_cfg)
         result: dict[str, Any] = {"decoded": decoded, "seg": out["seg"], "items": items}
-        if nms_on_device:
-            boxes, scores, cls = nms(decoded, conf_thres=nms_conf, iou_thres=nms_iou,
-                                     max_det=max_det, multi_label=nms_multi_label)
-            result["dets"] = torch.cat([boxes, scores[..., None], cls[..., None]], -1)
+        if "taps" in out:
+            result["taps"] = out["taps"]
+        boxes, scores, cls = nms(decoded, conf_thres=nms_conf, iou_thres=nms_iou,
+                                 max_det=max_det, multi_label=nms_multi_label)
+        result["dets"] = torch.cat([boxes, scores[..., None], cls[..., None]], -1)
         return result
 
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        load(state)
+        return run(state, batch)
+
+    eval_step.load, eval_step.run = load, run
     return eval_step

@@ -1,4 +1,5 @@
-"""BN fold for inference (counterpart of ``utils/model_utils.fuse_variables``)."""
+"""BN fold for inference and the model summary (counterparts of
+``utils/model_utils.fuse_variables`` and ``model_info``)."""
 
 from __future__ import annotations
 
@@ -24,3 +25,25 @@ def fuse_model(model: nn.Module) -> nn.Module:
             conv.bias = nn.Parameter(bn.bias - bn.running_mean * factor)
             mod.bn = nn.Identity()
     return model
+
+
+def model_info(model: nn.Module, imgsz: int = 640) -> dict:
+    """Model summary (counterpart of ``utils/model_utils.model_info``): the
+    layer table of its graph, parameters, gradients (parameters that train),
+    nc, scale and the Detect strides."""
+    from mga_yolo_tpu_torch.models.yolo import compute_strides
+
+    spec = model.spec
+    strides = compute_strides(spec)
+    rows = [{"i": n.index, "from": n.from_, "module": n.module, "args": list(n.args), "c_out": n.c_out,
+             "stride": strides[n.index]} for n in spec.nodes]
+    return {
+        "layers": rows,
+        "n_layers": len(rows),
+        "parameters": sum(p.numel() for p in model.parameters()),
+        "gradients": sum(p.numel() for p in model.parameters() if p.requires_grad),
+        "nc": spec.nc,
+        "scale": spec.scale,
+        "detect_strides": [strides[i] for i in spec.nodes[spec.detect_index].inputs],
+        "imgsz": imgsz,
+    }

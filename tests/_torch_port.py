@@ -11,6 +11,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -200,3 +201,14 @@ def close_dict(got, want, what, rtol=0.0, atol=1e-6, rel_to_max=False):
         w = want[k].numpy()
         a = atol * max(float(np.abs(w).max()), 1e-30) if rel_to_max else atol
         np.testing.assert_allclose(got[k].numpy(), w, rtol=rtol, atol=a, err_msg=f"{what} {k}")
+
+
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two intra-op threads for the module's torch work, restored after: the
+    suite runs in several processes on one machine, and torch's default of a
+    thread per core in each makes them wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
