@@ -60,6 +60,15 @@ and the plain YOLOv8n baseline (no mask heads, ``[path-base]`` and
              the MGA_PROB_MODE path. Fails unless the host C++ library of
              ``mga_yolo_tpu_torch/native`` builds and loads. The dataset
              also has a 64-image val split, drawn from another seed.
+   data-dev — device-side augmentation (``augment.on_device``) on the same
+             256 images: a batch of the raw loader finished on the card by
+             ``device_augment.make_augment_fn`` against the host pipeline's
+             batch of the same seeds (the profile's S canvas, and mosaic +
+             HSV on the 2S canvas; every augment tensor on the card); the
+             raw host pipeline's images/s alone and the bytes a batch copies;
+             the augment's device kernels; 12 micro-steps of phase 8's step
+             fed by the raw loader and the augment, beside phase 8's
+             host-fed ones, with launches exact.
 9. fit     — a whole training run of the flagship through ``MGA.train``:
              3 epochs on the 256 images at 640 px, batch 16, nbs 64, bf16,
              a validation of the 64 val images each epoch and of the EMA at
@@ -77,6 +86,17 @@ and the plain YOLOv8n baseline (no mask heads, ``[path-base]`` and
              best.pt served through ``build_server`` and ``MicroBatcher``.
              Per epoch it prints the wall time, images/s, the share spent
              waiting on the loader, the val speed per phase and mAP50.
+   fit-dev — one epoch of ``MGA.train`` with ``augment.on_device`` (the S
+             canvas), validated: the trainer must take the device path;
+             launches exact.
+   predict — on best.pt: ``cli.predict`` over the 64 val PNGs (images/s,
+             files written, 3 CAM gates a batch exactly); the predictor's
+             decoded output and mask logits against a float32 eval step of
+             the trainer's model, within the path tolerances; ``cli.ckpt
+             export-torch`` and the exported file served; ``cli.serve``
+             started as a process on ``--port 0`` answering 4 PNG POSTs,
+             then interrupted; ``cli.profile`` at 640 px against
+             ``count_gflops``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -959,7 +979,7 @@ def fed_summary(rows) -> str:
             f"enqueued) p50 {wait[n // 2]:.2f} ms, {100 * sum(wait) / s_tot:.1f}% of the micro-step time")
 
 
-def data_phase(torch, np, data_yaml, n_steps: int = 12) -> dict:
+def data_phase(torch, np, data_yaml, n_steps: int = 12) -> tuple[dict, dict]:
     """The port's data stack on the card's host (no OpenCV, no PyYAML):
     read the synthetic ARCADE-shaped dataset ``data_yaml`` (written by the
     port) through MGADataset and DataLoader on the shipped cbam_defaults
@@ -968,7 +988,9 @@ def data_phase(torch, np, data_yaml, n_steps: int = 12) -> dict:
     64-image split has 4 batches an epoch, so the loader builds at most 4 at
     once and every fourth micro-step begins an epoch; the 256-image split
     (16 batches an epoch) shows the loader in its steady state, at its
-    default prefetch and with all 8 threads at work."""
+    default prefetch and with all 8 threads at work. Returns the launches and
+    what ``data_dev_phase`` compares with: the train step, its state and
+    schedule, the 256-image loader and its fed micro-steps."""
     from mga_yolo_tpu_torch import native
     from mga_yolo_tpu_torch.config import load_config, seg_loss_config
     from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
@@ -1016,10 +1038,10 @@ def data_phase(torch, np, data_yaml, n_steps: int = 12) -> dict:
     print(f"[data] {n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by the loader, 64 images: "
           f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}; launches {launches}")
     print(f"[data]   of which the {len(steady)} that begin no epoch: {fed_summary(steady)}")
-    st, metrics, rows = fed_steps(torch, np, big, step, st, sched, n_steps)
-    check(not any(r[2] for r in rows), "a timed micro-step of the 256-image split began an epoch")
+    st, metrics, big_rows = fed_steps(torch, np, big, step, st, sched, n_steps)
+    check(not any(r[2] for r in big_rows), "a timed micro-step of the 256-image split began an epoch")
     print(f"[data] {n_steps} micro-steps fed by the loader, 256 images (inside one epoch): "
-          f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}")
+          f"{fed_summary(big_rows)}; last loss {float(metrics['loss']):.4f}")
 
     pcfg = load_config("configs/hyperparams/cbam_defaults.yaml", MGA_PROB_MODE=True, fraction=0.25, **kw)
     ploader = DataLoader(MGADataset(pcfg, "train", augment=True), TRAIN_BATCH, seed=1, workers=8)
@@ -1030,7 +1052,7 @@ def data_phase(torch, np, data_yaml, n_steps: int = 12) -> dict:
     check(seg_loss_config(pcfg).prob_mode and bool(torch.isfinite(pm["loss"])), "MGA_PROB_MODE batch failed")
     print(f"[data] MGA_PROB_MODE batch (prob masks, method {pcfg.mask.prob_method}): loss "
           f"{float(pm['loss']):.4f}, seg items {[round(float(x), 4) for x in pm['items'][3:]]}")
-    return launches
+    return launches, dict(step=step, st=st, sched=sched, host_rows=big_rows, host_loader=big)
 
 
 def fit_decode_agreement(torch, best: Path, data_yaml, trainer) -> None:
@@ -1088,7 +1110,7 @@ def fit_decode_agreement(torch, best: Path, data_yaml, trainer) -> None:
                                               "a wrong checkpoint")
 
 
-def fit_phase(torch, np, data_yaml, project) -> dict:
+def fit_phase(torch, np, data_yaml, project) -> tuple[dict, object, Path]:
     """A whole training run of the flagship through the port's entry points:
     ``MGA(...).train`` on the 256-image set, validating on the 64-image val
     split each epoch, 3 epochs at 640 px, batch 16, nbs 64, bf16, 8 loader
@@ -1097,7 +1119,8 @@ def fit_phase(torch, np, data_yaml, project) -> dict:
     validation batches exactly. Then a resume to epoch 4 in the same
     directory, the val CLI on best.pt (float32) against the trainer's own
     evaluation of the epoch that wrote it (bf16), and best.pt served through
-    ``build_server`` and ``MicroBatcher``. Returns the first run's launches."""
+    ``build_server`` and ``MicroBatcher``. Returns the first run's launches,
+    the resumed run's trainer and best.pt."""
     import csv
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1194,6 +1217,356 @@ def fit_phase(torch, np, data_yaml, project) -> dict:
     finally:
         server.httpd.server_close()
         server.batcher.close()
+    return launches, res, best
+
+# ------------------------------------------------- device augmentation, predict
+
+
+def host_vs_device(np, torch, got: dict, host: dict, pvalid) -> str:
+    """The augment's batch on the card against the host pipeline's batch of
+    the same seeds: images within 2 grey levels and a mean under 1, mask
+    pyramids exact, and boxes within 1e-3 px with labels and mask_gt exact
+    (the JAX package's own bounds); returns the figures. The boxes of a
+    sample whose raw rows are all taken (``pvalid``: 2 * max_boxes boxes
+    before the affine filter) are not compared: the device path, as the
+    JAX package's, keeps only the first 2 * max_boxes, the host filters
+    them all (``ROADMAP.md`` section 3)."""
+    tensors = [v for k, v in got.items() if k != "masks"] + list(got["masks"])
+    check(all(t.is_cuda for t in tensors), "[data-dev] an augment output is not on the card")
+    d = np.abs(got["image"].cpu().numpy().astype(int) - host["image"].astype(int))
+    masks = all(np.array_equal(g.cpu().numpy(), h) for g, h in zip(got["masks"], host["masks"]))
+    rows = pvalid.cpu().numpy().sum(1) < pvalid.shape[1]
+    box = float(np.abs(got["gt_boxes"].cpu().numpy()[rows] - host["gt_boxes"][rows]).max(initial=0.0))
+    labels = (np.array_equal(got["gt_labels"].cpu().numpy()[rows], host["gt_labels"][rows])
+              and np.array_equal(got["mask_gt"].cpu().numpy()[rows], host["mask_gt"][rows]))
+    msg = (f"image max {d.max()} grey levels, mean {d.mean():.5f}, {100 * (d > 0).mean():.3f}% of values differ; "
+           f"pyramids {'equal' if masks else 'DIFFER'}; on {rows.sum()} of {len(rows)} samples (the others hold "
+           f"{pvalid.shape[1]} boxes before the filter) boxes max {box:.2e} px, labels and mask_gt "
+           f"{'equal' if labels else 'DIFFER'}")
+    check(d.max() <= 2 and d.mean() < 1 and masks and box <= 1e-3 and labels, f"[data-dev] device vs host: {msg}")
+    return msg
+
+
+def data_dev_phase(torch, np, data_yaml, fed: dict, n_steps: int = 12) -> dict:
+    """The device-side augmentation (``augment.on_device``) on the card, on
+    the 256-image set with the cbam_defaults profile (no mosaic: the S
+    canvas): one batch against the host pipeline's batch of the same seeds,
+    and one with mosaic 1.0 and the default HSV gains (the 2S canvas);
+    the raw host pipeline's images/s alone; then ``n_steps`` micro-steps of
+    ``data_phase``'s train step fed by the raw loader and the augment, beside
+    that phase's host-fed micro-steps of the same run, with the augment's
+    device time (CUDA events around it in each step, and its kernels'
+    time under the profiler) and the bytes each batch copies to the card;
+    launches exact (3 CAM gates and 1 DFL backward per micro-step)."""
+    from mga_yolo_tpu_torch.config import load_config
+    from mga_yolo_tpu_torch.data import device_augment as DA
+    from mga_yolo_tpu_torch.data.dataset import MGADataset
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+
+    kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES, on_device=True)
+    cfg = load_config("configs/hyperparams/cbam_defaults.yaml", **kw)
+    ok, why = DA.supported(cfg)
+    check(ok and cfg.augment.on_device, f"[data-dev] cbam_defaults not supported on the card: {why}")
+    raw = DataLoader(MGADataset(cfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
+    raw.raw_mode = True
+    host = fed["host_loader"]
+    check(len(raw.dataset) == len(host.dataset) == 256, "[data-dev] the split is not 256 images")
+    augment = DA.make_augment_fn(cfg, MAX_BOXES)
+    cm = DA.canvas_multiplier(cfg.augment, True)
+
+    def first_batches(raw_ld, host_ld):
+        """Batch 0 of epoch 0 of both loaders: the same images and seeds."""
+        raw_ld.set_epoch(0)
+        host_ld.set_epoch(0)
+        rb = raw_ld._make_batch(raw_ld._epoch_batches(), 0, True)
+        return rb, host_ld._make_batch(host_ld._epoch_batches(), 0, True)
+
+    # the profile (no mosaic: the S canvas), then mosaic and the default HSV
+    # gains on the same images (the 2S canvas)
+    mcfg = load_config("configs/hyperparams/cbam_defaults.yaml", **kw, mosaic=1.0, hsv_h=0.015, hsv_s=0.7,
+                       hsv_v=0.4)
+    mraw = DataLoader(MGADataset(mcfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
+    mraw.raw_mode = True
+    mhost = DataLoader(MGADataset(mcfg, "train", augment=True), TRAIN_BATCH, seed=0, workers=8)
+    for what, c, (rb, hb) in (("cbam_defaults", cfg, first_batches(raw, host)),
+                              ("mosaic 1.0 + HSV", mcfg, first_batches(mraw, mhost))):
+        rb.pop("index")
+        d = raw.to_device(rb)
+        check(all(t.is_cuda for t in d.values()), "[data-dev] a raw tensor is not on the card")
+        k = DA.canvas_multiplier(c.augment, True)
+        msg = host_vs_device(np, torch, DA.make_augment_fn(c, MAX_BOXES)(d, d["canvas"].shape[1] // k), hb,
+                             d["pvalid"])
+        print(f"[data-dev] {what}: one batch of {TRAIN_BATCH} (canvas {tuple(rb['canvas'].shape[1:3])}) on the card "
+              f"against the host pipeline, same seeds: {msg}")
+    rb, hb = first_batches(raw, host)
+    rb.pop("index")
+    dev = raw.to_device(rb)
+    n_bytes, host_bytes = DA.batch_bytes(rb), DA.batch_bytes(hb)
+
+    def h2d_ms(batch: dict) -> float:
+        """Device ms of one batch's copies from pinned host memory (median of 5)."""
+        pinned = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for v in batch.values()
+                  for a in (v if isinstance(v, list) else [v])]
+        times = []
+        for _ in range(5):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for t in pinned:
+                t.to("cuda", non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return sorted(times)[2]
+
+    hb_copy = {k: v for k, v in hb.items() if k != "index"}
+    print(f"[data-dev] H2D from pinned memory, one batch: raw {h2d_ms(rb):.3f} ms ({n_bytes / 1e6:.1f} MB), "
+          f"finished {h2d_ms(hb_copy):.3f} ms ({DA.batch_bytes(hb_copy) / 1e6:.1f} MB)")
+
+    n_img, t0 = 0, time.perf_counter()
+    raw.set_epoch(0)
+    for b in raw:
+        check(b["canvas"].shape == (TRAIN_BATCH, cm * IMGSZ, cm * IMGSZ, 3), f"[data-dev] canvas {b['canvas'].shape}")
+        n_img += len(b["canvas"])
+    rate = n_img / (time.perf_counter() - t0)
+    print(f"[data-dev] raw host pipeline alone, 256 images: {n_img} images in {len(raw)} batches -> {rate:.1f} "
+          f"images/s; {n_bytes / 1e6:.1f} MB a batch to the card (canvas {rb['canvas'].nbytes / 1e6:.1f}, mask "
+          f"canvas {rb['mask_canvas'].nbytes / 1e6:.1f}) against {host_bytes / 1e6:.1f} MB of a finished batch")
+
+    dev_ms, names = device_kernels(torch, lambda: augment(dev, dev["canvas"].shape[1] // cm), n=5)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:3]
+    aug_dev = sum(names.values())
+    print(f"[data-dev] augment B={TRAIN_BATCH}: {aug_dev:.3f} ms of device kernels a batch ({dev_ms:.0f} kernels); "
+          f"largest: " + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+    step, st, sched = fed["step"], fed["st"], fed["sched"]
+
+    def stream():
+        epoch = 2000
+        while True:
+            raw.set_epoch(epoch)
+            for bi, b in enumerate(raw):
+                yield b, bi == 0
+            epoch += 1
+
+    def augmented(d):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = augment(d, d["canvas"].shape[1] // cm)
+        e1.record()
+        return out, (e0, e1)
+
+    def copied(b):
+        b.pop("index", None)
+        return raw.to_device(b)
+
+    zero_launches()
+    it = stream()
+    batch, _ = augmented(copied(next(it)[0]))
+    st, _ = step(st, batch, *sched.at(st.step))
+    torch.cuda.synchronize()
+    rows, aug_ms = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        b, first = next(it)
+        d = copied(b)
+        t2 = time.perf_counter()
+        batch, (e0, e1) = augmented(d)
+        st, metrics = step(st, batch, *sched.at(st.step))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rows.append(((t3 - t1) * 1e3, (t2 - t1) * 1e3, first))
+        aug_ms.append(e0.elapsed_time(e1))
+        check(bool(torch.isfinite(metrics["loss"])), f"[data-dev] non-finite loss {float(metrics['loss'])}")
+    launches = read_launches()
+    want = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+    check(launches == want, f"[data-dev] launches {launches} in {n_steps} + 1 micro-steps, want {want}")
+    check(not any(r[2] for r in rows), "[data-dev] a timed micro-step began an epoch")
+    a = sorted(aug_ms)
+    print(f"[data-dev] {n_steps} micro-steps fed by the raw loader + the augment on the card, 256 images (inside "
+          f"one epoch): {fed_summary(rows)}; the augment between "
+          f"CUDA events p50 {a[len(a) // 2]:.3f} ms, max {a[-1]:.3f} ms; last loss {float(metrics['loss']):.4f}; "
+          f"launches {launches}")
+    print(f"[data-dev]   host-fed, the same step in [data] of this run: {fed_summary(fed['host_rows'])}")
+    return launches
+
+
+def fit_dev_phase(torch, np, data_yaml, project) -> dict:
+    """One epoch of the flagship through ``MGA.train`` with
+    ``augment.on_device`` on the 256 images (close_mosaic 10 of 1 epoch:
+    mosaic off, the S canvas), validated; the trainer must take the device
+    path, and the launches are held to its micro-steps and validation
+    batches exactly."""
+    from mga_yolo_tpu_torch.api import MGA
+
+    kw = dict(data=str(data_yaml), imgsz=IMGSZ, batch=TRAIN_BATCH, nbs=NBS, workers=8, max_boxes=MAX_BOXES,
+              val=True, save=True, amp=True, project=str(project), name="fit-dev", on_device=True)
+    m = MGA("configs/models/yolov8_cbam.yaml", scale="n")
+    zero_launches()
+    t0 = time.perf_counter()
+    final = m.train("configs/hyperparams/cbam_defaults.yaml", epochs=1, **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tr = m._trainer
+    check(tr.device_augment and tr.train_loader.raw_mode and not tr.train_loader.use_mosaic,
+          f"[fit-dev] device path {tr.device_augment}, raw {tr.train_loader.raw_mode}, "
+          f"mosaic {tr.train_loader.use_mosaic}")
+    (st,) = tr.epoch_stats
+    steps, val_batches = st["steps"], 2 * len(tr.val_loader)  # the epoch's and the final evaluation
+    want = want_launches({"cam_gate": 3 * (steps + val_batches), "dfl_bwd": steps, "nms_suppress": val_batches})
+    check(launches == want, f"[fit-dev] launches {launches} in {steps} micro-steps and {val_batches} validation "
+                            f"batches, want {want}")
+    check(steps == len(tr.train_loader) and np.isfinite(final.metrics.map50), "[fit-dev] the epoch did not run")
+    v, secs = st["val_speed"], st["train_s"]
+    print(f"[fit-dev] 1 epoch, device augmentation (S canvas): train {secs:.2f} s, {st['images']} images in {steps} "
+          f"micro-steps -> {st['images'] / secs:.1f} img/s, {100 * st['wait_s'] / secs:.1f}% waiting on the loader; "
+          f"val {st['val_s']:.2f} s (preprocess {v['preprocess']:.2f}, inference {v['inference']:.2f}, postprocess "
+          f"{v['postprocess']:.2f} ms an image); mAP50 {final.metrics.map50:.4f}; {wall:.1f} s wall; launches "
+          f"{launches}")
+    return launches
+
+
+def predict_phase(torch, np, data_yaml, trainer, best: Path, tmp: Path) -> dict:
+    """The prediction surface on best.pt: ``cli.predict`` over the 64 val
+    PNGs (images/s, the files it writes; launches exact: 3 CAM gates a
+    batch of 16, no device NMS); the predictor's decoded output and mask
+    logits of the first val batch against a float32 eval step of the
+    trainer's model on best.pt, within the path tolerances; ``cli.ckpt
+    export-torch`` and the exported file served; ``cli.serve`` started as a
+    process on ``--port 0`` answering 4 PNG POSTs; ``cli.profile`` at 640 px
+    against ``count_gflops``. Returns the ``cli.predict`` run's launches."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mga_yolo_tpu_torch.cli import ckpt as cli_ckpt
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.cli import profile as cli_profile
+    from mga_yolo_tpu_torch.config import det_loss_config, seg_loss_config
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.graph import parse_graph
+    from mga_yolo_tpu_torch.serve import build_server
+    from mga_yolo_tpu_torch.train.predictor import load_predictor
+    from mga_yolo_tpu_torch.train.state import make_eval_step
+    from mga_yolo_tpu_torch.train.trainer import count_gflops
+    from mga_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mga_yolo_tpu_torch.utils.layer_profile import total_gflops
+
+    val_dir = Path(data_yaml).parent / "images" / "val"
+    n_val = len(list(val_dir.iterdir()))
+    out_dir = tmp / "predict"
+    log = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        res = cli_predict.main(["--weights", str(best), "--source", str(val_dir), "--out", str(out_dir), "--batch",
+                                str(TRAIN_BATCH), "--save-feature-maps"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = want_launches({"cam_gate": 3 * -(-n_val // TRAIN_BATCH)})
+    check(launches == want, f"[predict] cli.predict launches {launches} over {n_val} images, want {want}")
+    files = sorted(p.name for p in out_dir.iterdir())
+    check(res["images"] == n_val == 64 and len(files) == 5 * n_val, f"[predict] {res['images']} images, {len(files)} files")
+    lines = log.getvalue().splitlines()
+    n_det = sum(int(ln.split(": ")[1].split()[0]) for ln in lines if ln.endswith("detections"))
+    print(f"[predict] cli.predict on best.pt, {n_val} val PNGs, batch {TRAIN_BATCH}, conf 0.25, float32: {wall:.2f} s "
+          f"wall with the model load -> {n_val / wall:.1f} images/s; {len(files)} files ({files[0]} ...), {n_det} "
+          f"detections; last line {lines[-1]!r}; launches {launches}")
+    t0 = time.perf_counter()
+    pred = load_predictor(best)
+    load_s = time.perf_counter() - t0
+    paths = sorted(val_dir.iterdir())
+    pred(paths[:TRAIN_BATCH], batch_size=TRAIN_BATCH)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = pred(paths, batch_size=TRAIN_BATCH)
+    warm = time.perf_counter() - t0
+    print(f"[predict] load_predictor(best.pt) {load_s:.2f} s; MGAPredictor warm, {n_val} images read, letterboxed, "
+          f"forward, host NMS: {warm:.2f} s -> {n_val / warm:.1f} images/s; {sum(len(r) for r in results)} detections")
+
+    vl = trainer.val_loader
+    hb = vl._make_batch(vl._epoch_batches(), 0, False)
+    hb.pop("index")
+    batch = vl.to_device(hb)
+    load_checkpoint(best, trainer.state)
+    ref = make_eval_step(trainer.model, trainer.strides, trainer.spec.nc, det_loss_config(trainer.cfg),
+                         seg_loss_config(trainer.cfg))(trainer.state, batch)
+    decoded, seg = pred.forward_batch(hb["image"])
+    pairs = [(torch.from_numpy(decoded), ref["decoded"].float().cpu(), PATH_ATOL)] + [
+        (torch.from_numpy(seg[k]).permute(0, 3, 1, 2), ref["seg"][k].float().cpu(), 1e-4) for k in ref["seg"]]
+    errs = [float((a - b).abs().max()) if a.shape == b.shape else float("inf") for a, b, _ in pairs]
+    close = all(a.shape == b.shape and torch.allclose(a, b, rtol=PATH_RTOL, atol=atol) for a, b, atol in pairs)
+    print(f"[predict] the predictor's forward on the first {len(hb['image'])} val images against the trainer's float32 "
+          f"eval step on best.pt: max abs error decoded {errs[0]:.4g} px, mask logits {max(errs[1:]):.4g} "
+          f"(rtol {PATH_RTOL}, atol {PATH_ATOL} / 1e-4)")
+    check(close, "[predict] the predictor's reading of best.pt disagrees with the trainer's")
+
+    ref_pt = tmp / "export.pt"
+    with contextlib.redirect_stdout(log):
+        cli_ckpt.main(["export-torch", str(best), str(ref_pt)])
+    server = build_server(ref_pt, imgsz=IMGSZ, batch=BATCH, conf=0.001, port=0)
+    try:
+        imgs = [image_io.imread(p) for p in paths[:4]]
+        with ThreadPoolExecutor(4) as pool:
+            preds = list(pool.map(server.batcher.submit, imgs))
+        check(all(bool(np.isfinite(p.boxes).all()) and len(p.boxes) for p in preds), "[predict] the export served badly")
+        print(f"[predict] cli.ckpt export-torch -> {ref_pt.name} ({ref_pt.stat().st_size / 1e6:.1f} MB), served: "
+              f"{len(preds)} requests, {sum(len(p.boxes) for p in preds)} boxes, all finite")
+    finally:
+        server.httpd.server_close()
+        server.batcher.close()
+
+    proc = subprocess.Popen([sys.executable, "-m", "mga_yolo_tpu_torch.cli.serve", "--weights", str(best), "--port",
+                             "0", "--batch", "4"], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines_q: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines_q.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        t0, port, seen = time.perf_counter(), None, []
+        while port is None and time.perf_counter() - t0 < 240:
+            try:
+                ln = lines_q.get(timeout=1.0)
+            except queue.Empty:
+                check(proc.poll() is None, f"[predict] cli.serve exited {proc.returncode}: {seen[-5:]}")
+                continue
+            seen.append(ln.rstrip())
+            if "listening on http://" in ln:
+                port = int(ln.rsplit(":", 1)[1])
+        check(port is not None, f"[predict] cli.serve printed no port: {seen[-5:]}")
+        up = time.perf_counter() - t0
+
+        def post(p: Path) -> dict:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=p.read_bytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        with ThreadPoolExecutor(4) as pool:
+            replies = list(pool.map(post, paths[:4]))
+        check([r["orig_shape"] for r in replies] == [list(im.shape[:2]) for im in imgs]
+              and all(np.isfinite(b["conf"]) for r in replies for b in r["boxes"]),
+              f"[predict] cli.serve replies {[r.get('orig_shape') for r in replies]}")
+        print(f"[predict] cli.serve as a process on --port 0: up on port {port} in {up:.1f} s (start, model, "
+              f"warm-up); 4 PNG POSTs answered, {sum(len(r['boxes']) for r in replies)} boxes, batch ms "
+              f"{[r['batch_ms'] for r in replies]}; its last lines {seen[-2:]}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"[predict] cli.serve exited {proc.returncode} on SIGINT")
+
+    with contextlib.redirect_stdout(log):
+        rows = cli_profile.main(["--imgsz", str(IMGSZ)])
+    gf = count_gflops(parse_graph("configs/models/yolov8_cbam.yaml", scale="n", nc=1), IMGSZ)
+    check(len(rows) == 29 and total_gflops(rows) == gf, f"[predict] cli.profile: {len(rows)} rows, "
+                                                         f"{total_gflops(rows)} GFLOPs against {gf}")
+    print(f"[predict] cli.profile at {IMGSZ} px: {len(rows)} rows, {sum(r['params'] for r in rows):,} parameters, "
+          f"{total_gflops(rows)} GFLOPs (= count_gflops); Detect out {rows[-1]['out_shape']}")
     return launches
 
 
@@ -1255,13 +1628,19 @@ def main() -> int:
                                             n_val=64)
         print(f"[data] wrote 256 + 64 (val) grey 512x512 PNGs, their masks and labels in "
               f"{time.perf_counter() - t0:.2f} s")
-        paths["train_data"] = data_phase(torch, np, data_yaml)
-        paths["fit"] = fit_phase(torch, np, data_yaml, Path(tmp) / "runs")
-    # each kernel's launches are those of this slice's path first (the
-    # training run), then the earlier slices' (the loader-fed train step,
+        paths["train_data"], fed = data_phase(torch, np, data_yaml)
+        paths["data_dev"] = data_dev_phase(torch, np, data_yaml, fed)
+        del fed
+        paths["fit"], trainer, best = fit_phase(torch, np, data_yaml, Path(tmp) / "runs")
+        paths["fit_dev"] = fit_dev_phase(torch, np, data_yaml, Path(tmp) / "runs")
+        paths["predict"] = predict_phase(torch, np, data_yaml, trainer, best, Path(tmp))
+        del trainer
+    # each kernel's launches are those of this slice's paths first (the
+    # predictor, the run and the steps fed by device augmentation), then the
+    # earlier slices' (the training run, the loader-fed train step,
     # prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base",
-             "train_eca", "serve_eca", "train", "serve")
+    order = ("predict", "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade",
+             "serve_base", "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path

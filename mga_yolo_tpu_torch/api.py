@@ -2,9 +2,9 @@
 (counterpart of ``mga_yolo_tpu/api.py``).
 
 ``MGA(model_yaml_or_checkpoint)``: ``train`` runs :class:`MGATrainer`,
-``val`` the val CLI on the trained (or given) checkpoint, ``info`` the model
-summary. The task is "mga" when the graph has mask heads, else "detect".
-``predict`` waits for the predictor (``ROADMAP.md`` section 1, item 11).
+``val`` the val CLI and ``predict`` the predictor on the trained (or given)
+checkpoint, ``info`` the model summary. The task is "mga" when the graph
+has mask heads, else "detect".
 """
 
 from __future__ import annotations
@@ -19,11 +19,12 @@ from mga_yolo_tpu_torch.graph import parse_graph
 
 
 class MGA:
-    """Facade: a model YAML or a checkpoint in; train / val / info out.
+    """Facade: a model YAML or a checkpoint in; train / val / predict / info out.
 
     >>> m = MGA("configs/models/yolov8_cbam.yaml", scale="n")
     >>> m.train(data="data.yaml", epochs=100, imgsz=512)      # on CUDA; device="cpu" for the CPU
     >>> m.val("data.yaml")                                     # weights/best.pt
+    >>> results = m.predict(["img.png"])                       # [Results], boxes + mga_masks
     """
 
     def __init__(self, model: str | Path, scale: str = "n", task: Optional[str] = None):
@@ -74,8 +75,14 @@ class MGA:
         return val_main(args)
 
     def predict(self, sources, **kw):
-        raise NotImplementedError("MGA.predict waits for the predictor (train/predictor.py): "
-                                  "ROADMAP.md section 1, item 11")
+        """Results of ``sources`` (image paths or BGR arrays) from the
+        weights; ``kw`` goes to ``train.predictor.load_predictor`` (imgsz,
+        conf, iou, max_det, fuse, device)."""
+        from mga_yolo_tpu_torch.train.predictor import load_predictor
+
+        if self._ckpt is None:
+            raise RuntimeError("no weights: train first or construct from a checkpoint")
+        return load_predictor(self._ckpt, **kw)(sources)
 
     def info(self) -> dict:
         """The model summary (parameters counted on a model without storage)."""

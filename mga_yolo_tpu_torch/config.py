@@ -14,8 +14,8 @@ The JAX package's TPU implementation selectors (its ``perf`` section:
 ``kth_impl``, ``dfl_bwd``, ``vconcat_acc``, ``vconcat_min_k``,
 ``packed_split``) choose between implementations the port does not have;
 their keys land in ``extra`` with the other keys no section takes.
-``augment.on_device`` (the device-side augmentation) is not ported yet: a
-config that sets it raises ``NotImplementedError``.
+``augment.on_device`` moves the warp, HSV, flip and mask pyramid onto the
+card (``data/device_augment.py``) where ``device_augment.supported`` allows.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class AugmentConfig:
     cutmix: float = 0.0
     albumentations: float = 0.0  # pixel-transform adapter prob (needs a package neither host has)
     close_mosaic: int = 10  # disable mosaic for the last N epochs
-    on_device: bool = False  # the JAX package's device-side augmentation; not ported yet
+    on_device: bool = False  # warp / HSV / flip / mask pyramid on the card (data/device_augment.py)
 
 
 @dataclasses.dataclass
@@ -238,9 +238,6 @@ def load_config(cfg: str | Path | dict | None = None, **overrides) -> MGAConfig:
             continue
         obj = getattr(out, section)
         setattr(obj, field, _coerce(value, getattr(obj, field)))
-    if out.augment.on_device:
-        raise NotImplementedError("augment.on_device (device-side augmentation) is not ported yet: "
-                                  "ROADMAP.md section 1, item 9")
 
     if out.data.data:
         p = Path(out.data.data)

@@ -8,7 +8,9 @@ epoch, index), so a batch does not depend on which thread built it. Global
 batches can be split into ``num_shards`` per-process shards.
 :meth:`DataLoader.to_device` copies a batch into pinned host buffers and
 from there to the card without blocking the host; the dict it returns is
-the one ``train.state.make_train_step`` takes.
+the one ``train.state.make_train_step`` takes. In :attr:`DataLoader.raw_mode`
+a batch is instead ``device_augment.collate_raw`` of un-warped samples, which
+``device_augment.make_augment_fn`` finishes on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from mga_yolo_tpu_torch.data import device_augment as DA
 from mga_yolo_tpu_torch.data.dataset import MGADataset, collate
 from mga_yolo_tpu_torch.device import resolve_device
 
@@ -51,6 +54,9 @@ class DataLoader:
         self.epoch = 0
         self.use_mosaic = True
         self.size_buckets: Optional[list[int]] = None  # bucketed multi-scale sizes
+        # un-warped canvases, matrices and gains for the device-side
+        # augmentation (data/device_augment.py) instead of finished samples
+        self.raw_mode = False
 
     def __len__(self) -> int:
         if getattr(self.dataset, "rect", False):
@@ -103,8 +109,11 @@ class DataLoader:
         samples = []
         for di in local_idx:
             rng = np.random.default_rng((self.seed * 1_000_003 + self.epoch * 10_007 + int(di)) % (2**63))
-            samples.append(self.dataset.get(int(di), rng, use_mosaic=use_mosaic, imgsz=imgsz))
-        return collate(samples)
+            if self.raw_mode:
+                samples.append(DA.build_raw_sample(self.dataset, int(di), rng, use_mosaic, imgsz))
+            else:
+                samples.append(self.dataset.get(int(di), rng, use_mosaic=use_mosaic, imgsz=imgsz))
+        return DA.collate_raw(samples) if self.raw_mode else collate(samples)
 
     def __iter__(self) -> Iterator[dict]:
         batch_list = self._epoch_batches()

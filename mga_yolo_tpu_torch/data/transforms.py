@@ -131,12 +131,12 @@ def random_flip(sample: Sample, rng: np.random.Generator, fliplr: float, flipud:
     return out
 
 
-def hsv_jitter(img: np.ndarray, r: np.ndarray) -> np.ndarray:
-    """HSV gains ``r`` (3,) on a BGR uint8 image in cv2's uint8 HSV space
-    (H in [0, 180)): BGR -> HSV, h * r0 % 180 / clip(s * r1) / clip(v * r2)
-    truncated as the JAX package's LUTs are, HSV -> BGR."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).float()
-    r = torch.as_tensor(np.asarray(r, np.float32))
+def hsv_jitter_tensor(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """HSV gains on float BGR pixels ``x`` (..., 3) in [0, 255], in cv2's
+    uint8 HSV space (H in [0, 180)): BGR -> HSV, h * r0 % 180 / clip(s * r1)
+    / clip(v * r2) truncated as the JAX package's LUTs are, HSV -> BGR,
+    rounded. ``r`` (..., 3) broadcasts against ``x``: (3,) for one image,
+    (B, 1, 1, 3) for a batch. Float32 on ``x``'s device."""
     b, g, rr = x[..., 0], x[..., 1], x[..., 2]
     v = torch.maximum(torch.maximum(b, g), rr)
     mn = torch.minimum(torch.minimum(b, g), rr)
@@ -148,9 +148,9 @@ def hsv_jitter(img: np.ndarray, r: np.ndarray) -> np.ndarray:
                     torch.where(v == g, 60.0 + 30.0 * (b - rr) / safe, 120.0 + 30.0 * (rr - g) / safe))
     h = torch.floor(torch.where(diff > 0, h, torch.zeros_like(h)) + 0.5)
     h = torch.where(h < 0, h + 180.0, h)
-    h = torch.floor(torch.remainder(h * r[0], 180.0))
-    s = torch.floor(torch.clamp(s * r[1], 0, 255))
-    v = torch.floor(torch.clamp(v * r[2], 0, 255))
+    h = torch.floor(torch.remainder(h * r[..., 0], 180.0))
+    s = torch.floor(torch.clamp(s * r[..., 1], 0, 255))
+    v = torch.floor(torch.clamp(v * r[..., 2], 0, 255))
     sector = torch.floor(h / 30.0)
     f = h / 30.0 - sector
     sf = s / 255.0
@@ -164,7 +164,13 @@ def hsv_jitter(img: np.ndarray, r: np.ndarray) -> np.ndarray:
         return out
 
     red, grn, blu = pick(v, q, p, p, t, v), pick(t, v, v, q, p, p), pick(p, p, t, v, v, q)
-    return torch.clamp(torch.floor(torch.stack([blu, grn, red], -1) + 0.5), 0, 255).to(torch.uint8).numpy()
+    return torch.clamp(torch.floor(torch.stack([blu, grn, red], -1) + 0.5), 0, 255)
+
+
+def hsv_jitter(img: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """:func:`hsv_jitter_tensor` of a BGR uint8 image with gains ``r`` (3,)."""
+    x = torch.from_numpy(np.ascontiguousarray(img)).float()
+    return hsv_jitter_tensor(x, torch.as_tensor(np.asarray(r, np.float32))).to(torch.uint8).numpy()
 
 
 def random_hsv(sample: Sample, rng: np.random.Generator, hgain: float, sgain: float, vgain: float) -> Sample:

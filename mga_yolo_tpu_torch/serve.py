@@ -348,7 +348,7 @@ class MGAServer:
 
 def build_server(
     weights: str | Path,
-    imgsz: int = 640,
+    imgsz: Optional[int] = None,
     batch: int = 8,
     conf: float = 0.25,
     iou: float = 0.45,
@@ -372,12 +372,13 @@ def build_server(
     config (``yolov8``, ``yolov8_cbam``, ``yolov8_eca``, ``yolov8_spade``)
     gives its dict (``graph.parse_graph``). The scale is ``scale`` if given,
     else ``train_args["model_scale"]``, else ``train_args["scale"]``.
-    ``device`` defaults to CUDA.
+    ``imgsz`` defaults to the checkpoint's metadata, else 640; ``device``
+    to CUDA.
     """
     from mga_yolo_tpu_torch.utils.checkpoint import rebuild_from_checkpoint
 
-    net, _ = rebuild_from_checkpoint(weights, model_yaml=model, scale=scale, device=device)
-    engine = InferenceEngine(net, imgsz=imgsz, batch=batch, conf=conf, iou=iou,
+    net, meta = rebuild_from_checkpoint(weights, model_yaml=model, scale=scale, device=device)
+    engine = InferenceEngine(net, imgsz=imgsz or int(meta.get("imgsz", 640)), batch=batch, conf=conf, iou=iou,
                              max_det=max_det, with_masks=with_masks)
     warm_s = engine.warmup()
     print(f"[mga-serve] warmed {engine.batch}x{engine.imgsz}px on {engine.device} in {warm_s:.1f}s")

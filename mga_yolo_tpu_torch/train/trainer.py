@@ -10,9 +10,13 @@ of the EMA, and profiling.yaml.
 
 Runs on one device: CUDA unless ``train.device`` says ``cpu`` (or
 ``cuda:N``); ``amp`` is bf16 autocast on CUDA and float32 on the CPU.
-Not ported yet, and refused with ``NotImplementedError``: more than one
-process and ``mesh_spatial`` > 1 (``ROADMAP.md`` section 1, item 10), and
-``augment.on_device`` (item 9; ``config.load_config`` refuses it).
+With ``augment.on_device`` (and a config ``device_augment.supported``
+accepts) the loader hands over raw canvases and the warp, HSV, flip and
+mask pyramid run on the run's device before each micro-step
+(:attr:`MGATrainer.device_augment`); otherwise the reason is printed and the
+host path runs, as in the JAX package. Not ported yet, and refused with
+``NotImplementedError``: more than one process and ``mesh_spatial`` > 1
+(``ROADMAP.md`` section 1, item 10).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from mga_yolo_tpu_torch.config import MGAConfig, det_loss_config, seg_loss_config
+from mga_yolo_tpu_torch.data import device_augment as DA
 from mga_yolo_tpu_torch.data.dataset import MGADataset
 from mga_yolo_tpu_torch.data.loader import DataLoader
 from mga_yolo_tpu_torch.device import resolve_device
@@ -108,6 +113,17 @@ class MGATrainer:
         if t.multi_scale:  # one size a batch from a small set (the reference resizes continuously)
             s = cfg.data.imgsz
             self.train_loader.size_buckets = sorted({max(64, round(s * f / 64) * 64) for f in (0.75, 1.0, 1.25)})
+        # device-side augmentation: raw canvases + matrices from the loader,
+        # the per-pixel work batched on the device (data/device_augment.py)
+        self._dev_augment = None
+        if cfg.augment.on_device:
+            ok, why = DA.supported(cfg)
+            if ok:
+                self.train_loader.raw_mode = True
+                self._dev_augment = DA.make_augment_fn(cfg, cfg.data.max_boxes)
+            else:
+                print(f"[MGA] augment.on_device disabled: {why}; using host path")
+        self.device_augment = self._dev_augment is not None
         vb = min(t.batch, len(self.val_ds)) or 1
         self.val_loader = DataLoader(self.val_ds, batch_size=vb, shuffle=False, workers=cfg.data.workers,
                                      drop_last=False, device=self.device)
@@ -257,6 +273,7 @@ class MGATrainer:
         n_it = n_img = 0
         wait = 0.0
         step_start = self._host_step
+        aug_cm = DA.canvas_multiplier(self.cfg.augment, self.train_loader.use_mosaic)
         t0 = time.perf_counter()
         it = iter(self.train_loader)
         while True:
@@ -267,11 +284,13 @@ class MGATrainer:
                 break
             wait += time.perf_counter() - tw
             batch.pop("index", None)
-            n_img += batch["image"].shape[0]
+            dev = self.train_loader.to_device(batch)
+            if self._dev_augment is not None:
+                dev = self._dev_augment(dev, dev["canvas"].shape[1] // aug_cm)
+            n_img += dev["image"].shape[0]
             step = self._host_step
             lr, lr_bias, mom = self.schedule.at(step)
-            self.state, metrics = self._train_step(self.state, self.train_loader.to_device(batch),
-                                                   lr, lr_bias, mom)
+            self.state, metrics = self._train_step(self.state, dev, lr, lr_bias, mom)
             items_dev = metrics["items"] if items_dev is None else items_dev + metrics["items"]
             self._host_step = step + 1
             n_it += 1

@@ -15,7 +15,9 @@ is read on it, so the port reads YAML itself. :func:`loads` returns what
 Anything else (anchors, aliases, tags, block scalars, multi-line scalars,
 deeper block nesting, several documents) raises ``ValueError`` with the line.
 :func:`dumps` writes a mapping of scalars, one-level mappings and lists of
-scalars as ``yaml.safe_dump`` does (sorted keys, block style).
+scalars as ``yaml.safe_dump`` does (sorted keys, block style); a list item
+that is itself a mapping or a list is written in flow style on its line
+(``- {index: 0, inputs: [-1]}``), which both readers read back.
 """
 
 from __future__ import annotations
@@ -311,6 +313,18 @@ def _dump_scalar(v: Any) -> str:
     return s if plain_ok else "'" + s.replace("'", "''") + "'"
 
 
+def _dump_flow(v: Any) -> str:
+    """``v`` in flow style: mappings in their own key order."""
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_dump_flow(k)}: {_dump_flow(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(x) for x in v) + "]"
+    out = _dump_scalar(v)
+    if isinstance(v, str) and not out.startswith("'") and any(c in out for c in ",[]{}"):
+        out = "'" + out.replace("'", "''") + "'"
+    return out
+
+
 def dumps(data: dict) -> str:
     """YAML text of a mapping, as ``yaml.safe_dump`` writes it."""
     out = []
@@ -321,7 +335,7 @@ def dumps(data: dict) -> str:
             out += [f"  {_dump_scalar(k)}: {_dump_scalar(x)}" for k, x in sorted(v.items())]
         elif isinstance(v, (list, tuple)) and v:
             out.append(f"{_dump_scalar(key)}:")
-            out += [f"- {_dump_scalar(x)}" for x in v]
+            out += [f"- {_dump_flow(x) if isinstance(x, (dict, list, tuple)) else _dump_scalar(x)}" for x in v]
         elif isinstance(v, (dict, list, tuple)):
             out.append(f"{_dump_scalar(key)}: {'{}' if isinstance(v, dict) else '[]'}")
         else:

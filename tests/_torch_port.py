@@ -212,3 +212,27 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def seeded_variables(jmodel, imgsz: int, seed: int = 0) -> dict:
+    """Variables for ``jmodel`` made with a numpy seed, with no JAX compile:
+    the tree's shapes from ``jax.eval_shape`` of ``init``; kernels normal
+    with std 1/sqrt(fan-in), every other parameter N(0, 0.1), BN statistics
+    and affine parameters perturbed (:func:`perturb_bn`), the Detect class
+    biases zero (so every anchor clears a low confidence threshold)."""
+    shapes = jax.eval_shape(lambda r, x: jmodel.init(r, x, train=False), jax.random.PRNGKey(0),
+                            jax.ShapeDtypeStruct((1, imgsz, imgsz, 3), jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = str(path[-1].key)
+        if name == "kernel":
+            return (rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(s.dtype)
+        return (rng.standard_normal(s.shape) * 0.1).astype(s.dtype)
+
+    v = perturb_bn(jax.tree_util.tree_map_with_path(fill, shapes), seed=seed + 1)
+    detect = next(k for k in v["params"] if k.endswith("_Detect"))
+    for k, p in v["params"][detect].items():
+        if k.startswith("cv3_") and k.endswith("_2"):
+            p["bias"] = np.zeros_like(p["bias"])
+    return v

@@ -175,8 +175,9 @@ def test_mga_facade(run, tmp_path):
     assert info["detect_strides"] == [8, 16, 32]
     res = m.val(run["data"], batch=4, device="cpu")
     assert res.n_images == 4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.predict(["x.png"])
+    img = sorted((run["root"] / "ds" / "images" / "val").iterdir())[0]
+    (pred,) = m.predict([img], imgsz=IMGSZ, conf=0.001, device="cpu")  # the predictor is ported
+    assert pred.path == str(img) and pred.boxes.shape[1] == 6 and set(pred.mga_masks) == {"p3", "p4", "p5"}
     assert MGA("configs/models/yolov8.yaml").task == "detect" and MGA(CBAM).task == "mga"
 
 

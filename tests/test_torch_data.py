@@ -221,8 +221,9 @@ def test_load_config_equals_jax(tmp_path, monkeypatch, stem):
 
     assert dataclasses.asdict(C.det_loss_config(got)) == dataclasses.asdict(det_loss_config(want))
     assert dataclasses.asdict(C.seg_loss_config(got)) == dataclasses.asdict(seg_loss_config(want))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        C.load_config({"on_device": True})
+    on_dev = C.load_config({"on_device": True})  # device-side augmentation is ported: accepted
+    assert on_dev.augment.on_device
+    assert dataclasses.asdict(on_dev.augment) == dataclasses.asdict(jload({"on_device": True}).augment)
 
 
 @pytest.mark.parametrize("stem", ["cbam_defaults", "yolov8"])
