@@ -97,10 +97,36 @@ and the plain YOLOv8n baseline (no mask heads, ``[path-base]`` and
              started as a process on ``--port 0`` answering 4 PNG POSTs,
              then interrupted; ``cli.profile`` at 640 px against
              ``count_gflops``.
+Then data parallelism (``mga_yolo_tpu_torch/parallel``), with ranks that
+share the one card: they show the step is right and what the collectives
+cost, not scaling.
+10. ddp    — two gloo ranks spawned on ``cuda:0`` (NCCL refuses two ranks on
+             one device), each on the strided half of 16-image global
+             batches at 640 px: 4 float32 micro-steps (TF32 off, one apply)
+             against one process on the whole batches (items and BN
+             statistics within train-parity's rtol) and against the same
+             step in float64 (parameters, EMA and momentum: a root-mean-square
+             error at most twice one float32 process's, a max error within
+             fixed limits), the two ranks bit-equal; then 8 bf16 micro-steps
+             a rank: p50, collectives per micro-step, the gradient
+             all-reduce's ms; launches exact.
+    ddp-nccl — one rank in an NCCL group: 4 bf16 micro-steps bit-equal to
+             the no-group step (cuDNN deterministic), the same launches.
+    ddp-fit — two gloo ranks on ``cuda:0`` run ``MGA.train`` for one
+             validated epoch on the 256 + 64 images (global batch 16): rank
+             0 alone writes results.csv and weights/, both ranks compute the
+             same rows and metrics, launches exact (a rank: 16 micro-steps
+             and 4 + 4 validation batches of 8 images).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, when CUDA is unavailable or any phase fails.
+
+``python3 chip_smoke.py --ddp-alone`` runs ``[ddp]`` alone;
+``python3 chip_smoke.py --ddp-faults`` runs it on copies of the checkout,
+unchanged and with each planted fault of ``DDP_FAULTS`` (a BatchNorm or
+gradient all-reduce dropped, per-rank statistics, the unbiased variance),
+and exits non-zero unless the first passes and every fault fails.
 """
 
 from __future__ import annotations
@@ -1570,6 +1596,455 @@ def predict_phase(torch, np, data_yaml, trainer, best: Path, tmp: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- data-parallel
+
+DDP_WORLD = 2  # two ranks that share the one card (gloo: NCCL refuses two ranks on one device)
+DDP_BATCH, DDP_ACC, DDP_TIMED = 16, 4, 8  # global micro-batch, accumulate, timed bf16 micro-steps
+DDP_TIMEOUT_S = 300  # every collective's (the group's), and the wait for the ranks
+# [ddp]'s float32 states against the float64 step: a root-mean-square error over each part of the state at most
+# this many times one float32 process's, and a max error within these fixed limits (abs; x max|m| per tensor)
+DDP_F64_FACTOR, DDP_PARAM_CAP, DDP_M_CAP = 2.0, 1e-5, 5e-3
+
+
+def ddp_group(torch, backend: str, rank: int, world: int, out_dir: str) -> None:
+    import datetime
+
+    torch.distributed.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous-{backend}", rank=rank,
+                                         world_size=world, timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+
+
+def spawn_ranks(fn, args: tuple, world: int = DDP_WORLD) -> None:
+    """``fn(rank, world, *args)`` in ``world`` processes started with spawn;
+    raises if a rank fails or they are not done in twice the collectives'
+    timeout (the ranks are killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * DDP_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"{fn.__name__}: the ranks did not finish in {2 * DDP_TIMEOUT_S} s")
+
+
+def ddp_shard(batch: dict, rank: int, world: int) -> dict:
+    """The rank's rows of a global batch (the loader's strided shard)."""
+    return {k: [m[rank::world] for m in v] if isinstance(v, list) else v[rank::world] for k, v in batch.items()}
+
+
+def ddp_f32_steps(torch, np, rank: int = 0, world: int = 1, f64: bool = False) -> dict:
+    """The flagship (``torch.manual_seed(0)``) takes ``DDP_ACC`` float32
+    micro-steps (TF32 off) at accumulate ``DDP_ACC``, one apply, on the
+    rank's shard of 4 global batches of ``DDP_BATCH``; the loss items summed
+    over the ranks each micro-step, the state on the host after the apply,
+    and the launches of the micro-steps.
+
+    ``f64``: one process takes the same step in float64, the referee of
+    ``[ddp]``: the model (its convolutions, BatchNorm's ``F.batch_norm``),
+    the images after their float32 normalisation, the optimizer and the EMA
+    in float64, with the kernels' plain versions patched in; the loss and
+    the plain CAM gate, which the port computes in float32, stay float32."""
+    import contextlib
+    from unittest import mock
+
+    from mga_yolo_tpu_torch import parallel
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.losses import detection
+    from mga_yolo_tpu_torch.models import attention
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.ops import cam_gate as cg
+    from mga_yolo_tpu_torch.ops import dfl_bwd as db
+    from mga_yolo_tpu_torch.train import state as S
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
+    plain = contextlib.ExitStack()
+    if f64:
+        model.double()
+        normalize = S.normalize_images
+        for target, name, fn in ((S, "normalize_images", lambda im: normalize(im).double()),
+                                 (attention, "cam_gate", cg.cam_gate_ref),
+                                 (detection, "dfl_decode_ce_bwd", db.dfl_decode_ce_bwd_ref)):
+            plain.enter_context(mock.patch.object(target, name, fn))
+    st = S.create_train_state(model)
+    step = make_step(torch, model, DDP_ACC, torch.float32)
+    batches = [ddp_shard(train_batch(np, torch, DDP_BATCH, seed=20 + i), rank, world) for i in range(DDP_ACC)]
+    items = []
+    zero_launches()
+    with plain:
+        for b in batches:
+            st, metrics = step(st, b, 0.01, 0.1, 0.8)
+            items.append(parallel.all_reduce_sum(metrics["items"]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    host = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+    return {"items": torch.stack(items).cpu(), "params": host(st.params()), "bn": host(st.bn_stats()),
+            "ema": host(st.ema_params), "ema_bn": host(st.ema_bn_stats), "m": host(st.opt_state["m"]),
+            "opt_step": st.opt_step, "launches": launches}
+
+
+def ddp_bf16_steps(torch, np, rank: int, world: int) -> dict:
+    """The flagship's bf16 micro-step at the global micro-batch
+    ``DDP_BATCH`` (the rank's shard of it), accumulate ``DDP_ACC``: after a
+    first use, ``DDP_TIMED`` micro-steps with the launch and collective
+    counters zeroed just before, each timed on the host clock to a
+    synchronise; then the apply's gradient all-reduce alone."""
+    from mga_yolo_tpu_torch import parallel
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.models.layers import BatchNorm2d
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.train import state as S
+
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
+    st = S.create_train_state(model)
+    step = make_step(torch, model, DDP_ACC, torch.bfloat16)
+    batch = ddp_shard(train_batch(np, torch, DDP_BATCH, seed=4), rank, world)
+    st, _ = step(st, batch, 0.01, 0.1, 0.8)  # first use: cuDNN plans, allocator
+    for _ in range(DDP_ACC - 1):  # to an apply boundary, so the timed steps hold two applies
+        st, _ = step(st, batch, 0.01, 0.1, 0.8)
+    torch.cuda.synchronize()
+    zero_launches()
+    parallel.collectives = 0
+    times, per_step = [], []
+    for _ in range(DDP_TIMED):
+        c0, t0 = parallel.collectives, time.perf_counter()
+        st, metrics = step(st, batch, 0.01, 0.1, 0.8)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(parallel.collectives - c0)
+        check(bool(torch.isfinite(metrics["loss"])), f"[ddp] rank {rank}: non-finite loss")
+    launches = read_launches()
+    grads = [torch.zeros_like(p) for p in st.params().values()]
+    ar = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.all_reduce_sum_(grads)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    n_bn = sum(1 for m in model.modules() if isinstance(m, BatchNorm2d))
+    return {"times": times, "collectives": per_step, "launches": launches, "allreduce_ms": ar[1:],
+            "grad_numel": sum(g.numel() for g in grads), "n_bn": n_bn, "opt_step": st.opt_step}
+
+
+def ddp_step_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of ``[ddp]``: gloo, on ``cuda:0``; saves its results to
+    ``out_dir/rank{rank}.pt``."""
+    import numpy as np
+    import torch
+
+    torch.cuda.set_device(0)
+    ddp_group(torch, "gloo", rank, world, out_dir)
+    try:
+        out = {"f32": ddp_f32_steps(torch, np, rank, world), "bf16": ddp_bf16_steps(torch, np, rank, world)}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+DDP_STATE = ("params", "ema", "m", "bn", "ema_bn")
+
+
+def ddp_state_errors(got: dict, want: dict) -> dict:
+    """Per part of the state, the max abs error, the max error relative to
+    each tensor's max |want|, the tensor of the latter, and the
+    root-mean-square error over all the part's values."""
+    out = {"items": float(((got["items"] - want["items"]).abs() / want["items"].abs()).max())}
+    for what in DDP_STATE:
+        rows = [(float((got[what][k] - w).abs().max()), max(float(w.abs().max()), 1e-30), k,
+                 float((got[what][k].double() - w.double()).square().sum()), w.numel())
+                for k, w in want[what].items()]
+        worst = max(rows, key=lambda r: r[0] / r[1])
+        rms = (sum(r[3] for r in rows) / sum(r[4] for r in rows)) ** 0.5
+        out[what] = (max(r[0] for r in rows), worst[0] / worst[1], worst[2], rms)
+    return out
+
+
+def ddp_phase(torch, np, tmp: Path) -> dict:
+    """``[ddp]``: two gloo ranks on the card, each on half of every global
+    batch, against one process on the whole of it (float32, one apply); the
+    ranks bit-equal; then the bf16 micro-step, its collectives and the
+    gradient all-reduce. Returns rank 0's launches over the timed bf16
+    micro-steps.
+
+    The loss items and BN statistics are held to ``train_parity_phase``'s
+    tolerances against one float32 process. The parameters, EMA and
+    momentum are held to a referee independent of the data-parallel code:
+    the same step in float64 (``ddp_f32_steps(f64=True)``). Over each part
+    of the state, the two ranks' root-mean-square error against it may be
+    at most ``DDP_F64_FACTOR`` times one float32 process's, and their max
+    error stays within the fixed ``DDP_PARAM_CAP`` / ``DDP_M_CAP``. (A max
+    alone is no measure to take a ratio of: it sits on a bias or scalar
+    whose gradient cancels, and equally valid float32 orders of the
+    BatchNorm sums move it severalfold.) Their distance from one float32
+    process is printed beside train-parity's tolerances. ``chip_smoke.py
+    --ddp-faults`` shows that planted faults of the data-parallel code fail
+    these checks."""
+    out_dir = tmp / "ddp"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(ddp_step_rank, (str(out_dir),))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    want = ddp_f32_steps(torch, np)
+    check(want["launches"] == want_launches({"cam_gate": 3 * DDP_ACC, "dfl_bwd": DDP_ACC}),
+          f"[ddp] one process launched {want['launches']}")
+    ref = ddp_f32_steps(torch, np, f64=True)
+    check(ref["launches"] == want_launches() and ref["opt_step"] == 1, f"[ddp] the float64 step launched "
+          f"{ref['launches']} (the plain versions only), {ref['opt_step']} applies")
+    a, b = (rk["f32"] for rk in ranks)
+    e_one, e_two, e_direct = ddp_state_errors(want, ref), ddp_state_errors(a, ref), ddp_state_errors(a, want)
+    fmt = lambda e: f"items {e['items']:.2e}; " + ", ".join(  # noqa: E731
+        f"{w} {e[w][0]:.2e} / {e[w][1]:.2e} ({e[w][2]}), rms {e[w][3]:.2e}" for w in DDP_STATE)
+    print(f"[ddp] {DDP_WORLD} gloo ranks on cuda:0, {DDP_ACC} float32 micro-steps (TF32 off) of a global batch "
+          f"{DDP_BATCH}x{IMGSZ} ({DDP_BATCH // DDP_WORLD} a rank), one apply; launches per rank {a['launches']}; "
+          f"{wall:.1f} s wall. Max abs / rel-to-max err (tensor), rms, against the float64 step: two ranks "
+          f"{fmt(e_two)}")
+    print(f"[ddp] one float32 process against the float64 step: {fmt(e_one)}")
+    print(f"[ddp] two ranks against one float32 process: {fmt(e_direct)}; train-parity's tolerances (params "
+          f"{TRAIN_PARAM_ATOL} abs, momentum {TRAIN_GRAD_TOL} x max|m|) "
+          + ("met" if e_direct["params"][0] <= TRAIN_PARAM_ATOL and e_direct["ema"][0] <= TRAIN_PARAM_ATOL
+             and e_direct["m"][1] <= TRAIN_GRAD_TOL else "not met"))
+    for r, g in enumerate((a, b)):
+        check(g["opt_step"] == want["opt_step"] == 1, f"[ddp] rank {r}: {g['opt_step']} applies")
+        check(g["launches"] == want["launches"], f"[ddp] rank {r}: launched {g['launches']}, want {want['launches']}")
+        torch.testing.assert_close(g["items"], want["items"], rtol=TRAIN_ITEMS_RTOL, atol=0)
+        for what in ("bn", "ema_bn"):  # BN running statistics: float32 sums in another order
+            for k, w in want[what].items():
+                torch.testing.assert_close(g[what][k], w, rtol=TRAIN_ITEMS_RTOL, atol=TRAIN_PARAM_ATOL,
+                                           msg=lambda s: f"[ddp] rank {r} {what} {k}: {s}")
+        e = ddp_state_errors(g, ref)
+        for w, i, cap in (("params", 0, DDP_PARAM_CAP), ("ema", 0, DDP_PARAM_CAP), ("m", 1, DDP_M_CAP)):
+            check(e[w][3] <= DDP_F64_FACTOR * e_one[w][3], f"[ddp] rank {r}: {w} rms err {e[w][3]:.2e} against "
+                  f"the float64 step, over {DDP_F64_FACTOR:g}x one float32 process's {e_one[w][3]:.2e}")
+            check(e[w][i] <= cap, f"[ddp] rank {r}: {w} max err {e[w][i]:.2e} against the float64 step "
+                  f"({e[w][2]}), over the limit {cap}")
+    for what in DDP_STATE:
+        check(all(torch.equal(a[what][k], b[what][k]) for k in a[what]), f"[ddp] ranks 0 and 1 differ in {what}")
+    print(f"[ddp] items and BN statistics within rtol {TRAIN_ITEMS_RTOL} of one process (train-parity's); against "
+          f"the float64 step params, EMA and momentum within {DDP_F64_FACTOR:g}x one float32 process's rms error "
+          f"(ratios {', '.join(f'{w} {e_two[w][3] / e_one[w][3]:.2f}' for w in ('params', 'ema', 'm'))}), max "
+          f"errors within {DDP_PARAM_CAP} abs / {DDP_M_CAP} x max|m|; ranks 0 and 1 bit-equal")
+    for r, rk in enumerate(ranks):
+        h = rk["bf16"]
+        lat = sorted(h["times"])
+        n_bn, per = h["n_bn"], h["collectives"]
+        want_c = 3 * n_bn + 1  # BN: forward sum + count and squared deviations, backward the two sums; the normaliser
+        check(sorted(set(per)) == [want_c, want_c + 1] and per.count(want_c + 1) == DDP_TIMED // DDP_ACC,
+              f"[ddp] rank {r}: collectives per micro-step {per}, want {want_c} (+1 at an apply)")
+        want_l = want_launches({"cam_gate": 3 * DDP_TIMED, "dfl_bwd": DDP_TIMED})
+        check(h["launches"] == want_l, f"[ddp] rank {r}: bf16 launches {h['launches']}, want {want_l}")
+        ar = sorted(h["allreduce_ms"])
+        print(f"[ddp] rank {r}: {DDP_TIMED} bf16 micro-steps of {DDP_BATCH // DDP_WORLD}x{IMGSZ} (global "
+              f"{DDP_BATCH}, accumulate {DDP_ACC}): p50 {lat[len(lat) // 2]:.2f} ms, max {lat[-1]:.2f} ms; "
+              f"collectives per micro-step {want_c} ({n_bn} BNs x 3 + the loss normaliser; +1 gradient all-reduce "
+              f"at an apply); gradient all-reduce of {h['grad_numel']:,} float32 on the card p50 "
+              f"{ar[len(ar) // 2]:.2f} ms (max {ar[-1]:.2f}); launches {h['launches']}")
+    return ranks[0]["bf16"]["launches"]
+
+
+def ddp_nccl_phase(torch, np, tmp: Path) -> dict:
+    """``[ddp-nccl]``: one rank in an NCCL group (world size 1) takes the
+    bf16 micro-step 4 times (one apply) and equals the no-group step bit for
+    bit, with the same launches; cuDNN deterministic, and the no-group step
+    taken twice first to show it is repeatable. Returns the group's launches."""
+    import torch.distributed as dist
+
+    from mga_yolo_tpu_torch import parallel
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.train import state as S
+
+    batch = train_batch(np, torch, DDP_BATCH // DDP_WORLD, seed=6)
+
+    def run():
+        torch.manual_seed(0)
+        model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
+        st = S.create_train_state(model)
+        step = make_step(torch, model, DDP_ACC, torch.bfloat16)
+        zero_launches()
+        for _ in range(DDP_ACC):
+            st, _ = step(st, batch, 0.01, 0.1, 0.8)
+        torch.cuda.synchronize()
+        state = {**st.params(), **st.bn_stats(), **{f"ema.{k}": v for k, v in st.ema_params.items()},
+                 **{f"m.{k}": v for k, v in st.opt_state["m"].items()}}
+        return {k: v.detach().clone() for k, v in state.items()}, read_launches(), st.opt_step
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_l, _ = run()
+        again, _, _ = run()
+        check(all(torch.equal(again[k], v) for k, v in ref.items()), "[ddp-nccl] the no-group step is not repeatable")
+        out_dir = tmp / "ddp-nccl"
+        out_dir.mkdir()
+        ddp_group(torch, "nccl", 0, 1, str(out_dir))
+        try:
+            check(dist.get_backend() == "nccl" and parallel.world() == 1 and not parallel.active(),
+                  "[ddp-nccl] not a one-rank NCCL group")
+            got, got_l, applies = run()
+            probe = torch.arange(4.0).cuda()
+            dist.all_reduce(probe)
+            parallel.barrier("ddp-nccl")
+            check(probe.tolist() == [0.0, 1.0, 2.0, 3.0], f"[ddp-nccl] an NCCL all-reduce over one rank gave {probe}")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = [k for k, v in ref.items() if torch.equal(got[k], v)]
+    check(len(same) == len(ref), f"[ddp-nccl] {len(ref) - len(same)} of {len(ref)} tensors differ from the no-group "
+                                 f"step, e.g. {next((k for k in ref if k not in same), None)}")
+    check(got_l == ref_l == want_launches({"cam_gate": 3 * DDP_ACC, "dfl_bwd": DDP_ACC}),
+          f"[ddp-nccl] launches {got_l}, no group {ref_l}")
+    print(f"[ddp-nccl] a one-rank NCCL group: {DDP_ACC} bf16 micro-steps of {DDP_BATCH // DDP_WORLD}x{IMGSZ} "
+          f"({applies} apply) bit-equal to the no-group step ({len(ref)} tensors: parameters, BN statistics, EMA, "
+          f"momentum), launches {got_l} in both; an NCCL all-reduce on the card")
+    return got_l
+
+
+def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: str) -> None:
+    """One rank of ``[ddp-fit]``: ``MGA.train`` for one validated epoch on
+    ``cuda:0`` in a gloo group; saves what it computed and launched."""
+    import torch
+
+    from mga_yolo_tpu_torch.api import MGA
+    from mga_yolo_tpu_torch.train import trainer as T
+
+    rows = []
+
+    class RecordingBus(T.CallbackBus):
+        def fire(self, event, **kw):
+            if event == "on_fit_epoch_end":
+                rows.append({k: v for k, v in kw["row"].items() if k != "time"})
+            super().fire(event, **kw)
+
+    T.CallbackBus = RecordingBus
+    torch.cuda.set_device(0)
+    ddp_group(torch, "gloo", rank, world, out_dir)
+    try:
+        m = MGA("configs/models/yolov8_cbam.yaml", scale="n")
+        zero_launches()
+        t0 = time.perf_counter()
+        final = m.train("configs/hyperparams/cbam_defaults.yaml", data=data_yaml, imgsz=IMGSZ, batch=TRAIN_BATCH,
+                        nbs=NBS, workers=4, max_boxes=MAX_BOXES, val=True, save=True, amp=True, epochs=1,
+                        device="cuda:0", project=project, name="ddp-fit")
+        wall = time.perf_counter() - t0
+        tr = m._trainer
+        (st,) = tr.epoch_stats
+        out = {"launches": read_launches(), "rows": rows, "map": (final.metrics.map50, final.metrics.map),
+               "has_csv": tr.csv is not None, "save_dir": str(tr.save_dir), "steps": st["steps"],
+               "images": st["images"], "train_s": st["train_s"], "wait_s": st["wait_s"], "val_s": st["val_s"],
+               "val_batches": 2 * len(tr.val_loader), "wall": wall}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ddp_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
+    """``[ddp-fit]``: two gloo ranks on the card run ``MGA.train`` for one
+    validated epoch on the 256 + 64 images (cbam_defaults, global batch 16):
+    rank 0 alone writes results.csv and weights/, both ranks compute the same
+    rows and metrics, and each rank's launches are exact (its 16 micro-steps
+    of 8 images and 4 + 4 validation batches of 8). Returns rank 0's."""
+    import csv
+
+    out_dir = tmp / "ddp-fit"
+    out_dir.mkdir()
+    spawn_ranks(ddp_fit_rank, (str(out_dir), str(data_yaml), str(tmp / "runs")))
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    a, b = ranks
+    check(a["rows"] == b["rows"] and len(a["rows"]) == 1 and a["map"] == b["map"],
+          f"[ddp-fit] the ranks computed different rows or metrics: {a['rows']} {b['rows']}")
+    check(a["has_csv"] and not b["has_csv"] and a["save_dir"] == b["save_dir"], "[ddp-fit] a rank other than 0 writes")
+    run_dir = Path(a["save_dir"])
+    with open(run_dir / "results.csv", newline="") as f:
+        check(len(list(csv.DictReader(f))) == 1, "[ddp-fit] results.csv does not have one row")
+    for name in ("best.pt", "last.pt"):
+        check((run_dir / "weights" / name).is_file(), f"[ddp-fit] {name} missing")
+    steps = 256 // TRAIN_BATCH  # every rank takes every micro-step of the epoch, on its 8 images
+    val_batches = 2 * (64 // TRAIN_BATCH)  # the epoch's and the final evaluation's, 8 images a rank each
+    want = want_launches({"cam_gate": 3 * (steps + val_batches), "dfl_bwd": steps, "nms_suppress": val_batches})
+    for r, rk in enumerate(ranks):
+        check(rk["steps"] == steps and rk["val_batches"] == val_batches and rk["images"] == steps * TRAIN_BATCH // 2,
+              f"[ddp-fit] rank {r}: {rk['steps']} micro-steps, {rk['images']} images, {rk['val_batches']} val batches")
+        check(rk["launches"] == want, f"[ddp-fit] rank {r}: launches {rk['launches']}, want {want}")
+        print(f"[ddp-fit] rank {r}: 1 epoch, {rk['steps']} micro-steps of {TRAIN_BATCH // 2} images: train "
+              f"{rk['train_s']:.2f} s -> {rk['images'] / rk['train_s']:.1f} img/s a rank, "
+              f"{100 * rk['wait_s'] / rk['train_s']:.1f}% waiting on the loader; val {rk['val_s']:.2f} s; "
+              f"{rk['wall']:.1f} s wall; launches {rk['launches']}")
+    row = a["rows"][0]
+    print(f"[ddp-fit] both ranks: train det {row['train/det/total']:.4f} seg {row['train/seg/total']:.4f}, val det "
+          f"{row['val/det/total']:.4f}, mAP50 {a['map'][0]:.4f}; rank 0 alone wrote results.csv and weights/")
+    return a["launches"]
+
+
+# planted faults of ``--ddp-faults``, each [ddp] must catch: (file, text as it stands, its replacement)
+_LAYERS, _STATE = "mga_yolo_tpu_torch/models/layers.py", "mga_yolo_tpu_torch/train/state.py"
+DDP_FAULTS = {
+    "bn-backward-unreduced": [(_LAYERS, "        parallel.all_reduce_sum_([glob])\n", "")],
+    "bn-statistics-per-rank": [(_LAYERS, "        parallel.all_reduce_sum_([s])\n", ""),
+                               (_LAYERS, "        parallel.all_reduce_sum_([m2])\n", "")],
+    "bn-variance-unbiased": [(_LAYERS, "        var = m2 / n\n", "        var = m2 / (n - 1)\n")],
+    "gradient-unreduced": [(_STATE, "parallel.all_reduce_sum_(grads)", "pass")],
+}
+
+
+def ddp_faults() -> int:
+    """``chip_smoke.py --ddp-faults``: ``[ddp]`` alone (``--ddp-alone``) on
+    a copy of this checkout, then on a copy with each of ``DDP_FAULTS``
+    planted; exits non-zero unless the first passes and every fault fails.
+    The copies live in the build directory, which git ignores."""
+    import shutil
+
+    from mga_yolo_tpu_torch.kernels import _build
+
+    root = Path(__file__).resolve().parent
+    print(gpu_name_and_power())
+    _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])  # the copies take the libraries
+    ok = True
+    for name, edits in (("none", []), *DDP_FAULTS.items()):
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            tree = Path(tmp) / "tree"
+            shutil.copytree(root, tree, ignore=shutil.ignore_patterns(".git", "chiprun_out", "_build",
+                                                                     ".smoke_checkout"))
+            shutil.copytree(_build.BUILD_DIR, tree / _build.BUILD_DIR.relative_to(root),
+                            ignore=shutil.ignore_patterns("tmp*"))
+            for f, old, new in edits:
+                text = (tree / f).read_text()
+                check(text.count(old) == 1, f"[ddp-faults] {name}: {old.strip()!r} is not once in {f}")
+                (tree / f).write_text(text.replace(old, new))
+            run = subprocess.run([sys.executable, "chip_smoke.py", "--ddp-alone"], cwd=tree, capture_output=True,
+                                 text=True, timeout=2 * DDP_TIMEOUT_S)
+        lines = [ln for ln in (run.stdout + run.stderr).splitlines() if ln.startswith(("[ddp]", "RuntimeError",
+                                                                                       "AssertionError"))]
+        caught = run.returncode != 0
+        ok &= caught == bool(edits)
+        print(f"[ddp-faults] {name}: [ddp] {'failed' if caught else 'passed'} (exit {run.returncode})"
+              + ("" if caught == bool(edits) else " -- WRONG"))
+        for ln in lines[:3] + lines[-1:]:
+            print(f"[ddp-faults] {name}:   {ln[:600]}")
+    return 0 if ok else 1
+
+
+def ddp_alone() -> int:
+    """``chip_smoke.py --ddp-alone``: build the kernels and run ``[ddp]``."""
+    import numpy as np
+    import torch
+
+    from mga_yolo_tpu_torch.kernels import _build
+
+    _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        ddp_phase(torch, np, Path(tmp))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1635,12 +2110,18 @@ def main() -> int:
         paths["fit_dev"] = fit_dev_phase(torch, np, data_yaml, Path(tmp) / "runs")
         paths["predict"] = predict_phase(torch, np, data_yaml, trainer, best, Path(tmp))
         del trainer
+        t0 = time.perf_counter()
+        paths["ddp"] = ddp_phase(torch, np, Path(tmp))
+        paths["ddp_nccl"] = ddp_nccl_phase(torch, np, Path(tmp))
+        paths["ddp_fit"] = ddp_fit_phase(torch, np, data_yaml, Path(tmp))
+        print(f"[ddp] the three data-parallel phases took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches are those of this slice's paths first (the
-    # predictor, the run and the steps fed by device augmentation), then the
-    # earlier slices' (the training run, the loader-fed train step,
-    # prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("predict", "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade",
-             "serve_base", "train_base", "train_eca", "serve_eca", "train", "serve")
+    # data-parallel run, micro-steps and NCCL group), then the earlier
+    # slices' (the predictor, device augmentation, the training run, the
+    # loader-fed train step, prob_mode, SPADE, plain YOLOv8), else MaskECA's,
+    # else the flagship's
+    order = ("ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev", "data_dev", "fit", "train_data", "train_prob",
+             "serve_spade", "train_spade", "serve_base", "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path
@@ -1656,4 +2137,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"]):
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: CUDA is not available; this script runs on a CUDA card only")
+        sys.exit(ddp_faults() if sys.argv[1] == "--ddp-faults" else ddp_alone())
     sys.exit(main())

@@ -47,6 +47,9 @@ class MGA:
         self.task = task or ("mga" if self.spec.mask_head_indices else "detect")
 
     def train(self, cfg: str | dict | None = None, **overrides):
+        """Train with :class:`MGATrainer`: on the ranks of the process group
+        the caller initialised (``torch.distributed.init_process_group``),
+        if any, as one global batch of ``batch``; else on one device."""
         from mga_yolo_tpu_torch.train.trainer import MGATrainer
 
         overrides.setdefault("model", self.model_path)

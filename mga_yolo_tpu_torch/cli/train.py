@@ -4,6 +4,13 @@ Counterpart of ``mga_yolo_tpu/cli/train.py`` (the reference's ``mga-train``):
 a training YAML plus ``--key value`` (or ``--key=value``) overrides, typed
 as YAML values by the port's own reader (numbers, bools, lists), forwarded to
 the trainer. The run is on CUDA unless ``--device cpu`` (or ``cuda:N``).
+
+Data-parallel under ``torchrun`` (the reference's DDP launch): with
+``WORLD_SIZE`` > 1 in the environment and no process group yet, the CLI
+initialises one from torchrun's variables, NCCL on the card and gloo with
+``--device cpu``, and destroys it when the run ends::
+
+    torchrun --nproc_per_node=N -m mga_yolo_tpu_torch.cli.train --cfg ... --batch 64
 """
 
 from __future__ import annotations
@@ -44,9 +51,19 @@ def main(argv: list[str] | None = None):
     args, rest = parser.parse_known_args(argv)
     overrides = parse_overrides(rest)
 
+    import torch.distributed as dist
+
+    from mga_yolo_tpu_torch import parallel
+    from mga_yolo_tpu_torch.config import load_config
     from mga_yolo_tpu_torch.train.trainer import train
 
-    return train(args.cfg, **overrides)
+    cfg = load_config(args.cfg, **overrides)
+    own_group = parallel.init_from_env(cfg.train.device)
+    try:
+        return train(cfg)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -98,7 +98,9 @@ def load_labels_cached(img_files: list[Path], split: str) -> list[np.ndarray]:
     """Every label file parsed once, kept in ``.mga_labels_{split}.cache.npz``
     beside the first label file, keyed by a hash of the label files' paths,
     mtimes and sizes (a change to any re-parses them all). A cache that
-    cannot be read or written falls back to parsing."""
+    cannot be read or written falls back to parsing. The cache is written to
+    a name of this process's and renamed into place, so the ranks of a
+    data-parallel run, which start together, never read a partial file."""
     lbl_paths = [label_path_for(p) for p in img_files]
     if not lbl_paths:
         return []
@@ -116,14 +118,17 @@ def load_labels_cached(img_files: list[Path], split: str) -> list[np.ndarray]:
             if str(z["key"]) == key:
                 offs = np.concatenate([[0], np.cumsum(z["lengths"])]) * 5
                 return [z["flat"][a:b].reshape(-1, 5) for a, b in zip(offs[:-1], offs[1:])]
-    except (OSError, ValueError, KeyError):
+    except (OSError, ValueError, KeyError, EOFError):
         pass
     labels = [parse_yolo_label_file(p) for p in lbl_paths]
+    tmp = cache_path.with_name(f"{cache_path.name}.{os.getpid()}.tmp")
     try:
         flat = np.concatenate([x.reshape(-1) for x in labels]).astype(np.float32)
-        np.savez(cache_path, key=key, flat=flat, lengths=np.asarray([len(x) for x in labels], np.int64))
+        with open(tmp, "wb") as f:
+            np.savez(f, key=key, flat=flat, lengths=np.asarray([len(x) for x in labels], np.int64))
+        os.replace(tmp, cache_path)
     except OSError:
-        pass  # a read-only label directory: parsing on every start still works
+        tmp.unlink(missing_ok=True)  # a read-only label directory: parsing on every start still works
     return labels
 
 
@@ -233,10 +238,13 @@ class MGADataset:
                     pass
             return
 
-        def write(i: int) -> None:
+        def write(i: int) -> None:  # renamed into place: another rank may be reading the sidecars
             npy = self._npy_sidecar(i)
             if not npy.exists():
-                np.save(str(npy), image_io.imread(self.img_files[i]))
+                tmp = npy.with_name(f"{npy.name}.{os.getpid()}.tmp")
+                with open(tmp, "wb") as f:
+                    np.save(f, image_io.imread(self.img_files[i]))
+                os.replace(tmp, npy)
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             list(pool.map(write, range(n)))

@@ -2,11 +2,16 @@
 Kendall MTL, and :func:`mga_loss`, the full multi-task criterion
 (counterpart of ``mga_yolo_tpu/losses/__init__.py``) with the reference's
 10-item ``loss_items`` vector :data:`LOSS_ITEM_NAMES`.
+
+Data-parallel: given a :class:`GlobalBatch`, :func:`mga_loss` returns this
+rank's *share* of the loss of the global batch, whose shares (and their
+gradients) sum over the ranks to the global loss (and its gradient).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -15,6 +20,7 @@ from mga_yolo_tpu_torch.losses.mtl import kendall_combine
 from mga_yolo_tpu_torch.losses.segmentation import SegLossConfig, segmentation_loss
 
 __all__ = [
+    "GlobalBatch",
     "DetLossConfig",
     "SegLossConfig",
     "v8_detection_loss",
@@ -38,6 +44,21 @@ LOSS_ITEM_NAMES = (
 )
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalBatch:
+    """A rank's view of a global batch split into ``world`` even shards.
+
+    ``sum_ranks(t)`` returns the sum over the ranks of a detached tensor
+    (``parallel.all_reduce_sum``; a test may return the known global value).
+    The detection loss sums its target-score normaliser with it and scales
+    by the global batch; every per-image or per-pixel mean, and the Kendall
+    regularisers, are divided by ``world``.
+    """
+
+    world: int
+    sum_ranks: Callable[[torch.Tensor], torch.Tensor]
+
+
 def mga_loss(
     outputs: dict,
     batch: dict,
@@ -46,8 +67,10 @@ def mga_loss(
     mtl_log_vars: torch.Tensor,
     det_cfg: DetLossConfig = DetLossConfig(),
     seg_cfg: SegLossConfig = SegLossConfig(),
+    share: Optional[GlobalBatch] = None,
 ):
-    """Full multi-task loss.
+    """Full multi-task loss (with ``share``, this rank's share of it and of
+    its items).
 
     Args:
         outputs: the model's ``{"det": maps or (decoded, maps), "seg": {...}}``.
@@ -57,7 +80,8 @@ def mga_loss(
         mtl_log_vars: (2,) Kendall log-variances (trainable).
 
     Returns:
-        (total, loss_items (10,), logs dict)
+        (total, loss_items (10,), logs dict); ``logs["det/norm"]`` is this
+        batch's own target-score sum (not summed over ranks)
     """
     det_maps = outputs["det"]
     if isinstance(det_maps, tuple):  # eval-mode output (decoded, maps)
@@ -65,12 +89,13 @@ def mga_loss(
     # loss math in float32; the det maps keep their storage type and
     # v8_detection_loss casts per consumer (the DFL tensor stays bf16)
     seg = {k: v.float() for k, v in outputs["seg"].items()}
+    world = 1 if share is None else share.world
     l_det, det_comps = v8_detection_loss(
-        det_maps, strides, batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], nc, det_cfg
+        det_maps, strides, batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], nc, det_cfg, share
     )
     # a model without mask heads (plain YOLOv8) has seg items of exactly 0
-    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg, device=l_det.device)
-    total, mtl_logs = kendall_combine(l_det, l_seg, mtl_log_vars)
+    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg, device=l_det.device, world=world)
+    total, mtl_logs = kendall_combine(l_det, l_seg, mtl_log_vars, world)
 
     z = torch.zeros((), device=l_det.device)
     items = torch.stack([

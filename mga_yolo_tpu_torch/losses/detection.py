@@ -212,9 +212,15 @@ def v8_detection_loss(
     mask_gt: torch.Tensor,     # (B, M)
     nc: int,
     cfg: DetLossConfig = DetLossConfig(),
+    share=None,
 ):
-    """Returns (total, {'box', 'cls', 'dfl'} detached): BCE cls + CIoU box +
-    DFL with the cfg gains, scaled by the batch size (reference loss.py)."""
+    """Returns (total, {'box', 'cls', 'dfl', 'norm'} detached): BCE cls +
+    CIoU box + DFL with the cfg gains, scaled by the batch size (reference
+    loss.py); 'norm' is this batch's unclamped target-score sum.
+
+    With ``share`` (a ``losses.GlobalBatch``) the target-score normaliser is
+    summed over the ranks (one detached scalar) and the scale is the global
+    batch: the rank's share of the global batch's loss and items."""
     reg_max = cfg.reg_max
     B = det_maps[0].shape[0]
     pred_distri, pred_scores = flatten_det_maps(det_maps, reg_max, nc)
@@ -236,7 +242,8 @@ def v8_detection_loss(
             gt_labels, gt_bboxes, mask_gt, nc,
             topk=cfg.tal_topk, alpha=cfg.tal_alpha, beta=cfg.tal_beta,
         )
-        target_scores_sum = target_scores.sum().clamp_min(1.0)
+        norm = target_scores.sum()
+        target_scores_sum = (norm if share is None else share.sum_ranks(norm)).clamp_min(1.0)
         tb_feat = target_bboxes / stride_tensor
         weight = target_scores.sum(-1) * fg_mask
         target_ltrb = bbox2dist(anchor_points, tb_feat, reg_max - 1)
@@ -251,5 +258,5 @@ def v8_detection_loss(
     loss_box = loss_iou * cfg.box
     loss_cls = loss_cls * cfg.cls
     loss_dfl = loss_dfl * cfg.dfl
-    total = (loss_box + loss_cls + loss_dfl) * B
-    return total, {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
+    total = (loss_box + loss_cls + loss_dfl) * (B if share is None else B * share.world)
+    return total, {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach(), "norm": norm}

@@ -72,11 +72,15 @@ def segmentation_loss(
     targets: Sequence[torch.Tensor],    # per-scale GT masks (B, 1, H, W) or (B, H, W)
     cfg: SegLossConfig = SegLossConfig(),
     device: torch.device | None = None,
+    world: int = 1,
 ):
     """Returns (total, logs {sk_bce, sk_dice, sk_combined, seg_total}).
 
     The total is a zero on ``device`` (by default the predictions') when the
-    loss is disabled or the model has no mask heads (plain YOLOv8)."""
+    loss is disabled or the model has no mask heads (plain YOLOv8). A rank
+    of ``world`` holding an even shard of the global batch divides each
+    term, a mean over its images or pixels, by ``world``: the shares sum
+    over the ranks to the global batch's means."""
     if device is None:
         device = next((v.device for v in preds.values()), None)
     total = torch.zeros((), device=device)
@@ -96,13 +100,13 @@ def segmentation_loss(
             tgt = resize(tgt, tuple(pred.shape[-2:]))
         w_scale = cfg.scale_weights[i] if i < len(cfg.scale_weights) else 1.0
         if cfg.use_unified_focal:
-            first = modified_focal_ce(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma)
-            second = modified_focal_tversky(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma, cfg.smooth)
+            first = modified_focal_ce(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma) / world
+            second = modified_focal_tversky(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma, cfg.smooth) / world
             combined = w_scale * (cfg.ufl_lambda * first + (1.0 - cfg.ufl_lambda) * second)
         else:
             p32 = pred.float()
-            first = optax_sigmoid_bce(p32, tgt).mean()
-            second = soft_dice(torch.sigmoid(p32), tgt, cfg.smooth).mean()
+            first = optax_sigmoid_bce(p32, tgt).mean() / world
+            second = soft_dice(torch.sigmoid(p32), tgt, cfg.smooth).mean() / world
             combined = w_scale * (cfg.bce_weight * first + cfg.dice_weight * second)
         logs[f"{sk}_bce"] = first.detach()
         logs[f"{sk}_dice"] = second.detach()

@@ -3,7 +3,10 @@
 MaskCBAM (with the probabilistic mask gate :class:`ProbMaskGater` under
 ``prob_mode``), MaskECA and MaskSPADE. Every random draw takes the
 ``torch.Generator`` its caller passes (the train step's), as the JAX package
-draws from the ``"gater"`` RNG collection.
+draws from the ``"gater"`` RNG collection. With a process group of two or
+more, each rank draws for the global batch from its identically seeded
+generator and keeps its own rows (the loader's strided shard), so N ranks
+draw what one process draws.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.models.layers import BatchNorm2d, resize_bilinear
 from mga_yolo_tpu_torch.ops.cam_gate import cam_gate
 from mga_yolo_tpu_torch.ops.masked_pool import masked_pool
@@ -49,10 +53,14 @@ class ProbMaskGater(nn.Module):
             return p
         if generator is None:
             raise ValueError(f"ProbMaskGater: mode {self.mode!r} in train mode draws from a generator; pass one")
+        W, r = parallel.world(), parallel.rank()
         if self.mode == "bernoulli_detach":
-            return torch.bernoulli(p.detach(), generator=generator)
+            pg = p.new_zeros((p.shape[0] * W, *p.shape[1:]))
+            pg[r::W] = p.detach()
+            return torch.bernoulli(pg, generator=generator)[r::W]
         eps = 1e-6
-        u = torch.rand((2, *p.shape), generator=generator, device=p.device).clamp(eps, 1 - eps)
+        u = torch.rand((2, p.shape[0] * W, *p.shape[1:]), generator=generator, device=p.device)[:, r::W]
+        u = u.clamp(eps, 1 - eps)
         g = -torch.log(-torch.log(u[0])) + torch.log(-torch.log(u[1]))
         pc = p.clamp(eps, 1 - eps)
         m_soft = torch.sigmoid((torch.log(pc) - torch.log1p(-pc) + g) / self.tau)

@@ -8,7 +8,8 @@ The virtual-concat 1x1 (ConvBNSum) and the separable SPPF pool of the JAX
 package's train mode are TPU memory devices: they compute what concat +
 1x1 conv and one k x k pool compute, which is what these modules do in both
 modes. Train mode differs from PyTorch's default only in the BatchNorm's
-running variance (:class:`BatchNorm2d`).
+running variance (:class:`BatchNorm2d`), and, with a process group of two
+or more, in its statistics: those of the global batch.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mga_yolo_tpu_torch import parallel
 
 BN_EPS = 1e-3  # reference initialize_weights sets eps=1e-3 on every BatchNorm2d
 BN_MOMENTUM = 0.03  # torch convention; flax's momentum=0.97
@@ -36,6 +39,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     a few (C,) operations and no second pass over the activations. (The
     copy matters: autograd saves the variance tensor that batch_norm
     updates.) Keys, eval mode and normalisation are PyTorch's.
+
+    With a process group of two or more ranks (``parallel.active()``), train
+    mode normalises with the statistics of the global batch, as the JAX
+    package's BatchNorm over a batch sharded on the data axis does:
+    :class:`SyncBatchNormFn`. Every rank then makes the same running update.
     """
 
     def __init__(self, c: int, affine: bool = True):
@@ -44,6 +52,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if parallel.active():
+            return self._forward_global(x)
         self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
         new = self.running_var.clone()
@@ -51,6 +61,89 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1.0 - self.momentum) / n).add_(new, alpha=(n - 1) / n)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        self.num_batches_tracked.add_(1)
+        y, mean, var = SyncBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():  # flax's update, toward the biased variance
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+
+class SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of all ranks.
+
+    ``(x, weight, bias, eps) -> (y, mean, var)``: per channel the global
+    mean and *biased* variance, in two passes as one process computes them:
+    the sum and count all-reduced, then the sum of squared deviations from
+    the global mean (``E[x^2] - E[x]^2`` cancels at 640 px in bf16). The
+    output and the backward follow the formulas of PyTorch's own CPU batch
+    norm (``y = x * a + c``; ``dx = (dy - sum(dy)/n - (x - mean) * sum((x -
+    mean) * dy) * invstd^2/n) * invstd * weight``), and the backward
+    all-reduces its two per-channel sums. The affine gradients stay this
+    rank's; the train step sums them over the ranks with every other
+    gradient. Three collectives a layer and micro-step. ``weight`` and
+    ``bias`` may be None.
+
+    The arithmetic is in float32, and in float64 for a float32 input on the
+    card. One process there runs cuDNN's fused BatchNorm, which rounds each
+    output once; these formulas in float32 round several times an element,
+    which puts a float32 step of the flagship at 640 px several times
+    further from the same step in float64 than cuDNN does (root-mean-square
+    over the parameters; ``chip_smoke.py`` ``[ddp]`` holds it within 2x).
+    On the CPU they are what its one-process BatchNorm computes.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        acc = _acc_dtype(x)
+        xf = x.to(acc)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, C] + [1] * (x.dim() - 2)
+        s = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // C)])
+        parallel.all_reduce_sum_([s])
+        n = s[C]
+        mean = s[:C] / n
+        d = xf - mean.view(shape)
+        m2 = (d * d).sum(dims)
+        parallel.all_reduce_sum_([m2])
+        var = m2 / n
+        invstd = torch.rsqrt(var + eps)
+        a = invstd if weight is None else invstd * weight.to(acc)
+        c = -mean * a if bias is None else bias.to(acc) - mean * a
+        y = xf * a.view(shape) + c.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean.float(), var.float()
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        C = x.shape[1]
+        acc = _acc_dtype(x)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, C] + [1] * (x.dim() - 2)
+        g = dy.to(acc)
+        d = x.to(acc) - mean.view(shape)
+        local = torch.stack([g.sum(dims), (d * g).sum(dims)])  # (2, C): this rank's sum(dy), sum((x - mean) * dy)
+        dweight = dbias = None
+        if weight is not None and ctx.needs_input_grad[1]:
+            dweight = (local[1] * invstd).to(weight.dtype)
+        if weight is not None and ctx.needs_input_grad[2]:
+            dbias = local[0].to(weight.dtype)
+        glob = local.clone()
+        parallel.all_reduce_sum_([glob])
+        k = glob[1] * invstd * invstd / n
+        scale = invstd if weight is None else invstd * weight.to(acc)
+        dx = (g - (glob[0] / n).view(shape) - d * k.view(shape)) * scale.view(shape)
+        return dx.to(x.dtype), dweight, dbias, None
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """:class:`SyncBatchNormFn`'s arithmetic type for ``x``."""
+    return torch.float64 if x.dtype == torch.float64 or (x.is_cuda and x.dtype == torch.float32) else torch.float32
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:

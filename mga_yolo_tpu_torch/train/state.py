@@ -11,6 +11,14 @@ BN statistics). BN statistics update on every micro-step. The counters and
 the apply decision live on the host, where the step count is known, so the
 step never waits for the device.
 
+With a process group of two or more ranks (``parallel``), each rank takes
+its shard of the global batch; BatchNorm and the loss normalisers are those
+of the global batch, each rank's loss is its share of the global loss, and
+the accumulated gradient is summed over the ranks once at each apply,
+before the clip (by linearity the same as a sum every micro-step, at one
+collective an apply). Every rank then applies the same update, so the
+states stay equal; :func:`create_train_state` starts them from rank 0's.
+
 A batch is the JAX package's batch dict: ``image`` (B, H, W, 3) uint8,
 ``gt_boxes`` (B, M, 4) xyxy pixels, ``gt_labels`` (B, M), ``mask_gt`` (B, M)
 and ``masks``, one (B, H/s, W/s, 1) mask per stride 8, 16, 32; numpy arrays
@@ -26,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.losses import mga_loss
 from mga_yolo_tpu_torch.losses.detection import DetLossConfig
 from mga_yolo_tpu_torch.losses.segmentation import SegLossConfig
@@ -72,18 +81,31 @@ class TrainState:
 
 def create_train_state(model: MGAModel, opt_name: str = "sgd") -> TrainState:
     """State for ``model`` as it stands (its weights become the EMA's start),
-    with zeroed ``mtl_log_vars`` and optimizer slots."""
+    with zeroed ``mtl_log_vars`` and optimizer slots. With a process group
+    of two or more, the model's parameters and buffers are rank 0's first."""
     dev = next(model.parameters()).device
     mtl = torch.zeros(2, dtype=torch.float32, device=dev, requires_grad=True)
     state = TrainState(model=model, mtl_log_vars=mtl, opt_state={}, ema_params={},
                        ema_bn_stats={}, groups={})
     params = state.params()
+    parallel.broadcast_state(list(model.state_dict(keep_vars=True).values()))
     with torch.no_grad():
         state.opt_state = optim.init_opt_state(opt_name, params)
         state.ema_params = {k: p.detach().clone() for k, p in params.items()}
         state.ema_bn_stats = {k: b.detach().clone() for k, b in state.bn_stats().items()}
     state.groups = optim.param_groups(params)
     return state
+
+
+def broadcast_train_state(state: TrainState) -> None:
+    """Rank 0's whole state on every rank (after a resume): the model's
+    parameters and buffers, ``mtl_log_vars``, the EMA, the optimizer slots
+    and the accumulation buffer. The counters come from the same file."""
+    tensors = [*state.model.state_dict(keep_vars=True).values(), state.mtl_log_vars,
+               *state.ema_params.values(), *state.ema_bn_stats.values(),
+               *(t for slot in state.opt_state.values() for t in slot.values()),
+               *(state.accum_grads or {}).values()]
+    parallel.broadcast_state(tensors)
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -155,6 +177,7 @@ def make_train_step(
     @torch.no_grad()
     def apply(state: TrainState, grads: list, lr, lr_bias, momentum) -> None:
         state.opt_step += 1
+        parallel.all_reduce_sum_(grads)  # the global batch's gradient, before the clip
         params = state.params()
         if max_grad_norm and max_grad_norm > 0:
             optim.clip_by_global_norm(grads, max_grad_norm)
@@ -172,7 +195,7 @@ def make_train_step(
         state.model.train()
         out = _forward(state.model, batch, device, compute_dtype, generator)
         total, items, logs = mga_loss(out, _loss_batch(batch, device), strides, nc,
-                                      state.mtl_log_vars, det_cfg, seg_cfg)
+                                      state.mtl_log_vars, det_cfg, seg_cfg, parallel.loss_share())
         params = state.params()
         grads = list(torch.autograd.grad(total, list(params.values())))
         state.step += 1
@@ -213,7 +236,12 @@ def make_eval_step(
     ``eval_step(state, batch)`` loads the state's EMA into the twin and runs
     the batch. A validation pass, whose EMA does not change between batches,
     calls ``eval_step.load(state)`` once and then ``eval_step.run(state,
-    batch)`` for each batch."""
+    batch)`` for each batch.
+
+    The eval step reduces nothing: with a process group of two or more it
+    runs this rank's shard, its ``items`` are the shard's own, and
+    ``det_norm`` is the shard's target-score sum, from which the validator
+    rebuilds the global batch's items once a pass."""
     twin = copy.deepcopy(model).eval()
     device = next(twin.parameters()).device
 
@@ -232,9 +260,10 @@ def make_eval_step(
         out = _forward(twin, batch, device, compute_dtype)
         decoded, raw = out["det"]
         decoded = decoded.float()
-        _, items, _ = mga_loss({"det": raw, "seg": out["seg"]}, _loss_batch(batch, device), strides,
-                               nc, state.ema_params["mtl_log_vars"], det_cfg, seg_cfg)
-        result: dict[str, Any] = {"decoded": decoded, "seg": out["seg"], "items": items}
+        _, items, logs = mga_loss({"det": raw, "seg": out["seg"]}, _loss_batch(batch, device), strides,
+                                  nc, state.ema_params["mtl_log_vars"], det_cfg, seg_cfg)
+        result: dict[str, Any] = {"decoded": decoded, "seg": out["seg"], "items": items,
+                                  "det_norm": logs["det/norm"]}
         if "taps" in out:
             result["taps"] = out["taps"]
         boxes, scores, cls = nms(decoded, conf_thres=nms_conf, iou_thres=nms_iou,

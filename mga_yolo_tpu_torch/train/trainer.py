@@ -10,13 +10,20 @@ of the EMA, and profiling.yaml.
 
 Runs on one device: CUDA unless ``train.device`` says ``cpu`` (or
 ``cuda:N``); ``amp`` is bf16 autocast on CUDA and float32 on the CPU.
+Data-parallel on the ranks of an initialised process group (``parallel``),
+as the JAX trainer is on ``jax.process_count()`` hosts: ``train.batch`` is
+the global batch, each rank takes its strided shard of every train and val
+batch (on ``cuda:LOCAL_RANK`` when the device is ``cuda`` or unset), the
+steps compute the global batch's update, and only rank 0 writes (the run
+directory, results.csv, checkpoints, profiling.yaml, plot arrays, traces,
+the callbacks' loggers).
 With ``augment.on_device`` (and a config ``device_augment.supported``
 accepts) the loader hands over raw canvases and the warp, HSV, flip and
 mask pyramid run on the run's device before each micro-step
 (:attr:`MGATrainer.device_augment`); otherwise the reason is printed and the
 host path runs, as in the JAX package. Not ported yet, and refused with
-``NotImplementedError``: more than one process and ``mesh_spatial`` > 1
-(``ROADMAP.md`` section 1, item 10).
+``NotImplementedError``: ``mesh_spatial`` > 1 (the spatial mesh axis,
+``ROADMAP.md`` section 1, item 10).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.config import MGAConfig, det_loss_config, seg_loss_config
 from mga_yolo_tpu_torch.data import device_augment as DA
 from mga_yolo_tpu_torch.data.dataset import MGADataset
@@ -88,17 +96,20 @@ class MGATrainer:
         self.cfg = cfg
         t = cfg.train
         # everything that can refuse the config runs before the run directory exists
-        self.device = resolve_device(t.device)
+        self.world, self.rank, self.is_main = parallel.world(), parallel.rank(), parallel.is_main()
+        self.device = resolve_device(parallel.local_device(t.device))
         if int(cfg.extra.get("mesh_spatial", 1) or 1) > 1:
             raise NotImplementedError("mesh_spatial > 1 (the spatial mesh axis) is not ported yet: "
-                                      "ROADMAP.md section 1, item 10")
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError("training on more than one process (DDP) is not ported yet: "
-                                      "ROADMAP.md section 1, item 10")
+                                      "ROADMAP.md section 1, item 10, spatial axis")
+        if t.batch % self.world:
+            raise ValueError(f"the global batch {t.batch} does not divide into {self.world} ranks")
+        if self.device.type == "cuda" and self.world > 1:
+            torch.cuda.set_device(self.device)  # NCCL's object collectives use the current card
         from mga_yolo_tpu_torch.utils.files import resolve_save_dir
 
-        self.save_dir = resolve_save_dir(t.project, t.name, exist_ok=t.exist_ok, resume=t.resume)
+        # rank 0 names the run directory (a second run lands in name2) and alone creates it
+        self.save_dir = parallel.broadcast_object(
+            resolve_save_dir(t.project, t.name, exist_ok=t.exist_ok, resume=t.resume) if self.is_main else None)
 
         torch.manual_seed(t.seed)  # the weights' initialisation
         self.model, self.spec = create_model(
@@ -108,8 +119,9 @@ class MGATrainer:
 
         self.train_ds = MGADataset(cfg, "train", augment=True)
         self.val_ds = MGADataset(cfg, "val", augment=False)
+        shards = dict(num_shards=self.world, shard_index=self.rank)
         self.train_loader = DataLoader(self.train_ds, batch_size=t.batch, seed=t.seed,
-                                       workers=cfg.data.workers, device=self.device)
+                                       workers=cfg.data.workers, device=self.device, **shards)
         if t.multi_scale:  # one size a batch from a small set (the reference resizes continuously)
             s = cfg.data.imgsz
             self.train_loader.size_buckets = sorted({max(64, round(s * f / 64) * 64) for f in (0.75, 1.0, 1.25)})
@@ -125,8 +137,9 @@ class MGATrainer:
                 print(f"[MGA] augment.on_device disabled: {why}; using host path")
         self.device_augment = self._dev_augment is not None
         vb = min(t.batch, len(self.val_ds)) or 1
+        vb = max(self.world, vb - vb % self.world)  # a whole shard a rank
         self.val_loader = DataLoader(self.val_ds, batch_size=vb, shuffle=False, workers=cfg.data.workers,
-                                     drop_last=False, device=self.device)
+                                     drop_last=False, device=self.device, **shards)
 
         self.steps_per_epoch = max(len(self.train_loader), 1)
         # the reference's 'auto' rule: iterations decide SGD vs AdamW, and
@@ -137,8 +150,9 @@ class MGATrainer:
         if self.opt.auto_selected:
             print(f"[MGA] optimizer=auto -> {self.opt.name} (lr0={self.opt.lr0}, "
                   f"momentum={self.opt.momentum}) from {iterations} iterations")
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        (self.save_dir / "weights").mkdir(exist_ok=True)
+        if self.is_main:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            (self.save_dir / "weights").mkdir(exist_ok=True)
         # torch's Adam keeps beta1 fixed through the warmup
         warm_mom = self.opt.momentum if self.opt.name in ("adam", "adamw") else t.warmup_momentum
         self.schedule = optim.Schedule(
@@ -162,9 +176,9 @@ class MGATrainer:
             self.model, self.strides, self.spec.nc, det_cfg, seg_cfg, compute_dtype=self.compute_dtype,
             nms_conf=0.001, nms_iou=0.7, max_det=300, nms_multi_label=self.spec.nc > 1)
         self.validator = Validator(self._eval_step, self.val_loader, cfg, iou_thres=0.7)
-        self.csv = ResultsCSV(self.save_dir)
+        self.csv = ResultsCSV(self.save_dir) if self.is_main else None
         self.callbacks = CallbackBus()
-        if t.plots:
+        if t.plots and self.is_main:
             TensorBoardLogger(self.save_dir / "tb").register(self.callbacks)
             if cfg.extra.get("wandb"):
                 WandBLogger(t.project, t.name).register(self.callbacks)
@@ -248,12 +262,14 @@ class MGATrainer:
 
     def _try_resume(self) -> None:
         last = self.save_dir / "weights" / "last.pt"
-        if last.exists():
-            self.state, meta = ckpt_util.load_checkpoint(last, self.state)
+        if parallel.broadcast_object(last.exists()):  # rank 0's answer: every rank resumes, or none
+            self.state, meta = ckpt_util.load_checkpoint(last, self.state)  # every rank reads the same file
+            S.broadcast_train_state(self.state)
             self.start_epoch = int(meta.get("epoch", -1)) + 1
             self.best_fitness = float(meta.get("best_fitness", 0.0))
             # drop rows of the epochs this run repeats: no duplicate epoch rows
-            self.csv.truncate_after_epoch(self.start_epoch)
+            if self.is_main:
+                self.csv.truncate_after_epoch(self.start_epoch)
             print(f"[MGA] resumed from epoch {self.start_epoch} (step {self.state.step})")
 
     # ------------------------------------------------------------------ train
@@ -267,7 +283,7 @@ class MGATrainer:
     def _train_epoch(self, epoch: int) -> tuple[np.ndarray, dict]:
         """One epoch of micro-steps; returns the mean loss items (read from
         the device once) and the epoch's timing."""
-        profiling = bool(self.cfg.extra.get("profile")) and epoch == self.start_epoch
+        profiling = bool(self.cfg.extra.get("profile")) and epoch == self.start_epoch and self.is_main
         prof = self._profiler().__enter__() if profiling else None
         items_dev = None  # a running sum on the device: no host sync per step
         n_it = n_img = 0
@@ -302,6 +318,8 @@ class MGATrainer:
         if prof is not None:
             prof.__exit__(None, None, None)
             self._save_trace(prof)
+        if items_dev is not None:  # with a group: each rank's shares, summed to the global batches' items
+            parallel.all_reduce_sum_([items_dev])
         tloss = (items_dev.detach().double().cpu().numpy() / max(n_it, 1) if items_dev is not None
                  else np.zeros(10, np.float64))
         secs = time.perf_counter() - t0
@@ -315,11 +333,14 @@ class MGATrainer:
 
     def train(self) -> ValResult:
         t = self.cfg.train
-        self.write_profiling_yaml()
+        if self.is_main:
+            self.write_profiling_yaml()
+        ranks = f" (rank {self.rank} of {self.world})" if self.world > 1 else ""
         print(f"[MGA] training {t.model} scale={t.model_scale} on {len(self.train_ds)} images, "
-              f"{self.steps_per_epoch} it/epoch, {self.device}, {self.n_params() / 1e6:.2f}M params")
+              f"{self.steps_per_epoch} it/epoch, {self.device}{ranks}, {self.n_params() / 1e6:.2f}M params")
         last_result: Optional[ValResult] = None
         self.callbacks.fire("on_train_start", trainer=self)
+        parallel.barrier("mga:pre-train")
         for epoch in range(self.start_epoch, t.epochs):
             self.callbacks.fire("on_train_epoch_start", trainer=self, epoch=epoch)
             self.train_loader.set_epoch(epoch, t.epochs)
@@ -334,7 +355,7 @@ class MGATrainer:
             fitness = 0.0
             if t.val:
                 art_dir = None
-                if t.save_fm and self._is_capture_epoch(epoch):
+                if t.save_fm and self._is_capture_epoch(epoch) and self.is_main:
                     art_dir = self.save_dir / "feature_maps" / f"epoch_{epoch + 1}"
                 tv = time.perf_counter()
                 result = self.validator(self.state, save_artifacts_dir=art_dir, max_artifacts=t.save_fm_max)
@@ -354,15 +375,16 @@ class MGATrainer:
             row.update(self._collect_spade_stats())
             row["lr"] = self.schedule.at(self._host_step)[0]
             row["time"] = stats["train_s"]
-            self.csv.append(row)
+            if self.is_main:
+                self.csv.append(row)
             self.callbacks.fire("on_fit_epoch_end", trainer=self, epoch=epoch, row=row)
 
             save_ms = 0.0
-            if fitness >= self.best_fitness:
+            if fitness >= self.best_fitness:  # the same fitness on every rank (gathered metrics)
                 self.best_fitness = fitness
-                if t.save:
+                if t.save and self.is_main:
                     save_ms += self.save_checkpoint("best", epoch, fitness)
-            if t.save:
+            if t.save and self.is_main:
                 save_ms += self.save_checkpoint("last", epoch, fitness)
                 self.callbacks.fire("on_model_save", trainer=self, epoch=epoch)
                 if t.save_period > 0 and (epoch + 1) % t.save_period == 0:
@@ -384,7 +406,8 @@ class MGATrainer:
 
         # the final evaluation of the in-memory EMA, with the class table and the plot arrays
         if t.val:
-            last_result = self.validator(self.state, plots_dir=self.save_dir if t.plots else None, verbose=True)
+            last_result = self.validator(self.state, plots_dir=self.save_dir if t.plots and self.is_main else None,
+                                         verbose=self.is_main)
             speed_str = ", ".join(f"{k} {v:.1f}ms" for k, v in last_result.speed.items())
             print(f"[MGA] final: mAP50={last_result.metrics.map50:.4f} "
                   f"mAP50-95={last_result.metrics.map:.4f} speed: {speed_str}")

@@ -7,6 +7,13 @@ gives each batch's detections; the host matches them to the ground truth in
 numpy (``utils.metrics``), fills the confusion matrix, and optionally writes
 COCO JSON and artifacts: the detections drawn on the images and the mask
 probabilities as PNGs, the raw mask logits and tapped features as ``.npy``.
+
+With a process group of two or more, each rank validates its shard of every
+global batch (the loader pads the last one and the rows it repeats are
+skipped); the matching statistics are gathered, and the confusion matrix
+and the loss items of the global batches summed over the ranks, once at the
+end of a pass, so every rank computes the JAX package's metrics, confusion
+matrix and val loss.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.data import image_io
 from mga_yolo_tpu_torch.data.loader import DataLoader
 from mga_yolo_tpu_torch.ops.nms import nms_numpy
@@ -85,6 +93,21 @@ def draw_boxes(img: np.ndarray, dets: np.ndarray) -> np.ndarray:
     return im
 
 
+def global_item_parts(items: torch.Tensor, det_norm: torch.Tensor, world: int) -> torch.Tensor:
+    """(11,) float64: what a rank's shard adds to its global batch's loss
+    items. The detection items' numerators (the shard's items times its
+    clamped target-score sum), the segmentation items (means over an even
+    shard) divided by ``world``, and the shard's target-score sum."""
+    items, norm = items.double(), det_norm.double().reshape(1)
+    return torch.cat([items[:3] * norm.clamp_min(1.0), items[3:] / world, norm])
+
+
+def global_items(parts: torch.Tensor) -> torch.Tensor:
+    """The loss items (n_batches, 10) of the global batches, from the sum
+    over the ranks of their :func:`global_item_parts` (n_batches, 11)."""
+    return torch.cat([parts[:, :3] / parts[:, 10:].clamp_min(1.0), parts[:, 3:10]], 1)
+
+
 class Validator:
     """Runs an eval step over a loader and computes the detection metrics.
 
@@ -118,6 +141,7 @@ class Validator:
             run = self.eval_fn.run
 
         items_sum = np.zeros(10, np.float64)
+        shards: list = []  # with a group: per batch, the shard's parts of the global batch's items
         n_batches = n_images = saved = 0
         t_pre = t_inf = t_post = 0.0
         it = iter(self.loader)
@@ -140,6 +164,8 @@ class Validator:
             t_inf += time.perf_counter() - t0
 
             t0 = time.perf_counter()
+            if parallel.active():
+                shards.append(global_item_parts(out["items"], out["det_norm"], parallel.world()))
             items_sum += items
             n_batches += 1
             gt_boxes, gt_labels, mask_gt = (np.asarray(batch[k]) for k in ("gt_boxes", "gt_labels", "mask_gt"))
@@ -178,6 +204,12 @@ class Validator:
         if coco is not None:
             coco.save()
         acc.gather_across_hosts()  # a distributed validation's ranks; no-op on one process
+        if parallel.active():  # the global batches' loss items and the confusion matrix: one collective
+            parts = torch.stack(shards)
+            counts = torch.as_tensor(confusion.matrix, dtype=torch.float64, device=parts.device)
+            parallel.all_reduce_sum_([parts, counts])
+            items_sum = global_items(parts).sum(0).cpu().numpy()
+            confusion.matrix = np.rint(counts.cpu().numpy()).astype(confusion.matrix.dtype)
         result = ValResult(metrics=acc.compute(), loss_items=(items_sum / max(n_batches, 1)).astype(np.float32),
                            n_images=n_images, speed=speed, confusion=confusion, names=self.names)
         if plots_dir is not None:
