@@ -23,7 +23,10 @@ Phases, each of which fails the run when it fails:
              plain version, and its time at the train batch too; the device
              kernels one call runs (torch.profiler: CAM gate 1, NMS 2,
              masked pool 1); the CAM gate's and the masked pool's autograd
-             gradients against plain autograd.
+             gradients against plain autograd; the masked reductions (the
+             masked pool's second entry, which the spatial mesh runs on each
+             band) at the band shapes of a 640 px row split in two, in bf16
+             and float32, an odd band and a channel slice.
 Then, for each of four models at full width and depth, 640 px, random
 weights from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM,
 tags ``[parity]`` ... ``[train]``), YOLOv8n-MGA-ECA (MaskECA, the same tags
@@ -117,6 +120,20 @@ cost, not scaling.
              0 alone writes results.csv and weights/, both ranks compute the
              same rows and metrics, launches exact (a rank: 16 micro-steps
              and 4 + 4 validation batches of 8 images).
+Then the spatial mesh axis (``mesh_spatial``, ``parallel/spatial.py``), with
+two ranks sharing the card on a 1x2 mesh (each holds every image and half
+of its rows): it shows the step is right and what the halo exchanges and
+space collectives cost, not a benefit (one image fits one card at 640 px).
+11. spatial — ``[ddp]``'s 4 float32 micro-steps of its 16-image global
+             batches on the 1x2 mesh, held to one process and the float64
+             step by ``[ddp]``'s method, the ranks bit-equal; the
+             space-reduced pools against the plain versions with a max tied
+             across the bands; then 8 bf16 micro-steps a rank: p50, halo
+             exchanges and space collectives per micro-step; launches exact.
+    spatial-fit — ``MGA.train`` with ``mesh_spatial: 2`` for one validated
+             epoch on the 256 + 64 images: launches exact (a rank: 16
+             micro-steps and 4 + 4 validation batches of 16 images' bands),
+             rank 0 alone writes.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -127,6 +144,10 @@ no result, when CUDA is unavailable or any phase fails.
 unchanged and with each planted fault of ``DDP_FAULTS`` (a BatchNorm or
 gradient all-reduce dropped, per-rank statistics, the unbiased variance),
 and exits non-zero unless the first passes and every fault fails.
+``--spatial-alone`` and ``--spatial-faults`` do the same for ``[spatial]``
+and ``SPATIAL_FAULTS`` (a halo row dropped, the reductions not all-reduced
+over the space ranks, the detection loss counted k times, the max's ties
+counted on one band).
 """
 
 from __future__ import annotations
@@ -144,6 +165,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
+KERNEL_SOURCES = ("cam_gate", "nms_suppress", "dfl_bwd", "masked_pool")  # csrc/<name>.cu
 IMGSZ, BATCH = 640, 8
 TRAIN_BATCH, NBS, MAX_BOXES = 16, 64, 8  # config.py defaults: batch 16, nbs 64
 CAM_SHAPES = ((80, 80, 64, 4), (40, 40, 128, 8), (20, 20, 256, 16))  # (H, W, C, hidden) at 640 px
@@ -168,9 +190,10 @@ def check(cond: bool, msg: str) -> None:
 
 def kernel_modules() -> dict:
     """The wrapper module of each kernel, which holds its launch counter."""
-    from mga_yolo_tpu_torch.ops import cam_gate, dfl_bwd, masked_pool, nms
+    from mga_yolo_tpu_torch.ops import cam_gate, dfl_bwd, masked_pool, masked_reductions, nms
 
-    return {"cam_gate": cam_gate, "nms_suppress": nms, "dfl_bwd": dfl_bwd, "masked_pool": masked_pool}
+    return {"cam_gate": cam_gate, "nms_suppress": nms, "dfl_bwd": dfl_bwd, "masked_pool": masked_pool,
+            "masked_reductions": masked_reductions}
 
 
 def zero_launches() -> None:
@@ -581,6 +604,72 @@ def kernel_phase_pool_grad(torch) -> None:
                   f"max_abs_err dx {errs[0]:.1e}, dm {errs[1]:.1e}")
             for a, b in zip(*grads):
                 torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+RED_SHAPES = tuple((h // 2, w, c) for h, w, c in POOL_SHAPES)  # a band of a 640 px row split in two: 40/20/10 rows
+RED_TOL = (1e-5, 1e-6)  # the sums / N: float32 sums in another order (both dtypes sum in float32)
+
+
+def kernel_phase_reductions(torch) -> dict:
+    """The masked-reductions entry (``csrc/masked_pool.cu``
+    ``masked_reductions_launch``) against ``_reductions`` on the spatial
+    path's band shapes (B=16, 40/20/10 rows of 80/40/20, C=64/128/256) in
+    bf16 and float32, an odd band (N = 41 x 43), a channel slice, and the
+    no-pixel and tiny masks: msum, wsum and gsum / N within ``RED_TOL``, mmax
+    and cnt exact. Its time at the band shapes (bf16), CUDA events over graph
+    replays, beside the plain twin's and the bound."""
+    from mga_yolo_tpu_torch.ops import masked_reductions as mr
+
+    max_err = 0.0
+
+    def compare(x, m, what: str) -> float:
+        got, want = mr.masked_reductions(x, m), mr.masked_reductions_ref(x, m)
+        n = x.shape[2] * x.shape[3]
+        errs = []
+        for name, g, w in zip(("msum", "wsum", "gsum", "mmax", "cnt"), got, want):
+            check(g.dtype == torch.float32 and g.shape == w.shape, f"{what} {name}: {g.dtype} {tuple(g.shape)}")
+            if name in ("mmax", "cnt"):
+                torch.testing.assert_close(g, w, rtol=0, atol=0, msg=lambda e: f"{what} {name}: {e}")
+            else:
+                torch.testing.assert_close(g / n, w / n, rtol=RED_TOL[0], atol=RED_TOL[1],
+                                           msg=lambda e: f"{what} {name} / N: {e}")
+            errs.append(float(((g - w) / (1 if name in ("mmax", "cnt") else n)).abs().max()))
+        return max(errs)
+
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(TRAIN_BATCH, h, w, c, dt, "random") for h, w, c in RED_SHAPES for dt in dts]
+    cases += [(3, 41, 43, 72, "f32", "random"), (4, 41, 43, 64, "bf16", "random"),  # N odd: one element a load
+              (TRAIN_BATCH, 20, 40, 128, "bf16", "no_pixel"), (TRAIN_BATCH, 40, 80, 64, "f32", "tiny")]
+    for i, (b, h, w, c, dt, kind) in enumerate(cases):
+        x, m = pool_inputs(torch, b, h, w, c, dts[dt], kind, seed=50 + i)
+        what = f"masked_reductions B={b} {h}x{w} C={c} {dt} {kind}"
+        err = compare(x, m, what)
+        print(f"[kernels] {what}: max_abs_err (sums / N) {err:.3e}")
+        max_err = max(max_err, err)
+    x, m = pool_inputs(torch, TRAIN_BATCH, 20, 40, 128, torch.bfloat16, seed=60)
+    err = compare(x[:, 32:96], m, "masked_reductions channel slice 32:96 of C=128 bf16")
+    print(f"[kernels] masked_reductions channel slice 32:96 of B={TRAIN_BATCH} 20x40 C=128 bf16 (strides "
+          f"{x[:, 32:96].stride()}): max_abs_err {err:.3e}")
+    max_err = max(max_err, err)
+
+    ms = plain = bound = 0.0
+    for h, w, c in RED_SHAPES:
+        b = TRAIN_BATCH
+        x, m = pool_inputs(torch, b, h, w, c, torch.bfloat16, seed=b + c)
+        k_ms = time_ms(torch, lambda: mr.masked_reductions(x, m), iters=50)
+        p_ms = time_ms(torch, lambda: mr.masked_reductions_ref(x, m), iters=10)
+        n_kern, _ = device_kernels(torch, lambda: mr.masked_reductions(x, m))
+        check(n_kern == 1, f"masked_reductions ran {n_kern} device kernels per call at {h}x{w}, want 1")
+        n = h * w
+        b_ms, _ = bound_ms(2 * (b * n * c + b * n) + 4 * (3 * b * c + 2 * b), b * (4 * n * c + 2 * n))
+        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
+        print(f"[kernels] masked_reductions B={b} {h}x{w} C={c} bf16: {k_ms * 1e3:.2f} us (plain {p_ms * 1e3:.1f} "
+              f"us, bound {b_ms * 1e3:.2f} us by bytes); 1 device kernel per call")
+    print(f"[kernels] masked_reductions, the three bands of a micro-step: {ms * 1e3:.2f} us (bf16)")
+    return {"name": "masked_reductions", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/masked_pool.cu",
+            "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:36", "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "device_kernels_per_call": 1}
 
 
 # --------------------------------------------------------------------- path
@@ -1636,9 +1725,10 @@ def ddp_shard(batch: dict, rank: int, world: int) -> dict:
 def ddp_f32_steps(torch, np, rank: int = 0, world: int = 1, f64: bool = False) -> dict:
     """The flagship (``torch.manual_seed(0)``) takes ``DDP_ACC`` float32
     micro-steps (TF32 off) at accumulate ``DDP_ACC``, one apply, on the
-    rank's shard of 4 global batches of ``DDP_BATCH``; the loss items summed
-    over the ranks each micro-step, the state on the host after the apply,
-    and the launches of the micro-steps.
+    rank's shard of 4 global batches of ``DDP_BATCH`` (under a mesh in
+    effect: its data shard's, and of those its band of rows); the loss items
+    summed over the ranks each micro-step, the state on the host after the
+    apply, and the launches of the micro-steps.
 
     ``f64``: one process takes the same step in float64, the referee of
     ``[ddp]``: the model (its convolutions, BatchNorm's ``F.batch_norm``),
@@ -1655,6 +1745,7 @@ def ddp_f32_steps(torch, np, rank: int = 0, world: int = 1, f64: bool = False) -
     from mga_yolo_tpu_torch.models.yolo import create_model
     from mga_yolo_tpu_torch.ops import cam_gate as cg
     from mga_yolo_tpu_torch.ops import dfl_bwd as db
+    from mga_yolo_tpu_torch.parallel import spatial
     from mga_yolo_tpu_torch.train import state as S
 
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
@@ -1671,7 +1762,9 @@ def ddp_f32_steps(torch, np, rank: int = 0, world: int = 1, f64: bool = False) -
             plain.enter_context(mock.patch.object(target, name, fn))
     st = S.create_train_state(model)
     step = make_step(torch, model, DDP_ACC, torch.float32)
-    batches = [ddp_shard(train_batch(np, torch, DDP_BATCH, seed=20 + i), rank, world) for i in range(DDP_ACC)]
+    # the rank's data shard of each global batch, and under a mesh its band of rows
+    batches = [spatial.keep_rows(ddp_shard(train_batch(np, torch, DDP_BATCH, seed=20 + i), parallel.data_rank(),
+                                           parallel.data_world())) for i in range(DDP_ACC)]
     items = []
     zero_launches()
     with plain:
@@ -1687,37 +1780,43 @@ def ddp_f32_steps(torch, np, rank: int = 0, world: int = 1, f64: bool = False) -
             "opt_step": st.opt_step, "launches": launches}
 
 
-def ddp_bf16_steps(torch, np, rank: int, world: int) -> dict:
+def ddp_bf16_steps(torch, np, rank: int, world: int, n_timed: int = DDP_TIMED) -> dict:
     """The flagship's bf16 micro-step at the global micro-batch
-    ``DDP_BATCH`` (the rank's shard of it), accumulate ``DDP_ACC``: after a
-    first use, ``DDP_TIMED`` micro-steps with the launch and collective
+    ``DDP_BATCH`` (the rank's shard of it; under a mesh in effect its data
+    shard's, and of that its band of rows), accumulate ``DDP_ACC``: after a
+    first use, ``n_timed`` micro-steps with the launch and collective
     counters zeroed just before, each timed on the host clock to a
-    synchronise; then the apply's gradient all-reduce alone."""
+    synchronise, with its collectives, space collectives and halo exchanges;
+    then the apply's gradient all-reduce alone."""
     from mga_yolo_tpu_torch import parallel
     from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
     from mga_yolo_tpu_torch.models.layers import BatchNorm2d
     from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.parallel import spatial
     from mga_yolo_tpu_torch.train import state as S
 
     torch.manual_seed(0)
     model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True)
     st = S.create_train_state(model)
     step = make_step(torch, model, DDP_ACC, torch.bfloat16)
-    batch = ddp_shard(train_batch(np, torch, DDP_BATCH, seed=4), rank, world)
+    batch = spatial.keep_rows(ddp_shard(train_batch(np, torch, DDP_BATCH, seed=4), parallel.data_rank(),
+                                        parallel.data_world()))
     st, _ = step(st, batch, 0.01, 0.1, 0.8)  # first use: cuDNN plans, allocator
     for _ in range(DDP_ACC - 1):  # to an apply boundary, so the timed steps hold two applies
         st, _ = step(st, batch, 0.01, 0.1, 0.8)
     torch.cuda.synchronize()
     zero_launches()
     parallel.collectives = 0
-    times, per_step = [], []
-    for _ in range(DDP_TIMED):
-        c0, t0 = parallel.collectives, time.perf_counter()
+    times, per_step, space, halos = [], [], [], []
+    for _ in range(n_timed):
+        c0, s0, h0, t0 = parallel.collectives, spatial.space_collectives, spatial.halo_exchanges, time.perf_counter()
         st, metrics = step(st, batch, 0.01, 0.1, 0.8)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append(parallel.collectives - c0)
-        check(bool(torch.isfinite(metrics["loss"])), f"[ddp] rank {rank}: non-finite loss")
+        space.append(spatial.space_collectives - s0)
+        halos.append(spatial.halo_exchanges - h0)
+        check(bool(torch.isfinite(metrics["loss"])), f"rank {rank}: non-finite loss")
     launches = read_launches()
     grads = [torch.zeros_like(p) for p in st.params().values()]
     ar = []
@@ -1728,8 +1827,9 @@ def ddp_bf16_steps(torch, np, rank: int, world: int) -> dict:
         torch.cuda.synchronize()
         ar.append((time.perf_counter() - t0) * 1e3)
     n_bn = sum(1 for m in model.modules() if isinstance(m, BatchNorm2d))
-    return {"times": times, "collectives": per_step, "launches": launches, "allreduce_ms": ar[1:],
-            "grad_numel": sum(g.numel() for g in grads), "n_bn": n_bn, "opt_step": st.opt_step}
+    return {"times": times, "collectives": per_step, "space_collectives": space, "halo_exchanges": halos,
+            "launches": launches, "allreduce_ms": ar[1:], "grad_numel": sum(g.numel() for g in grads),
+            "n_bn": n_bn, "opt_step": st.opt_step}
 
 
 def ddp_step_rank(rank: int, world: int, out_dir: str) -> None:
@@ -1765,6 +1865,24 @@ def ddp_state_errors(got: dict, want: dict) -> dict:
     return out
 
 
+_F32_REFS: dict = {}
+
+
+def f32_references(torch, np, tag: str) -> tuple[dict, dict]:
+    """One float32 process and the float64 step on ``[ddp]``'s global
+    batches (``ddp_f32_steps``), computed once for ``[ddp]`` and
+    ``[spatial]``, which take the same batches."""
+    if not _F32_REFS:
+        want = ddp_f32_steps(torch, np)
+        check(want["launches"] == want_launches({"cam_gate": 3 * DDP_ACC, "dfl_bwd": DDP_ACC}),
+              f"{tag} one process launched {want['launches']}")
+        ref = ddp_f32_steps(torch, np, f64=True)
+        check(ref["launches"] == want_launches() and ref["opt_step"] == 1, f"{tag} the float64 step launched "
+              f"{ref['launches']} (the plain versions only), {ref['opt_step']} applies")
+        _F32_REFS.update(want=want, ref=ref)
+    return _F32_REFS["want"], _F32_REFS["ref"]
+
+
 def ddp_phase(torch, np, tmp: Path) -> dict:
     """``[ddp]``: two gloo ranks on the card, each on half of every global
     batch, against one process on the whole of it (float32, one apply); the
@@ -1791,12 +1909,7 @@ def ddp_phase(torch, np, tmp: Path) -> dict:
     spawn_ranks(ddp_step_rank, (str(out_dir),))
     wall = time.perf_counter() - t0
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
-    want = ddp_f32_steps(torch, np)
-    check(want["launches"] == want_launches({"cam_gate": 3 * DDP_ACC, "dfl_bwd": DDP_ACC}),
-          f"[ddp] one process launched {want['launches']}")
-    ref = ddp_f32_steps(torch, np, f64=True)
-    check(ref["launches"] == want_launches() and ref["opt_step"] == 1, f"[ddp] the float64 step launched "
-          f"{ref['launches']} (the plain versions only), {ref['opt_step']} applies")
+    want, ref = f32_references(torch, np, "[ddp]")
     a, b = (rk["f32"] for rk in ranks)
     e_one, e_two, e_direct = ddp_state_errors(want, ref), ddp_state_errors(a, ref), ddp_state_errors(a, want)
     fmt = lambda e: f"items {e['items']:.2e}; " + ", ".join(  # noqa: E731
@@ -1907,7 +2020,8 @@ def ddp_nccl_phase(torch, np, tmp: Path) -> dict:
     return got_l
 
 
-def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: str) -> None:
+def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: str, mesh_spatial: int = 1,
+                 name: str = "ddp-fit") -> None:
     """One rank of ``[ddp-fit]``: ``MGA.train`` for one validated epoch on
     ``cuda:0`` in a gloo group; saves what it computed and launched."""
     import torch
@@ -1932,7 +2046,7 @@ def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: s
         t0 = time.perf_counter()
         final = m.train("configs/hyperparams/cbam_defaults.yaml", data=data_yaml, imgsz=IMGSZ, batch=TRAIN_BATCH,
                         nbs=NBS, workers=4, max_boxes=MAX_BOXES, val=True, save=True, amp=True, epochs=1,
-                        device="cuda:0", project=project, name="ddp-fit")
+                        device="cuda:0", project=project, name=name, mesh_spatial=mesh_spatial)
         wall = time.perf_counter() - t0
         tr = m._trainer
         (st,) = tr.epoch_stats
@@ -1983,6 +2097,189 @@ def ddp_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
     return a["launches"]
 
 
+# ------------------------------------------------------------ spatial mesh
+
+SPATIAL_K, SPATIAL_TIMED = 2, 8  # a 1x2 mesh (each rank: every image, 320 of its 640 rows); timed bf16 micro-steps
+SPATIAL_POOL_TOL = {"fwd": (1e-5, 1e-6), "bwd": (1e-4, 1e-5)}  # as the masked pool's kernel checks
+
+
+def spatial_pool_check(torch, np) -> dict:
+    """Under the mesh in effect, on the card in float32: the space-reduced
+    CAM gate and masked pool (the reductions kernel on this rank's band,
+    then the all-reduces) against ``cam_gate_ref`` / ``masked_pool_ref`` on
+    the whole P3 map (B=4, C=64, 80 x 80), forward and backward, with one
+    channel's max planted on both sides of the band boundary (its gradient
+    splits over the two bands). Each rank takes 1/k of the cotangents of
+    the (B, C) outputs it holds alike; the MLP's gradients are summed over
+    the ranks. Returns the max abs errors; raises outside the tolerances."""
+    from mga_yolo_tpu_torch import parallel
+    from mga_yolo_tpu_torch.ops.cam_gate import cam_gate_ref
+    from mga_yolo_tpu_torch.ops.masked_pool import masked_pool_ref
+    from mga_yolo_tpu_torch.parallel import spatial
+
+    mesh = parallel.mesh()
+    k, r = mesh.space, mesh.space_rank
+    x, m, *mlp = cam_inputs(torch, 4, 80, 80, 64, 4, torch.float32, seed=70)
+    h = 80 // k
+    x[1, 5, h - 1, 0] = x[1, 5, h, 2] = 9.0  # a max on both bands
+    m[1, 0, h - 1, 0] = m[1, 0, h, 2] = 0.9
+    g = torch.Generator(device="cuda").manual_seed(71)
+    g_gate, g_avg, g_max = torch.randn((3, 4, 64), generator=g, device="cuda")
+    res = {}
+    for what in ("whole", "band"):
+        rows = slice(None) if what == "whole" else slice(r * h, (r + 1) * h)
+        part = 1.0 if what == "whole" else 1.0 / k
+        xs, ms = x[:, :, rows].clone().requires_grad_(True), m[:, :, rows].clone().requires_grad_(True)
+        ws = [w.clone().requires_grad_(True) for w in mlp]
+        with parallel.using(None if what == "whole" else mesh):
+            gate = (cam_gate_ref if what == "whole" else spatial.cam_gate)(xs, ms, *ws)
+            pool = masked_pool_ref(xs, ms) if what == "whole" else spatial.pool_f32(xs, ms)
+            gg = list(torch.autograd.grad((gate * g_gate * part).sum(), [xs, ms, *ws]))
+            gp = list(torch.autograd.grad(((pool[0] * g_avg).sum() + (pool[1] * g_max).sum()) * part, [xs, ms]))
+        if what == "band":
+            parallel.all_reduce_sum_(gg[2:])
+        res[what] = {"fwd": [gate, *pool], "bwd": gg + gp}
+    errs = {}
+    for kind in ("fwd", "bwd"):
+        rtol, atol = SPATIAL_POOL_TOL[kind]
+        errs[kind] = 0.0
+        for i, (got, want) in enumerate(zip(res["band"][kind], res["whole"][kind])):
+            if kind == "bwd" and i in (0, 1, 6, 7):  # dx and dm: this band's rows
+                want = want[:, :, r * h:(r + 1) * h]
+            errs[kind] = max(errs[kind], float((got - want).detach().abs().max()))
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                       msg=lambda e: f"[spatial] rank {r} pool check {kind} {i}: {e}")
+    return errs
+
+
+def spatial_step_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of ``[spatial]``: gloo on ``cuda:0``, a 1 x ``SPATIAL_K``
+    mesh; the pool check, ``[ddp]``'s float32 micro-steps and the bf16
+    micro-steps on the rank's band; saves to ``out_dir/rank{rank}.pt``."""
+    import numpy as np
+    import torch
+
+    from mga_yolo_tpu_torch import parallel
+
+    torch.cuda.set_device(0)
+    ddp_group(torch, "gloo", rank, world, out_dir)
+    try:
+        with parallel.using(parallel.data_mesh(SPATIAL_K)):
+            out = {"pool": spatial_pool_check(torch, np), "f32": ddp_f32_steps(torch, np, rank, world),
+                   "bf16": ddp_bf16_steps(torch, np, rank, world, SPATIAL_TIMED)}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spatial_phase(torch, np, tmp: Path) -> dict:
+    """``[spatial]``: two gloo ranks on the card on a 1x2 mesh, each holding
+    every image of ``[ddp]``'s 16-image global batches and half of its rows,
+    held to one float32 process and to the float64 step by ``[ddp]``'s
+    method (``ddp_phase``), the ranks bit-equal; the space-reduced pools
+    against the plain versions with a max tied across the bands; then the
+    bf16 micro-step: p50, halo exchanges and space collectives per
+    micro-step. Returns rank 0's launches over the timed bf16 micro-steps.
+    ``chip_smoke.py --spatial-faults`` shows that planted faults of the
+    spatial code fail it."""
+    out_dir = tmp / "spatial"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    spawn_ranks(spatial_step_rank, (str(out_dir),))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    want, ref = f32_references(torch, np, "[spatial]")
+    a, b = (rk["f32"] for rk in ranks)
+    e_one, e_two, e_direct = ddp_state_errors(want, ref), ddp_state_errors(a, ref), ddp_state_errors(a, want)
+    fmt = lambda e: f"items {e['items']:.2e}; " + ", ".join(  # noqa: E731
+        f"{w} {e[w][0]:.2e} / {e[w][1]:.2e} ({e[w][2]}), rms {e[w][3]:.2e}" for w in DDP_STATE)
+    want_l = want_launches({"masked_reductions": 3 * DDP_ACC, "dfl_bwd": DDP_ACC})
+    print(f"[spatial] {DDP_WORLD} gloo ranks on cuda:0 on a 1x{SPATIAL_K} mesh, {DDP_ACC} float32 micro-steps (TF32 "
+          f"off) of a global batch {DDP_BATCH}x{IMGSZ} (every image a rank, {IMGSZ // SPATIAL_K} of its rows), one "
+          f"apply; launches per rank {a['launches']}; {wall:.1f} s wall. Against the float64 step: {fmt(e_two)}")
+    print(f"[spatial] against one float32 process: {fmt(e_direct)}")
+    for r, rk in enumerate(ranks):
+        g = rk["f32"]
+        print(f"[spatial] rank {r}: pools against the plain versions on the whole map, max abs err forward "
+              f"{rk['pool']['fwd']:.2e}, backward {rk['pool']['bwd']:.2e} (a max tied across the bands)")
+        check(g["opt_step"] == want["opt_step"] == 1, f"[spatial] rank {r}: {g['opt_step']} applies")
+        check(g["launches"] == want_l, f"[spatial] rank {r}: launched {g['launches']}, want {want_l}")
+        torch.testing.assert_close(g["items"], want["items"], rtol=TRAIN_ITEMS_RTOL, atol=0,
+                                   msg=lambda s: f"[spatial] rank {r} items: {s}")
+        for what in ("bn", "ema_bn"):
+            for k, w in want[what].items():
+                torch.testing.assert_close(g[what][k], w, rtol=TRAIN_ITEMS_RTOL, atol=TRAIN_PARAM_ATOL,
+                                           msg=lambda s: f"[spatial] rank {r} {what} {k}: {s}")
+        e = ddp_state_errors(g, ref)
+        for w, i, cap in (("params", 0, DDP_PARAM_CAP), ("ema", 0, DDP_PARAM_CAP), ("m", 1, DDP_M_CAP)):
+            check(e[w][3] <= DDP_F64_FACTOR * e_one[w][3], f"[spatial] rank {r}: {w} rms err {e[w][3]:.2e} against "
+                  f"the float64 step, over {DDP_F64_FACTOR:g}x one float32 process's {e_one[w][3]:.2e}")
+            check(e[w][i] <= cap, f"[spatial] rank {r}: {w} max err {e[w][i]:.2e} against the float64 step "
+                  f"({e[w][2]}), over the limit {cap}")
+    for what in DDP_STATE:
+        check(all(torch.equal(a[what][k], b[what][k]) for k in a[what]), f"[spatial] ranks 0 and 1 differ in {what}")
+    print(f"[spatial] items and BN statistics within rtol {TRAIN_ITEMS_RTOL} of one process; against the float64 step "
+          f"params, EMA and momentum within {DDP_F64_FACTOR:g}x one float32 process's rms error (ratios "
+          f"{', '.join(f'{w} {e_two[w][3] / e_one[w][3]:.2f}' for w in ('params', 'ema', 'm'))}), max errors within "
+          f"{DDP_PARAM_CAP} abs / {DDP_M_CAP} x max|m|; ranks 0 and 1 bit-equal")
+    for r, rk in enumerate(ranks):
+        h = rk["bf16"]
+        lat = sorted(h["times"])
+        halos, space, per = h["halo_exchanges"], h["space_collectives"], h["collectives"]
+        check(len(set(halos)) == 1 and len(set(space)) == 1 and halos[0] > 0,
+              f"[spatial] rank {r}: halo exchanges {halos}, space collectives {space} per micro-step")
+        check(sorted(set(per)) == [min(per), min(per) + 1] and per.count(min(per) + 1) == SPATIAL_TIMED // DDP_ACC,
+              f"[spatial] rank {r}: collectives per micro-step {per}, want one more at an apply")
+        want_l = want_launches({"masked_reductions": 3 * SPATIAL_TIMED, "dfl_bwd": SPATIAL_TIMED})
+        check(h["launches"] == want_l, f"[spatial] rank {r}: bf16 launches {h['launches']}, want {want_l}")
+        print(f"[spatial] rank {r}: {SPATIAL_TIMED} bf16 micro-steps of {DDP_BATCH}x{IMGSZ // SPATIAL_K}x{IMGSZ} "
+              f"(a band of the global {DDP_BATCH}x{IMGSZ}, accumulate {DDP_ACC}): p50 {lat[len(lat) // 2]:.2f} ms, "
+              f"max {lat[-1]:.2f} ms; per micro-step {min(per)} collectives (+1 at an apply), of them {space[0]} "
+              f"over the space ranks, {halos[0]} halo exchanges; launches {h['launches']}")
+    return ranks[0]["bf16"]["launches"]
+
+
+def spatial_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
+    """``[spatial-fit]``: two gloo ranks on the card run ``MGA.train`` with
+    ``mesh_spatial: 2`` for one validated epoch on the 256 + 64 images
+    (cbam_defaults, global batch 16): each rank takes every micro-step on
+    its band of the 16 images, rank 0 alone writes, both compute the same
+    rows and metrics, and each rank's launches are exact (the masked
+    reductions 3 a micro-step and a validation batch, the DFL backward 1 a
+    micro-step, NMS 1 a validation batch of the gathered outputs). Returns
+    rank 0's."""
+    import csv
+
+    out_dir = tmp / "spatial-fit"
+    out_dir.mkdir()
+    spawn_ranks(ddp_fit_rank, (str(out_dir), str(data_yaml), str(tmp / "runs"), SPATIAL_K, "spatial-fit"))
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    a, b = ranks
+    check(a["rows"] == b["rows"] and len(a["rows"]) == 1 and a["map"] == b["map"],
+          f"[spatial-fit] the ranks computed different rows or metrics: {a['rows']} {b['rows']}")
+    check(a["has_csv"] and not b["has_csv"] and a["save_dir"] == b["save_dir"], "[spatial-fit] a rank other than 0 "
+                                                                                  "writes")
+    run_dir = Path(a["save_dir"])
+    with open(run_dir / "results.csv", newline="") as f:
+        check(len(list(csv.DictReader(f))) == 1, "[spatial-fit] results.csv does not have one row")
+    steps, val_batches = 256 // TRAIN_BATCH, 2 * (64 // TRAIN_BATCH)  # every rank: every micro-step and val batch
+    want = want_launches({"masked_reductions": 3 * (steps + val_batches), "dfl_bwd": steps,
+                          "nms_suppress": val_batches})
+    for r, rk in enumerate(ranks):
+        check(rk["steps"] == steps and rk["val_batches"] == val_batches and rk["images"] == steps * TRAIN_BATCH,
+              f"[spatial-fit] rank {r}: {rk['steps']} micro-steps, {rk['images']} images, {rk['val_batches']} val "
+              f"batches")
+        check(rk["launches"] == want, f"[spatial-fit] rank {r}: launches {rk['launches']}, want {want}")
+        print(f"[spatial-fit] rank {r}: 1 epoch, {rk['steps']} micro-steps of {TRAIN_BATCH} images' bands of "
+              f"{IMGSZ // SPATIAL_K} rows: train {rk['train_s']:.2f} s -> {rk['images'] / rk['train_s']:.1f} img/s "
+              f"(bands), {100 * rk['wait_s'] / rk['train_s']:.1f}% waiting on the loader; val {rk['val_s']:.2f} s; "
+              f"{rk['wall']:.1f} s wall; launches {rk['launches']}")
+    row = a["rows"][0]
+    print(f"[spatial-fit] both ranks: train det {row['train/det/total']:.4f} seg {row['train/seg/total']:.4f}, val "
+          f"det {row['val/det/total']:.4f}, mAP50 {a['map'][0]:.4f}; rank 0 alone wrote results.csv and weights/")
+    return a["launches"]
+
+
 # planted faults of ``--ddp-faults``, each [ddp] must catch: (file, text as it stands, its replacement)
 _LAYERS, _STATE = "mga_yolo_tpu_torch/models/layers.py", "mga_yolo_tpu_torch/train/state.py"
 DDP_FAULTS = {
@@ -1994,9 +2291,23 @@ DDP_FAULTS = {
 }
 
 
-def ddp_faults() -> int:
-    """``chip_smoke.py --ddp-faults``: ``[ddp]`` alone (``--ddp-alone``) on
-    a copy of this checkout, then on a copy with each of ``DDP_FAULTS``
+# planted faults of ``--spatial-faults``, each [spatial] must catch
+_SPATIAL, _DET = "mga_yolo_tpu_torch/parallel/spatial.py", "mga_yolo_tpu_torch/losses/detection.py"
+SPATIAL_FAULTS = {
+    "halo-row-dropped": [(_SPATIAL, "        up.append(pad if g < 0 else", "        up.append(pad if g < 0 or i == 0 else")],
+    "reductions-not-all-reduced": [
+        (_SPATIAL, "        sums = _all_reduce_(torch.cat([msum, wsum, gsum, cnt], 1), mesh)\n",
+         "        sums = torch.cat([msum, wsum, gsum, cnt], 1)\n"),
+        (_SPATIAL, "        mmax = _all_reduce_(mmax, mesh, dist.ReduceOp.MAX)\n", "")],
+    "detection-loss-k-times": [(_DET, "        total = total / share.space\n", "")],
+    "n-ties-local": [(_SPATIAL, "        buf = _all_reduce_(torch.cat([*parts, is_max.float().sum(-1)], 1), _mesh())\n",
+                      "        buf = torch.cat([_all_reduce_(torch.cat(parts, 1), _mesh()), is_max.float().sum(-1)], 1)\n")],
+}
+
+
+def planted_faults(tag: str, faults: dict) -> int:
+    """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
+    on a copy of this checkout, then on a copy with each of ``faults``
     planted; exits non-zero unless the first passes and every fault fails.
     The copies live in the build directory, which git ignores."""
     import shutil
@@ -2005,9 +2316,9 @@ def ddp_faults() -> int:
 
     root = Path(__file__).resolve().parent
     print(gpu_name_and_power())
-    _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])  # the copies take the libraries
+    _build.build(KERNEL_SOURCES)  # the copies take the libraries
     ok = True
-    for name, edits in (("none", []), *DDP_FAULTS.items()):
+    for name, edits in (("none", []), *faults.items()):
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
             tree = Path(tmp) / "tree"
             shutil.copytree(root, tree, ignore=shutil.ignore_patterns(".git", "chiprun_out", "_build",
@@ -2016,32 +2327,33 @@ def ddp_faults() -> int:
                             ignore=shutil.ignore_patterns("tmp*"))
             for f, old, new in edits:
                 text = (tree / f).read_text()
-                check(text.count(old) == 1, f"[ddp-faults] {name}: {old.strip()!r} is not once in {f}")
+                check(text.count(old) == 1, f"[{tag}-faults] {name}: {old.strip()!r} is not once in {f}")
                 (tree / f).write_text(text.replace(old, new))
-            run = subprocess.run([sys.executable, "chip_smoke.py", "--ddp-alone"], cwd=tree, capture_output=True,
+            run = subprocess.run([sys.executable, "chip_smoke.py", f"--{tag}-alone"], cwd=tree, capture_output=True,
                                  text=True, timeout=2 * DDP_TIMEOUT_S)
-        lines = [ln for ln in (run.stdout + run.stderr).splitlines() if ln.startswith(("[ddp]", "RuntimeError",
+        lines = [ln for ln in (run.stdout + run.stderr).splitlines() if ln.startswith((f"[{tag}]", "RuntimeError",
                                                                                        "AssertionError"))]
         caught = run.returncode != 0
         ok &= caught == bool(edits)
-        print(f"[ddp-faults] {name}: [ddp] {'failed' if caught else 'passed'} (exit {run.returncode})"
+        print(f"[{tag}-faults] {name}: [{tag}] {'failed' if caught else 'passed'} (exit {run.returncode})"
               + ("" if caught == bool(edits) else " -- WRONG"))
         for ln in lines[:3] + lines[-1:]:
-            print(f"[ddp-faults] {name}:   {ln[:600]}")
+            print(f"[{tag}-faults] {name}:   {ln[:600]}")
     return 0 if ok else 1
 
 
-def ddp_alone() -> int:
-    """``chip_smoke.py --ddp-alone``: build the kernels and run ``[ddp]``."""
+def phase_alone(tag: str) -> int:
+    """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``
+    or ``[spatial]``."""
     import numpy as np
     import torch
 
     from mga_yolo_tpu_torch.kernels import _build
 
-    _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])
+    _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        ddp_phase(torch, np, Path(tmp))
+        {"ddp": ddp_phase, "spatial": spatial_phase}[tag](torch, np, Path(tmp))
     return 0
 
 
@@ -2064,7 +2376,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    secs = _build.build(["cam_gate", "nms_suppress", "dfl_bwd", "masked_pool"])
+    secs = _build.build(KERNEL_SOURCES)
     print(f"[build] {time.perf_counter() - t0:.2f} s wall, per source {secs}")
     for name in secs:
         log = _build.library_path(name).with_suffix(".log").read_text().strip()
@@ -2073,7 +2385,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     kernels = [kernel_phase_cam(torch), kernel_phase_nms(torch), kernel_phase_dfl(torch),
-               kernel_phase_pool(torch)]
+               kernel_phase_pool(torch), kernel_phase_reductions(torch)]
     kernel_phase_cam_grad(torch)
     kernel_phase_pool_grad(torch)
 
@@ -2115,13 +2427,18 @@ def main() -> int:
         paths["ddp_nccl"] = ddp_nccl_phase(torch, np, Path(tmp))
         paths["ddp_fit"] = ddp_fit_phase(torch, np, data_yaml, Path(tmp))
         print(f"[ddp] the three data-parallel phases took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths["spatial"] = spatial_phase(torch, np, Path(tmp))
+        paths["spatial_fit"] = spatial_fit_phase(torch, np, data_yaml, Path(tmp))
+        print(f"[spatial] the two spatial-mesh phases took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches are those of this slice's paths first (the
-    # data-parallel run, micro-steps and NCCL group), then the earlier
-    # slices' (the predictor, device augmentation, the training run, the
-    # loader-fed train step, prob_mode, SPADE, plain YOLOv8), else MaskECA's,
-    # else the flagship's
-    order = ("ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev", "data_dev", "fit", "train_data", "train_prob",
-             "serve_spade", "train_spade", "serve_base", "train_base", "train_eca", "serve_eca", "train", "serve")
+    # spatial-mesh run and micro-steps), then the earlier slices' (the
+    # data-parallel run, micro-steps and NCCL group, the predictor, device
+    # augmentation, the training run, the loader-fed train step, prob_mode,
+    # SPADE, plain YOLOv8), else MaskECA's, else the flagship's
+    order = ("spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev", "data_dev", "fit",
+             "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base", "train_eca",
+             "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path
@@ -2137,10 +2454,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"]):
+    if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"]):
         import torch
 
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: CUDA is not available; this script runs on a CUDA card only")
-        sys.exit(ddp_faults() if sys.argv[1] == "--ddp-faults" else ddp_alone())
+        tag, what = sys.argv[1][2:].split("-")
+        sys.exit(planted_faults(tag, {"ddp": DDP_FAULTS, "spatial": SPATIAL_FAULTS}[tag]) if what == "faults"
+                 else phase_alone(tag))
     sys.exit(main())

@@ -11,6 +11,12 @@ initialises one from torchrun's variables, NCCL on the card and gloo with
 ``--device cpu``, and destroys it when the run ends::
 
     torchrun --nproc_per_node=N -m mga_yolo_tpu_torch.cli.train --cfg ... --batch 64
+
+``--mesh_spatial k`` splits the N ranks into N / k data shards of k ranks,
+each holding a band of ``imgsz / k`` rows of its shard's images (the JAX
+package's DP x SP mesh; ``imgsz`` a multiple of 32 k)::
+
+    torchrun --nproc_per_node=2 -m mga_yolo_tpu_torch.cli.train --cfg ... --mesh_spatial 2 --device cpu
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@
 // channel also sum the mask, so each pixel of m is counted once a block;
 // the other channels' mask loads hit L1 / L2. The wrapper (ops/masked_pool.py
 // pool_plan) picks tile and wpc so the grid holds about two blocks per SM.
+//
+// A second entry, masked_reductions_launch, writes the five float32
+// reductions themselves (what _kernel writes before _combine) for a band of
+// rows of the images, which the spatial mesh sums and maxes over the ranks
+// before the combine (parallel/spatial.py): msum (B, 1), wsum, gsum, mmax
+// (B, C) and cnt (B, 1), with mmax = -3e38 (the JAX _NEG) where no pixel has
+// m > 0.5. It is the same grid and the same register and shared-memory
+// reduction (block_partials), with the combine left out.
 
 #include "masked_reduce.cuh"
 
@@ -41,17 +49,18 @@ constexpr int kSlots = 64;  // (channel, slice) partials a block holds: tile * w
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Block i: image i / tiles, channels [c0, c0 + tile) with c0 = (i % tiles) * tile.
+// (channel, slice) partials of a block, and the mask's per slice.
+struct Partials {
+  float w[kSlots], g[kSlots], mx[kSlots], msum[kWarps], cnt[kWarps];
+};
+
+// Block of image b, channels [c0, c0 + tile): each warp's partials into s.
 // Warp w: slice w % wpc of channels j = w / wpc, w / wpc + kWarps / wpc, ... < tile.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-masked_pool_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_sb, int64_t x_sc,
-                   int64_t m_sb, int C, int N, int tile, int wpc, float tiny_thr, float eps,
-                   T* __restrict__ avg, T* __restrict__ mxd) {
-  __shared__ float s_w[kSlots], s_g[kSlots], s_mx[kSlots], s_msum[kWarps], s_cnt[kWarps];
-  const int tiles = (C + tile - 1) / tile;
-  const int b = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x - b * tiles) * tile;
+__device__ __forceinline__ void block_partials(Partials& s, const T* __restrict__ x,
+                                               const T* __restrict__ m, int64_t x_sb, int64_t x_sc,
+                                               int64_t m_sb, int C, int N, int tile, int wpc, int b,
+                                               int c0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slice = warp % wpc;
   const T* m_row = m + b * m_sb;
@@ -69,32 +78,81 @@ masked_pool_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_s
       msum = warp_sum(msum);
       cnt = warp_sum(cnt);
       if (lane == 0) {
-        s_msum[slice] = msum;
-        s_cnt[slice] = cnt;
+        s.msum[slice] = msum;
+        s.cnt[slice] = cnt;
       }
     }
     if (lane == 0) {
-      s_w[j * wpc + slice] = w;
-      s_g[j * wpc + slice] = g;
-      s_mx[j * wpc + slice] = mx;
+      s.w[j * wpc + slice] = w;
+      s.g[j * wpc + slice] = g;
+      s.mx[j * wpc + slice] = mx;
     }
   }
   __syncthreads();
+}
+
+// Channel j's totals over the wpc slices, and the mask's.
+__device__ __forceinline__ void channel_totals(const Partials& s, int j, int wpc, float& tot,
+                                               float& any, float& w, float& g, float& mx) {
+  tot = any = w = g = 0.f;
+  mx = kNeg;
+  for (int q = 0; q < wpc; ++q) {
+    tot += s.msum[q];
+    any += s.cnt[q];
+    w += s.w[j * wpc + q];
+    g += s.g[j * wpc + q];
+    mx = fmaxf(mx, s.mx[j * wpc + q]);
+  }
+}
+
+// Block i: image i / tiles, channels [c0, c0 + tile) with c0 = (i % tiles) * tile.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+masked_pool_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_sb, int64_t x_sc,
+                   int64_t m_sb, int C, int N, int tile, int wpc, float tiny_thr, float eps,
+                   T* __restrict__ avg, T* __restrict__ mxd) {
+  __shared__ Partials s;
+  const int tiles = (C + tile - 1) / tile;
+  const int b = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - b * tiles) * tile;
+  block_partials<T, V>(s, x, m, x_sb, x_sc, m_sb, C, N, tile, wpc, b, c0);
 
   const int j = threadIdx.x;
   if (j >= tile || c0 + j >= C) return;
-  float tot = 0.f, any = 0.f, w = 0.f, g = 0.f, mx = kNeg;
-  for (int s = 0; s < wpc; ++s) {
-    tot += s_msum[s];
-    any += s_cnt[s];
-    w += s_w[j * wpc + s];
-    g += s_g[j * wpc + s];
-    mx = fmaxf(mx, s_mx[j * wpc + s]);
-  }
+  float tot, any, w, g, mx;
+  channel_totals(s, j, wpc, tot, any, w, g, mx);
   const float gap = g / (float)N;
   const int64_t o = (int64_t)b * C + c0 + j;
   store(avg + o, tot / (float)N >= tiny_thr ? w / fmaxf(tot, eps) : gap);
   store(mxd + o, any > 0.f ? mx : gap);
+}
+
+// The same blocks; the five reductions in float32, (B, C) and (B, 1) contiguous.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+masked_reductions_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_sb,
+                         int64_t x_sc, int64_t m_sb, int C, int N, int tile, int wpc,
+                         float* __restrict__ msum, float* __restrict__ wsum,
+                         float* __restrict__ gsum, float* __restrict__ mmax,
+                         float* __restrict__ cnt) {
+  __shared__ Partials s;
+  const int tiles = (C + tile - 1) / tile;
+  const int b = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - b * tiles) * tile;
+  block_partials<T, V>(s, x, m, x_sb, x_sc, m_sb, C, N, tile, wpc, b, c0);
+
+  const int j = threadIdx.x;
+  if (j >= tile || c0 + j >= C) return;
+  float tot, any, w, g, mx;
+  channel_totals(s, j, wpc, tot, any, w, g, mx);
+  const int64_t o = (int64_t)b * C + c0 + j;
+  wsum[o] = w;
+  gsum[o] = g;
+  mmax[o] = mx;
+  if (c0 == 0 && j == 0) {  // one thread of the image's first tile writes the mask's two
+    msum[b] = tot;
+    cnt[b] = any;
+  }
 }
 
 template <typename T>
@@ -111,6 +169,25 @@ int launch(const void* x, const void* m, long long x_sb, long long x_sc, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_reductions(const void* x, const void* m, long long x_sb, long long x_sc, long long m_sb,
+                      int B, int C, int N, int tile, int wpc, float* msum, float* wsum,
+                      float* gsum, float* mmax, float* cnt, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  const unsigned blocks = (unsigned)B * (unsigned)((C + tile - 1) / tile);
+  auto kernel = vector_rows(x, m, x_sb, x_sc, m_sb, N, V) ? masked_reductions_kernel<T, V>
+                                                          : masked_reductions_kernel<T, 1>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(m), (int64_t)x_sb, (int64_t)x_sc,
+      (int64_t)m_sb, C, N, tile, wpc, msum, wsum, gsum, mmax, cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_plan(int B, int C, int N, int tile, int wpc) {
+  return B < 1 || C < 1 || N < 1 || tile < 1 || wpc < 1 || kWarps % wpc != 0 ||
+         (long long)tile * wpc > kSlots || (long long)B * ((C + tile - 1) / tile) > 0x7fffffffLL;
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,16 +199,30 @@ extern "C" {
 int masked_pool_launch(int dtype, const void* x, const void* m, long long x_sb, long long x_sc,
                        long long m_sb, int B, int C, int N, int tile, int wpc, float tiny_thr,
                        float eps, void* avg, void* mx, void* stream) {
-  if (B < 1 || C < 1 || N < 1 || tile < 1 || wpc < 1 || kWarps % wpc != 0 ||
-      (long long)tile * wpc > kSlots ||
-      (long long)B * ((C + tile - 1) / tile) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_plan(B, C, N, tile, wpc)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch<float>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, tiny_thr, eps, avg, mx,
                          stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, tiny_thr, eps, avg,
                                  mx, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The five reductions of the same (B, C, N) call into float32 msum (B, 1),
+// wsum, gsum, mmax (B, C) and cnt (B, 1), contiguous; the same plan and
+// return value.
+int masked_reductions_launch(int dtype, const void* x, const void* m, long long x_sb,
+                             long long x_sc, long long m_sb, int B, int C, int N, int tile,
+                             int wpc, float* msum, float* wsum, float* gsum, float* mmax,
+                             float* cnt, void* stream) {
+  if (bad_plan(B, C, N, tile, wpc)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_reductions<float>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, msum, wsum, gsum,
+                                    mmax, cnt, stream);
+  if (dtype == 1)
+    return launch_reductions<__nv_bfloat16>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, msum, wsum,
+                                            gsum, mmax, cnt, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,7 +10,10 @@ batches can be split into ``num_shards`` per-process shards.
 from there to the card without blocking the host; the dict it returns is
 the one ``train.state.make_train_step`` takes. In :attr:`DataLoader.raw_mode`
 a batch is instead ``device_augment.collate_raw`` of un-warped samples, which
-``device_augment.make_augment_fn`` finishes on the card.
+``device_augment.make_augment_fn`` finishes on the card. A loader that keeps
+the last batch (``drop_last=False``) adds ``first`` to each batch: whether
+each row is its image's first in the epoch's global order, which every shard
+knows, so a consumer counts a padded row's image once over the shards.
 """
 
 from __future__ import annotations
@@ -100,7 +103,21 @@ class DataLoader:
             batches += [np.resize(idx[i:i + B], B) for i in range(0, len(idx), B)]
         return batches
 
-    def _make_batch(self, batch_list: list, bi: int, use_mosaic: bool) -> dict:
+    @staticmethod
+    def _first_flags(batch_list: list[np.ndarray]) -> list[np.ndarray]:
+        """Per global batch, whether each row is the first of its image in
+        the epoch (the wrapped tail and a rect bucket's padding repeat)."""
+        seen: set[int] = set()
+        out = []
+        for idx in batch_list:
+            flags = np.zeros(len(idx), dtype=bool)
+            for j, i in enumerate(idx):
+                flags[j] = int(i) not in seen
+                seen.add(int(i))
+            out.append(flags)
+        return out
+
+    def _make_batch(self, batch_list: list, bi: int, use_mosaic: bool, first: Optional[list] = None) -> dict:
         local_idx = batch_list[bi][self.shard_index::self.num_shards]
         imgsz = None
         if self.size_buckets:  # one size a batch, the same on every shard
@@ -113,20 +130,24 @@ class DataLoader:
                 samples.append(DA.build_raw_sample(self.dataset, int(di), rng, use_mosaic, imgsz))
             else:
                 samples.append(self.dataset.get(int(di), rng, use_mosaic=use_mosaic, imgsz=imgsz))
-        return DA.collate_raw(samples) if self.raw_mode else collate(samples)
+        batch = DA.collate_raw(samples) if self.raw_mode else collate(samples)
+        if first is not None:
+            batch["first"] = first[bi][self.shard_index::self.num_shards]
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         batch_list = self._epoch_batches()
         nb, use_mosaic = len(batch_list), self.use_mosaic
+        first = None if self.drop_last else self._first_flags(batch_list)
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
             futures: queue.Queue = queue.Queue()
             for bi in range(min(self.prefetch, nb)):
-                futures.put(pool.submit(self._make_batch, batch_list, bi, use_mosaic))
+                futures.put(pool.submit(self._make_batch, batch_list, bi, use_mosaic, first))
             next_bi = futures.qsize()
             for _ in range(nb):
                 fut = futures.get()
                 if next_bi < nb:
-                    futures.put(pool.submit(self._make_batch, batch_list, next_bi, use_mosaic))
+                    futures.put(pool.submit(self._make_batch, batch_list, next_bi, use_mosaic, first))
                     next_bi += 1
                 yield fut.result()
 

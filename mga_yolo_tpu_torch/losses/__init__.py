@@ -5,7 +5,9 @@ Kendall MTL, and :func:`mga_loss`, the full multi-task criterion
 
 Data-parallel: given a :class:`GlobalBatch`, :func:`mga_loss` returns this
 rank's *share* of the loss of the global batch, whose shares (and their
-gradients) sum over the ranks to the global loss (and its gradient).
+gradients) sum over the ranks to the global loss (and its gradient); under
+a mesh that splits rows too, where each rank holds a band of its data
+shard's images.
 """
 
 from __future__ import annotations
@@ -48,15 +50,26 @@ LOSS_ITEM_NAMES = (
 class GlobalBatch:
     """A rank's view of a global batch split into ``world`` even shards.
 
-    ``sum_ranks(t)`` returns the sum over the ranks of a detached tensor
-    (``parallel.all_reduce_sum``; a test may return the known global value).
-    The detection loss sums its target-score normaliser with it and scales
-    by the global batch; every per-image or per-pixel mean, and the Kendall
-    regularisers, are divided by ``world``.
+    ``sum_ranks(t)`` returns the sum over the data shards of a detached
+    tensor (``parallel.all_reduce_sum``; a test may return the known global
+    value). The detection loss sums its target-score normaliser with it and
+    scales by the global batch; every per-image or per-pixel mean, and the
+    Kendall regularisers, are divided by ``world``.
+
+    Under a mesh that splits rows (``parallel/spatial.py``), ``world`` is
+    still every rank, and each data shard's images are split in ``space``
+    bands of rows, one a rank. ``sum_space(t)`` sums a tensor over those
+    ranks, differentiably (``parallel.spatial.sum_space``): the segmentation
+    loss takes its per-image sums (Dice, Tversky) with it. The detection
+    loss runs on the raw maps gathered whole, alike on the ``space`` ranks,
+    so each counts 1/``space`` of it, and ``sum_ranks`` is over the data
+    shards only.
     """
 
     world: int
     sum_ranks: Callable[[torch.Tensor], torch.Tensor]
+    space: int = 1
+    sum_space: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 def mga_loss(
@@ -94,7 +107,8 @@ def mga_loss(
         det_maps, strides, batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], nc, det_cfg, share
     )
     # a model without mask heads (plain YOLOv8) has seg items of exactly 0
-    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg, device=l_det.device, world=world)
+    l_seg, seg_logs = segmentation_loss(seg, batch.get("masks", ()), seg_cfg, device=l_det.device, world=world,
+                                        sum_space=None if share is None else share.sum_space)
     total, mtl_logs = kendall_combine(l_det, l_seg, mtl_log_vars, world)
 
     z = torch.zeros((), device=l_det.device)

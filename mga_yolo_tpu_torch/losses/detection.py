@@ -219,8 +219,10 @@ def v8_detection_loss(
     loss.py); 'norm' is this batch's unclamped target-score sum.
 
     With ``share`` (a ``losses.GlobalBatch``) the target-score normaliser is
-    summed over the ranks (one detached scalar) and the scale is the global
-    batch: the rank's share of the global batch's loss and items."""
+    summed over the data shards (one detached scalar) and the scale is the
+    global batch: the rank's share of the global batch's loss and items. On
+    ``share.space`` ranks that hold the same maps (gathered over bands of
+    rows) each takes 1/space of it."""
     reg_max = cfg.reg_max
     B = det_maps[0].shape[0]
     pred_distri, pred_scores = flatten_det_maps(det_maps, reg_max, nc)
@@ -258,5 +260,9 @@ def v8_detection_loss(
     loss_box = loss_iou * cfg.box
     loss_cls = loss_cls * cfg.cls
     loss_dfl = loss_dfl * cfg.dfl
-    total = (loss_box + loss_cls + loss_dfl) * (B if share is None else B * share.world)
-    return total, {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach(), "norm": norm}
+    total = (loss_box + loss_cls + loss_dfl) * (B if share is None else B * (share.world // share.space))
+    comps = {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
+    if share is not None and share.space > 1:  # alike on the space ranks: each counts 1/space
+        total = total / share.space
+        comps = {k: v / share.space for k, v in comps.items()}
+    return total, {**comps, "norm": norm}

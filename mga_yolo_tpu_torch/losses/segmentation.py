@@ -35,10 +35,17 @@ class SegLossConfig:
     ufl_gamma: float = 0.5
 
 
-def soft_dice(probs: torch.Tensor, tgt: torch.Tensor, smooth: float) -> torch.Tensor:
+def _image_sums(terms: list, sum_space=None) -> list:
+    """Each (B, 1, H, W) term summed over its image, (B,) each; with
+    ``sum_space``, over the whole images of the space ranks' bands (one sum)."""
+    sums = torch.stack([t.sum((1, 2, 3)) for t in terms])
+    return list(sums if sum_space is None else sum_space(sums))
+
+
+def soft_dice(probs: torch.Tensor, tgt: torch.Tensor, smooth: float, sum_space=None) -> torch.Tensor:
     """1 - Dice per batch element."""
-    inter = (probs * tgt).sum((1, 2, 3))
-    denom = probs.sum((1, 2, 3)) + tgt.sum((1, 2, 3)) + smooth
+    inter, psum, tsum = _image_sums([probs * tgt, probs, tgt], sum_space)
+    denom = psum + tsum + smooth
     return 1.0 - (2.0 * inter + smooth) / denom
 
 
@@ -55,13 +62,11 @@ def modified_focal_ce(logits: torch.Tensor, tgt: torch.Tensor, delta: float, gam
 
 
 def modified_focal_tversky(logits: torch.Tensor, tgt: torch.Tensor, delta: float, gamma: float,
-                           smooth: float, eps: float = 1e-6) -> torch.Tensor:
+                           smooth: float, eps: float = 1e-6, sum_space=None) -> torch.Tensor:
     """LmFT, float32, guarded denominator."""
     x, t = logits.float(), tgt.float()
     p = torch.sigmoid(x)
-    tp = (p * t).sum((1, 2, 3))
-    fn = (t * (1.0 - p)).sum((1, 2, 3))
-    fp = ((1.0 - t) * p).sum((1, 2, 3))
+    tp, fn, fp = _image_sums([p * t, t * (1.0 - p), (1.0 - t) * p], sum_space)
     denom = (tp + delta * fn + (1.0 - delta) * fp + smooth).clamp_min(eps)
     base = (1.0 - (tp + smooth) / denom).clamp_min(eps)
     return (base**gamma).mean()
@@ -73,6 +78,7 @@ def segmentation_loss(
     cfg: SegLossConfig = SegLossConfig(),
     device: torch.device | None = None,
     world: int = 1,
+    sum_space=None,
 ):
     """Returns (total, logs {sk_bce, sk_dice, sk_combined, seg_total}).
 
@@ -80,7 +86,10 @@ def segmentation_loss(
     loss is disabled or the model has no mask heads (plain YOLOv8). A rank
     of ``world`` holding an even shard of the global batch divides each
     term, a mean over its images or pixels, by ``world``: the shares sum
-    over the ranks to the global batch's means."""
+    over the ranks to the global batch's means. Where the ranks hold bands
+    of rows of their images, ``sum_space`` (``losses.GlobalBatch``) sums the
+    per-image sums of Dice and Tversky over the bands; the per-pixel means
+    need nothing more."""
     if device is None:
         device = next((v.device for v in preds.values()), None)
     total = torch.zeros((), device=device)
@@ -101,12 +110,13 @@ def segmentation_loss(
         w_scale = cfg.scale_weights[i] if i < len(cfg.scale_weights) else 1.0
         if cfg.use_unified_focal:
             first = modified_focal_ce(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma) / world
-            second = modified_focal_tversky(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma, cfg.smooth) / world
+            second = modified_focal_tversky(pred, tgt, cfg.ufl_delta, cfg.ufl_gamma, cfg.smooth,
+                                            sum_space=sum_space) / world
             combined = w_scale * (cfg.ufl_lambda * first + (1.0 - cfg.ufl_lambda) * second)
         else:
             p32 = pred.float()
             first = optax_sigmoid_bce(p32, tgt).mean() / world
-            second = soft_dice(torch.sigmoid(p32), tgt, cfg.smooth).mean() / world
+            second = soft_dice(torch.sigmoid(p32), tgt, cfg.smooth, sum_space).mean() / world
             combined = w_scale * (cfg.bce_weight * first + cfg.dice_weight * second)
         logs[f"{sk}_bce"] = first.detach()
         logs[f"{sk}_dice"] = second.detach()

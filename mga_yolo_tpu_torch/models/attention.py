@@ -5,8 +5,12 @@ MaskCBAM (with the probabilistic mask gate :class:`ProbMaskGater` under
 ``torch.Generator`` its caller passes (the train step's), as the JAX package
 draws from the ``"gater"`` RNG collection. With a process group of two or
 more, each rank draws for the global batch from its identically seeded
-generator and keeps its own rows (the loader's strided shard), so N ranks
-draw what one process draws.
+generator and keeps its own rows (the loader's strided shard) and, under
+a mesh that splits rows, its own band of rows, so N ranks draw what one
+process draws. Under such a mesh the pools and norms over H x W are taken
+over the whole images: MaskCBAM's and MaskECA's through the masked
+reductions summed over the space ranks (``parallel.spatial``), MaskSPADE's
+instance norm through sums over them.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from torch import nn
 
 from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.models.layers import BatchNorm2d, resize_bilinear
+from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.ops.cam_gate import cam_gate
 from mga_yolo_tpu_torch.ops.masked_pool import masked_pool
 
@@ -53,13 +58,19 @@ class ProbMaskGater(nn.Module):
             return p
         if generator is None:
             raise ValueError(f"ProbMaskGater: mode {self.mode!r} in train mode draws from a generator; pass one")
-        W, r = parallel.world(), parallel.rank()
+        W, r = parallel.data_world(), parallel.data_rank()
+        m = parallel.mesh()
+        shape, own = (p.shape[0] * W, *p.shape[1:]), (slice(r, None, W),)  # the global batch, this rank's rows
+        if m is not None:  # of its whole images, this rank's band
+            h = p.shape[2]
+            shape = (*shape[:2], h * m.space, *shape[3:])
+            own = (*own, slice(None), slice(m.space_rank * h, (m.space_rank + 1) * h))
         if self.mode == "bernoulli_detach":
-            pg = p.new_zeros((p.shape[0] * W, *p.shape[1:]))
-            pg[r::W] = p.detach()
-            return torch.bernoulli(pg, generator=generator)[r::W]
+            pg = p.new_zeros(shape)
+            pg[own] = p.detach()
+            return torch.bernoulli(pg, generator=generator)[own]
         eps = 1e-6
-        u = torch.rand((2, p.shape[0] * W, *p.shape[1:]), generator=generator, device=p.device)[:, r::W]
+        u = torch.rand((2, *shape), generator=generator, device=p.device)[(slice(None), *own)]
         u = u.clamp(eps, 1 - eps)
         g = -torch.log(-torch.log(u[0])) + torch.log(-torch.log(u[1]))
         pc = p.clamp(eps, 1 - eps)
@@ -103,14 +114,15 @@ class MaskCBAM(nn.Module):
         # the MLP in the activations' type, as the JAX package's bf16 step
         # casts its parameters (the casts are no-ops in float32 and serving)
         dt = feat.dtype
-        gate = cam_gate(feat, _prob(mask, self.use_sigmoid_mask).to(dt), fc1.weight.to(dt), fc1.bias.to(dt),
-                        fc2.weight.to(dt), fc2.bias.to(dt), self.tiny_mask_thr, self.eps).to(dt)
+        gate_fn = cam_gate if parallel.mesh() is None else spatial.cam_gate
+        gate = gate_fn(feat, _prob(mask, self.use_sigmoid_mask).to(dt), fc1.weight.to(dt), fc1.bias.to(dt),
+                       fc2.weight.to(dt), fc2.bias.to(dt), self.tiny_mask_thr, self.eps).to(dt)
         cam_out = feat * gate[:, :, None, None]
 
         x_max = cam_out.amax(1, keepdim=True)
         x_avg = cam_out.mean(1, keepdim=True)
         m_plane = _prob(resize_bilinear(mask, tuple(feat.shape[-2:])), self.use_sigmoid_mask).to(feat.dtype)
-        att = self.sam_conv(torch.cat([x_max, x_avg, m_plane], 1))
+        att = spatial.conv(self.sam_conv, torch.cat([x_max, x_avg, m_plane], 1))
         sam_out = cam_out * torch.sigmoid(att).to(feat.dtype)
 
         a = F.softplus(self.beta).to(sam_out.dtype)
@@ -155,8 +167,11 @@ class MaskECA(nn.Module):
                 raise ValueError(f"MaskECA: mask {tuple(mask.shape)} does not match features {tuple(feat.shape)}")
             # under autocast the mask logits are float32 and feat bf16: the
             # kernel takes one type
-            y, _ = masked_pool(feat, _prob(mask, self.use_sigmoid_mask).to(feat.dtype), self.tiny_mask_thr,
-                               self.eps)
+            m = _prob(mask, self.use_sigmoid_mask).to(feat.dtype)
+            if parallel.mesh() is None:
+                y, _ = masked_pool(feat, m, self.tiny_mask_thr, self.eps)
+            else:
+                y = spatial.pool_f32(feat, m, self.tiny_mask_thr, self.eps)[0].to(feat.dtype)
         w = torch.sigmoid(self.conv1d(y[:, None, :]))[:, 0]          # (B, C)
         a = F.softplus(self.beta).to(w.dtype)
         g = (1.0 + a * (w - 0.5)).to(feat.dtype)
@@ -194,11 +209,18 @@ class MaskSPADE(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if self.norm is not None:
             x_hat = self.norm(feat)
-        else:
+        elif parallel.mesh() is None:
             var, mu = torch.var_mean(feat, (2, 3), correction=0, keepdim=True)
             x_hat = (feat - mu) * torch.rsqrt(var + self.eps)
+        else:  # the whole images' mean, then variance: two sums over the space ranks
+            n = feat.shape[2] * feat.shape[3] * parallel.mesh().space
+            mu = spatial.sum_space(feat.float().sum((2, 3), keepdim=True)) / n
+            d = feat.float() - mu
+            var = spatial.sum_space((d * d).sum((2, 3), keepdim=True)) / n
+            x_hat = (d * torch.rsqrt(var + self.eps)).to(feat.dtype)
         if mask is None:
             return x_hat
         m = _prob(resize_bilinear(mask, tuple(feat.shape[-2:])), self.use_sigmoid_mask)
-        h = self.shared(m)
-        return self.conv_gamma(h).to(feat.dtype) * x_hat + self.conv_beta(h).to(feat.dtype)
+        h = self.shared[1](spatial.conv(self.shared[0], m))
+        gamma, beta = spatial.conv(self.conv_gamma, h), spatial.conv(self.conv_beta, h)
+        return gamma.to(feat.dtype) * x_hat + beta.to(feat.dtype)

@@ -5,7 +5,8 @@
 * :class:`Detect` — anchor-free DFL head. ``forward`` returns, in eval
   mode, ``(decoded (B, A, 4+nc), maps)``: xywh in input pixels ++ sigmoid
   class probabilities, and the raw per-level maps (B, 4*reg_max+nc, H, W);
-  in train mode the maps alone.
+  in train mode the maps alone. Under a mesh that splits rows the maps are
+  gathered whole over the space ranks first (``parallel.spatial.gather_rows``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.models.layers import BatchNorm2d, ConvBN, DWConv
+from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.ops.boxes import dist2bbox, make_anchors
 
 
@@ -33,7 +36,7 @@ class MGAMaskHead(nn.Module):
         self.head = nn.Conv2d(hidden, out_ch, 3, padding=1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.proj(x))
+        return spatial.conv(self.head, self.proj(x))
 
 
 class DFL(nn.Module):
@@ -98,6 +101,8 @@ class Detect(nn.Module):
     def forward(self, xs: Sequence[torch.Tensor]):
         """Train mode: the raw maps. Eval mode: ``(decoded, maps)``."""
         maps = [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]
+        if parallel.mesh() is not None:  # every anchor of the images, for the loss and the decode
+            maps = spatial.gather_rows(maps)
         if self.training:
             return maps
         return self.decode(maps), maps

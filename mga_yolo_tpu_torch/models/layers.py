@@ -9,7 +9,9 @@ package's train mode are TPU memory devices: they compute what concat +
 1x1 conv and one k x k pool compute, which is what these modules do in both
 modes. Train mode differs from PyTorch's default only in the BatchNorm's
 running variance (:class:`BatchNorm2d`), and, with a process group of two
-or more, in its statistics: those of the global batch.
+or more, in its statistics: those of the global batch. Under a mesh that
+splits rows (``parallel/spatial.py``) each conv and pool runs on the rank's
+band of rows with the halo it needs, and a resize must be an identity.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mga_yolo_tpu_torch import parallel
+from mga_yolo_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-3  # reference initialize_weights sets eps=1e-3 on every BatchNorm2d
 BN_MOMENTUM = 0.03  # torch convention; flax's momentum=0.97
@@ -168,7 +171,7 @@ class ConvBN(nn.Module):
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(spatial.conv(self.conv, x)))
 
 
 class DWConv(ConvBN):
@@ -265,7 +268,7 @@ class SPPF(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = [self.cv1(x)]
         for _ in range(3):
-            outs.append(F.max_pool2d(outs[-1], self.k, 1, self.k // 2))
+            outs.append(spatial.max_pool2d(outs[-1], self.k, 1, self.k // 2))
         return self.cv2(torch.cat(outs, 1))
 
 
@@ -278,16 +281,28 @@ def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize to (H, W), half-pixel centres (align_corners=False).
 
     ``jax.image.resize`` antialiases when it shrinks an axis, so does this.
+    Under a mesh that splits rows only the identity is allowed.
     """
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
+    _no_resize_under_mesh(x, hw)
     shrink = hw[0] < x.shape[-2] or hw[1] < x.shape[-1]
     return F.interpolate(x, size=hw, mode="bilinear", align_corners=False, antialias=shrink)
 
 
 def resize_nearest(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """Nearest resize to (H, W) with half-pixel centres, as ``jax.image.resize``
-    'nearest' (PyTorch's ``"nearest"`` mode floors without the half pixel)."""
+    'nearest' (PyTorch's ``"nearest"`` mode floors without the half pixel).
+    Under a mesh that splits rows only the identity is allowed."""
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
+    _no_resize_under_mesh(x, hw)
     return F.interpolate(x, size=hw, mode="nearest-exact")
+
+
+def _no_resize_under_mesh(x: torch.Tensor, hw: tuple[int, int]) -> None:
+    """Raise under a mesh that splits rows: a band cannot be resized on its
+    own (every resize of the model and the losses is an identity there)."""
+    if parallel.mesh() is not None:
+        raise ValueError(f"a resize of {tuple(x.shape[-2:])} to {tuple(hw)} under a mesh that splits rows: "
+                         "only the identity is supported")

@@ -40,8 +40,11 @@ launches = 0
 
 def cam_gate_ref(x, m, w1, b1, w2, b2, tiny_thr: float = 1e-4, eps: float = 1e-6) -> torch.Tensor:
     """Plain version: the masked pool's float32 descriptors, then the MLP and sigmoid."""
-    avg, mx = pool_f32(x, m, tiny_thr, eps)
+    return gate_of(*pool_f32(x, m, tiny_thr, eps), w1, b1, w2, b2)
 
+
+def gate_of(avg, mx, w1, b1, w2, b2) -> torch.Tensor:
+    """sigmoid(mlp(avg) + mlp(max)) of the (B, C) descriptors, in float32."""
     def mlp(d):
         return F.linear(F.relu(F.linear(d, w1.float(), b1.float())), w2.float(), b2.float())
 

@@ -51,16 +51,23 @@ def _reductions(x: torch.Tensor, m: torch.Tensor):
     return msum, wsum, gsum, mmax, sel, sel.float().sum(-1)
 
 
+def combine(msum, wsum, gsum, mmax, cnt, N: int, tiny_thr: float = 1e-4, eps: float = 1e-6):
+    """The JAX package's ``_combine``: the five reductions over N pixels ->
+    the float32 (avg, max) descriptors, with the tiny-mask and no-pixel GAP
+    fallbacks."""
+    gap = gsum / N
+    mavg = wsum / msum.clamp_min(eps)
+    valid = (msum / N >= tiny_thr).float()
+    return mavg * valid + gap * (1.0 - valid), torch.where(cnt > 0, mmax, gap)
+
+
 def pool_f32(x: torch.Tensor, m: torch.Tensor, tiny_thr: float = 1e-4, eps: float = 1e-6):
     """Plain version's float32 (avg, max) descriptors, (B, C) each; the CAM
     gate's plain version shares it."""
     B, C, H, W = x.shape
     N = H * W
     msum, wsum, gsum, mmax, _, cnt = _reductions(x.reshape(B, C, N).float(), m.reshape(B, 1, N).float())
-    gap = gsum / N
-    mavg = wsum / msum.clamp_min(eps)
-    valid = (msum / N >= tiny_thr).float()
-    return mavg * valid + gap * (1.0 - valid), torch.where(cnt > 0, mmax, gap)
+    return combine(msum, wsum, gsum, mmax, cnt, N, tiny_thr, eps)
 
 
 def masked_pool_ref(x: torch.Tensor, m: torch.Tensor, tiny_thr: float = 1e-4, eps: float = 1e-6):

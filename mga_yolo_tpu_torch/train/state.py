@@ -18,6 +18,10 @@ the accumulated gradient is summed over the ranks once at each apply,
 before the clip (by linearity the same as a sum every micro-step, at one
 collective an apply). Every rank then applies the same update, so the
 states stay equal; :func:`create_train_state` starts them from rank 0's.
+Under a mesh that splits rows (``parallel.using(parallel.data_mesh(k))``)
+the batch a step takes holds this rank's band of rows of its data shard's
+images and masks (``parallel.spatial.keep_rows``); the model, the loss
+share and the eval step take it from there.
 
 A batch is the JAX package's batch dict: ``image`` (B, H, W, 3) uint8,
 ``gt_boxes`` (B, M, 4) xyxy pixels, ``gt_labels`` (B, M), ``mask_gt`` (B, M)
@@ -40,6 +44,7 @@ from mga_yolo_tpu_torch.losses.detection import DetLossConfig
 from mga_yolo_tpu_torch.losses.segmentation import SegLossConfig
 from mga_yolo_tpu_torch.models.yolo import MGAModel
 from mga_yolo_tpu_torch.ops.nms import nms
+from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.train import optim
 
 Tensors = Dict[str, torch.Tensor]
@@ -241,7 +246,11 @@ def make_eval_step(
     The eval step reduces nothing: with a process group of two or more it
     runs this rank's shard, its ``items`` are the shard's own, and
     ``det_norm`` is the shard's target-score sum, from which the validator
-    rebuilds the global batch's items once a pass."""
+    rebuilds the global batch's items once a pass. Under a mesh that splits
+    rows the batch holds this rank's band of the images and the masks
+    whole: the model gathers the detection maps whole, the eval step the
+    mask logits, and every space rank of a data shard returns the shard's
+    outputs, items and detections alike."""
     twin = copy.deepcopy(model).eval()
     device = next(twin.parameters()).device
 
@@ -260,6 +269,8 @@ def make_eval_step(
         out = _forward(twin, batch, device, compute_dtype)
         decoded, raw = out["det"]
         decoded = decoded.float()
+        if parallel.mesh() is not None and out["seg"]:
+            out["seg"] = dict(zip(out["seg"], spatial.gather_rows(list(out["seg"].values()))))
         _, items, logs = mga_loss({"det": raw, "seg": out["seg"]}, _loss_batch(batch, device), strides,
                                   nc, state.ema_params["mtl_log_vars"], det_cfg, seg_cfg)
         result: dict[str, Any] = {"decoded": decoded, "seg": out["seg"], "items": items,

@@ -21,9 +21,12 @@ With ``augment.on_device`` (and a config ``device_augment.supported``
 accepts) the loader hands over raw canvases and the warp, HSV, flip and
 mask pyramid run on the run's device before each micro-step
 (:attr:`MGATrainer.device_augment`); otherwise the reason is printed and the
-host path runs, as in the JAX package. Not ported yet, and refused with
-``NotImplementedError``: ``mesh_spatial`` > 1 (the spatial mesh axis,
-``ROADMAP.md`` section 1, item 10).
+host path runs, as in the JAX package. ``mesh_spatial`` k > 1 trains on a DP
+x SP mesh (``parallel.data_mesh``, the JAX package's ``mesh_spatial``): the
+world's ranks form ``world / k`` data shards of the global batch and each
+rank of a shard holds a band of ``imgsz / k`` rows of its images
+(``parallel/spatial.py``), so the world must divide by k, the global batch
+by the data shards, and ``imgsz`` by 32 k.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from mga_yolo_tpu_torch.data.dataset import MGADataset
 from mga_yolo_tpu_torch.data.loader import DataLoader
 from mga_yolo_tpu_torch.device import resolve_device
 from mga_yolo_tpu_torch.models.yolo import MGAModel, create_model
+from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.train import optim
 from mga_yolo_tpu_torch.train import state as S
 from mga_yolo_tpu_torch.train.validator import Validator, ValResult
@@ -81,7 +85,7 @@ def count_gflops(spec, imgsz: int) -> Optional[float]:
     from torch.utils.flop_counter import FlopCounterMode
 
     try:
-        with FakeTensorMode():
+        with FakeTensorMode(), parallel.using(None):  # one process's model, whatever mesh is in effect
             model = MGAModel(spec).eval()
             with FlopCounterMode(display=False) as fc, torch.no_grad():
                 model(torch.zeros(1, 3, imgsz, imgsz))
@@ -98,11 +102,13 @@ class MGATrainer:
         # everything that can refuse the config runs before the run directory exists
         self.world, self.rank, self.is_main = parallel.world(), parallel.rank(), parallel.is_main()
         self.device = resolve_device(parallel.local_device(t.device))
-        if int(cfg.extra.get("mesh_spatial", 1) or 1) > 1:
-            raise NotImplementedError("mesh_spatial > 1 (the spatial mesh axis) is not ported yet: "
-                                      "ROADMAP.md section 1, item 10, spatial axis")
-        if t.batch % self.world:
-            raise ValueError(f"the global batch {t.batch} does not divide into {self.world} ranks")
+        k = int(cfg.extra.get("mesh_spatial", 1) or 1)
+        if k > 1:
+            spatial.check_rows(cfg.data.imgsz, k)
+        self.mesh = parallel.data_mesh(k)  # in effect while train() runs
+        if t.batch % self.mesh.data:
+            shards = "ranks" if k == 1 else f"data shards ({self.world} ranks / mesh_spatial {k})"
+            raise ValueError(f"the global batch {t.batch} does not divide into {self.mesh.data} {shards}")
         if self.device.type == "cuda" and self.world > 1:
             torch.cuda.set_device(self.device)  # NCCL's object collectives use the current card
         from mga_yolo_tpu_torch.utils.files import resolve_save_dir
@@ -119,7 +125,7 @@ class MGATrainer:
 
         self.train_ds = MGADataset(cfg, "train", augment=True)
         self.val_ds = MGADataset(cfg, "val", augment=False)
-        shards = dict(num_shards=self.world, shard_index=self.rank)
+        shards = dict(num_shards=self.mesh.data, shard_index=self.mesh.data_rank)
         self.train_loader = DataLoader(self.train_ds, batch_size=t.batch, seed=t.seed,
                                        workers=cfg.data.workers, device=self.device, **shards)
         if t.multi_scale:  # one size a batch from a small set (the reference resizes continuously)
@@ -137,7 +143,7 @@ class MGATrainer:
                 print(f"[MGA] augment.on_device disabled: {why}; using host path")
         self.device_augment = self._dev_augment is not None
         vb = min(t.batch, len(self.val_ds)) or 1
-        vb = max(self.world, vb - vb % self.world)  # a whole shard a rank
+        vb = max(self.mesh.data, vb - vb % self.mesh.data)  # a whole shard a data shard
         self.val_loader = DataLoader(self.val_ds, batch_size=vb, shuffle=False, workers=cfg.data.workers,
                                      drop_last=False, device=self.device, **shards)
 
@@ -300,9 +306,11 @@ class MGATrainer:
                 break
             wait += time.perf_counter() - tw
             batch.pop("index", None)
-            dev = self.train_loader.to_device(batch)
-            if self._dev_augment is not None:
-                dev = self._dev_augment(dev, dev["canvas"].shape[1] // aug_cm)
+            if self._dev_augment is None:
+                dev = self.train_loader.to_device(spatial.keep_rows(batch))
+            else:  # the whole canvases warped, then this rank's rows kept
+                dev = self.train_loader.to_device(batch)
+                dev = spatial.keep_rows(self._dev_augment(dev, dev["canvas"].shape[1] // aug_cm))
             n_img += dev["image"].shape[0]
             step = self._host_step
             lr, lr_bias, mom = self.schedule.at(step)
@@ -332,6 +340,10 @@ class MGATrainer:
         print(f"[MGA] profile of the first {PROFILE_STEPS} micro-steps -> {out / 'trace.json'}")
 
     def train(self) -> ValResult:
+        with parallel.using(self.mesh):
+            return self._train()
+
+    def _train(self) -> ValResult:
         t = self.cfg.train
         if self.is_main:
             self.write_profiling_yaml()

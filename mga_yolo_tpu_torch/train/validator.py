@@ -9,11 +9,15 @@ COCO JSON and artifacts: the detections drawn on the images and the mask
 probabilities as PNGs, the raw mask logits and tapped features as ``.npy``.
 
 With a process group of two or more, each rank validates its shard of every
-global batch (the loader pads the last one and the rows it repeats are
-skipped); the matching statistics are gathered, and the confusion matrix
-and the loss items of the global batches summed over the ranks, once at the
-end of a pass, so every rank computes the JAX package's metrics, confusion
-matrix and val loss.
+global batch (the loader pads the last one, and a row whose image came
+earlier in the epoch's global order, on whichever rank, is skipped: the
+loader's ``first``); the matching statistics are gathered, and the confusion
+matrix, the images scored and the loss items of the global batches summed
+over the ranks, once at the end of a pass, so every rank computes the
+metrics, confusion matrix and val loss of one process (the JAX package
+skips a repeat only on the rank that saw it first, ``ROADMAP.md`` section
+3). Under a mesh that splits rows each space rank runs its band, and only
+space rank 0 of each data shard adds to the statistics and sums.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from mga_yolo_tpu_torch import parallel
 from mga_yolo_tpu_torch.data import image_io
 from mga_yolo_tpu_torch.data.loader import DataLoader
 from mga_yolo_tpu_torch.ops.nms import nms_numpy
+from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.utils.coco import CocoWriter
 from mga_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, MetricAccumulator
 
@@ -115,8 +120,8 @@ class Validator:
     device NMS, ``items`` (10,) and, for the artifacts, ``decoded``
     (B, A, 4+nc), ``seg`` and ``taps``. An eval step of ``make_eval_step``
     loads the EMA once per pass (its ``load``).
-    Batches go to the loader's device through its ``to_device``; rows whose
-    ``index`` was already seen (a padded tail) are skipped.
+    Batches go to the loader's device through its ``to_device``; rows that
+    are not their image's ``first`` (a padded tail) are skipped.
     """
 
     def __init__(self, eval_fn: Callable, loader: DataLoader, cfg, iou_thres: float = 0.7):
@@ -131,7 +136,8 @@ class Validator:
                  plots_dir: Optional[Path] = None, save_json: Optional[Path] = None,
                  verbose: bool = False) -> ValResult:
         acc = MetricAccumulator()
-        seen: set[int] = set()
+        mesh = parallel.mesh()
+        scores = mesh is None or mesh.space_rank == 0  # one space rank of a data shard counts its images
         confusion = ConfusionMatrix(self.nc, conf=0.25, iou_thres=0.45)
         coco = CocoWriter(save_json) if save_json is not None else None
         ds = self.loader.dataset
@@ -142,7 +148,7 @@ class Validator:
 
         items_sum = np.zeros(10, np.float64)
         shards: list = []  # with a group: per batch, the shard's parts of the global batch's items
-        n_batches = n_images = saved = 0
+        n_batches = n_images = n_rows = saved = 0
         t_pre = t_inf = t_post = 0.0
         it = iter(self.loader)
         while True:
@@ -153,28 +159,28 @@ class Validator:
             except StopIteration:
                 break
             index = batch.pop("index", None)
+            first = batch.pop("first", None)
             t_pre += time.perf_counter() - t0
 
             # inference = the copy to the card, the forward and the NMS; it
             # ends at the host copy of the detections, which waits for the card
             t0 = time.perf_counter()
-            out = run(state, self.loader.to_device(batch))
+            out = run(state, self.loader.to_device(spatial.keep_rows(batch, masks=False)))
             device_dets = _host(out["dets"])
             items = _host(out["items"]).astype(np.float64)
             t_inf += time.perf_counter() - t0
 
             t0 = time.perf_counter()
             if parallel.active():
-                shards.append(global_item_parts(out["items"], out["det_norm"], parallel.world()))
+                part = global_item_parts(out["items"], out["det_norm"], parallel.data_world())
+                shards.append(part if scores else torch.zeros_like(part))
             items_sum += items
             n_batches += 1
             gt_boxes, gt_labels, mask_gt = (np.asarray(batch[k]) for k in ("gt_boxes", "gt_labels", "mask_gt"))
-            for i in range(gt_boxes.shape[0]):
-                if index is not None:
-                    di = int(index[i])
-                    if di in seen:
-                        continue  # a padded row repeats an image already scored
-                    seen.add(di)
+            n_rows += gt_boxes.shape[0]
+            for i in range(gt_boxes.shape[0] if scores else 0):
+                if first is not None and not first[i]:
+                    continue  # a padded row repeats an image scored before, here or on another rank
                 d = device_dets[i]
                 dets = d[d[:, 4] > 0]  # trim the zero-score padding
                 n = int(mask_gt[i].sum())
@@ -194,7 +200,7 @@ class Validator:
                 self._save_batch_artifacts(batch, out, Path(save_artifacts_dir), saved)
                 saved += 1
 
-        n = max(n_images, 1)
+        n = max(n_images if scores else n_rows, 1)  # a space rank that scores nothing: per row it ran
         speed = {
             "preprocess": 1000.0 * t_pre / n,
             "inference": 1000.0 * t_inf / n,
@@ -204,12 +210,15 @@ class Validator:
         if coco is not None:
             coco.save()
         acc.gather_across_hosts()  # a distributed validation's ranks; no-op on one process
-        if parallel.active():  # the global batches' loss items and the confusion matrix: one collective
+        if parallel.active():  # the global batches' loss items, the confusion matrix, the images: one collective
             parts = torch.stack(shards)
-            counts = torch.as_tensor(confusion.matrix, dtype=torch.float64, device=parts.device)
+            counts = torch.as_tensor(np.append(confusion.matrix.ravel(), n_images), dtype=torch.float64,
+                                     device=parts.device)
             parallel.all_reduce_sum_([parts, counts])
             items_sum = global_items(parts).sum(0).cpu().numpy()
-            confusion.matrix = np.rint(counts.cpu().numpy()).astype(confusion.matrix.dtype)
+            counts = np.rint(counts.cpu().numpy())
+            confusion.matrix = counts[:-1].reshape(confusion.matrix.shape).astype(confusion.matrix.dtype)
+            n_images = int(counts[-1])
         result = ValResult(metrics=acc.compute(), loss_items=(items_sum / max(n_batches, 1)).astype(np.float32),
                            n_images=n_images, speed=speed, confusion=confusion, names=self.names)
         if plots_dir is not None:

@@ -123,7 +123,7 @@ def train_batch(b: int, imgsz: int, seed: int = 7) -> dict:
 
 
 def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict | None = None,
-                   n_steps: int = 3, b: int = 2, port_kw: dict | None = None) -> dict:
+                   n_steps: int = 3, b: int = 2, port_kw: dict | None = None, on_weights=None) -> dict:
     """Both packages' train states after each of ``n_steps`` micro-steps
     from the same state: the JAX model's weights with perturbed BN statistics
     and ``mtl_log_vars`` = (0.2, -0.3). ``step_kw`` goes to both
@@ -132,7 +132,9 @@ def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict 
 
     Returns ``views`` [(port view, JAX view)] per micro-step (each a dict of
     loss, items, params, bn, m, ema, ema_bn, opt_step) and the states, steps
-    and batches for further use."""
+    and batches for further use. ``on_weights(state_dict)``, if given, gets
+    the port's starting weights before the first step (before the JAX step
+    compiles)."""
     from mga_yolo_tpu.losses.detection import DetLossConfig as JDet
     from mga_yolo_tpu.losses.segmentation import SegLossConfig as JSeg
     from mga_yolo_tpu.models.yolo import create_model as jcreate
@@ -184,6 +186,8 @@ def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict 
                 "ema_bn": clone(s.ema_bn_stats), "opt_step": s.opt_step}
 
     jbatch = {**batch, "masks": [jnp.asarray(m) for m in batch["masks"]]}
+    if on_weights is not None:
+        on_weights(state_dict_from_jax(v, tspec))
     views = []
     for _ in range(n_steps):
         st, jm = jstep(st, jbatch, *lr, jax.random.PRNGKey(1))

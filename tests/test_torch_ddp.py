@@ -24,8 +24,10 @@ one-process references run in this process.
   counts every val box once; only rank 0 writes. Two more ranks, started
   as ``torchrun`` starts them, run ``cli.train``, which initialises the
   group from their environment: the same rows, rank 0 alone writes.
-* (f) Refusals: ``mesh_spatial`` 2 still raises ``NotImplementedError``; a
-  global batch that does not divide by the world size is a ``ValueError``.
+* (f) Refusals, each a ``ValueError``: a global batch that does not divide
+  by the world size, a world that does not divide by ``mesh_spatial``, an
+  image size that is no multiple of 32 ``mesh_spatial``, and
+  ``mesh_spatial`` 2 without a process group.
 * (g) The loader under shards: the ranks' shards make up the global batch
   (multi-scale, device augmentation's raw samples, the padded val tail).
 """
@@ -302,10 +304,11 @@ def test_refusals(run, data, tmp_path):
 
     for rk in run["ranks"]:
         assert rk["refusals"]["batch"] == "ValueError: the global batch 3 does not divide into 2 ranks"
-        assert rk["refusals"]["spatial"].startswith("NotImplementedError: mesh_spatial > 1")
-        assert "item 10, spatial axis" in rk["refusals"]["spatial"]
+        assert rk["refusals"]["world"] == "ValueError: 2 ranks not divisible by spatial=3"
+        assert rk["refusals"]["imgsz"] == ("ValueError: mesh_spatial=2 needs the image size to be a multiple of "
+                                           "32 x 2 = 64, got 96 rows")
     job = fit_job(data, tmp_path)
-    with pytest.raises(NotImplementedError, match="spatial axis"):
+    with pytest.raises(ValueError, match="1 ranks not divisible by spatial=2"):
         MGATrainer(load_config(job["cfg"], model=CFG, **job["kw"], mesh_spatial=2))
     assert not (tmp_path / "ddp").exists()
 

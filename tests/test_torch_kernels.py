@@ -19,7 +19,10 @@ tests/test_dfl_bwd_pallas.py; the masked pool's max descriptors exactly
 where a pixel has m > 0.5 (a max is the same in any order), the rest rtol
 1e-5 / atol 1e-6 in float32 (float32 sums in another order) and one bf16 ulp
 in bfloat16 (the same sums rounded once to bf16), its x and m gradients
-rtol 1e-4 / atol 1e-5 of autograd through the plain version.
+rtol 1e-4 / atol 1e-5 of autograd through the plain version; the masked
+reductions (the masked pool's second entry) in float32 whatever the input
+type: msum, wsum and gsum / N rtol 1e-5 / atol 1e-6 (float32 sums in another
+order), mmax and cnt exactly.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ import torch
 from mga_yolo_tpu_torch.ops import cam_gate as tcg
 from mga_yolo_tpu_torch.ops import dfl_bwd as tdfl
 from mga_yolo_tpu_torch.ops import masked_pool as tmp
+from mga_yolo_tpu_torch.ops import masked_reductions as tmr
 from mga_yolo_tpu_torch.ops import nms as tnms
 
 
@@ -686,3 +690,46 @@ def test_pool_kernel_indexing_reads_each_pixel_once(shape):
     tile, wpc, _ = tmp.pool_plan(B, C, 132)
     xs, ms = _kernel_reads(B, C, N, tile, wpc, V)
     assert (xs == 1).all() and (ms == 1).all()
+
+
+def _assert_reductions_close(got, want, n):
+    for name, g, w in zip(("msum", "wsum", "gsum", "mmax", "cnt"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        if name in ("mmax", "cnt"):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+        else:
+            torch.testing.assert_close(g / n, w / n, rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_masked_reductions_kernel_matches_plain(card, case, dtype):
+    x, m = (a.to(card, dtype) for a in _pool_case(**POOL_CASES[case]))
+    before = tmr.launches
+    got = tmr.masked_reductions(x, m)
+    want = tmr.masked_reductions_ref(x, m)
+    torch.cuda.synchronize()
+    assert tmr.launches == before + 1
+    _assert_reductions_close(got, want, x.shape[2] * x.shape[3])
+
+
+@pytest.mark.cuda
+def test_masked_reductions_kernel_on_a_channel_slice(card):
+    x, m = (a.to(card, torch.bfloat16) for a in _pool_case(h=20, w=40, c=128, b=4, seed=50))
+    xs = x[:, 32:96]
+    _assert_reductions_close(tmr.masked_reductions(xs, m), tmr.masked_reductions_ref(xs, m), 800)
+
+
+def test_masked_reductions_on_the_cpu_is_the_plain_version():
+    """A CPU tensor takes the plain twin (no launch); the checks refuse what
+    the kernel cannot take before any launch."""
+    x, m = _pool_case(seed=51)
+    before = tmr.launches
+    got, want = tmr.masked_reductions(x, m), tmr.masked_reductions_ref(x, m)
+    assert tmr.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert got[3].shape == (x.shape[0], x.shape[1]) and got[0].shape == got[4].shape == (x.shape[0], 1)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tmr.masked_reductions(x.to("meta"), m.to("meta"))
