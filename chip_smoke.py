@@ -116,10 +116,11 @@ cost, not scaling.
     ddp-nccl — one rank in an NCCL group: 4 bf16 micro-steps bit-equal to
              the no-group step (cuDNN deterministic), the same launches.
     ddp-fit — two gloo ranks on ``cuda:0`` run ``MGA.train`` for one
-             validated epoch on the 256 + 64 images (global batch 16): rank
-             0 alone writes results.csv and weights/, both ranks compute the
-             same rows and metrics, launches exact (a rank: 16 micro-steps
-             and 4 + 4 validation batches of 8 images).
+             validated epoch on the first 128 + 32 of the 256 + 64 images
+             (``MESH_FIT_FRACTION``; global batch 16): rank 0 alone writes
+             results.csv and weights/, both ranks compute the same rows and
+             metrics, launches exact (a rank: 8 micro-steps and 2 + 2
+             validation batches of 8 images).
 Then the spatial mesh axis (``mesh_spatial``, ``parallel/spatial.py``), with
 two ranks sharing the card on a 1x2 mesh (each holds every image and half
 of its rows): it shows the step is right and what the halo exchanges and
@@ -131,9 +132,29 @@ space collectives cost, not a benefit (one image fits one card at 640 px).
              across the bands; then 8 bf16 micro-steps a rank: p50, halo
              exchanges and space collectives per micro-step; launches exact.
     spatial-fit — ``MGA.train`` with ``mesh_spatial: 2`` for one validated
-             epoch on the 256 + 64 images: launches exact (a rank: 16
-             micro-steps and 4 + 4 validation batches of 16 images' bands),
-             rank 0 alone writes.
+             epoch on ``[ddp-fit]``'s 128 + 32 images: launches exact (a
+             rank: 8 micro-steps and 2 + 2 validation batches of 16 images'
+             bands), rank 0 alone writes.
+    spatial-fit-dev — the same with ``augment.on_device``: each rank
+             warps the whole canvases, then keeps its band; the same
+             launches, both ranks on the device path.
+Then the baseline toolchain and the experiment grid:
+12. base   — ``tools.train`` (plain YOLOv8n, base_defaults, bf16, batch 16)
+             for one validated epoch on the 256 + 64 images, launches exact
+             (DFL backward and NMS; no attention kernel); ``tools.val
+             --save-fm`` on its best.pt: metrics.json equal to ``cli.val``'s
+             at conf 0.001 / iou 0.7, the layer 15/18/21 maps NHWC at
+             80/40/20 rows, and without matplotlib (the card's host) no
+             feature-map PNG and the message that says so.
+    grid   — ``scripts.performance_comparison`` on a two-job experiment
+             (cbam and eca, scale n, one epoch on 64 of the 256 images and
+             16 of the 64 val images, ``slots: 2``: both on the card at
+             once), then
+             ``scripts.base_comparison`` with one job; every job ``done``
+             with progress ``1/1`` parsed from its output, each run with
+             its results.csv and weights/best.pt. The jobs are child
+             processes, so their runs' results are the check, not the
+             launch counters.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -1688,6 +1709,7 @@ def predict_phase(torch, np, data_yaml, trainer, best: Path, tmp: Path) -> dict:
 # ------------------------------------------------------------- data-parallel
 
 DDP_WORLD = 2  # two ranks that share the one card (gloo: NCCL refuses two ranks on one device)
+MESH_FIT_FRACTION = 0.5  # [ddp-fit] and [spatial-fit*] train and validate on half of the 256 + 64 images (depth)
 DDP_BATCH, DDP_ACC, DDP_TIMED = 16, 4, 8  # global micro-batch, accumulate, timed bf16 micro-steps
 DDP_TIMEOUT_S = 300  # every collective's (the group's), and the wait for the ranks
 # [ddp]'s float32 states against the float64 step: a root-mean-square error over each part of the state at most
@@ -2021,9 +2043,10 @@ def ddp_nccl_phase(torch, np, tmp: Path) -> dict:
 
 
 def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: str, mesh_spatial: int = 1,
-                 name: str = "ddp-fit") -> None:
+                 name: str = "ddp-fit", on_device: bool = False) -> None:
     """One rank of ``[ddp-fit]``: ``MGA.train`` for one validated epoch on
-    ``cuda:0`` in a gloo group; saves what it computed and launched."""
+    ``cuda:0`` in a gloo group (with ``augment.on_device`` if asked); saves
+    what it computed and launched."""
     import torch
 
     from mga_yolo_tpu_torch.api import MGA
@@ -2045,15 +2068,16 @@ def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: s
         zero_launches()
         t0 = time.perf_counter()
         final = m.train("configs/hyperparams/cbam_defaults.yaml", data=data_yaml, imgsz=IMGSZ, batch=TRAIN_BATCH,
-                        nbs=NBS, workers=4, max_boxes=MAX_BOXES, val=True, save=True, amp=True, epochs=1,
-                        device="cuda:0", project=project, name=name, mesh_spatial=mesh_spatial)
+                        nbs=NBS, fraction=MESH_FIT_FRACTION, workers=4, max_boxes=MAX_BOXES, val=True, save=True, amp=True, epochs=1,
+                        device="cuda:0", project=project, name=name, mesh_spatial=mesh_spatial,
+                        on_device=on_device)
         wall = time.perf_counter() - t0
         tr = m._trainer
         (st,) = tr.epoch_stats
         out = {"launches": read_launches(), "rows": rows, "map": (final.metrics.map50, final.metrics.map),
                "has_csv": tr.csv is not None, "save_dir": str(tr.save_dir), "steps": st["steps"],
                "images": st["images"], "train_s": st["train_s"], "wait_s": st["wait_s"], "val_s": st["val_s"],
-               "val_batches": 2 * len(tr.val_loader), "wall": wall}
+               "val_batches": 2 * len(tr.val_loader), "wall": wall, "device_augment": tr.device_augment}
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -2061,10 +2085,11 @@ def ddp_fit_rank(rank: int, world: int, out_dir: str, data_yaml: str, project: s
 
 def ddp_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
     """``[ddp-fit]``: two gloo ranks on the card run ``MGA.train`` for one
-    validated epoch on the 256 + 64 images (cbam_defaults, global batch 16):
-    rank 0 alone writes results.csv and weights/, both ranks compute the same
-    rows and metrics, and each rank's launches are exact (its 16 micro-steps
-    of 8 images and 4 + 4 validation batches of 8). Returns rank 0's."""
+    validated epoch on the first 128 + 32 of the 256 + 64 images
+    (cbam_defaults, global batch 16): rank 0 alone writes results.csv and
+    weights/, both ranks compute the same rows and metrics, and each rank's
+    launches are exact (its 8 micro-steps of 8 images and 2 + 2 validation
+    batches of 8). Returns rank 0's."""
     import csv
 
     out_dir = tmp / "ddp-fit"
@@ -2080,8 +2105,8 @@ def ddp_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
         check(len(list(csv.DictReader(f))) == 1, "[ddp-fit] results.csv does not have one row")
     for name in ("best.pt", "last.pt"):
         check((run_dir / "weights" / name).is_file(), f"[ddp-fit] {name} missing")
-    steps = 256 // TRAIN_BATCH  # every rank takes every micro-step of the epoch, on its 8 images
-    val_batches = 2 * (64 // TRAIN_BATCH)  # the epoch's and the final evaluation's, 8 images a rank each
+    steps = int(256 * MESH_FIT_FRACTION) // TRAIN_BATCH  # every rank takes every micro-step, on its 8 images
+    val_batches = 2 * (int(64 * MESH_FIT_FRACTION) // TRAIN_BATCH)  # the epoch's and the final evaluation's
     want = want_launches({"cam_gate": 3 * (steps + val_batches), "dfl_bwd": steps, "nms_suppress": val_batches})
     for r, rk in enumerate(ranks):
         check(rk["steps"] == steps and rk["val_batches"] == val_batches and rk["images"] == steps * TRAIN_BATCH // 2,
@@ -2239,45 +2264,205 @@ def spatial_phase(torch, np, tmp: Path) -> dict:
     return ranks[0]["bf16"]["launches"]
 
 
-def spatial_fit_phase(torch, np, data_yaml, tmp: Path) -> dict:
+def spatial_fit_phase(torch, np, data_yaml, tmp: Path, on_device: bool = False) -> dict:
     """``[spatial-fit]``: two gloo ranks on the card run ``MGA.train`` with
-    ``mesh_spatial: 2`` for one validated epoch on the 256 + 64 images
+    ``mesh_spatial: 2`` for one validated epoch on ``[ddp-fit]``'s 128 + 32 images
     (cbam_defaults, global batch 16): each rank takes every micro-step on
     its band of the 16 images, rank 0 alone writes, both compute the same
     rows and metrics, and each rank's launches are exact (the masked
     reductions 3 a micro-step and a validation batch, the DFL backward 1 a
-    micro-step, NMS 1 a validation batch of the gathered outputs). Returns
-    rank 0's."""
+    micro-step, NMS 1 a validation batch of the gathered outputs). With
+    ``on_device`` (``[spatial-fit-dev]``) both ranks take the device
+    augmentation (each warps the whole canvases of the 16 images, then keeps
+    its band), with the same launches: the augment runs no kernel of this
+    repository. Returns rank 0's."""
     import csv
 
-    out_dir = tmp / "spatial-fit"
+    tag = "[spatial-fit-dev]" if on_device else "[spatial-fit]"
+    out_dir = tmp / tag[1:-1]
     out_dir.mkdir()
-    spawn_ranks(ddp_fit_rank, (str(out_dir), str(data_yaml), str(tmp / "runs"), SPATIAL_K, "spatial-fit"))
+    spawn_ranks(ddp_fit_rank, (str(out_dir), str(data_yaml), str(tmp / "runs"), SPATIAL_K, tag[1:-1], on_device))
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
     a, b = ranks
+    check(a["device_augment"] == b["device_augment"] == on_device, f"{tag} the device augmentation ran: "
+                                                                       f"{a['device_augment']}, {b['device_augment']}")
     check(a["rows"] == b["rows"] and len(a["rows"]) == 1 and a["map"] == b["map"],
-          f"[spatial-fit] the ranks computed different rows or metrics: {a['rows']} {b['rows']}")
-    check(a["has_csv"] and not b["has_csv"] and a["save_dir"] == b["save_dir"], "[spatial-fit] a rank other than 0 "
-                                                                                  "writes")
+          f"{tag} the ranks computed different rows or metrics: {a['rows']} {b['rows']}")
+    check(a["has_csv"] and not b["has_csv"] and a["save_dir"] == b["save_dir"], f"{tag} a rank other than 0 writes")
     run_dir = Path(a["save_dir"])
     with open(run_dir / "results.csv", newline="") as f:
-        check(len(list(csv.DictReader(f))) == 1, "[spatial-fit] results.csv does not have one row")
-    steps, val_batches = 256 // TRAIN_BATCH, 2 * (64 // TRAIN_BATCH)  # every rank: every micro-step and val batch
+        check(len(list(csv.DictReader(f))) == 1, f"{tag} results.csv does not have one row")
+    steps = int(256 * MESH_FIT_FRACTION) // TRAIN_BATCH  # every rank: every micro-step and val batch
+    val_batches = 2 * (int(64 * MESH_FIT_FRACTION) // TRAIN_BATCH)
     want = want_launches({"masked_reductions": 3 * (steps + val_batches), "dfl_bwd": steps,
                           "nms_suppress": val_batches})
     for r, rk in enumerate(ranks):
         check(rk["steps"] == steps and rk["val_batches"] == val_batches and rk["images"] == steps * TRAIN_BATCH,
-              f"[spatial-fit] rank {r}: {rk['steps']} micro-steps, {rk['images']} images, {rk['val_batches']} val "
+              f"{tag} rank {r}: {rk['steps']} micro-steps, {rk['images']} images, {rk['val_batches']} val "
               f"batches")
-        check(rk["launches"] == want, f"[spatial-fit] rank {r}: launches {rk['launches']}, want {want}")
-        print(f"[spatial-fit] rank {r}: 1 epoch, {rk['steps']} micro-steps of {TRAIN_BATCH} images' bands of "
+        check(rk["launches"] == want, f"{tag} rank {r}: launches {rk['launches']}, want {want}")
+        print(f"{tag} rank {r}: 1 epoch, {rk['steps']} micro-steps of {TRAIN_BATCH} images' bands of "
               f"{IMGSZ // SPATIAL_K} rows: train {rk['train_s']:.2f} s -> {rk['images'] / rk['train_s']:.1f} img/s "
               f"(bands), {100 * rk['wait_s'] / rk['train_s']:.1f}% waiting on the loader; val {rk['val_s']:.2f} s; "
               f"{rk['wall']:.1f} s wall; launches {rk['launches']}")
     row = a["rows"][0]
-    print(f"[spatial-fit] both ranks: train det {row['train/det/total']:.4f} seg {row['train/seg/total']:.4f}, val "
+    print(f"{tag} both ranks: train det {row['train/det/total']:.4f} seg {row['train/seg/total']:.4f}, val "
           f"det {row['val/det/total']:.4f}, mAP50 {a['map'][0]:.4f}; rank 0 alone wrote results.csv and weights/")
     return a["launches"]
+
+
+# ------------------------------------------- baseline toolchain and the grid
+
+BASE_LAYERS = {15: 80, 18: 40, 21: 20}  # the plain graph's P3/P4/P5 neck outputs -> rows at 640 px
+GRID_FRACTION = 0.25  # the grid's jobs train on 64 of the 256 images, validate on 16 of the 64 (depth)
+
+
+def base_phase(torch, np, data_yaml, tmp: Path) -> dict:
+    """``[base]``: ``tools.train`` (plain YOLOv8n, base_defaults, 640 px,
+    bf16, batch 16, nbs 64) for one validated epoch on the 256 + 64 images,
+    launches exact (the DFL backward 1 a micro-step, NMS 1 a validation
+    batch, no attention kernel); then ``tools.val --save-fm`` on its
+    best.pt: ``metrics.json`` equal to ``cli.val``'s on the same checkpoint
+    at conf 0.001 / iou 0.7, the layer 15/18/21 maps NHWC at 80/40/20 rows,
+    and without matplotlib (the card's host) no feature-map PNG and the
+    message that says why. Returns the training run's launches."""
+    import contextlib
+    import csv
+    import io
+
+    from mga_yolo_tpu_torch.cli import val as cli_val
+    from mga_yolo_tpu_torch.tools import train as base_train
+    from mga_yolo_tpu_torch.tools import val as base_val
+    from mga_yolo_tpu_torch.train import trainer as T
+    from mga_yolo_tpu_torch.train.validator import FM_WAIT
+    from mga_yolo_tpu_torch.utils import plotting
+
+    held = {}
+    fit = T.MGATrainer.train
+
+    def keep(self):
+        held["tr"] = self
+        return fit(self)
+
+    T.MGATrainer.train = keep
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        final = base_train.main(["--cfg", "configs/hyperparams/base_defaults.yaml", "--data", str(data_yaml),
+                                 "--imgsz", str(IMGSZ), "--batch", str(TRAIN_BATCH), "--nbs", str(NBS), "--epochs",
+                                 "1", "--workers", "8", "--max_boxes", str(MAX_BOXES), "--amp", "true",
+                                 "--project", str(tmp / "runs"), "--name", "base"])
+    finally:
+        T.MGATrainer.train = fit
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tr = held["tr"]
+    plain = (tr.cfg.train.model, tr.cfg.train.task, tr.cfg.seg.enabled) == ("configs/models/yolov8.yaml", "detect", False)
+    check(plain and not tr.spec.mask_head_indices, "[base] the run is not the plain baseline")
+    (st,) = tr.epoch_stats
+    steps, val_batches = st["steps"], 2 * len(tr.val_loader)  # the epoch's and the final evaluation's
+    check(steps == 256 // TRAIN_BATCH and val_batches == 2 * (64 // TRAIN_BATCH),
+          f"[base] {steps} micro-steps, {val_batches} validation batches")
+    want = want_launches({"dfl_bwd": steps, "nms_suppress": val_batches})
+    check(launches == want, f"[base] launches {launches}, want {want}")
+    with open(tr.save_dir / "results.csv", newline="") as f:
+        (row,) = list(csv.DictReader(f))
+    check(float(row["train/seg/total"]) == 0.0 and np.isfinite(float(row["train/det/total"])),
+          f"[base] train seg {row['train/seg/total']}, det {row['train/det/total']}")
+    v, secs = st["val_speed"], st["train_s"]
+    print(f"[base] tools.train, plain YOLOv8n, 1 epoch: train {secs:.2f} s, {st['images']} images in {steps} "
+          f"micro-steps -> {st['images'] / secs:.1f} img/s, {100 * st['wait_s'] / secs:.1f}% waiting on the loader; "
+          f"val {st['val_s']:.2f} s (preprocess {v['preprocess']:.2f}, inference {v['inference']:.2f}, postprocess "
+          f"{v['postprocess']:.2f} ms an image); mAP50 {final.metrics.map50:.4f}; {wall:.1f} s wall; "
+          f"launches {launches}")
+
+    best = tr.save_dir / "weights" / "best.pt"
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = base_val.main(["--weights", str(best), "--data", str(data_yaml), "--batch", str(TRAIN_BATCH),
+                             "--save-fm", "--out", str(tmp / "base-val")])
+    val_wall = time.perf_counter() - t0
+    val_launches = read_launches()
+    check(val_launches == want_launches(), f"[base] tools.val launched {val_launches}: its NMS is the host's")
+    got = json.loads((out / "metrics.json").read_text())
+    ref = cli_val.main(["--weights", str(best), "--data", str(data_yaml), "--batch", str(TRAIN_BATCH), "--conf",
+                        "0.001", "--iou", "0.7"])
+    check(got == ref.results_dict(), f"[base] tools.val metrics {got} differ from cli.val's {ref.results_dict()}")
+    fm = sorted(p.name for p in (out / "fm").iterdir())
+    n_batches = min(4, 64 // TRAIN_BATCH)  # --save-fm-max 4
+    for b in range(n_batches):
+        for layer, rows in BASE_LAYERS.items():
+            a = np.load(out / "fm" / f"batch{b}_layer{layer}.npy", mmap_mode="r")
+            check(a.ndim == 4 and a.shape[:3] == (TRAIN_BATCH, rows, rows) and bool(np.isfinite(a).all()),
+                  f"[base] fm batch{b} layer{layer}: {a.shape}")
+    npy = [n for n in fm if n.endswith(".npy")]
+    pngs = [n for n in fm if n.endswith(".png")]
+    if plotting.available():
+        check(len(pngs) == len(npy), f"[base] {len(npy)} maps but {len(pngs)} feature-map PNGs")
+    else:
+        check(not pngs and FM_WAIT in buf.getvalue(), f"[base] without matplotlib: PNGs {pngs}, message "
+                                                      f"{FM_WAIT in buf.getvalue()}")
+    overlays = sorted((out / "preds").glob("*_dets.png"))
+    check(len(overlays) == 4 * n_batches, f"[base] {len(overlays)} overlays")
+    print(f"[base] tools.val --save-fm on best.pt: 64 images in {val_wall:.1f} s wall "
+          f"({64 / val_wall:.1f} img/s with the maps and files), launches {val_launches}; metrics.json equal to "
+          f"cli.val's ({got}); {len(npy)} NHWC maps (layers 15/18/21 at 80/40/20 rows), {len(pngs)} feature-map "
+          f"PNGs (matplotlib {'present' if plotting.available() else 'absent: ' + FM_WAIT}), {len(overlays)} "
+          f"overlays")
+    return launches
+
+
+def grid_phase(torch, np, data_yaml, tmp: Path) -> None:
+    """``[grid]``: ``scripts.performance_comparison`` on a two-job experiment
+    (MaskCBAM and MaskECA, scale n, one epoch each on 64 of the 256 images,
+    validated on 16 of the 64 val images, 640 px, batch 16, ``slots: 2``:
+    both train on the one card at once), then ``scripts.base_comparison``
+    with one job.
+    Every job must end ``done`` with progress ``1/1`` parsed from its
+    output, and leave its results.csv and weights/best.pt. The jobs are
+    child processes: the check is their runs' own results, not the launch
+    counters."""
+    import csv
+
+    from mga_yolo_tpu_torch.scripts import base_comparison, performance_comparison
+    from mga_yolo_tpu_torch.utils import yaml_lite
+
+    def hyp(name: str) -> str:
+        cfg = yaml_lite.load(f"configs/hyperparams/{name}_defaults.yaml")
+        cfg.update(epochs=1, imgsz=IMGSZ, batch=TRAIN_BATCH, nbs=NBS, workers=4, max_boxes=MAX_BOXES,
+                   fraction=GRID_FRACTION)
+        path = tmp / f"grid-{name}.yaml"
+        yaml_lite.dump(cfg, path)
+        return str(path)
+
+    def run(module, exp: dict, tag: str) -> list:
+        path = tmp / f"{tag}.yaml"
+        yaml_lite.dump({**exp, "data": str(data_yaml), "project": str(tmp / tag)}, path)
+        t0 = time.perf_counter()
+        try:
+            jobs = module.main(["--exp", str(path)])
+        except SystemExit as e:
+            raise RuntimeError(f"[grid] {tag}: a job failed (exit {e.code})") from None
+        wall = time.perf_counter() - t0
+        for j in jobs:
+            check(j.status == "done" and j.progress == "1/1", f"[grid] {tag} {j.name}: {j.status}, progress "
+                                                              f"{j.progress!r}")
+            run_dir = tmp / tag / j.name
+            check((run_dir / "weights" / "best.pt").is_file(), f"[grid] {run_dir}/weights/best.pt missing")
+            with open(run_dir / "results.csv", newline="") as f:
+                (row,) = list(csv.DictReader(f))
+            secs = float(row["time"])
+            print(f"[grid] {tag} {j.name}: {j.status}, epoch {j.progress}; train {secs:.2f} s -> "
+                  f"{int(256 * GRID_FRACTION) / secs:.1f} img/s, det {float(row['train/det/total']):.4f}, mAP50 "
+                  f"{float(row['metrics/mAP50(B)']):.4f}")
+        print(f"[grid] {tag}: {len(jobs)} job(s) done in {wall:.1f} s wall (slots {exp['slots']})")
+        return jobs
+
+    run(performance_comparison, {"models": ["cbam", "eca"], "scales": ["n"], "folds": [0], "hyp": hyp("cbam"),
+                                 "slots": 2}, "grid")
+    run(base_comparison, {"scales": ["n"], "folds": [0], "hyp": hyp("base"), "slots": 1}, "base-grid")
 
 
 # planted faults of ``--ddp-faults``, each [ddp] must catch: (file, text as it stands, its replacement)
@@ -2430,15 +2615,21 @@ def main() -> int:
         t0 = time.perf_counter()
         paths["spatial"] = spatial_phase(torch, np, Path(tmp))
         paths["spatial_fit"] = spatial_fit_phase(torch, np, data_yaml, Path(tmp))
-        print(f"[spatial] the two spatial-mesh phases took {time.perf_counter() - t0:.1f} s")
+        paths["spatial_fit_dev"] = spatial_fit_phase(torch, np, data_yaml, Path(tmp), on_device=True)
+        print(f"[spatial] the three spatial-mesh phases took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths["base"] = base_phase(torch, np, data_yaml, Path(tmp))
+        grid_phase(torch, np, data_yaml, Path(tmp))  # child processes: no launch of this process
+        print(f"[base] [grid] the baseline toolchain and the grid took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches are those of this slice's paths first (the
-    # spatial-mesh run and micro-steps), then the earlier slices' (the
-    # data-parallel run, micro-steps and NCCL group, the predictor, device
-    # augmentation, the training run, the loader-fed train step, prob_mode,
-    # SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev", "data_dev", "fit",
-             "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base", "train_eca",
-             "serve_eca", "train", "serve")
+    # baseline toolchain's run, the spatial-mesh run with device
+    # augmentation), then the earlier slices' (the spatial-mesh run and
+    # micro-steps, the data-parallel run, micro-steps and NCCL group, the
+    # predictor, device augmentation, the training run, the loader-fed train
+    # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
+    order = ("base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev",
+             "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base",
+             "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path

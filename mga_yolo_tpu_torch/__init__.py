@@ -24,7 +24,12 @@ JAX package so each counterpart is easy to find:
                                 metrics, checkpoints, results.csv, callbacks,
                                 run directories, COCO export
     serve.py                    InferenceEngine, MicroBatcher, MGAServer
-    api.py, cli/                the MGA facade; the train and val CLIs
+    api.py, cli/                the MGA facade; the train, val, predict,
+                                serve, ckpt and profile CLIs
+    utils/plotting/             the plotting suite (matplotlib, pandas and
+                                scipy imported when a figure is drawn)
+    tools/                      the plain-YOLOv8 baseline's train and val
+    scripts/                    the experiment grid orchestrator
 
 The package imports torch and numpy; it never imports jax, ``mga_yolo_tpu``,
 OpenCV, PyYAML or PIL. Entry points run on CUDA unless the caller passes

@@ -55,15 +55,20 @@ def main(argv: list[str] | None = None):
     parser = argparse.ArgumentParser("mga-train", add_help=True)
     parser.add_argument("--cfg", default=None, help="training YAML (the reference's schema)")
     args, rest = parser.parse_known_args(argv)
-    overrides = parse_overrides(rest)
+    return run(args.cfg, parse_overrides(rest))
 
+
+def run(cfg_path, overrides: dict[str, Any]):
+    """Train from the YAML ``cfg_path`` (or None) and ``overrides``, in a
+    process group from torchrun's variables where there are several ranks
+    and none exists yet; returns the final evaluation's ``ValResult``."""
     import torch.distributed as dist
 
     from mga_yolo_tpu_torch import parallel
     from mga_yolo_tpu_torch.config import load_config
     from mga_yolo_tpu_torch.train.trainer import train
 
-    cfg = load_config(args.cfg, **overrides)
+    cfg = load_config(cfg_path, **overrides)
     own_group = parallel.init_from_env(cfg.train.device)
     try:
         return train(cfg)

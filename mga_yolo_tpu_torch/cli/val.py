@@ -4,8 +4,8 @@ Counterpart of ``mga_yolo_tpu/cli/val.py`` (the reference's ``yolo val``):
 validates a checkpoint (the trainer's ``weights/*.pt`` or a reference-format
 ``export-torch`` file) on a dataset split, in float32 with a zero loss, and
 prints the per-class table, the speed dict and the metrics. ``--plots``
-saves the confusion matrix and curve arrays, ``--save-json`` COCO
-predictions; with an output directory, metrics.json records the metrics and
+draws the confusion matrices and the PR / F1 / P / R curves (their arrays
+where matplotlib is absent), ``--save-json`` writes COCO predictions; with an output directory, metrics.json records the metrics and
 the speed. The run is on CUDA unless ``--device cpu`` (or ``cuda:N``).
 Exported ``.tflite`` files and SavedModels wait for the export
 (``ROADMAP.md`` section 1, item 12).
@@ -31,7 +31,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-det", type=int, default=300)
     p.add_argument("--split", default="val")
     p.add_argument("--rect", action="store_true", help="rectangular batching (static aspect buckets)")
-    p.add_argument("--plots", action="store_true", help="save the confusion matrix and curve arrays")
+    p.add_argument("--plots", action="store_true", help="draw the confusion matrices and curves (arrays without matplotlib)")
     p.add_argument("--save-json", action="store_true", help="save COCO-format predictions.json")
     p.add_argument("--out", default=None, help="output dir (default: runs/val)")
     p.add_argument("--device", default=None, help="cuda (default), cuda:N or cpu")

@@ -15,7 +15,7 @@ as the JAX trainer is on ``jax.process_count()`` hosts: ``train.batch`` is
 the global batch, each rank takes its strided shard of every train and val
 batch (on ``cuda:LOCAL_RANK`` when the device is ``cuda`` or unset), the
 steps compute the global batch's update, and only rank 0 writes (the run
-directory, results.csv, checkpoints, profiling.yaml, plot arrays, traces,
+directory, results.csv, checkpoints, profiling.yaml, plots, traces,
 the callbacks' loggers).
 With ``augment.on_device`` (and a config ``device_augment.supported``
 accepts) the loader hands over raw canvases and the warp, HSV, flip and
@@ -416,7 +416,7 @@ class MGATrainer:
         ckpt_util.wait_for_saves()
         self.callbacks.fire("on_train_end", trainer=self)
 
-        # the final evaluation of the in-memory EMA, with the class table and the plot arrays
+        # the final evaluation of the in-memory EMA, with the class table and the plots
         if t.val:
             last_result = self.validator(self.state, plots_dir=self.save_dir if t.plots and self.is_main else None,
                                          verbose=self.is_main)

@@ -7,6 +7,9 @@ gives each batch's detections; the host matches them to the ground truth in
 numpy (``utils.metrics``), fills the confusion matrix, and optionally writes
 COCO JSON and artifacts: the detections drawn on the images and the mask
 probabilities as PNGs, the raw mask logits and tapped features as ``.npy``.
+Where matplotlib imports it draws the JAX package's plots (the confusion
+matrices, the PR / F1 / P / R curves and each tapped map's channel grid);
+on a host without it (the card's) it saves their arrays instead.
 
 With a process group of two or more, each rank validates its shard of every
 global batch (the loader pads the last one, and a row whose image came
@@ -36,10 +39,12 @@ from mga_yolo_tpu_torch.data.loader import DataLoader
 from mga_yolo_tpu_torch.ops.nms import nms_numpy
 from mga_yolo_tpu_torch.parallel import spatial
 from mga_yolo_tpu_torch.utils.coco import CocoWriter
+from mga_yolo_tpu_torch.utils import plotting
 from mga_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, MetricAccumulator
 
-PLOTS_WAIT = ("[val] confusion-matrix and curve PNGs need matplotlib (ROADMAP.md section 1, item 11); "
-              "saved their arrays as confusion_matrix.npy and curves.npz")
+PLOTS_WAIT = ("[val] matplotlib is not installed: saved the confusion matrix and the curves as "
+              "confusion_matrix.npy and curves.npz instead of their PNGs")
+FM_WAIT = "[val] matplotlib is not installed: saved the feature maps as .npy without their PNGs"
 
 
 @dataclasses.dataclass
@@ -85,16 +90,20 @@ def _nhwc(x) -> np.ndarray:
 
 def draw_boxes(img: np.ndarray, dets: np.ndarray) -> np.ndarray:
     """``img`` (H, W, 3) uint8 BGR with each detection's box outline drawn
-    in green, 1 px wide (cv2.rectangle's integer corners, clipped to the
-    image)."""
+    in green, 1 px wide, as ``cv2.rectangle(..., 1)`` draws it: integer
+    corners (truncated), each side's pixels that fall inside the image."""
     color = (0, 255, 0)
     im = np.ascontiguousarray(img).copy()
     h, w = im.shape[:2]
     for x1, y1, x2, y2 in dets[:, :4].astype(int):
-        x1, x2 = sorted((int(np.clip(x1, 0, w - 1)), int(np.clip(x2, 0, w - 1))))
-        y1, y2 = sorted((int(np.clip(y1, 0, h - 1)), int(np.clip(y2, 0, h - 1))))
-        im[y1, x1:x2 + 1] = im[y2, x1:x2 + 1] = color
-        im[y1:y2 + 1, x1] = im[y1:y2 + 1, x2] = color
+        (x1, x2), (y1, y2) = sorted((int(x1), int(x2))), sorted((int(y1), int(y2)))
+        xa, xb, ya, yb = max(x1, 0), min(x2, w - 1), max(y1, 0), min(y2, h - 1)
+        for y in (y1, y2):
+            if 0 <= y < h and xa <= xb:
+                im[y, xa:xb + 1] = color
+        for x in (x1, x2):
+            if 0 <= x < w and ya <= yb:
+                im[ya:yb + 1, x] = color
     return im
 
 
@@ -222,24 +231,36 @@ class Validator:
         result = ValResult(metrics=acc.compute(), loss_items=(items_sum / max(n_batches, 1)).astype(np.float32),
                            n_images=n_images, speed=speed, confusion=confusion, names=self.names)
         if plots_dir is not None:
-            self._save_plot_arrays(result, Path(plots_dir))
+            self._save_plots(result, Path(plots_dir))
         if verbose:
             print(result.class_table())
         return result
 
-    def _save_plot_arrays(self, result: ValResult, out_dir: Path) -> None:
-        """The arrays the JAX package draws as confusion_matrix(_normalized).png
-        and the PR / F1 / P / R curve PNGs."""
+    def _save_plots(self, result: ValResult, out_dir: Path) -> None:
+        """confusion_matrix(_normalized).png and the PR / F1 / P / R curve
+        PNGs, as the JAX validator draws them; without matplotlib, their
+        arrays (confusion_matrix.npy, curves.npz)."""
         out_dir.mkdir(parents=True, exist_ok=True)
-        np.save(out_dir / "confusion_matrix.npy", result.confusion.matrix)
         c = result.metrics.curves
+        if not plotting.available():
+            np.save(out_dir / "confusion_matrix.npy", result.confusion.matrix)
+            if c:
+                np.savez(out_dir / "curves.npz", ap50_per_class=result.metrics.ap50_per_class, **c)
+            print(PLOTS_WAIT)
+            return
+        names = {i: self.names.get(i, str(i)) for i in range(self.nc)}
+        for normalize, fname in ((False, "confusion_matrix.png"), (True, "confusion_matrix_normalized.png")):
+            plotting.plot_confusion_matrix(result.confusion.matrix, names, out_dir / fname, normalize=normalize)
         if c:
-            np.savez(out_dir / "curves.npz", ap50_per_class=result.metrics.ap50_per_class, **c)
-        print(PLOTS_WAIT)
+            plotting.plot_pr_curve(c["px101"], c["py"], result.metrics.ap50_per_class, names, out_dir / "PR_curve.png")
+            for key, ylabel, fname in (("f1", "F1", "F1_curve.png"), ("p", "Precision", "P_curve.png"),
+                                       ("r", "Recall", "R_curve.png")):
+                plotting.plot_mc_curve(c["px"], c[key], names, out_dir / fname, ylabel=ylabel)
 
     def _save_batch_artifacts(self, batch, out, root: Path, batch_idx: int) -> None:
         """Detections drawn on the first images (PNG), the mask probabilities
-        (PNG) and logits (.npy, NHWC), and the tapped features (.npy, NHWC)."""
+        (PNG) and logits (.npy, NHWC), and the tapped features (.npy, NHWC,
+        and the first image's channel grid as PNG where matplotlib imports)."""
         (root / "preds").mkdir(parents=True, exist_ok=True)
         decoded = _host(out["decoded"])
         images = np.asarray(batch["image"])
@@ -255,8 +276,11 @@ class Validator:
                                  (prob[i, ..., 0] * 255).astype(np.uint8))
         if "taps" in out:
             (root / "fm").mkdir(parents=True, exist_ok=True)
+            draw = plotting.available()
             for idx, feat in out["taps"].items():
-                np.save(root / "fm" / f"batch{batch_idx}_layer{idx}.npy", _nhwc(feat))
-            if batch_idx == 0:
-                print("[val] feature-map PNGs (feature_visualization) need matplotlib "
-                      "(ROADMAP.md section 1, item 11); saved the maps as .npy")
+                arr = _nhwc(feat)
+                np.save(root / "fm" / f"batch{batch_idx}_layer{idx}.npy", arr)
+                if draw:
+                    plotting.feature_visualization(arr[0], root / "fm" / f"batch{batch_idx}_layer{idx}.png")
+            if batch_idx == 0 and not draw:
+                print(FM_WAIT)

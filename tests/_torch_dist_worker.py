@@ -139,7 +139,10 @@ def fit_run(fit: dict, rank: int = 0, world: int = 1) -> dict:
     False) a resume for one more epoch; returns each run's results.csv rows
     (every rank's, from the callbacks), final state and final evaluation's
     confusion matrix (with the file's copy of it, where this rank wrote
-    one), and whether this rank's trainer had a results.csv."""
+    one), whether this rank's trainer had a results.csv and took the device
+    augmentation, and the PNGs of its run directory. The ranks run without
+    matplotlib (``block_matplotlib``), so a run with ``plots`` saves the
+    arrays, as on the card's host."""
     from mga_yolo_tpu_torch.api import MGA
     from mga_yolo_tpu_torch.train import trainer as T
 
@@ -163,6 +166,7 @@ def fit_run(fit: dict, rank: int = 0, world: int = 1) -> dict:
         out[run] = {"rows": list(rows), "start_epoch": tr.start_epoch, "save_dir": str(tr.save_dir),
                     "has_csv": tr.csv is not None, "step": tr.state.step, "confusion": result.confusion.matrix,
                     "confusion_file": np.load(cm_file) if tr.is_main and cm_file.exists() else None,
+                    "device_augment": tr.device_augment, "pngs": sorted(p.name for p in tr.save_dir.glob("*.png")),
                     "state": {k: v.detach().clone() for k, v in tr.state.params().items()}}
     return out
 
@@ -344,10 +348,18 @@ def resize_refusals() -> list:
     return out
 
 
+def block_matplotlib() -> None:
+    """Make ``import matplotlib`` fail in this process, as on the card's host."""
+    import sys
+
+    sys.modules["matplotlib"] = None
+
+
 def ddp_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
     """One rank of tests/test_torch_ddp.py: each job in ``jobs`` on this
     rank's shard, the results saved to ``out_dir/rank{rank}.pt``."""
     torch.set_num_threads(2)
+    block_matplotlib()
     _init(rank, world, out_dir)
     try:
         out = {}
@@ -372,6 +384,7 @@ def spatial_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
     import time
 
     torch.set_num_threads(2)
+    block_matplotlib()
     if world > 1:
         _init(rank, world, out_dir)
     try:
@@ -388,6 +401,8 @@ def spatial_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
             if world > 1:
                 out["refusals"] = refusals(jobs["fit"])
             out["fit"] = fit_run(jobs["fit"], rank, world)
+        if "fit_dev" in jobs:
+            out["fit_dev"] = fit_run(jobs["fit_dev"], rank, world)
         for name, job in jobs.get("steps", {}).items():
             deadline = time.monotonic() + 600
             while not Path(job["weights"]).exists():

@@ -13,6 +13,7 @@ directory exists; the checkpoint keeps every part of the train state.
 from __future__ import annotations
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -41,6 +42,8 @@ def run(tmp_path_factory):
         return train(self)
 
     T.MGATrainer.train = keep
+    mp = pytest.MonkeyPatch()
+    mp.setitem(sys.modules, "matplotlib", None)  # the run as on the card's host: the plots' arrays, no PNG
     try:
         result = cli_train.main(["--cfg", "configs/hyperparams/cbam_defaults.yaml", "--data", data,
                                  "--imgsz", str(IMGSZ), "--batch", "4", "--epochs", "2", "--max_boxes", "4",
@@ -48,6 +51,7 @@ def run(tmp_path_factory):
                                  "--name=t", "--MGA_SAVE_FM", "true", "--save_fm_max", "1"])
     finally:
         T.MGATrainer.train = train
+        mp.undo()
     tr = held["trainer"]
     return {"root": root, "data": data, "trainer": tr, "result": result, "dir": tr.save_dir}
 
@@ -85,6 +89,7 @@ def test_run_directory_results_and_profiling(run):
         art = d / "feature_maps" / f"epoch_{e}"
         assert (art / "preds" / "batch0_p3.npy").is_file() and (art / "preds" / "batch0_img0_dets.png").is_file()
         assert {p.name for p in (art / "fm").iterdir()} == {f"batch0_layer{i}.npy" for i in (23, 25, 27)}
+    assert not list(d.rglob("*_curve.png")) and not list(d.rglob("confusion_matrix*.png"))
 
 
 def test_rebuild_from_checkpoint_gives_the_trainers_ema(run):
@@ -103,10 +108,13 @@ def test_rebuild_from_checkpoint_gives_the_trainers_ema(run):
         torch.testing.assert_close(v, masters[k], rtol=0, atol=0, msg=k)
 
 
-def test_cli_val_on_best_equals_the_trainers_final_evaluation(run, tmp_path):
+def test_cli_val_on_best_equals_the_trainers_final_evaluation(run, tmp_path, monkeypatch):
     """On the CPU the val CLI (float32, zero loss) and the trainer's final
-    evaluation of the same EMA run the same float32 operations."""
+    evaluation of the same EMA run the same float32 operations. Without
+    matplotlib (as on the card's host) ``--plots`` saves the arrays."""
     from mga_yolo_tpu_torch.cli import val as cli_val
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
 
     res = cli_val.main(["--weights", str(run["dir"] / "weights" / "best.pt"), "--data", run["data"],
                         "--batch", "4", "--device", "cpu", "--out", str(tmp_path / "v"), "--plots", "--save-json"])
@@ -116,7 +124,7 @@ def test_cli_val_on_best_equals_the_trainers_final_evaluation(run, tmp_path):
     saved = json.loads((tmp_path / "v" / "metrics.json").read_text())
     assert set(saved) == {*res.results_dict(), "speed"}
     assert isinstance(json.loads((tmp_path / "v" / "predictions.json").read_text()), list)
-    assert (tmp_path / "v" / "confusion_matrix.npy").is_file()
+    assert (tmp_path / "v" / "confusion_matrix.npy").is_file() and not list((tmp_path / "v").glob("*.png"))
     with pytest.raises(NotImplementedError, match="item 12"):
         cli_val.main(["--weights", str(tmp_path / "m.tflite"), "--data", run["data"], "--device", "cpu"])
 

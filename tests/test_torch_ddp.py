@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import csv
 import socket
+import sys
 
 import numpy as np
 import pytest
@@ -112,11 +113,13 @@ def run(tmp_path_factory, data):
     ddp = mp.start_processes(worker.ddp_rank, args=(WORLD, str(tmp), jobs), nprocs=WORLD, join=False,
                              start_method="spawn")
     try:  # the one-process references while the ranks run
-        one = {
-            "bn": {name: batchnorm_run(x, dy, affine) for name, (x, dy, affine) in bn.items()},
-            "gumbel": train_steps_run(steps["gumbel"]),
-            "fit": fit_run(fit_job(data, tmp / "one")),
-        }
+        with pytest.MonkeyPatch.context() as mp_:  # without matplotlib, as the ranks (block_matplotlib)
+            mp_.setitem(sys.modules, "matplotlib", None)
+            one = {
+                "bn": {name: batchnorm_run(x, dy, affine) for name, (x, dy, affine) in bn.items()},
+                "gumbel": train_steps_run(steps["gumbel"]),
+                "fit": fit_run(fit_job(data, tmp / "one")),
+            }
         for ctx in (ddp, cli):
             while not ctx.join():
                 pass
@@ -266,6 +269,7 @@ def test_mga_train_on_two_ranks_equals_one_process(run):
         np.testing.assert_array_equal(b["confusion"], one[what]["confusion"])
         np.testing.assert_array_equal(a["confusion_file"], one[what]["confusion_file"])
         assert b["confusion_file"] is None and int(a["confusion"][:, :-1].sum()) == val_boxes(run["data"]) > 0
+        assert a["pngs"] == one[what]["pngs"] == []  # the ranks run without matplotlib: the arrays, no PNG
     assert fits[0]["resume"]["start_epoch"] == 2
     run_dir = run["tmp"] / "runs" / "ddp"
     assert sorted(p.name for p in (run["tmp"] / "runs").iterdir()) == ["ddp"]

@@ -2,7 +2,8 @@
 
 * Importing every module of ``mga_yolo_tpu_torch`` (in a fresh interpreter)
   pulls in neither JAX nor the JAX package, nor OpenCV, PyYAML or PIL,
-  which the card's host does not have.
+  which the card's host does not have; the plotting suite, the baseline
+  tools and the grid orchestrator load no matplotlib, pandas or scipy.
 * No source of the port, nor ``chip_smoke.py``, imports them.
 * Entry points given no ``device`` raise when CUDA is absent.
 * ``chip_smoke.py`` exits non-zero with no result line without a card, and
@@ -43,6 +44,20 @@ def test_importing_every_port_module_loads_no_jax():
     assert "mga_yolo_tpu_torch.serve" in res["names"]
     assert "mga_yolo_tpu_torch.ops.cam_gate" in res["names"]
     assert [m for m in res["new"] if _forbidden(m)] == []
+
+
+def test_plotting_tools_and_scripts_import_without_matplotlib_or_pandas():
+    """The card's host has neither: the plotting suite, the baseline tools
+    and the grid orchestrator import them only when a figure is drawn."""
+    code = (
+        "import json, sys\n"
+        "import mga_yolo_tpu_torch.utils.plotting, mga_yolo_tpu_torch.tools.val, mga_yolo_tpu_torch.tools.train\n"
+        "import mga_yolo_tpu_torch.scripts.performance_comparison, mga_yolo_tpu_torch.scripts.base_comparison\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('matplotlib', 'pandas', 'scipy'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))

@@ -39,8 +39,10 @@ in this process meanwhile.
 * (f) ``MGA.train`` with ``mesh_spatial: 2`` on two ranks (64 px, 8
   images, batch 4, one validated epoch): the results.csv rows of one
   process (rel 1e-3, abs 1e-5), rank 0 alone writes, the confusion matrix
-  counts every val box once; ``cli.train --mesh_spatial 2`` under
-  torchrun's variables likewise.
+  counts every val box once; the same with ``augment.on_device`` against
+  one process with it; ``cli.train --mesh_spatial 2`` under torchrun's
+  variables likewise. The ranks run without matplotlib, as on the card's
+  host, so ``plots`` saves the confusion matrix as an array.
 * (g) Refusals: a world that does not divide by ``mesh_spatial``, an image
   size that is no multiple of 32 ``mesh_spatial``, a resize that is not an
   identity under a mesh.
@@ -119,9 +121,11 @@ def run(tmp_path_factory, data):
                            prob="gumbel" if name == "gumbel" else None) for name, cfg in VARIANTS.items()}
     jobs = {"two": {"halo": True, "pool": True, "resize": True, "val": {"data": data},
                     "fit": fit_job(data, tmp / "runs", mesh_spatial=2),
+                    "fit_dev": fit_job(data, tmp / "runs_dev", mesh_spatial=2, on_device=True),
                     "steps": {"flagship": flagship, **{k: dict(v, spatial=2) for k, v in variants.items()}}},
             "four": {"halo": True, "pool": True, "steps": {"flagship": flagship}},
             "one": {"val": {"data": data}, "fit": fit_job(data, tmp / "one"),
+                    "fit_dev": fit_job(data, tmp / "one_dev", on_device=True),
                     "steps": {**variants, "f64": dict(flagship, spatial=1, f64=True)}}}
     ctxs = [spawn(worker.cli_train_rank, (free_port(), cli_argv(data, tmp / "cli_runs"), str(tmp)), 2)]
     for name, n in (("two", 2), ("four", 4), ("one", 1)):
@@ -147,7 +151,7 @@ def run(tmp_path_factory, data):
     load = lambda d, n: [torch.load(tmp / d / f"rank{i}.pt", weights_only=False) for i in range(n)]  # noqa: E731
     one = load("one", 1)[0]
     one = {"steps": {k: one[f"steps_{k}"] for k in variants}, "f64": one["steps_f64"], "val": one["val"],
-           "fit": one["fit"]}
+           "fit": one["fit"], "fit_dev": one["fit_dev"]}
     return {"jax": r, "two": load("two", 2), "four": load("four", 4), "one": one, "tmp": tmp, "data": data,
             "clis": [torch.load(tmp / f"cli_rank{i}.pt", weights_only=False) for i in range(2)]}
 
@@ -235,12 +239,18 @@ def test_variant_on_1x2_equals_one_process(run, name):
     assert_ranks_equal(*views)
 
 
-def test_mga_train_mesh_spatial_equals_one_process(run):
+@pytest.mark.parametrize("fit", ["fit", "fit_dev"], ids=["host_augment", "on_device"])
+def test_mga_train_mesh_spatial_equals_one_process(run, fit):
     """Both ranks log the rows of one process; only rank 0 has a
     results.csv; the final evaluation's confusion matrix is one process's
-    and counts every val box once."""
-    one = run["one"]["fit"]["fit"]
-    a, b = (rk["fit"]["fit"] for rk in run["two"])
+    and counts every val box once. ``on_device``: the same with
+    ``augment.on_device``, on both sides (each space rank augments the
+    whole canvases of its shard's images, then keeps its band). The ranks
+    run without matplotlib: the plots' arrays, no PNG."""
+    one = run["one"][fit]["fit"]
+    a, b = (rk[fit]["fit"] for rk in run["two"])
+    assert a["device_augment"] == b["device_augment"] == one["device_augment"] == (fit == "fit_dev")
+    assert a["pngs"] == one["pngs"] == []
     assert a["rows"] == b["rows"] and len(a["rows"]) == 1
     assert a["save_dir"] == b["save_dir"] and a["has_csv"] and not b["has_csv"]
     assert a["step"] == b["step"] == one["step"]
@@ -252,7 +262,7 @@ def test_mga_train_mesh_spatial_equals_one_process(run):
         np.testing.assert_array_equal(got["confusion"], one["confusion"])
     np.testing.assert_array_equal(a["confusion_file"], one["confusion_file"])
     assert b["confusion_file"] is None and int(a["confusion"][:, :-1].sum()) == val_boxes(run["data"]) > 0
-    assert sorted(p.name for p in (run["tmp"] / "runs").iterdir()) == ["sp"]
+    assert sorted(p.name for p in (run["tmp"] / {"fit": "runs", "fit_dev": "runs_dev"}[fit]).iterdir()) == ["sp"]
 
 
 def test_cli_train_mesh_spatial_under_torchrun_environment(run):

@@ -164,16 +164,20 @@ def test_eval_step_loads_the_ema_once_per_pass(setup):
     np.testing.assert_array_equal(got.loss_items, want.loss_items)
 
 
-def test_artifacts_and_plot_arrays(setup, tmp_path):
+def test_artifacts_and_plot_arrays(setup, tmp_path, monkeypatch, capsys):
     """``save_artifacts_dir``: the mask logits as the JAX package's NHWC
     ``.npy`` (equal to its own artifacts from the same outputs) and PNGs of
-    the detections and mask probabilities; ``plots_dir``: the confusion
-    matrix and the curves as arrays."""
+    the detections and mask probabilities; ``plots_dir`` without matplotlib
+    (as on the card's host): the confusion matrix and the curves as arrays,
+    no plot PNG, and the message that says why."""
+    import sys
+
     from mga_yolo_tpu.train.validator import Validator as JValidator
     from mga_yolo_tpu_torch.data import image_io
-    from mga_yolo_tpu_torch.train.validator import Validator
+    from mga_yolo_tpu_torch.train.validator import PLOTS_WAIT, Validator
 
     jl, jcfg, tl, tcfg = loaders(setup["data"], 4, False)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # as on the card's host
     step, st = setup["eval_step"], setup["state"]
     res = Validator(step, tl, tcfg)(st, save_artifacts_dir=tmp_path / "port", max_artifacts=1,
                                     plots_dir=tmp_path / "plots")
@@ -187,9 +191,15 @@ def test_artifacts_and_plot_arrays(setup, tmp_path):
     assert image_io.imread(tmp_path / "port/preds" / "batch0_img3_dets.png").shape == (IMGSZ, IMGSZ, 3)
     assert not (tmp_path / "port/preds" / "batch1_img0_p3.png").exists()
     np.testing.assert_array_equal(np.load(tmp_path / "plots" / "confusion_matrix.npy"), res.confusion.matrix)
+    assert sorted(p.name for p in (tmp_path / "plots").iterdir()) == ["confusion_matrix.npy", "curves.npz"]
+    assert PLOTS_WAIT in capsys.readouterr().out
 
 
 def test_draw_boxes_outlines_each_box():
+    """``draw_boxes`` draws what ``cv2.rectangle(..., thickness=1)`` draws:
+    a side outside the image is not drawn (its corners are not clamped in)."""
+    import cv2
+
     from mga_yolo_tpu_torch.train.validator import draw_boxes
 
     img = np.zeros((20, 30, 3), np.uint8)
@@ -197,8 +207,83 @@ def test_draw_boxes_outlines_each_box():
     green = (out == (0, 255, 0)).all(-1)
     assert green[3, 2:11].all() and green[8, 2:11].all() and green[3:9, 2].all() and green[3:9, 10].all()
     assert not green[4:8, 3:10].any()  # the inside stays as it was
-    assert green[15, 25:30].all() and green[15:20, 29].all()  # clipped to the image
+    assert green[15, 25:30].all() and green[15:20, 25].all()  # the sides inside the image
+    assert not green[16:20, 26:30].any()  # the right and bottom sides lie outside it
     assert not img.any()
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        h, w = (int(x) for x in rng.integers(8, 40, 2))
+        dets = np.zeros((int(rng.integers(1, 4)), 6), np.float32)
+        dets[:, :4] = rng.uniform(-10, 50, (len(dets), 4))
+        img = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        want = img.copy()
+        for x1, y1, x2, y2 in dets[:, :4]:
+            cv2.rectangle(want, (int(x1), int(y1)), (int(x2), int(y2)), (0, 255, 0), 1)
+        np.testing.assert_array_equal(draw_boxes(img, dets), want, err_msg=f"{(h, w)} {dets[:, :4]}")
+
+
+def _val_result(pkg: str):
+    """A ``ValResult`` of ``pkg``'s validator with nc=2: a fixed confusion
+    matrix and the curves of fixed detections."""
+    import importlib
+
+    V = importlib.import_module(f"{pkg}.train.validator")
+    M = importlib.import_module(f"{pkg}.utils.metrics")
+    rng = np.random.default_rng(11)
+    acc = M.MetricAccumulator()
+    for _ in range(6):
+        gt = rng.uniform(0, 40, (4, 2))
+        gtb = np.concatenate([gt, gt + rng.uniform(5, 20, (4, 2))], 1).astype(np.float32)
+        pred = gtb + rng.normal(0, 2, gtb.shape).astype(np.float32)
+        acc.update(pred, rng.uniform(0.05, 1, 4).astype(np.float32), rng.integers(0, 2, 4).astype(np.float32),
+                   gtb, rng.integers(0, 2, 4).astype(np.float32))
+    confusion = M.ConfusionMatrix(2)
+    confusion.matrix = np.array([[7, 1, 2], [0, 5, 3], [2, 1, 0]], np.float64)
+    return V.ValResult(metrics=acc.compute(), loss_items=np.zeros(10, np.float32), confusion=confusion,
+                       names={0: "stenosis", 1: "other"})
+
+
+def _bare_validator(cls):
+    v = object.__new__(cls)
+    v.names, v.nc = {0: "stenosis", 1: "other"}, 2
+    return v
+
+
+def test_validator_draws_the_jax_validators_plots(tmp_path):
+    """Where matplotlib imports, both validators' plot step writes the same
+    six PNGs (confusion matrices, PR / F1 / P / R curves), pixel for pixel."""
+    from PIL import Image
+
+    from mga_yolo_tpu.train.validator import Validator as JValidator
+    from mga_yolo_tpu_torch.train.validator import Validator
+
+    got, want = _val_result("mga_yolo_tpu_torch"), _val_result("mga_yolo_tpu")
+    assert set(got.metrics.curves) == set(want.metrics.curves) and got.metrics.curves
+    _bare_validator(Validator)._save_plots(got, tmp_path / "port")
+    _bare_validator(JValidator)._save_plots(want, tmp_path / "jax")
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) == sorted(
+        ["confusion_matrix.png", "confusion_matrix_normalized.png", "PR_curve.png", "F1_curve.png", "P_curve.png",
+         "R_curve.png"])
+    for n in names:
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "port" / n)),
+                                      np.asarray(Image.open(tmp_path / "jax" / n)), err_msg=n)
+
+
+def test_validator_keeps_the_arrays_without_matplotlib(tmp_path, monkeypatch, capsys):
+    import sys
+
+    from mga_yolo_tpu_torch.train.validator import PLOTS_WAIT, Validator
+
+    res = _val_result("mga_yolo_tpu_torch")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    _bare_validator(Validator)._save_plots(res, tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["confusion_matrix.npy", "curves.npz"]
+    np.testing.assert_array_equal(np.load(tmp_path / "confusion_matrix.npy"), res.confusion.matrix)
+    with np.load(tmp_path / "curves.npz") as z:
+        assert set(z.files) == {"ap50_per_class", *res.metrics.curves}
+        np.testing.assert_array_equal(z["py"], res.metrics.curves["py"])
+    assert PLOTS_WAIT in capsys.readouterr().out and "matplotlib is not installed" in PLOTS_WAIT
 
 
 def test_model_taps_are_the_layer_outputs(setup):
