@@ -155,6 +155,15 @@ Then the baseline toolchain and the experiment grid:
              its results.csv and weights/best.pt. The jobs are child
              processes, so their runs' results are the check, not the
              launch counters.
+13. export — the TFLite / SavedModel export (``mga_yolo_tpu_torch/export``).
+             The card's host has no TensorFlow: ``cli.ckpt export-tflite``
+             and ``export-savedmodel`` on best.pt, ``load_predictor`` of a
+             ``.tflite`` and ``cli.val`` on one must each raise an
+             ImportError naming tensorflow, write nothing and launch
+             nothing. Where TensorFlow imports, best.pt is exported at
+             640 px, the file held to the port's forward on the card
+             within ``EXPORT_TOL``, and ``cli.val`` run on it with the NMS
+             on the card (launches exact).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -1706,6 +1715,102 @@ def predict_phase(torch, np, data_yaml, trainer, best: Path, tmp: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- export
+
+EXPORT_TOL = 1e-3  # decoded pixels: the TFLite interpreter's float32 against the port's forward
+
+
+def export_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """The TFLite / SavedModel export and the consumers of exported files.
+
+    Where ``tensorflow`` does not import (the card's host has none):
+    ``cli.ckpt export-tflite`` and ``export-savedmodel`` on best.pt,
+    ``load_predictor`` of a ``.tflite`` and ``cli.val --weights x.tflite``
+    must each raise an ImportError naming tensorflow, write nothing and
+    launch nothing; another exception or a success fails the run. Where it
+    imports: best.pt exported at 640 px (float32, batch 1), the file's
+    decoded head on the val images within ``EXPORT_TOL`` of the port's
+    float32 forward on the card, and ``cli.val`` on the file with the NMS on
+    the card, one launch a val batch exactly. Returns the ``cli.val`` run's
+    launches (all 0 in the first case)."""
+    import contextlib
+    import io
+
+    from mga_yolo_tpu_torch.cli import ckpt as cli_ckpt
+    from mga_yolo_tpu_torch.cli import val as cli_val
+    from mga_yolo_tpu_torch.train.predictor import load_predictor
+
+    out = tmp / "export"
+    out.mkdir()
+    tfl = out / "best.tflite"
+    try:
+        import tensorflow  # noqa: F401
+    except ImportError:
+        calls = {
+            "cli.ckpt export-tflite": lambda: cli_ckpt.main(["export-tflite", str(best), "--out", str(tfl)]),
+            "cli.ckpt export-savedmodel": lambda: cli_ckpt.main(["export-savedmodel", str(best), str(out / "sm")]),
+            "load_predictor(.tflite)": lambda: load_predictor(tfl, device=device),
+            "cli.val --weights .tflite": lambda: cli_val.main(["--weights", str(tfl), "--data", str(data_yaml),
+                                                               "--device", device]),
+        }
+        zero_launches()
+        for what, call in calls.items():
+            try:
+                call()
+            except ImportError as e:
+                check("tensorflow" in str(e), f"[export] {what}: the ImportError does not name tensorflow: {e}")
+                continue
+            raise RuntimeError(f"[export] {what} did not refuse without tensorflow")
+        launches = read_launches()
+        check(launches == want_launches(), f"[export] the refusals launched {launches}")
+        check(not list(out.iterdir()), f"[export] the refusals wrote {sorted(p.name for p in out.iterdir())}")
+        print(f"[export] tensorflow does not import here: {', '.join(calls)} each raised an ImportError naming it, "
+              "wrote nothing and launched nothing")
+        return launches
+
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.transforms import letterbox
+    from mga_yolo_tpu_torch.export.tflite import port_forward
+    from mga_yolo_tpu_torch.utils.checkpoint import rebuild_from_checkpoint
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        info = cli_ckpt.main(["export-tflite", str(best), "--out", str(tfl), "--imgsz", str(IMGSZ)])
+    print(f"[export] best.pt -> {tfl.name}: {info['bytes'] / 1e6:.2f} MB in {time.perf_counter() - t0:.1f} s, "
+          f"outputs {info['outputs']}, max |d| decoded against the port's forward on the CPU "
+          f"{info['max_abs_diff_decoded']:.2e}")
+    check(info["max_abs_diff_decoded"] < EXPORT_TOL, f"[export] the file is {info['max_abs_diff_decoded']} "
+                                                     f"from the port's forward on the CPU")
+    val_dir = Path(data_yaml).parent / "images" / "val"
+    x = np.stack([letterbox(image_io.imread(p), IMGSZ, scaleup=False)[0] for p in sorted(val_dir.iterdir())[:4]])
+    pred = load_predictor(tfl, device=device)
+    net, _ = rebuild_from_checkpoint(best, device=device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = port_forward(net, x.astype(np.float32))[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    err = float(np.abs(pred.forward_batch(x)[0] - want).max())
+    print(f"[export] the file's decoded head on 4 val images against the port's float32 forward on the "
+          f"{device}: max |d| {err:.2e}")
+    check(err < EXPORT_TOL, f"[export] the file is {err} from the port's forward on the {device}")
+    n_val = len(list(val_dir.iterdir()))
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = cli_val.main(["--weights", str(tfl), "--data", str(data_yaml), "--batch", str(TRAIN_BATCH),
+                            "--device", device])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_batches = -(-n_val // TRAIN_BATCH)
+    check(launches == want_launches({"nms_suppress": n_batches}), f"[export] cli.val on {tfl.name} launched "
+                                                                   f"{launches}, want {n_batches} NMS")
+    print(f"[export] cli.val on {tfl.name}: {n_val} images in {wall:.1f} s, mAP50 {res.metrics.map50:.4f}, "
+          f"launches {launches}")
+    return launches
+
+
 # ------------------------------------------------------------- data-parallel
 
 DDP_WORLD = 2  # two ranks that share the one card (gloo: NCCL refuses two ranks on one device)
@@ -2606,6 +2711,7 @@ def main() -> int:
         paths["fit"], trainer, best = fit_phase(torch, np, data_yaml, Path(tmp) / "runs")
         paths["fit_dev"] = fit_dev_phase(torch, np, data_yaml, Path(tmp) / "runs")
         paths["predict"] = predict_phase(torch, np, data_yaml, trainer, best, Path(tmp))
+        paths["export"] = export_phase(torch, np, data_yaml, best, Path(tmp))
         del trainer
         t0 = time.perf_counter()
         paths["ddp"] = ddp_phase(torch, np, Path(tmp))
@@ -2621,15 +2727,16 @@ def main() -> int:
         paths["base"] = base_phase(torch, np, data_yaml, Path(tmp))
         grid_phase(torch, np, data_yaml, Path(tmp))  # child processes: no launch of this process
         print(f"[base] [grid] the baseline toolchain and the grid took {time.perf_counter() - t0:.1f} s")
-    # each kernel's launches are those of this slice's paths first (the
-    # baseline toolchain's run, the spatial-mesh run with device
-    # augmentation), then the earlier slices' (the spatial-mesh run and
+    # each kernel's launches are those of this slice's path first (cli.val
+    # on an exported file, where tensorflow imports), then the earlier
+    # slices' (the baseline toolchain's run, the spatial-mesh run with device
+    # augmentation, the spatial-mesh run and
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict", "fit_dev",
-             "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base", "train_base",
-             "train_eca", "serve_eca", "train", "serve")
+    order = ("export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+             "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
+             "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()}
         k["launches_by_path"] = by_path

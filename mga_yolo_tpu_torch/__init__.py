@@ -30,9 +30,13 @@ JAX package so each counterpart is easy to find:
                                 scipy imported when a figure is drawn)
     tools/                      the plain-YOLOv8 baseline's train and val
     scripts/                    the experiment grid orchestrator
+    export/                     the eval forward as TensorFlow ops, the
+                                TFLite / SavedModel export and the runner of
+                                exported files (TensorFlow imported inside
+                                the functions)
 
 The package imports torch and numpy; it never imports jax, ``mga_yolo_tpu``,
-OpenCV, PyYAML or PIL. Entry points run on CUDA unless the caller passes
+OpenCV, PyYAML or PIL, nor TensorFlow at module level. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 

@@ -10,10 +10,16 @@ Counterpart of ``mga_yolo_tpu/cli/ckpt.py`` (the reference's ``mga-ckpt``):
   (``model_scale`` added so a scale other than the YAML's first serves
   as it is). The port's state_dict already has the reference's keys: no
   mapping. ``serve.build_server`` and ``cli.val`` read the file.
-* ``export-tflite`` and ``export-savedmodel``: the export is not ported
-  (``ROADMAP.md`` section 1, item 12); they raise ``NotImplementedError``.
+* ``export-tflite PATH [--out F.tflite] [--quantize fp16|dynamic|int8]``
+  and ``export-savedmodel PATH OUT``: the eval forward as a TFLite
+  flatbuffer or a TF SavedModel (``export/tflite.py``), checked against the
+  port's float32 forward unless ``--no-verify``. They need TensorFlow, and
+  raise an ImportError naming it where it does not import (the card's
+  host); the export rebuilds the model on the CPU, and ``--device`` is not
+  used.
 
-The model is rebuilt on CUDA unless ``--device cpu`` (or ``cuda:N``).
+``load`` and ``export-torch`` rebuild the model on CUDA unless ``--device
+cpu`` (or ``cuda:N``).
 """
 
 from __future__ import annotations
@@ -32,16 +38,16 @@ def main(argv=None) -> dict:
     exp = sub.add_parser("export-torch", help="export to the torch reference's minimal .pt checkpoint")
     exp.add_argument("path")
     exp.add_argument("out", help="output .pt path")
-    tfl = sub.add_parser("export-tflite", help="TFLite export (not ported: ROADMAP.md section 1, item 12)")
+    tfl = sub.add_parser("export-tflite", help="TFLite export of the eval forward (decoded head + mask logits; "
+                                               "NMS outside, as the reference's TFLite export)")
     tfl.add_argument("path")
     tfl.add_argument("--out", default=None)
     tfl.add_argument("--imgsz", type=int, default=None)
     tfl.add_argument("--batch", type=int, default=1)
     tfl.add_argument("--quantize", choices=["fp16", "dynamic", "int8"], default=None)
-    tfl.add_argument("--calib", default=None)
+    tfl.add_argument("--calib", default=None, help="int8 calibration images (directory of PNGs), e.g. the val set")
     tfl.add_argument("--no-verify", action="store_true")
-    svm = sub.add_parser("export-savedmodel", help="TF SavedModel export (not ported: ROADMAP.md section 1, "
-                                                   "item 12)")
+    svm = sub.add_parser("export-savedmodel", help="TF SavedModel export of the eval forward (TF-Serving)")
     svm.add_argument("path")
     svm.add_argument("out")
     svm.add_argument("--imgsz", type=int, default=None)
@@ -53,9 +59,24 @@ def main(argv=None) -> dict:
         sp.add_argument("--device", default=None, help="cuda (default), cuda:N or cpu")
     args = p.parse_args(argv)
 
-    if args.cmd in ("export-tflite", "export-savedmodel"):
-        raise NotImplementedError(f"mga-ckpt {args.cmd}: the TFLite / SavedModel export is not ported "
-                                  "(ROADMAP.md section 1, item 12); export-torch writes the reference's .pt")
+    if args.cmd == "export-savedmodel":
+        from mga_yolo_tpu_torch.export.tflite import export_saved_model
+
+        info = export_saved_model(args.path, args.out, imgsz=args.imgsz, batch=args.batch, model_yaml=args.model,
+                                  scale=args.scale, verify=not args.no_verify)
+        print(f"[mga-ckpt] SavedModel -> {info['path']} (imgsz {info['imgsz']})")
+        _print_verified(info)
+        return info
+    if args.cmd == "export-tflite":
+        from mga_yolo_tpu_torch.export.tflite import export_tflite
+
+        info = export_tflite(args.path, args.out, imgsz=args.imgsz, batch=args.batch, model_yaml=args.model,
+                             scale=args.scale, quantize=args.quantize, verify=not args.no_verify,
+                             representative=args.calib)
+        print(f"[mga-ckpt] tflite -> {info['path']} ({info['bytes'] / 1e6:.2f} MB, imgsz {info['imgsz']}, "
+              f"quantize {info['quantize']})")
+        _print_verified(info)
+        return info
 
     import torch
 
@@ -76,6 +97,12 @@ def main(argv=None) -> dict:
     print(f"params: {n_params / 1e6:.3f} M ({len(list(net.parameters()))} tensors)")
     print(f"keys:   {keys[:5]} ... {keys[-3:]}")
     return {"params": n_params, "nc": spec.nc, "scale": spec.scale, "imgsz": meta.get("imgsz")}
+
+
+def _print_verified(info: dict) -> None:
+    if info["max_abs_diff_decoded"] is not None:
+        print(f"[mga-ckpt] verified vs the port's forward: outputs {info['outputs']}, "
+              f"max |d| decoded = {info['max_abs_diff_decoded']:.2e}")
 
 
 if __name__ == "__main__":

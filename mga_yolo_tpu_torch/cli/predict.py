@@ -10,7 +10,10 @@ JPEG encoder. Stems are made unique across a recursive directory
 ``--device cpu`` (or ``cuda:N``). ``--use-pallas`` (the JAX package's
 kernel switch) is accepted and changes nothing; video sources raise
 ``NotImplementedError`` (``data/sources.py``), so ``--max-frames`` and
-``--save-frame-masks`` have nothing to act on.
+``--save-frame-masks`` have nothing to act on. ``--weights`` may be an
+exported ``.tflite`` file or SavedModel directory
+(``train.predictor.TFLitePredictor``: TensorFlow on the host; an
+ImportError naming it where TensorFlow does not import).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ def main(argv=None) -> dict:
     """Predict and write the files; returns {"images": n, "out": out_dir}."""
     argv = sys.argv[1:] if argv is None else argv
     p = argparse.ArgumentParser("mga-predict")
-    p.add_argument("--weights", required=True)
+    p.add_argument("--weights", required=True, help="checkpoint .pt, an exported .tflite or a SavedModel directory")
     p.add_argument("--source", required=True, help="image file, directory, or glob (PNG)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--conf", type=float, default=0.25)

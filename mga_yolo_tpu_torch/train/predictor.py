@@ -9,6 +9,9 @@ probabilities in ``Results.mga_masks``. Float32 by default. A short last
 batch runs at its own size (the JAX package pads it to one compiled shape;
 the results are the same).
 
+:class:`TFLitePredictor` runs an exported ``.tflite`` file or SavedModel
+directory (TensorFlow, on the host) in place of the model.
+
 ``Results.plot`` draws in numpy: the boxes as ``cv2.rectangle`` draws them
 at thickness 2, the ``"{cls}:{conf:.2f}"`` label in a small built-in bitmap
 font (the card's host has no OpenCV and no font package).
@@ -161,16 +164,49 @@ class MGAPredictor:
         return [r for _, r in self.stream(list(sources), batch_size)]
 
 
+class TFLitePredictor(MGAPredictor):
+    """Predictor over an exported ``.tflite`` file (``cli.ckpt
+    export-tflite``) or SavedModel directory (``export-savedmodel``), with
+    :class:`MGAPredictor`'s stream / call / postprocess surface.
+
+    The forward is ``export.tflite.ExportedModel``: TensorFlow on the host,
+    at the file's own batch, in chunks with the tail padded; the file embeds
+    the /255, so it takes the same 0-255 letterboxed pixels. The int8 split
+    layout's boxes and scores are joined again, and the mask logits named by
+    their stride. The NMS runs on the host as for a checkpoint. ``device``
+    is resolved as for a checkpoint (CUDA when None), though nothing of the
+    prediction runs there. ``imgsz`` must be the file's own, or None. Where
+    TensorFlow does not import, the constructor raises an ImportError naming
+    it.
+    """
+
+    def __init__(self, path: str | Path, imgsz: Optional[int] = None, conf: float = 0.25, iou: float = 0.45,
+                 max_det: int = 300, device: str | torch.device | None = None, **_ignored):
+        from mga_yolo_tpu_torch.device import resolve_device
+        from mga_yolo_tpu_torch.export.tflite import ExportedModel
+
+        self.exported = ExportedModel(path, f"a predictor of {Path(path).name}")
+        self.device = resolve_device(device)
+        self.imgsz = self.exported.check_size(imgsz)
+        self.conf, self.iou, self.max_det = conf, iou, max_det
+
+    def forward_batch(self, x_np: np.ndarray):
+        """(B, S, S, 3) 0-255 -> (decoded (B, A, 4+nc), {scale: (B, h, w, 1)}), float32 numpy."""
+        return self.exported(x_np)
+
+
 def load_predictor(ckpt_path: str | Path, model_yaml=None, scale: Optional[str] = None,
                    imgsz: Optional[int] = None, use_pallas="auto", device: str | torch.device | None = None,
                    **kw) -> MGAPredictor:
     """An :class:`MGAPredictor` of a checkpoint (the trainer's ``.pt`` or a
-    reference-format file), on ``device`` (CUDA when None). ``imgsz``
-    defaults to the checkpoint's; ``use_pallas`` (the JAX package's kernel
-    switch) changes nothing. A ``.tflite`` file needs the export
-    (``ROADMAP.md`` section 1, item 12)."""
-    if str(ckpt_path).endswith(".tflite"):
-        raise NotImplementedError(f"{ckpt_path}: TFLite models are not ported (ROADMAP.md section 1, item 12)")
+    reference-format file), on ``device`` (CUDA when None), or a
+    :class:`TFLitePredictor` of a ``.tflite`` file or SavedModel directory.
+    ``imgsz`` defaults to the checkpoint's (the file's); ``use_pallas`` (the
+    JAX package's kernel switch) changes nothing."""
+    from mga_yolo_tpu_torch.export.tflite import is_saved_model
+
+    if str(ckpt_path).endswith(".tflite") or is_saved_model(ckpt_path):
+        return TFLitePredictor(ckpt_path, imgsz=imgsz, device=device, **kw)
     from mga_yolo_tpu_torch.utils.checkpoint import rebuild_from_checkpoint
 
     net, meta = rebuild_from_checkpoint(ckpt_path, model_yaml, scale, device=device)

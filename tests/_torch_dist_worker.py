@@ -355,9 +355,23 @@ def block_matplotlib() -> None:
     sys.modules["matplotlib"] = None
 
 
+def wait_for(path: str, timeout: float = 600.0) -> None:
+    """Return once ``path`` exists (the test writes the JAX package's
+    weights while the ranks run)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not Path(path).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no weights at {path}")
+        time.sleep(0.2)
+
+
 def ddp_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
     """One rank of tests/test_torch_ddp.py: each job in ``jobs`` on this
-    rank's shard, the results saved to ``out_dir/rank{rank}.pt``."""
+    rank's shard, the jobs that need no weights first, then the train
+    steps, each once its weights file exists; the results saved to
+    ``out_dir/rank{rank}.pt``."""
     torch.set_num_threads(2)
     block_matplotlib()
     _init(rank, world, out_dir)
@@ -365,11 +379,12 @@ def ddp_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
         out = {}
         for name, (x, dy, affine) in jobs.get("bn", {}).items():
             out[f"bn_{name}"] = batchnorm_run(x, dy, affine, rank, world)
-        for name, job in jobs.get("steps", {}).items():
-            out[f"steps_{name}"] = train_steps_run(job, rank, world)
         if "fit" in jobs:
             out["refusals"] = refusals(jobs["fit"])
             out["fit"] = fit_run(jobs["fit"], rank, world)
+        for name, job in jobs.get("steps", {}).items():
+            wait_for(job["weights"])
+            out[f"steps_{name}"] = train_steps_run(job, rank, world)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -381,8 +396,6 @@ def spatial_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
     first, then the train steps, each once its weights file exists (the
     test writes the JAX package's weights while the ranks run). The results
     are saved to ``out_dir/rank{rank}.pt``."""
-    import time
-
     torch.set_num_threads(2)
     block_matplotlib()
     if world > 1:
@@ -404,11 +417,7 @@ def spatial_rank(rank: int, world: int, out_dir: str, jobs: dict) -> None:
         if "fit_dev" in jobs:
             out["fit_dev"] = fit_run(jobs["fit_dev"], rank, world)
         for name, job in jobs.get("steps", {}).items():
-            deadline = time.monotonic() + 600
-            while not Path(job["weights"]).exists():
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"no weights at {job['weights']}")
-                time.sleep(0.2)
+            wait_for(job["weights"])
             out[f"steps_{name}"] = train_steps_run(job, rank, world)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:

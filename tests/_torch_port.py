@@ -6,6 +6,7 @@ JAX package and the port, so the two are compared on identical numbers.
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import jax
@@ -122,6 +123,36 @@ def train_batch(b: int, imgsz: int, seed: int = 7) -> dict:
             "gt_labels": np.zeros((b, 4), np.int32), "mask_gt": mask_gt, "masks": masks}
 
 
+def jax_init(jmodel, imgsz: int) -> dict:
+    """``jmodel``'s variables from ``PRNGKey(0)``, as numpy: the init that
+    the JAX package's ``create_train_state`` jits (the same program, so the
+    same values)."""
+    x = jnp.zeros((1, imgsz, imgsz, 3), jnp.float32)
+    return to_numpy_tree(jax.jit(functools.partial(jmodel.init, train=False))(jax.random.PRNGKey(0), x))
+
+
+def jax_train_state(params: dict, batch_stats: dict):
+    """The JAX package's SGD ``TrainState`` at step 0 holding ``params``
+    (with ``mtl_log_vars``) and ``batch_stats``, its EMA equal to them and a
+    zero accumulation buffer: what ``create_train_state`` builds, with the
+    flat buffers concatenated on the host (the eager ``flatten_tree``
+    compiles a program a leaf shape)."""
+    from mga_yolo_tpu.train import optim as JO
+    from mga_yolo_tpu.train.state import TrainState
+
+    def flat(tree):
+        return jnp.asarray(np.concatenate([np.ravel(np.asarray(a)).astype(np.float32)
+                                           for a in jax.tree_util.tree_leaves(tree)]))
+
+    total = JO.FlatMeta(params).total
+    zero = jnp.zeros((), jnp.int32)
+    return TrainState(step=zero, opt_step=zero, last_apply=zero, params=jax.tree_util.tree_map(jnp.asarray, params),
+                      batch_stats=jax.tree_util.tree_map(jnp.asarray, batch_stats),
+                      opt_state=JO.init_flat_opt_state("sgd", total), ema_params=flat(params),
+                      ema_batch_stats=flat(batch_stats), groups=JO.param_groups(params),
+                      accum_grads=jnp.zeros((total,), jnp.float32))
+
+
 def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict | None = None,
                    n_steps: int = 3, b: int = 2, port_kw: dict | None = None, on_weights=None) -> dict:
     """Both packages' train states after each of ``n_steps`` micro-steps
@@ -146,15 +177,10 @@ def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict 
     from mga_yolo_tpu_torch.utils.jax_weights import bn_stats_from_jax, params_from_jax, state_dict_from_jax
 
     jmodel, _ = jcreate(cfg, scale="n", nc=1, **(jax_kw or {}))
-    st = JS.create_train_state(jmodel, jax.random.PRNGKey(0), imgsz=imgsz)
-    v = perturb_bn({"params": {k: p for k, p in st.params.items() if k != "mtl_log_vars"},
-                    "batch_stats": st.batch_stats}, seed=3)
+    v = perturb_bn(jax_init(jmodel, imgsz), seed=3)
     mtl = np.array([0.2, -0.3], np.float32)
     params = {**v["params"], "mtl_log_vars": mtl}
-    st = st.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
-                    batch_stats=jax.tree_util.tree_map(jnp.asarray, v["batch_stats"]),
-                    ema_params=JO.flatten_tree(params), ema_batch_stats=JO.flatten_tree(v["batch_stats"]),
-                    accum_grads=jnp.zeros((JO.FlatMeta(params).total,), jnp.float32))
+    st = jax_train_state(params, v["batch_stats"])
     jstep = jax.jit(JS.make_train_step(jmodel, (8, 16, 32), 1, JDet(), JSeg(), **step_kw))
     tmodel, tspec = create_model(cfg, scale="n", nc=1, device="cpu", training=True, **(port_kw or {}))
     tmodel.load_state_dict(state_dict_from_jax(v, tspec), strict=True)
@@ -168,13 +194,14 @@ def train_step_run(cfg: str, imgsz: int, step_kw: dict, lr: tuple, jax_kw: dict 
     def jax_view(s, metrics):
         p = to_numpy_tree(s.params)
         meta = JO.FlatMeta(s.params)
+        # the flat buffers are cut up on the host: eager slices would compile one program a leaf
         return {
             "loss": float(metrics["loss"]), "items": np.asarray(metrics["items"]),
             "params": params_from_jax(p, tspec),
             "bn": bn_stats_from_jax(p, to_numpy_tree(s.batch_stats), tspec),
-            "m": params_from_jax(to_numpy_tree(meta.unflatten(s.opt_state["m"])), tspec),
-            "ema": params_from_jax(to_numpy_tree(meta.unflatten(s.ema_params)), tspec),
-            "ema_bn": bn_stats_from_jax(p, to_numpy_tree(JO.FlatMeta(s.batch_stats).unflatten(s.ema_batch_stats)),
+            "m": params_from_jax(meta.unflatten(np.asarray(s.opt_state["m"])), tspec),
+            "ema": params_from_jax(meta.unflatten(np.asarray(s.ema_params)), tspec),
+            "ema_bn": bn_stats_from_jax(p, JO.FlatMeta(s.batch_stats).unflatten(np.asarray(s.ema_batch_stats)),
                                         tspec),
             "opt_step": int(s.opt_step),
         }

@@ -4,7 +4,12 @@ package: the model's serving and training checks
 (tests/_torch_variant_checks.py, whose docstring states their tolerances).
 """
 
+import pytest
+
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
 from tests._torch_variant_checks import VariantChecks
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 class TestBaseline(VariantChecks):

@@ -19,7 +19,9 @@ import mga_yolo_tpu.ops.pallas.masked_pool as jmp
 from mga_yolo_tpu.models.attention import MaskCBAM as JMaskCBAM
 from mga_yolo_tpu_torch.models.attention import MaskCBAM
 from mga_yolo_tpu_torch.ops import cam_gate as tcg
-from tests._torch_port import load_layer, nchw, nhwc
+from tests._torch_port import few_torch_threads, load_layer, nchw, nhwc  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 def _case(kind, b=2, h=8, w=8, c=32, seed=0):

@@ -43,7 +43,7 @@ import pytest
 import torch
 
 from tests._torch_dist_worker import batchnorm_run, fit_run, shard, train_steps_run
-from tests._torch_port import close_dict, few_torch_threads, train_step_run  # noqa: F401
+from tests._torch_port import close_dict, few_torch_threads, train_batch, train_step_run  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
@@ -91,28 +91,41 @@ def free_port() -> int:
 def run(tmp_path_factory, data):
     """The JAX and one-process port runs of (c), the jobs of (a), (c), (d)
     and (e) on two spawned ranks, the ``cli.train`` ranks of (e) beside
-    them, and the one-process references."""
+    them, and the one-process references. Every rank is started first; the
+    ranks' train steps wait for the JAX package's weights, which
+    ``train_step_run`` writes before it compiles the JAX step."""
+    import os
+
     import torch.multiprocessing as mp
 
-    from mga_yolo_tpu_torch.utils.jax_weights import state_dict_from_jax
     from tests import _torch_dist_worker as worker
 
     tmp = tmp_path_factory.mktemp("ddp")
     cli = mp.start_processes(worker.cli_train_rank, args=(WORLD, free_port(), cli_argv(data, tmp / "cli_runs"),
                                                           str(tmp)), nprocs=WORLD, join=False, start_method="spawn")
-    r = train_step_run(CFG, 128, STEP_KW, LR)
     weights = tmp / "weights.pt"
-    torch.save(state_dict_from_jax(r["v"], r["tspec"]), weights)
+    mtl, batch = np.array([0.2, -0.3], np.float32), train_batch(2, 128)  # train_step_run's
     steps = {
-        "jax": dict(cfg=CFG, weights=str(weights), mtl=r["mtl"], batch=r["batch"], step_kw=STEP_KW, lr=LR, n_steps=3),
-        "gumbel": dict(cfg=CFG, weights=str(weights), mtl=r["mtl"], batch=r["batch"], step_kw=STEP_KW, lr=LR,
+        "jax": dict(cfg=CFG, weights=str(weights), mtl=mtl, batch=batch, step_kw=STEP_KW, lr=LR, n_steps=3),
+        "gumbel": dict(cfg=CFG, weights=str(weights), mtl=mtl, batch=batch, step_kw=STEP_KW, lr=LR,
                        n_steps=2, prob="gumbel"),
     }
     bn = {name: (*bn_inputs(shape), affine) for name, (shape, affine) in BN_SHAPES.items()}
     jobs = {"bn": bn, "steps": steps, "fit": fit_job(data, tmp / "runs")}
     ddp = mp.start_processes(worker.ddp_rank, args=(WORLD, str(tmp), jobs), nprocs=WORLD, join=False,
                              start_method="spawn")
-    try:  # the one-process references while the ranks run
+
+    def publish(state_dict):  # the ranks' steps start once the file is there
+        torch.save(state_dict, tmp / "weights.tmp")
+        os.replace(tmp / "weights.tmp", weights)
+
+    try:
+        r = train_step_run(CFG, 128, STEP_KW, LR, on_weights=publish)
+        np.testing.assert_array_equal(r["mtl"], mtl)
+        for k, v in batch.items():
+            assert all(np.array_equal(a, b) for a, b in zip(v, r["batch"][k])) if k == "masks" else \
+                np.array_equal(v, r["batch"][k])
+        # the one-process references while the ranks run
         with pytest.MonkeyPatch.context() as mp_:  # without matplotlib, as the ranks (block_matplotlib)
             mp_.setitem(sys.modules, "matplotlib", None)
             one = {

@@ -17,6 +17,9 @@ import torch
 from mga_yolo_tpu.losses.detection import _dfl_decode_ce_bwd, _dfl_decode_primal, dfl_decode_ce
 from mga_yolo_tpu.ops.pallas.dfl_bwd import dfl_decode_ce_bwd_pallas, dfl_decode_ce_bwd_pallas_planar
 from mga_yolo_tpu_torch.ops import dfl_bwd as tdfl
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 TOL = {"f32": (2e-6, 2e-6), "bf16": (8e-3, 2e-4)}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

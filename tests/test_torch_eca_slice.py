@@ -28,6 +28,9 @@ import torch
 import yaml
 
 from tests._torch_port import assert_dets_match, close_dict, model_pair, train_step_run
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = "configs/models/yolov8_eca.yaml"
 IMGSZ, TRAIN_IMGSZ = 64, 128

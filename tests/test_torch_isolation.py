@@ -1,9 +1,10 @@
 """PyTorch port: it stands alone and never drops to the CPU on its own.
 
-* Importing every module of ``mga_yolo_tpu_torch`` (in a fresh interpreter)
-  pulls in neither JAX nor the JAX package, nor OpenCV, PyYAML or PIL,
-  which the card's host does not have; the plotting suite, the baseline
-  tools and the grid orchestrator load no matplotlib, pandas or scipy.
+* Importing every module of ``mga_yolo_tpu_torch`` (in a fresh interpreter,
+  with TensorFlow blocked) pulls in neither JAX nor the JAX package, nor
+  OpenCV, PyYAML, PIL or TensorFlow, which the card's host does not have;
+  the plotting suite, the baseline tools and the grid orchestrator load no
+  matplotlib, pandas or scipy.
 * No source of the port, nor ``chip_smoke.py``, imports them.
 * Entry points given no ``device`` raise when CUDA is absent.
 * ``chip_smoke.py`` exits non-zero with no result line without a card, and
@@ -32,6 +33,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, json, pkgutil, sys\n"
+        "sys.modules['tensorflow'] = None\n"
         "before = set(sys.modules)\n"
         "import mga_yolo_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'mga_yolo_tpu_torch.')]\n"
@@ -43,6 +45,7 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mga_yolo_tpu_torch.serve" in res["names"]
     assert "mga_yolo_tpu_torch.ops.cam_gate" in res["names"]
+    assert {"mga_yolo_tpu_torch.export.tf_graph", "mga_yolo_tpu_torch.export.tflite"} <= set(res["names"])
     assert [m for m in res["new"] if _forbidden(m)] == []
 
 

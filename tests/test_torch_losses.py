@@ -22,6 +22,9 @@ from mga_yolo_tpu_torch import losses as TL
 from mga_yolo_tpu_torch.losses import detection as TD
 from mga_yolo_tpu_torch.losses import segmentation as TS
 from mga_yolo_tpu_torch.ops import boxes as TB
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 STRIDES = (8, 16, 32)
 IMGSZ = 64

@@ -27,7 +27,9 @@ from mga_yolo_tpu.models.attention import MaskECA as JMaskECA
 from mga_yolo_tpu.models.attention import eca_kernel_size as jeca_kernel_size
 from mga_yolo_tpu_torch.models.attention import MaskECA, eca_kernel_size
 from mga_yolo_tpu_torch.ops import masked_pool as tmp
-from tests._torch_port import load_layer, nchw, nhwc
+from tests._torch_port import few_torch_threads, load_layer, nchw, nhwc  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 def _case(kind, b=2, h=8, w=8, c=32, seed=0):

@@ -15,7 +15,9 @@ from mga_yolo_tpu.models import heads as jheads
 from mga_yolo_tpu.models import layers as jlayers
 from mga_yolo_tpu_torch.models import heads as theads
 from mga_yolo_tpu_torch.models import layers as tlayers
-from tests._torch_port import load_layer, nchw, nhwc, perturb_bn
+from tests._torch_port import few_torch_threads, load_layer, nchw, nhwc, perturb_bn  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -15,6 +15,9 @@ import torch
 import mga_yolo_tpu.ops.pallas.nms as jpnms
 from mga_yolo_tpu.ops.nms import nms_jax
 from mga_yolo_tpu_torch.ops import nms as tnms
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 def _pred(b=2, a=300, nc=3, seed=0, ties=False):

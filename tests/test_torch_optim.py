@@ -16,6 +16,9 @@ import torch
 
 from mga_yolo_tpu.train import optim as J
 from mga_yolo_tpu_torch.train import optim as T
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 TOL = dict(rtol=1e-5, atol=1e-7)
 

@@ -25,7 +25,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tests._torch_port import few_torch_threads  # noqa: F401  (a module fixture)
 from tests.test_plotting import _synthetic_results
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 def pixels(path) -> np.ndarray:

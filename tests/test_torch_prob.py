@@ -29,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port import close_dict, train_step_run
+from tests._torch_port import close_dict, few_torch_threads, train_step_run  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 N = 100_000
 MODES = ("deterministic", "gumbel", "hard_st", "bernoulli_detach")

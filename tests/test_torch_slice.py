@@ -20,7 +20,9 @@ import pytest
 import torch
 import yaml
 
-from tests._torch_port import assert_dets_match, model_pair
+from tests._torch_port import assert_dets_match, few_torch_threads, model_pair  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = "configs/models/yolov8_cbam.yaml"
 IMGSZ = 64

@@ -33,7 +33,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port import close_dict, train_step_run
+from tests._torch_port import close_dict, few_torch_threads, train_step_run  # noqa: F401  (a module fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = "configs/models/yolov8_cbam.yaml"
 IMGSZ, B = 128, 2

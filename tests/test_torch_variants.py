@@ -9,8 +9,10 @@ import jax
 import numpy as np
 import pytest
 
-from tests._torch_port import load_layer, nchw, nhwc
+from tests._torch_port import few_torch_threads, load_layer, nchw, nhwc  # noqa: F401  (a module fixture)
 from tests._torch_variant_checks import VariantChecks
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 class TestSpade(VariantChecks):
