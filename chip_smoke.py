@@ -164,6 +164,18 @@ Then the baseline toolchain and the experiment grid:
              640 px, the file held to the port's forward on the card
              within ``EXPORT_TOL``, and ``cli.val`` run on it with the NMS
              on the card (launches exact).
+14. jpeg   — the image codecs of the host C++ library (``native/jpeg.cpp``,
+             ``native/bmp.cpp``), built on the card's host: the committed
+             fixtures (``tests/jpeg_fixtures``) decoded equal to cv2's
+             pixels, colour and grey; decode ms per image (1 and 8 threads)
+             of a 512 px grey file, baseline and progressive, and a 640 px
+             BGR one; encode ms; the flagship behind ``MGAServer`` answering
+             64 JPEG uploads from 4 threads with the boxes of the port's
+             decode of the same bytes (launches exact), requests/s beside
+             PNG uploads of the same pictures; 4 + 1 micro-steps fed from
+             64 JPEG training files through MGADataset and DataLoader
+             (launches exact) beside the same pictures as PNG; ``cli.predict``
+             over a JPEG directory writing ``{stem}_pred.jpg``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -2509,7 +2521,7 @@ def base_phase(torch, np, data_yaml, tmp: Path) -> dict:
     else:
         check(not pngs and FM_WAIT in buf.getvalue(), f"[base] without matplotlib: PNGs {pngs}, message "
                                                       f"{FM_WAIT in buf.getvalue()}")
-    overlays = sorted((out / "preds").glob("*_dets.png"))
+    overlays = sorted((out / "preds").glob("*_dets.jpg"))
     check(len(overlays) == 4 * n_batches, f"[base] {len(overlays)} overlays")
     print(f"[base] tools.val --save-fm on best.pt: 64 images in {val_wall:.1f} s wall "
           f"({64 / val_wall:.1f} img/s with the maps and files), launches {val_launches}; metrics.json equal to "
@@ -2593,6 +2605,249 @@ SPATIAL_FAULTS = {
     "n-ties-local": [(_SPATIAL, "        buf = _all_reduce_(torch.cat([*parts, is_max.float().sum(-1)], 1), _mesh())\n",
                       "        buf = torch.cat([_all_reduce_(torch.cat(parts, 1), _mesh()), is_max.float().sum(-1)], 1)\n")],
 }
+
+
+# ------------------------------------------------------------- image codecs
+
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "jpeg_fixtures"
+JPEG_REQUESTS, JPEG_THREADS = 64, 4  # uploads POSTed to the server, client threads
+JPEG_FED_IMAGES = 64  # JPEG training images: 4 micro-steps of 16 an epoch
+JPEG_PREDICT_IMAGES = 16
+
+
+def decode_ms(fn, data: bytes, reps: int, threads: int) -> float:
+    """ms per image of ``fn(data)``: the median of ``reps`` calls on one
+    thread, or with ``threads`` > 1 the wall time of ``threads * reps``
+    calls spread over that many threads, divided by the calls."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fn(data)
+    if threads == 1:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda _: fn(data), range(threads * reps)))
+        return (time.perf_counter() - t0) * 1e3 / (threads * reps)
+
+
+def jpeg_dataset(np, data_yaml, root: Path, n: int) -> Path:
+    """The first ``n`` training images of ``data_yaml``'s dataset written as
+    JPEG by the port's encoder (quality 95), with their labels and masks:
+    the images a ``fraction`` of n / 256 of the PNG dataset reads."""
+    import shutil
+
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.utils import yaml_lite
+
+    src = Path(data_yaml).parent
+    for d in ("images/train", "labels/train"):
+        (root / d).mkdir(parents=True)
+    shutil.copytree(src / "masks", root / "masks")
+    for png in sorted((src / "images" / "train").iterdir())[:n]:
+        image_io.imwrite(root / "images" / "train" / f"{png.stem}.jpg", image_io.imread(png))
+        shutil.copy(src / "labels" / "train" / f"{png.stem}.txt", root / "labels" / "train")
+    yaml_lite.dump({"path": str(root), "train": "images/train", "val": "images/train", "dataset": str(root),
+                    "masks_dir": "masks", "names": {0: "stenosis"}, "nc": 1}, root / "data.yaml")
+    return root / "data.yaml"
+
+
+def jpeg_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """The image codecs of the port's host C++ library (``native/jpeg.cpp``,
+    ``native/bmp.cpp``) on the card's host, and the paths that read JPEG.
+
+    (a) each committed fixture (``tests/jpeg_fixtures``) decoded, colour and
+    grey, equal to cv2's pixels stored beside it; the three timing files'
+    decodes to their stored SHA-256. (b) decode ms per image, 1 thread and
+    8, of a 512 px grey baseline file, the same picture progressive, and a
+    640 px BGR 4:2:0 file. (c) encode ms of the 640 px picture, and
+    ``decode(encode(x))`` deterministic. (d) the flagship (``[path]``'s
+    model: seed 0, bf16, BN-folded) behind ``MGAServer`` on 127.0.0.1: 64
+    JPEG uploads POSTed from 4 threads, each reply's boxes within
+    ``[parity]``'s tolerance of ``InferenceEngine`` on the port's decode of
+    the same bytes, launches exact (3 CAM gates and 1 NMS a batch);
+    requests/s for the JPEG uploads and for PNG uploads of the same
+    pictures, in turns (JPEG, PNG, PNG, JPEG), a new server each. (e) 64 JPEG training images written by the port's encoder,
+    read through MGADataset and DataLoader (batch 16, 8 threads): the
+    loader's images/s alone and 4 + 1 fed bf16 micro-steps (3 CAM gates and
+    1 DFL backward each, exactly), beside the same 64 pictures as PNG.
+    (f) ``cli.predict`` on best.pt over a JPEG directory: ``{stem}_pred.jpg``
+    files that the port's decoder reads back. Returns the launches of (d)
+    and (e)."""
+    import contextlib
+    import hashlib
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.config import load_config
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.dataset import MGADataset
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.serve import InferenceEngine, MGAServer, MicroBatcher
+    from mga_yolo_tpu_torch.train import optim
+    from mga_yolo_tpu_torch.train import state as S
+
+    t_phase = time.perf_counter()
+    # (a) the fixtures, exactly
+    pixels = np.load(JPEG_FIXTURES / "pixels.npz")
+    digests = json.loads((JPEG_FIXTURES / "bench.json").read_text())
+    stems = sorted(p.stem for p in JPEG_FIXTURES.glob("*.jpg") if p.stem not in digests)
+    check(len(stems) >= 12, f"[jpeg] {len(stems)} fixtures")
+    for stem in stems:
+        data = (JPEG_FIXTURES / f"{stem}.jpg").read_bytes()
+        for key, got in ((stem, image_io.imdecode(data)), (f"{stem}_gray", image_io.decode(data, gray=True))):
+            check(got.shape == pixels[key].shape and bool((got == pixels[key]).all()),
+                  f"[jpeg] {key}: the port's decode differs from cv2's pixels")
+    bench = {stem: (JPEG_FIXTURES / f"{stem}.jpg").read_bytes() for stem in digests}
+    for stem, data in bench.items():
+        for mode, gray in (("color", False), ("gray", True)):
+            got = hashlib.sha256(image_io.decode(data, gray=gray).tobytes()).hexdigest()
+            check(got == digests[stem][mode], f"[jpeg] {stem} {mode}: SHA-256 {got[:12]} is not cv2's")
+    print(f"[jpeg] (a) {len(stems)} fixtures ({', '.join(stems)}) decoded by {native.library_path().name}, "
+          f"built on this host: colour and grey equal to cv2's pixels exactly; the 3 timing files' decodes "
+          f"have cv2's SHA-256")
+
+    # (b) decode and (c) encode times
+    for stem, data in bench.items():
+        info = native.jpeg_header(data)
+        one, eight = decode_ms(image_io.imdecode, data, 15, 1), decode_ms(image_io.imdecode, data, 8, 8)
+        print(f"[jpeg] (b) decode {stem} ({info['height']}x{info['width']}, {info['components']} component(s), "
+              f"{'progressive' if info['progressive'] else 'baseline'}, {len(data) / 1e3:.1f} kB) to BGR: "
+              f"{one:.3f} ms an image on 1 thread, {eight:.3f} ms an image with 8 threads -> "
+              f"{1e3 / eight:.0f} images/s")
+    x = image_io.imdecode(bench["bgr640_420"])
+    enc = decode_ms(image_io.encode_jpeg, x, 15, 1)
+    a, b = image_io.encode_jpeg(x), image_io.encode_jpeg(x)
+    check(a == b and bool((image_io.imdecode(a) == image_io.imdecode(b)).all()), "[jpeg] encode is not deterministic")
+    print(f"[jpeg] (c) encode the 640x640 BGR picture at quality 95: {enc:.3f} ms ({len(a) / 1e3:.1f} kB); "
+          f"decode(encode(x)) deterministic")
+
+    # (d) the flagship behind MGAServer, JPEG uploads
+    val_pngs = sorted((Path(data_yaml).parent / "images" / "val").iterdir())[:JPEG_REQUESTS]
+    pngs = [p.read_bytes() for p in val_pngs]
+    jpgs = [image_io.encode_jpeg(image_io.imdecode(d)) for d in pngs]
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, device=device)
+    eng = InferenceEngine(model, imgsz=IMGSZ, batch=BATCH, conf=0.001)  # bf16, BN-folded on the card
+    eng.warmup()
+    del model
+    decoded = [image_io.imdecode(d) for d in jpgs]
+    want = []
+    for i in range(0, len(decoded), BATCH):
+        lbs, metas = zip(*(eng.preprocess(im) for im in decoded[i:i + BATCH]))
+        want += eng.infer_batch(list(lbs), list(metas))
+    rates, replies, launches = {"JPEG": [], "PNG": []}, [], {"JPEG": {}}
+    for kind, uploads in (("JPEG", jpgs), ("PNG", pngs), ("PNG", pngs), ("JPEG", jpgs)):  # in turns
+        server = MGAServer(MicroBatcher(eng, max_wait_ms=5.0), host="127.0.0.1", port=0)
+        server.start()
+
+        def post(data: bytes, port=server.port) -> dict:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=data, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(JPEG_THREADS) as pool:
+                got = list(pool.map(post, uploads))
+            rates[kind].append(len(uploads) / (time.perf_counter() - t0))
+            counts = read_launches()
+            n_batches = server.batcher.stats()["batches"]
+        finally:
+            server.stop()
+        want_l = want_launches({"cam_gate": 3 * n_batches, "nms_suppress": n_batches})
+        check(counts == want_l, f"[jpeg] {kind} uploads: launches {counts} for {n_batches} batches, want {want_l}")
+        if kind == "JPEG":
+            replies += got
+            launches["JPEG"] = {k: launches["JPEG"].get(k, 0) + v for k, v in counts.items()}
+        print(f"[jpeg] (d) {len(uploads)} {kind} uploads ({sum(map(len, uploads)) / len(uploads) / 1e3:.1f} kB "
+              f"each) POSTed from {JPEG_THREADS} threads to MGAServer on the flagship: {n_batches} batches, "
+              f"{rates[kind][-1]:.1f} requests/s; launches {counts}")
+    n_boxes, err = 0, 0.0
+    for r, w in zip(replies, want + want):
+        got = np.array([[b["x1"], b["y1"], b["x2"], b["y2"], b["conf"], b["cls"]] for b in r["boxes"]],
+                       np.float32).reshape(-1, 6)
+        check(r["orig_shape"] == list(w.orig_shape) and got.shape == w.boxes.shape
+              and bool(np.allclose(got, w.boxes, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[jpeg] a JPEG upload's boxes {got.shape} differ from the engine's on the port's decode "
+              f"{w.boxes.shape}")
+        n_boxes += len(got)
+        err = max(err, float(np.abs(got - w.boxes).max(initial=0.0)))
+    check(n_boxes > 0, "[jpeg] no boxes at conf 0.001")
+    print(f"[jpeg] (d) every JPEG reply's boxes ({n_boxes}, two rounds) equal InferenceEngine's on the port's "
+          f"decode of the same bytes: max abs error {err:.3g} (rtol {PATH_RTOL}, atol {PATH_ATOL}); requests/s "
+          f"in turns JPEG {rates['JPEG'][0]:.1f}, PNG {rates['PNG'][0]:.1f}, PNG {rates['PNG'][1]:.1f}, JPEG "
+          f"{rates['JPEG'][1]:.1f}")
+    del eng
+
+    # (e) fed training from JPEG files, beside the same pictures as PNG
+    jpg_yaml = jpeg_dataset(np, data_yaml, tmp / "jpeg_ds", JPEG_FED_IMAGES)
+    kw = dict(imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
+    loaders = {
+        "JPEG": DataLoader(MGADataset(load_config("configs/hyperparams/cbam_defaults.yaml", data=str(jpg_yaml),
+                                                  **kw), "train", augment=True), TRAIN_BATCH, seed=0, workers=8),
+        "PNG": DataLoader(MGADataset(load_config("configs/hyperparams/cbam_defaults.yaml", data=str(data_yaml),
+                                                 fraction=JPEG_FED_IMAGES / 256, **kw), "train", augment=True),
+                          TRAIN_BATCH, seed=0, workers=8)}
+    check([p.stem for p in loaders["JPEG"].dataset.img_files] == [p.stem for p in loaders["PNG"].dataset.img_files],
+          "[jpeg] the JPEG and PNG splits hold other pictures")
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True, device=device)
+    sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                           warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+    step = make_step(torch, model, max(round(NBS / TRAIN_BATCH), 1), torch.bfloat16, warmup_steps=sched.warmup_steps)
+    st = S.create_train_state(model)
+    st.step = st.last_apply = sched.warmup_steps - 4
+    n_steps = len(loaders["JPEG"])
+    for kind, loader in loaders.items():
+        rate, n_img, n_b = host_rate(np, loader, 1)
+        zero_launches()
+        st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+        got = read_launches()
+        if kind == "JPEG":
+            launches["fed"] = got
+        want_l = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+        check(got == want_l, f"[jpeg] {kind}-fed: launches {got} in {n_steps} + 1 micro-steps, want {want_l}")
+        print(f"[jpeg] (e) {kind}: the loader alone {rate:.1f} images/s ({n_img} images, {n_b} boxes); "
+              f"{n_steps} micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by it: {fed_summary(rows)}; last loss "
+              f"{float(metrics['loss']):.4f}; launches {got}")
+    del step, st, model
+
+    # (f) cli.predict over a JPEG directory
+    src = tmp / "jpeg_ds" / "images" / "train"
+    pred_src, out_dir = tmp / "jpeg_predict_src", tmp / "jpeg_predict"
+    pred_src.mkdir()
+    for f in sorted(src.iterdir())[:JPEG_PREDICT_IMAGES]:
+        (pred_src / f.name).write_bytes(f.read_bytes())
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = cli_predict.main(["--weights", str(best), "--source", str(pred_src), "--out", str(out_dir), "--batch",
+                                str(TRAIN_BATCH)] + ([] if device == "cuda" else ["--device", device]))
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    check(got == want_launches({"cam_gate": 3 * -(-JPEG_PREDICT_IMAGES // TRAIN_BATCH)}),
+          f"[jpeg] cli.predict launches {got}")
+    overlays = sorted(out_dir.glob("*_pred.jpg"))
+    check(res["images"] == JPEG_PREDICT_IMAGES and [p.name for p in overlays]
+          == [f"{f.stem}_pred.jpg" for f in sorted(pred_src.iterdir())], f"[jpeg] cli.predict wrote {len(overlays)}")
+    shapes = {image_io.imread(p).shape for p in overlays}
+    check(shapes == {image_io.imread(next(pred_src.iterdir())).shape}, f"[jpeg] overlays read back as {shapes}")
+    print(f"[jpeg] (f) cli.predict on best.pt over {JPEG_PREDICT_IMAGES} JPEGs: {wall:.2f} s with the model load; "
+          f"{len(overlays)} overlays {overlays[0].name} ... read back by the port's decoder as {shapes.pop()}; "
+          f"launches {got}")
+    print(f"[jpeg] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(v[k] for v in (launches["JPEG"], launches["fed"])) for k in launches["JPEG"]}
 
 
 def planted_faults(tag: str, faults: dict) -> int:
@@ -2727,14 +2982,16 @@ def main() -> int:
         paths["base"] = base_phase(torch, np, data_yaml, Path(tmp))
         grid_phase(torch, np, data_yaml, Path(tmp))  # child processes: no launch of this process
         print(f"[base] [grid] the baseline toolchain and the grid took {time.perf_counter() - t0:.1f} s")
-    # each kernel's launches are those of this slice's path first (cli.val
-    # on an exported file, where tensorflow imports), then the earlier
-    # slices' (the baseline toolchain's run, the spatial-mesh run with device
+        paths["jpeg"] = jpeg_phase(torch, np, data_yaml, best, Path(tmp))
+    # each kernel's launches are those of this slice's path first (JPEG
+    # uploads served and JPEG-fed micro-steps), then the earlier slices'
+    # (cli.val on an exported file, where tensorflow imports, the baseline
+    # toolchain's run, the spatial-mesh run with device
     # augmentation, the spatial-mesh run and
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:

@@ -16,8 +16,9 @@ JAX package so each counterpart is easy to find:
     train/                      optimizers, schedule, EMA, train and eval steps,
                                 the trainer and the validator
     csrc/, kernels/_build.py    CUDA C++ sources and their nvcc/ctypes build
-    native/                     host C++ of the data pipeline (g++/ctypes)
-    data/                       PNG I/O, mask pyramid, transforms, dataset,
+    native/                     host C++ of the data pipeline and the image
+                                codecs (g++/ctypes)
+    data/                       image I/O, mask pyramid, transforms, dataset,
                                 loader, k-fold, a synthetic dataset
     utils/                      BN fold, model_info, JAX -> port weight
                                 conversion, the YAML subset reader/writer,

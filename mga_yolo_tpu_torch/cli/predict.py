@@ -1,11 +1,11 @@
 """``python -m mga_yolo_tpu_torch.cli.predict --weights best.pt --source images/``
 
 Counterpart of ``mga_yolo_tpu/cli/predict.py`` (the reference's predict
-surface with ``--save-feature-maps``): per image ``{stem}_pred.png`` (the
-boxes and labels drawn on it), ``{stem}_mask_{p3,p4,p5}.png`` (the sigmoid
-masks times 255) and, with ``--save-feature-maps``, ``{stem}_masks.npz``.
-The overlay is a PNG, not the JAX package's JPEG: the card's host has no
-JPEG encoder. Stems are made unique across a recursive directory
+surface with ``--save-feature-maps``): per image ``{stem}_pred.jpg`` (the
+boxes and labels drawn on it, a JPEG as the JAX package writes it),
+``{stem}_mask_{p3,p4,p5}.png`` (the sigmoid masks times 255) and, with
+``--save-feature-maps``, ``{stem}_masks.npz``. Sources are PNG, JPEG or BMP
+files (``data/image_io.py``). Stems are made unique across a recursive directory
 (``a/x.png``, ``b/x.png`` -> ``x``, ``x_2``). The run is on CUDA unless
 ``--device cpu`` (or ``cuda:N``). ``--use-pallas`` (the JAX package's
 kernel switch) is accepted and changes nothing; video sources raise
@@ -28,7 +28,7 @@ def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else argv
     p = argparse.ArgumentParser("mga-predict")
     p.add_argument("--weights", required=True, help="checkpoint .pt, an exported .tflite or a SavedModel directory")
-    p.add_argument("--source", required=True, help="image file, directory, or glob (PNG)")
+    p.add_argument("--source", required=True, help="image file, directory, or glob (PNG, JPEG, BMP)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--conf", type=float, default=0.25)
     p.add_argument("--iou", type=float, default=0.45)
@@ -70,7 +70,7 @@ def main(argv=None) -> dict:
     n_img = 0
     for frame, r in pred.stream(args.source, batch_size=args.batch, max_frames=args.max_frames):
         stem = unique_stem(frame)
-        image_io.imwrite(out_dir / f"{stem}_pred.png", r.plot(img=frame.img.copy()))
+        image_io.imwrite(out_dir / f"{stem}_pred.jpg", r.plot(img=frame.img.copy()))
         for sk, m in r.mga_masks.items():
             image_io.imwrite(out_dir / f"{stem}_mask_{sk}.png", (m * 255).astype(np.uint8))
         if args.save_feature_maps:

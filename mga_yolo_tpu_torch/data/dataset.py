@@ -3,7 +3,7 @@
 Counterpart of ``mga_yolo_tpu/data/dataset.py``: YOLO txt labels (parsed
 once into an on-disk cache), stem-matched mask discovery, the mask-synced
 augmentation pipeline and the mask pyramid at strides 8/16/32, emitted at
-fixed shapes. Images are PNG, read by ``data/image_io.py``; the data YAML
+fixed shapes. Images (PNG, JPEG, BMP) are read by ``data/image_io.py``; the data YAML
 is read by the port's own reader (``config.read_yaml``).
 
 A sample (:meth:`MGADataset.get`) is numpy on the host: ``image`` (S, S, 3)
@@ -207,7 +207,7 @@ class MGADataset:
         if self.rect:
             self.bucket_shapes = rect_bucket_shapes(self.imgsz)
             log_b = np.log([h / w for h, w in self.bucket_shapes])
-            ars = np.array([h / w for h, w in map(image_io.image_size, self.img_files)])  # PNG headers
+            ars = np.array([h / w for h, w in map(image_io.image_size, self.img_files)])  # file headers
             self.bucket = np.abs(np.log(ars)[:, None] - log_b[None, :]).argmin(1)
 
     def __len__(self) -> int:

@@ -2,8 +2,8 @@
 host-to-card copy of its batches.
 
 Counterpart of ``mga_yolo_tpu/data/loader.py``: a thread pool builds
-batches ahead (the PNG inflate, the torch warps and the host C++ release the
-GIL for their heavy work), each sample from a generator seeded by (seed,
+batches ahead (the PNG inflate, the JPEG decode, the torch warps and the
+host C++ release the GIL for their heavy work), each sample from a generator seeded by (seed,
 epoch, index), so a batch does not depend on which thread built it. Global
 batches can be split into ``num_shards`` per-process shards.
 :meth:`DataLoader.to_device` copies a batch into pinned host buffers and

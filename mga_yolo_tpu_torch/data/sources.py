@@ -2,8 +2,8 @@
 stream of frames (counterpart of ``mga_yolo_tpu/data/sources.py``).
 
 Every source kind yields :class:`Frame` records, so the predictor has one
-code path. Images are read with ``data/image_io.py`` (PNG; the card's host
-has no other decoder). Video files, webcams and stream URLs need
+code path. Images are read with ``data/image_io.py`` (PNG, JPEG and BMP,
+decoded as cv2 decodes them). Video files, webcams and stream URLs need
 ``cv2.VideoCapture``, which the card's host does not have: they raise
 ``NotImplementedError`` naming the missing decoder, as does
 :class:`VideoSink`; no source is ever skipped.
@@ -24,7 +24,7 @@ from mga_yolo_tpu_torch.data.dataset import IMG_EXTS
 VID_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".mpg", ".mpeg", ".webm", ".wmv", ".gif"}
 STREAM_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://", "tcp://")
 NO_VIDEO = ("needs a video decoder (cv2.VideoCapture), which the port does not carry: the card's host "
-            "has no OpenCV; extract the frames as PNG images")
+            "has no OpenCV; extract the frames as PNG or JPEG images")
 
 
 @dataclasses.dataclass

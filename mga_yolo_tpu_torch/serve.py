@@ -272,7 +272,8 @@ class MGAServer:
     """Threaded HTTP server over a MicroBatcher.
 
     Endpoints:
-      POST /predict        PNG image bytes -> detections JSON (another format: 400)
+      POST /predict        PNG, JPEG or BMP image bytes -> detections JSON
+                           (another format, or a corrupt file: 400)
                            (?masks=1 adds base64-PNG sigmoid masks)
       GET  /healthz        200 once warm
       GET  /stats          micro-batcher statistics

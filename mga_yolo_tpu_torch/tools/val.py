@@ -10,8 +10,7 @@ defaults, as in the reference). Each tap is saved as
 ``fm/batch{b}_layer{idx}.npy`` in the JAX package's NHWC layout, with its
 channel grid as PNG where matplotlib imports, and the first four images
 get their detections (conf 0.25, at most 50) drawn as
-``preds/batch{b}_img{i}_dets.png``: PNG, where the JAX tool writes JPEG,
-since the card's host has no JPEG encoder.
+``preds/batch{b}_img{i}_dets.jpg`` (JPEG, as the JAX tool writes them).
 
 The forward runs in float32 on ``image / 255``; each image's detections
 come from the host NMS (``nms_numpy``), as in the JAX tool. The run is on
@@ -103,7 +102,7 @@ def main(argv=None) -> Path:
             # prediction overlays (the reference saves the predictions, no masks)
             for i in range(min(decoded.shape[0], 4)):
                 dets = nms_numpy(decoded[i], 0.25, args.iou, max_det=50)
-                image_io.imwrite(pred_dir / f"batch{bi}_img{i}_dets.png", draw_boxes(batch["image"][i], dets))
+                image_io.imwrite(pred_dir / f"batch{bi}_img{i}_dets.jpg", draw_boxes(batch["image"][i], dets))
             saved += 1
 
     m = acc.compute()

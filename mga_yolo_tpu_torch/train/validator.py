@@ -258,7 +258,7 @@ class Validator:
                 plotting.plot_mc_curve(c["px"], c[key], names, out_dir / fname, ylabel=ylabel)
 
     def _save_batch_artifacts(self, batch, out, root: Path, batch_idx: int) -> None:
-        """Detections drawn on the first images (PNG), the mask probabilities
+        """Detections drawn on the first images (JPEG), the mask probabilities
         (PNG) and logits (.npy, NHWC), and the tapped features (.npy, NHWC,
         and the first image's channel grid as PNG where matplotlib imports)."""
         (root / "preds").mkdir(parents=True, exist_ok=True)
@@ -266,7 +266,7 @@ class Validator:
         images = np.asarray(batch["image"])
         for i in range(min(images.shape[0], 4)):
             dets = nms_numpy(decoded[i], conf_thres=0.25, iou_thres=self.iou_thres, max_det=50)
-            image_io.imwrite(root / "preds" / f"batch{batch_idx}_img{i}_dets.png", draw_boxes(images[i], dets))
+            image_io.imwrite(root / "preds" / f"batch{batch_idx}_img{i}_dets.jpg", draw_boxes(images[i], dets))
         for sk, logits in out["seg"].items():
             arr = _nhwc(logits)
             np.save(root / "preds" / f"batch{batch_idx}_{sk}.npy", arr)

@@ -87,7 +87,7 @@ def test_run_directory_results_and_profiling(run):
     assert [s["epoch"] for s in run["trainer"].epoch_stats] == [0, 1]
     for e in (1, 2):  # MGA_SAVE_FM: the capture epochs' artifacts, the tapped attention outputs among them
         art = d / "feature_maps" / f"epoch_{e}"
-        assert (art / "preds" / "batch0_p3.npy").is_file() and (art / "preds" / "batch0_img0_dets.png").is_file()
+        assert (art / "preds" / "batch0_p3.npy").is_file() and (art / "preds" / "batch0_img0_dets.jpg").is_file()
         assert {p.name for p in (art / "fm").iterdir()} == {f"batch0_layer{i}.npy" for i in (23, 25, 27)}
     assert not list(d.rglob("*_curve.png")) and not list(d.rglob("confusion_matrix*.png"))
 

@@ -139,19 +139,26 @@ def test_every_filter_and_colour_type_decodes_as_cv2(tmp_path, ctype):
 
 
 def test_formats_the_port_does_not_read_raise_naming_the_file(tmp_path):
+    """A JPEG now reads as cv2 reads it and ``imwrite`` writes ``.jpg`` as
+    cv2 writes it; 16-bit and interlaced PNGs, TIFF, and a suffix the port
+    does not write still raise, naming the file and what it is."""
     from mga_yolo_tpu_torch.data import image_io
 
     img = _image()
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    np.testing.assert_array_equal(image_io.imread(tmp_path / "a.jpg"), cv2.imread(str(tmp_path / "a.jpg")))
     cv2.imwrite(str(tmp_path / "b16.png"), img.astype(np.uint16) * 257)
     (tmp_path / "c.png").write_bytes(_png(img[..., 0], 0, (0,)).replace(
         struct.pack(">IIBBBBB", 53, 37, 8, 0, 0, 0, 0), struct.pack(">IIBBBBB", 53, 37, 8, 0, 0, 0, 1)))
-    for name, what in (("a.jpg", "JPEG"), ("b16.png", "bit depth 16"), ("c.png", "interlaced")):
+    cv2.imwrite(str(tmp_path / "d.tif"), img)
+    for name, what in (("b16.png", "bit depth 16"), ("c.png", "interlaced"), ("d.tif", "TIFF")):
         with pytest.raises(ValueError, match=what) as e:
             image_io.imread(tmp_path / name)
         assert name in str(e.value)
-    with pytest.raises(ValueError, match="PNG only"):
-        image_io.imwrite(tmp_path / "x.jpg", img)
+    image_io.imwrite(tmp_path / "x.jpg", img)
+    assert (tmp_path / "x.jpg").read_bytes() == cv2.imencode(".jpg", img)[1].tobytes()
+    with pytest.raises(ValueError, match=r"x\.tif: the port writes \.png, \.jpg and \.jpeg"):
+        image_io.imwrite(tmp_path / "x.tif", img)
 
 
 # ------------------------------------------------------------ YAML and config
@@ -522,6 +529,43 @@ def synth(tmp_path_factory):
     return create_synthetic_dataset(tmp_path_factory.mktemp("synth"), n=6, size=96, seed=3)
 
 
+@pytest.fixture(scope="module")
+def synth_jpg(synth, tmp_path_factory):
+    """``synth`` as JPEG files (cv2.imwrite, quality 95) of three aspects:
+    image i resized to 96 x 96, 64 rows x 96 or 96 rows x 64 (the labels are
+    normalised, so they still hold), image 1 stored turned a quarter with
+    EXIF orientation 6 (written with PIL) so that it decodes upright, and
+    the masks of the even images as JPEG too. The rect buckets then differ."""
+    import io
+
+    from PIL import Image
+
+    src, root = synth.parent, tmp_path_factory.mktemp("synth_jpg")
+    for d in ("images/train", "labels/train", "masks"):
+        (root / d).mkdir(parents=True)
+    for i, png in enumerate(sorted((src / "images" / "train").glob("*.png"))):
+        size = ((96, 96), (96, 64), (64, 96))[i % 3]  # (w, h)
+        img = cv2.resize(cv2.imread(str(png)), size, interpolation=cv2.INTER_LINEAR)
+        mask = cv2.resize(cv2.imread(str(src / "masks" / png.name), cv2.IMREAD_GRAYSCALE), size,
+                          interpolation=cv2.INTER_NEAREST)
+        if i == 1:
+            exif = Image.Exif()
+            exif[0x0112] = 6  # shown turned a quarter clockwise
+            buf = io.BytesIO()
+            Image.fromarray(np.ascontiguousarray(np.rot90(img, 1)[..., ::-1])).save(buf, "JPEG", quality=95,
+                                                                                     exif=exif.tobytes())
+            (root / "images" / "train" / f"{png.stem}.jpg").write_bytes(buf.getvalue())
+        else:
+            cv2.imwrite(str(root / "images" / "train" / f"{png.stem}.jpg"), img)
+        cv2.imwrite(str(root / "masks" / f"{png.stem}{'.jpg' if i % 2 == 0 else '.png'}"), mask)
+        (root / "labels" / "train" / f"{png.stem}.txt").write_text(
+            (src / "labels" / "train" / f"{png.stem}.txt").read_text())
+    data = yaml.safe_load(synth.read_text())
+    data.update(path=str(root), dataset=str(root))
+    (root / "data.yaml").write_text(yaml.safe_dump(data))
+    return root / "data.yaml"
+
+
 def _assert_samples_match(got, want, what, hsv=False):
     assert set(got) == set(want)
     np.testing.assert_allclose(got["gt_boxes"], want["gt_boxes"], rtol=0, atol=1e-3, err_msg=what)
@@ -539,12 +583,15 @@ def _assert_samples_match(got, want, what, hsv=False):
         assert (a != b).mean() < 0.005, (what, (a != b).mean())
 
 
-@pytest.mark.parametrize("profile", list(PROFILES))
-def test_dataset_train_samples_equal_jax(synth, profile):
+@pytest.mark.parametrize("profile, ext", [pytest.param(p, e, id=p + "-jpg" * (e == "jpg"))
+                                          for e in ("png", "jpg") for p in PROFILES])
+def test_dataset_train_samples_equal_jax(request, profile, ext):
     from mga_yolo_tpu.config import load_config as jload
     from mga_yolo_tpu.data.dataset import MGADataset as JDS
     from mga_yolo_tpu_torch.config import load_config as pload
     from mga_yolo_tpu_torch.data.dataset import MGADataset as PDS
+
+    synth = request.getfixturevalue({"png": "synth", "jpg": "synth_jpg"}[ext])
 
     if profile == "cbam_defaults":
         kw = dict(data=str(synth), imgsz=64, max_boxes=8)
@@ -561,15 +608,19 @@ def test_dataset_train_samples_equal_jax(synth, profile):
             assert rj.random() == rp.random()  # the same random draws were consumed
 
 
-@pytest.mark.parametrize("rect", [False, True])
-def test_dataset_eval_samples_equal_jax(synth, rect):
+@pytest.mark.parametrize("rect, ext", [pytest.param(r, e, id=str(r) + "-jpg" * (e == "jpg"))
+                                       for e in ("png", "jpg") for r in (False, True)])
+def test_dataset_eval_samples_equal_jax(request, rect, ext):
     from mga_yolo_tpu.data.dataset import MGADataset as JDS
     from mga_yolo_tpu_torch.data.dataset import MGADataset as PDS
 
+    synth = request.getfixturevalue({"png": "synth", "jpg": "synth_jpg"}[ext])
     jcfg, pcfg = _configs(synth, rect=rect, cache="ram")
     jds, pds = JDS(jcfg, "val", augment=False), PDS(pcfg, "val", augment=False)
+    assert {p.suffix for p in pds.img_files} == {f".{ext}"}
     if rect:
         np.testing.assert_array_equal(pds.bucket, jds.bucket)
+        assert len(set(pds.bucket.tolist())) == (3 if ext == "jpg" else 1)  # wide, square and tall
     for i in range(len(jds)):
         _assert_samples_match(pds.get(i), jds.get(i), f"eval {i}")
 

@@ -169,10 +169,10 @@ def test_cli_predict_writes_its_files(pair, tmp_path, capsys):
                             "--device", "cpu"])
     assert res["images"] == 4
     stems = ["im0", "im1", "im2", "im0_2"]  # sub/im0.png comes last (sorted) and gets the next free stem
-    want = {f"{s}{suffix}" for s in stems for suffix in ("_pred.png", "_mask_p3.png", "_mask_p4.png",
+    want = {f"{s}{suffix}" for s in stems for suffix in ("_pred.jpg", "_mask_p3.png", "_mask_p4.png",
                                                           "_mask_p5.png", "_masks.npz")}
     assert {p.name for p in out.iterdir()} == want
-    assert image_io.imread(out / "im0_2_pred.png").shape == (96, 80, 3)
+    assert image_io.imread(out / "im0_2_pred.jpg").shape == (96, 80, 3)  # a JPEG, as the JAX package writes
     assert image_io.imread_gray(out / "im1_mask_p3.png").shape == (8, 8)
     z = np.load(out / "im2_masks.npz")
     assert sorted(z.files) == ["p3", "p4", "p5"] and ((z["p3"] >= 0) & (z["p3"] <= 1)).all()

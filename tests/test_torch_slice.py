@@ -9,6 +9,7 @@ layers of float32 convolutions summed in another order).
 """
 
 import threading
+import urllib.error
 import urllib.request
 import json
 from pathlib import Path
@@ -192,20 +193,27 @@ def test_build_server_serves_exported_checkpoint(pair, engines, tmp_path):
     server.start()
     try:
         img = np.random.default_rng(5).integers(0, 255, (72, 56, 3)).astype(np.uint8)
-        lb, meta = engines[1].preprocess(img)
-        (want,) = engines[1].infer_batch([lb], [meta])
         base = f"http://127.0.0.1:{server.port}"
         with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
             assert json.loads(r.read())["status"] == "ok"
-        ok, payload = cv2.imencode(".png", img)
-        assert ok
-        req = urllib.request.Request(f"{base}/predict?masks=1", data=payload.tobytes(), method="POST")
-        with urllib.request.urlopen(req, timeout=60) as r:
-            out = json.loads(r.read())
-        assert out["orig_shape"] == [72, 56]
-        assert set(out["mga_masks_png"]) == {"p3", "p4", "p5"}
-        got = np.array([[b["x1"], b["y1"], b["x2"], b["y2"], b["conf"], b["cls"]] for b in out["boxes"]],
-                       np.float32).reshape(-1, 6)
-        np.testing.assert_allclose(got, want.boxes, rtol=1e-5, atol=1e-4)
+        for ext in (".png", ".jpg"):  # each upload gets the boxes of its pixels as cv2 decodes them
+            ok, payload = cv2.imencode(ext, img)
+            assert ok
+            lb, meta = engines[1].preprocess(cv2.imdecode(payload, cv2.IMREAD_COLOR))
+            (want,) = engines[1].infer_batch([lb], [meta])
+            req = urllib.request.Request(f"{base}/predict?masks=1", data=payload.tobytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())
+            assert out["orig_shape"] == [72, 56]
+            assert set(out["mga_masks_png"]) == {"p3", "p4", "p5"}
+            got = np.array([[b["x1"], b["y1"], b["x2"], b["y2"], b["conf"], b["cls"]] for b in out["boxes"]],
+                           np.float32).reshape(-1, 6)
+            assert len(got), ext
+            np.testing.assert_allclose(got, want.boxes, rtol=1e-5, atol=1e-4, err_msg=ext)
+        for data in (b"GIF89a" + bytes(32), payload.tobytes()[:200]):  # not an image the port reads; a cut JPEG
+            req = urllib.request.Request(f"{base}/predict", data=data, method="POST")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=60)
+            assert e.value.code == 400 and "could not decode image" in json.loads(e.value.read())["error"]
     finally:
         server.stop()

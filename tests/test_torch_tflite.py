@@ -318,7 +318,7 @@ def test_cli_val_and_predict_on_the_files_give_the_checkpoints_results(flagship,
     out = cli_predict.main(["--weights", str(root / "mini_fp32.tflite"), "--source", str(val_dir), "--out", str(pred),
                             "--device", "cpu"])
     assert out["images"] == 3
-    assert len(list(pred.glob("*_pred.png"))) == len(list(pred.glob("*_mask_p3.png"))) == 3
+    assert len(list(pred.glob("*_pred.jpg"))) == len(list(pred.glob("*_mask_p3.png"))) == 3
 
 
 # -- 6. refusals ---------------------------------------------------------------------
@@ -373,6 +373,6 @@ def test_unknown_quantize_mode_and_calibration_sources_raise(flagship, tmp_path)
     batches = [b for (b,) in _representative_gen([tmp_path / "a.png"] * 3, 2, 64)()]
     assert [b.shape for b in batches] == [(2, 64, 64, 3)] * 2  # the tail padded
     np.testing.assert_array_equal(batches[1][0], batches[1][1])
-    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-    with pytest.raises(ValueError, match="PNG only"):
+    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))  # a JPEG signature, then garbage
+    with pytest.raises(ValueError, match=r"b\.jpg: truncated JPEG"):
         next(_representative_gen(tmp_path / "b.jpg", 1, 64)())

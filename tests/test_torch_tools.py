@@ -9,9 +9,9 @@ JAX package's ``tools/cli``.
   by ``utils/jax_weights.py``; both tools' ``main()`` run in this process at
   64 px on tests/synth.py's dataset with ``--save-fm``. ``metrics.json`` is
   equal (rel 1e-5), the tapped layer 15/18/21 maps agree (rtol 1e-4, atol
-  1e-5), the files under ``fm/`` and ``preds/`` are the same but for
-  ``.jpg`` -> ``.png``, and each overlay is ``cv2.rectangle`` drawn on the
-  same letterboxed image (cv2 in the test only). Without matplotlib the
+  1e-5), the files under ``fm/`` and ``preds/`` are the same, and each
+  overlay is the bytes of ``cv2.imencode(".jpg")`` of ``cv2.rectangle``
+  drawn on the same letterboxed image (cv2 in the test only). Without matplotlib the
   maps are saved with no PNG and a message says why.
 * ``tools.train``: the config it hands the trainer has the plain graph,
   ``task: detect`` and the segmentation loss off, as the JAX tool's; and a
@@ -113,7 +113,7 @@ def test_base_val_metrics_equal_jax(vals):
 
 def test_base_val_taps_and_files_equal_jax(vals):
     def names(d, sub):
-        return sorted(p.name.replace(".jpg", ".png") for p in (d / sub).iterdir())
+        return sorted(p.name for p in (d / sub).iterdir())
 
     for sub in ("fm", "preds"):
         assert names(vals["port"], sub) == names(vals["jax"], sub)
@@ -130,12 +130,12 @@ def test_base_val_taps_and_files_equal_jax(vals):
 
 
 def test_base_val_overlays_equal_cv2_rectangle(ckpts, vals):
-    """Each overlay is the letterboxed image with ``cv2.rectangle(..., 1)``
-    of the detections at conf 0.25 (at most 50), and it has boxes to draw."""
+    """Each overlay is the JPEG ``cv2.imencode`` makes of the letterboxed
+    image with ``cv2.rectangle(..., 1)`` of the detections at conf 0.25 (at
+    most 50), to the byte, and it has boxes to draw."""
     import cv2
 
     from mga_yolo_tpu_torch.config import load_config
-    from mga_yolo_tpu_torch.data import image_io
     from mga_yolo_tpu_torch.data.dataset import MGADataset
     from mga_yolo_tpu_torch.data.loader import DataLoader
     from mga_yolo_tpu_torch.ops.nms import nms_numpy
@@ -153,8 +153,8 @@ def test_base_val_overlays_equal_cv2_rectangle(ckpts, vals):
             want = np.ascontiguousarray(batch["image"][i]).copy()
             for x1, y1, x2, y2, _, _ in dets:
                 cv2.rectangle(want, (int(x1), int(y1)), (int(x2), int(y2)), (0, 255, 0), 1)
-            got = image_io.imread(vals["port"] / "preds" / f"batch{b}_img{i}_dets.png")
-            np.testing.assert_array_equal(got, want, err_msg=f"batch{b} img{i}")
+            got = (vals["port"] / "preds" / f"batch{b}_img{i}_dets.jpg").read_bytes()
+            assert got == cv2.imencode(".jpg", want)[1].tobytes(), f"batch{b} img{i}"
             n_boxes += len(dets)
     assert n_boxes > 0
 
@@ -167,7 +167,7 @@ def test_base_val_without_matplotlib_saves_the_maps_alone(ckpts, tmp_path, monke
     out = port_val.main(["--weights", str(ckpts["port"]), "--data", ckpts["data"], "--batch", "4", "--save-fm",
                          "--save-fm-max", "1", "--out", str(tmp_path / "v"), "--device", "cpu"])
     assert sorted(p.name for p in (out / "fm").iterdir()) == [f"batch0_layer{i}.npy" for i in LAYERS]
-    assert len(list((out / "preds").glob("*.png"))) == 4 and (out / "metrics.json").is_file()
+    assert len(list((out / "preds").glob("*_dets.jpg"))) == 4 and (out / "metrics.json").is_file()
     assert FM_WAIT in capsys.readouterr().out
 
 

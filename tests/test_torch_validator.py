@@ -166,21 +166,25 @@ def test_eval_step_loads_the_ema_once_per_pass(setup):
 
 def test_artifacts_and_plot_arrays(setup, tmp_path, monkeypatch, capsys):
     """``save_artifacts_dir``: the mask logits as the JAX package's NHWC
-    ``.npy`` (equal to its own artifacts from the same outputs) and PNGs of
-    the detections and mask probabilities; ``plots_dir`` without matplotlib
+    ``.npy`` (equal to its own artifacts from the same outputs), JPEGs of
+    the detections (the bytes of ``cv2.imencode`` of ``cv2.rectangle``
+    drawn on the same image) and PNGs of the mask probabilities; ``plots_dir`` without matplotlib
     (as on the card's host): the confusion matrix and the curves as arrays,
     no plot PNG, and the message that says why."""
     import sys
 
+    import cv2
+
     from mga_yolo_tpu.train.validator import Validator as JValidator
     from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.ops.nms import nms_numpy
     from mga_yolo_tpu_torch.train.validator import PLOTS_WAIT, Validator
 
     jl, jcfg, tl, tcfg = loaders(setup["data"], 4, False)
     monkeypatch.setitem(sys.modules, "matplotlib", None)  # as on the card's host
     step, st = setup["eval_step"], setup["state"]
-    res = Validator(step, tl, tcfg)(st, save_artifacts_dir=tmp_path / "port", max_artifacts=1,
-                                    plots_dir=tmp_path / "plots")
+    validator = Validator(step, tl, tcfg)
+    res = validator(st, save_artifacts_dir=tmp_path / "port", max_artifacts=1, plots_dir=tmp_path / "plots")
     JValidator(lambda s, b: as_numpy(step(st, b)), jl, jcfg)(None, save_artifacts_dir=tmp_path / "jax",
                                                             max_artifacts=1)
     for sk in ("p3", "p4", "p5"):
@@ -188,7 +192,17 @@ def test_artifacts_and_plot_arrays(setup, tmp_path, monkeypatch, capsys):
                                       np.load(tmp_path / "jax/preds" / f"batch0_{sk}.npy"))
         png = image_io.imread_gray(tmp_path / "port/preds" / f"batch0_img0_{sk}.png")
         assert png.shape == (IMGSZ // {"p3": 8, "p4": 16, "p5": 32}[sk],) * 2
-    assert image_io.imread(tmp_path / "port/preds" / "batch0_img3_dets.png").shape == (IMGSZ, IMGSZ, 3)
+    assert image_io.imread(tmp_path / "port/preds" / "batch0_img3_dets.jpg").shape == (IMGSZ, IMGSZ, 3)
+    dets = sorted(p.name for p in (tmp_path / "port/preds").glob("*_dets.jpg"))
+    assert dets == sorted(p.name for p in (tmp_path / "jax/preds").glob("*_dets.jpg")) and len(dets) == 4
+    host = next(iter(tl))
+    decoded = step(st, tl.to_device(host))["decoded"].numpy()
+    for i in range(4):
+        want = np.ascontiguousarray(host["image"][i]).copy()
+        for x1, y1, x2, y2, _, _ in nms_numpy(decoded[i], conf_thres=0.25, iou_thres=validator.iou_thres, max_det=50):
+            cv2.rectangle(want, (int(x1), int(y1)), (int(x2), int(y2)), (0, 255, 0), 1)
+        got = (tmp_path / "port/preds" / f"batch0_img{i}_dets.jpg").read_bytes()
+        assert got == cv2.imencode(".jpg", want)[1].tobytes(), i
     assert not (tmp_path / "port/preds" / "batch1_img0_p3.png").exists()
     np.testing.assert_array_equal(np.load(tmp_path / "plots" / "confusion_matrix.npy"), res.confusion.matrix)
     assert sorted(p.name for p in (tmp_path / "plots").iterdir()) == ["confusion_matrix.npy", "curves.npz"]
