@@ -176,6 +176,15 @@ Then the baseline toolchain and the experiment grid:
              64 JPEG training files through MGADataset and DataLoader
              (launches exact) beside the same pictures as PNG; ``cli.predict``
              over a JPEG directory writing ``{stem}_pred.jpg``.
+15. video  — the video path (``data/video_io.py`` on ``native/mpeg4.cpp``,
+             ``native/yuv.cpp`` and ``native/jpeg.cpp``'s planes): the
+             committed clips (``tests/video_fixtures``) held to cv2's
+             frames; 64 synthetic 512 px angiograms written as an MJPG
+             .avi and an mp4v .mp4 and read back (count, fps, PSNR);
+             decode and encode ms a frame; ``cli.predict`` over both clips
+             and two images on best.pt: the JAX package's file names, the
+             annotated videos' frame counts and fps, each frame's boxes
+             against the predictor's (launches exact); frames/s.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -2850,6 +2859,220 @@ def jpeg_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda"
     return {k: sum(v[k] for v in (launches["JPEG"], launches["fed"])) for k in launches["JPEG"]}
 
 
+VIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "video_fixtures"
+VIDEO_FRAMES, VIDEO_SIZE = 64, 512  # each clip [video] writes: 64 frames of 512 x 512
+VIDEO_FPS = {"avi": 25.0, "mp4": 29.97}
+VIDEO_PSNR = 35.0  # dB, the port's clips against the frames written
+VIDEO_BOUNDS = {"mjpeg": (0.5, 8), "mpeg4": (40.0, 0.75)}  # (mean, max) levels; (PSNR dB, mean) per frame
+
+
+def psnr(np, a, b) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def video_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """The video path of the port's host C++ (``native/mpeg4.cpp``,
+    ``native/yuv.cpp``, ``native/jpeg.cpp``'s planes) and ``data/video_io.py``
+    on the card's host, and ``cli.predict`` over video on the flagship.
+
+    (a) each committed fixture (``tests/video_fixtures``: clips cv2 wrote)
+    read and held to cv2's stored frames: MJPEG within mean 0.5 / max 8
+    levels, MPEG-4 at PSNR >= 40 dB and mean <= 0.75, uncompressed exactly,
+    the 512 px mp4v clip to cv2's frame digests; frame counts, fps and
+    ``total`` equal. (b) 64 synthetic angiograms of 512 x 512 written as an
+    MJPG .avi (25 fps) and an mp4v .mp4 (29.97 fps) by the port's writer,
+    read back: count, fps, PSNR >= 35 dB against the frames written; encode
+    and decode ms per frame (MJPEG; mp4v I-VOPs, and P-VOPs of the 512 px
+    fixture). (c) ``cli.predict`` on best.pt over a directory of both clips
+    and two images: the JAX package's file names, 64 frames at the source's
+    fps in each annotated video, each frame's boxes equal to the
+    predictor's on the same frames decoded anew, CAM-gate launches exactly
+    3 a batch; its frames/s on one thread. Returns (c)'s launches."""
+    import contextlib
+    import hashlib
+    import io
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.synthetic import vessel_image
+    from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
+    from mga_yolo_tpu_torch.train import predictor as predictor_mod
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures against cv2
+    meta = json.loads((VIDEO_FIXTURES / "meta.json").read_text())
+    stored = np.load(VIDEO_FIXTURES / "frames.npz")
+    worst = {"mjpeg": [0.0, 0], "mpeg4": [float("inf"), 0.0]}
+    for name, m in sorted(meta.items()):
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = list(r)
+            codec = r.codec
+            check(r.total == m["total"] and abs(r.fps - m["fps"]) <= 1e-9 * m["fps"] and len(got) == m["frames"]
+                  and int.from_bytes(r.fourcc, "little") == m["fourcc"],
+                  f"[video] {name}: {len(got)} frames, fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m}")
+        if "sha256" in m:
+            check([hashlib.sha256(g.tobytes()).hexdigest() for g in got] == m["sha256"],
+                  f"[video] {name}: frames differ from cv2's digests")
+            continue
+        for i, (g, w) in enumerate(zip(got, stored[name])):
+            check(g.shape == w.shape, f"[video] {name} frame {i}: shape {g.shape}, cv2 {w.shape}")
+            d = np.abs(g.astype(np.int16) - w)
+            if codec == "mjpeg":
+                check(d.mean() <= 0.5 and d.max() <= 8, f"[video] {name} frame {i}: mean {d.mean()} max {d.max()}")
+                worst["mjpeg"] = [max(worst["mjpeg"][0], float(d.mean())), max(worst["mjpeg"][1], int(d.max()))]
+            elif codec == "mpeg4":
+                q = psnr(np, g, w)
+                check(q >= 40 and d.mean() <= 0.75, f"[video] {name} frame {i}: PSNR {q:.2f} mean {d.mean()}")
+                worst["mpeg4"] = [min(worst["mpeg4"][0], q), max(worst["mpeg4"][1], float(d.mean()))]
+            else:
+                check(not d.any(), f"[video] {name} frame {i}: an uncompressed frame differs")
+    print(f"[video] (a) {len(meta)} fixtures read on this host with {native.library_path().name}: counts, fps, "
+          f"total and fourcc as cv2's; MJPEG worst frame mean {worst['mjpeg'][0]:.4f} max {worst['mjpeg'][1]} "
+          f"levels; MPEG-4 worst frame PSNR {worst['mpeg4'][0]:.2f} dB mean {worst['mpeg4'][1]:.4f}; "
+          f"uncompressed exact; big512.mp4 equal to cv2's frame digests")
+
+    # (b) the writer at 512 x 512, both formats, read back; codec times
+    rng = np.random.default_rng(0)
+    frames = []
+    for _ in range(VIDEO_FRAMES):
+        grey = vessel_image(rng, VIDEO_SIZE, MAX_BOXES)[0]
+        frames.append(np.repeat(grey[:, :, None], 3, axis=2))
+    src = tmp / "video_src"
+    src.mkdir()
+    timing = {}
+    for ext, fps in VIDEO_FPS.items():
+        path = src / f"run.{ext}"
+        t0 = time.perf_counter()
+        with VideoWriter(path, fps, (VIDEO_SIZE, VIDEO_SIZE)) as vw:
+            for img in frames:
+                vw.write(img)
+        timing[f"encode_{ext}"] = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
+        with VideoReader(path) as r:
+            t0 = time.perf_counter()
+            back = list(r)
+            timing[f"read_{ext}"] = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
+            check(len(back) == r.total == VIDEO_FRAMES and r.fps == fps and r.size == (VIDEO_SIZE, VIDEO_SIZE),
+                  f"[video] {path.name}: {len(back)} frames, fps {r.fps}, size {r.size}")
+            chunks = [r.extradata] + [r._read(o, n) for o, n in r.samples]  # the MP4's VOL is in its esds
+        q = min(psnr(np, b, f) for b, f in zip(back, frames))
+        check(q >= VIDEO_PSNR, f"[video] {path.name}: PSNR {q:.2f} dB against the frames written")
+        timing[f"psnr_{ext}"] = q
+        timing[f"kb_{ext}"] = path.stat().st_size / 1e3 / VIDEO_FRAMES
+        if ext == "avi":  # MJPEG: the planes of one frame, converted
+            one = lambda data: native.yuv_to_bgr(*native.jpeg_decode_planes(data)[0], True)  # noqa: E731
+            timing["decode_mjpeg"] = decode_ms(one, chunks[2], 15, 1)
+    big = VideoReader(VIDEO_FIXTURES / "big512.mp4")
+    with big:  # cv2's MP4 holds the VOL in its esds only
+        big_chunks = [big.extradata] + [big._read(o, n) for o, n in big.samples]
+    for stream, label in ((chunks[:17], "i"), (big_chunks, "p")):
+        dec = native.Mpeg4Decoder()
+        times = {0: [], 1: []}
+        for c in stream:
+            t0 = time.perf_counter()
+            got = dec.decode(c)
+            if got is not None:
+                native.yuv_to_bgr(*got[0], False)
+                times[got[1]].append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+        kind = 0 if label == "i" else 1
+        check(len(times[kind]) > 0, f"[video] no {'I' if kind == 0 else 'P'}-VOPs timed")
+        timing[f"decode_mp4v_{label}"] = sorted(times[kind])[len(times[kind]) // 2]
+    print(f"[video] (b) {VIDEO_FRAMES} synthetic angiograms of {VIDEO_SIZE}x{VIDEO_SIZE} written and read back: "
+          f"run.avi (MJPG, {VIDEO_FPS['avi']} fps, {timing['kb_avi']:.1f} kB a frame) PSNR {timing['psnr_avi']:.2f} "
+          f"dB, run.mp4 (mp4v I-VOPs, {VIDEO_FPS['mp4']} fps, {timing['kb_mp4']:.1f} kB a frame) PSNR "
+          f"{timing['psnr_mp4']:.2f} dB; counts and fps exact")
+    print(f"[video] (b) on one host thread, {card}: decode to BGR {timing['decode_mjpeg']:.3f} ms a frame (MJPEG), "
+          f"{timing['decode_mp4v_i']:.3f} (mp4v I-VOP), {timing['decode_mp4v_p']:.3f} (mp4v P-VOP, big512.mp4); "
+          f"encode from BGR {timing['encode_avi']:.3f} ms a frame (MJPG .avi), {timing['encode_mp4']:.3f} (mp4v .mp4), "
+          f"file writes included; read back {timing['read_avi']:.3f} / {timing['read_mp4']:.3f} ms a frame")
+
+    # (c) cli.predict over both clips and two images, on the flagship
+    val_pngs = sorted((Path(data_yaml).parent / "images" / "val").iterdir())[:2]
+    for i, png in enumerate(val_pngs):
+        (src / f"im{i}.png").write_bytes(png.read_bytes())
+    recorded, loaded = [], []
+    real_load = predictor_mod.load_predictor
+
+    def recording_load(*a, **k):
+        pred = real_load(*a, **k)
+        stream = pred.stream
+
+        def recording_stream(*sa, **sk):
+            for frame, r in stream(*sa, **sk):
+                recorded.append((frame.path, frame.index, r.boxes.copy()))
+                yield frame, r
+
+        pred.stream = recording_stream
+        loaded.append(pred)
+        return pred
+
+    out_dir = tmp / "video_predict"
+    predictor_mod.load_predictor = recording_load
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
+                                    str(TRAIN_BATCH), "--conf", "0.01", "--save-frame-masks"]
+                                   + ([] if device == "cuda" else ["--device", device]))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        predictor_mod.load_predictor = real_load
+    n_frames = 2 * VIDEO_FRAMES
+    n_batches = -(-(n_frames + 2) // TRAIN_BATCH)
+    want_l = want_launches({"cam_gate": 3 * n_batches})
+    check(counts == want_l, f"[video] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
+    check(res["images"] == 2 and res["frames"] == n_frames, f"[video] cli.predict result {res}")
+    want_names = {"run_pred.avi", "run_2_pred.mp4"} | {f"im{i}{s}" for i in range(2) for s in (
+        "_pred.jpg", "_mask_p3.png", "_mask_p4.png", "_mask_p5.png")} | {
+        f"{stem}_f{j:05d}_mask_{k}.png" for stem in ("run", "run_2") for j in range(VIDEO_FRAMES)
+        for k in ("p3", "p4", "p5")}
+    names = {p.name for p in out_dir.iterdir()}
+    check(names == want_names, f"[video] cli.predict wrote {sorted(names ^ want_names)[:6]} beyond / short of "
+                               f"the JAX package's names")
+    lines = log.getvalue().splitlines()
+    check(lines[-3:] == [f"run.avi: {VIDEO_FRAMES} frames -> run_pred.avi",
+                         f"run.mp4: {VIDEO_FRAMES} frames -> run_2_pred.mp4",
+                         f"[mga-predict] 2 images, {n_frames} video frames -> {out_dir}"],
+          f"[video] cli.predict summary {lines[-3:]}")
+    for name, fps in (("run_pred.avi", VIDEO_FPS["avi"]), ("run_2_pred.mp4", VIDEO_FPS["mp4"])):
+        with VideoReader(out_dir / name) as r:
+            n = sum(1 for _ in r)
+            check(n == r.total == VIDEO_FRAMES and r.fps == fps and r.size == (VIDEO_SIZE, VIDEO_SIZE),
+                  f"[video] {name}: {n} frames at {r.fps} fps, {r.size}")
+    # each frame's boxes against the predictor on the same frames decoded anew, in the same batches
+    pred = loaded[0]
+    del pred.stream  # the class's own stream again
+    again = []
+    for f in sorted(src.iterdir()):
+        if f.suffix == ".png":
+            again.append(image_io.imread(f))
+        else:
+            with VideoReader(f) as r:
+                again += list(r)
+    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
+    check(len(recorded) == len(want) == n_frames + 2, f"[video] {len(recorded)} results, {len(want)} again")
+    n_boxes, err = 0, 0.0
+    for (path, idx, got), w in zip(recorded, want):
+        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[video] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
+        n_boxes += len(got)
+        err = max(err, float(np.abs(got - w).max(initial=0.0)))
+    print(f"[video] (c) cli.predict on best.pt over run.avi, run.mp4 ({VIDEO_FRAMES} frames each) and 2 PNGs: "
+          f"{len(names)} files as the JAX package names them ({', '.join(sorted(names)[:3])} ...), each video "
+          f"{VIDEO_FRAMES} frames at its source's fps; {n_boxes} boxes, each frame's equal to the predictor's on "
+          f"the frames decoded anew (max abs error {err:.3g}); launches {counts} ({n_batches} batches of "
+          f"{TRAIN_BATCH})")
+    print(f"[video] (c) cli.predict {(n_frames + 2) / wall:.1f} frames/s on one host thread, model load included "
+          f"({wall:.2f} s for {n_frames} video frames and 2 images), {card}")
+    print(f"[video] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -2983,15 +3206,16 @@ def main() -> int:
         grid_phase(torch, np, data_yaml, Path(tmp))  # child processes: no launch of this process
         print(f"[base] [grid] the baseline toolchain and the grid took {time.perf_counter() - t0:.1f} s")
         paths["jpeg"] = jpeg_phase(torch, np, data_yaml, best, Path(tmp))
-    # each kernel's launches are those of this slice's path first (JPEG
-    # uploads served and JPEG-fed micro-steps), then the earlier slices'
-    # (cli.val on an exported file, where tensorflow imports, the baseline
+        paths["video"] = video_phase(torch, np, data_yaml, best, Path(tmp))
+    # each kernel's launches are those of this slice's path first (cli.predict
+    # over video), then the earlier slices' (JPEG uploads served and
+    # JPEG-fed micro-steps, cli.val on an exported file, where tensorflow imports, the baseline
     # toolchain's run, the spatial-mesh run with device
     # augmentation, the spatial-mesh run and
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:

@@ -4,16 +4,19 @@ Counterpart of ``mga_yolo_tpu/cli/predict.py`` (the reference's predict
 surface with ``--save-feature-maps``): per image ``{stem}_pred.jpg`` (the
 boxes and labels drawn on it, a JPEG as the JAX package writes it),
 ``{stem}_mask_{p3,p4,p5}.png`` (the sigmoid masks times 255) and, with
-``--save-feature-maps``, ``{stem}_masks.npz``. Sources are PNG, JPEG or BMP
-files (``data/image_io.py``). Stems are made unique across a recursive directory
-(``a/x.png``, ``b/x.png`` -> ``x``, ``x_2``). The run is on CUDA unless
-``--device cpu`` (or ``cuda:N``). ``--use-pallas`` (the JAX package's
-kernel switch) is accepted and changes nothing; video sources raise
-``NotImplementedError`` (``data/sources.py``), so ``--max-frames`` and
-``--save-frame-masks`` have nothing to act on. ``--weights`` may be an
-exported ``.tflite`` file or SavedModel directory
-(``train.predictor.TFLitePredictor``: TensorFlow on the host; an
-ImportError naming it where TensorFlow does not import).
+``--save-feature-maps``, ``{stem}_masks.npz``. Per video source one
+annotated video, ``{stem}_pred.avi`` (MJPG) for an ``.avi`` source and
+``{stem}_pred.mp4`` (mp4v) for any other, at the source's fps; with
+``--save-frame-masks`` (or ``--save-feature-maps``) each frame's masks as
+``{stem}_f{index:05d}_mask_*.png`` (and ``_masks.npz``). ``--max-frames``
+caps the frames taken per video. Sources are PNG, JPEG or BMP images and
+AVI / MP4 / MOV videos (``data/image_io.py``, ``data/video_io.py``). Stems
+are made unique across a recursive directory (``a/x.png``, ``b/x.png`` ->
+``x``, ``x_2``). The run is on CUDA unless ``--device cpu`` (or
+``cuda:N``). ``--use-pallas`` (the JAX package's kernel switch) is accepted
+and changes nothing. ``--weights`` may be an exported ``.tflite`` file or
+SavedModel directory (``train.predictor.TFLitePredictor``: TensorFlow on the
+host; an ImportError naming it where TensorFlow does not import).
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ from pathlib import Path
 
 
 def main(argv=None) -> dict:
-    """Predict and write the files; returns {"images": n, "out": out_dir}."""
+    """Predict and write the files; returns {"images": n, "frames": m, "out": out_dir}."""
     argv = sys.argv[1:] if argv is None else argv
     p = argparse.ArgumentParser("mga-predict")
     p.add_argument("--weights", required=True, help="checkpoint .pt, an exported .tflite or a SavedModel directory")
-    p.add_argument("--source", required=True, help="image file, directory, or glob (PNG, JPEG, BMP)")
+    p.add_argument("--source", required=True,
+                   help="image or video file, directory, or glob (PNG, JPEG, BMP; AVI, MP4, MOV)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--conf", type=float, default=0.25)
     p.add_argument("--iou", type=float, default=0.45)
@@ -38,14 +42,15 @@ def main(argv=None) -> dict:
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--use-pallas", default="auto", choices=["auto", "true", "false"],
                    help="the JAX package's kernel switch; accepted, changes nothing")
-    p.add_argument("--max-frames", type=int, default=0, help="frames per video source (video raises)")
-    p.add_argument("--save-frame-masks", action="store_true", help="per-frame masks of video (video raises)")
+    p.add_argument("--max-frames", type=int, default=0, help="cap frames taken per video source (0 = all)")
+    p.add_argument("--save-frame-masks", action="store_true", help="also save per-frame mask PNGs for video sources")
     p.add_argument("--device", default=None, help="cuda (default), cuda:N or cpu")
     args = p.parse_args(argv)
 
     import numpy as np
 
     from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.sources import VideoSink
     from mga_yolo_tpu_torch.train.predictor import load_predictor
 
     pred = load_predictor(args.weights, imgsz=args.imgsz, conf=args.conf, iou=args.iou, fuse=args.fuse,
@@ -67,18 +72,43 @@ def main(argv=None) -> dict:
             stems[frame.path] = s
         return s
 
-    n_img = 0
-    for frame, r in pred.stream(args.source, batch_size=args.batch, max_frames=args.max_frames):
-        stem = unique_stem(frame)
-        image_io.imwrite(out_dir / f"{stem}_pred.jpg", r.plot(img=frame.img.copy()))
+    sinks: dict[str, VideoSink] = {}  # one annotated-video writer per source video
+
+    def save_masks(tag: str, r) -> None:
         for sk, m in r.mga_masks.items():
-            image_io.imwrite(out_dir / f"{stem}_mask_{sk}.png", (m * 255).astype(np.uint8))
-        if args.save_feature_maps:
-            np.savez(out_dir / f"{stem}_masks.npz", **r.mga_masks)
-        n_img += 1
-        print(f"{Path(frame.path).name}: {len(r)} detections")
-    print(f"[mga-predict] {n_img} images, 0 video frames -> {out_dir}")
-    return {"images": n_img, "out": out_dir}
+            image_io.imwrite(out_dir / f"{tag}_mask_{sk}.png", (m * 255).astype(np.uint8))
+
+    n_img = n_frames = 0
+    try:
+        for frame, r in pred.stream(args.source, batch_size=args.batch, max_frames=args.max_frames):
+            annotated = r.plot(img=frame.img.copy())
+            if frame.is_video:
+                sink = sinks.get(frame.path)
+                if sink is None:
+                    suffix = ".avi" if frame.path.lower().endswith(".avi") else ".mp4"
+                    sink = sinks[frame.path] = VideoSink(out_dir / f"{unique_stem(frame)}_pred{suffix}", fps=frame.fps)
+                sink.write(annotated)
+                n_frames += 1
+                tag = f"{unique_stem(frame)}_f{frame.index:05d}"
+                if args.save_frame_masks:
+                    save_masks(tag, r)
+                if args.save_feature_maps:
+                    np.savez(out_dir / f"{tag}_masks.npz", **r.mga_masks)
+            else:
+                stem = unique_stem(frame)
+                image_io.imwrite(out_dir / f"{stem}_pred.jpg", annotated)
+                save_masks(stem, r)
+                if args.save_feature_maps:
+                    np.savez(out_dir / f"{stem}_masks.npz", **r.mga_masks)
+                n_img += 1
+                print(f"{Path(frame.path).name}: {len(r)} detections")
+    finally:
+        for sink in sinks.values():
+            sink.close()
+    for path, sink in sinks.items():
+        print(f"{Path(path).name}: {sink.frames_written} frames -> {sink.out_path.name}")
+    print(f"[mga-predict] {n_img} images, {n_frames} video frames -> {out_dir}")
+    return {"images": n_img, "frames": n_frames, "out": out_dir}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,708 @@
+"""Video files without OpenCV: the containers in Python, the codecs in the
+host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``, ``native/yuv.cpp``).
+
+The card's host has no OpenCV and no libavcodec, so the port reads and
+writes the video files the JAX package reads and writes through
+``cv2.VideoCapture`` / ``cv2.VideoWriter``:
+
+* :class:`VideoReader` reads AVI (RIFF, ``idx1`` or a scan of ``movi``,
+  OpenDML ``AVIX`` segments) and ISO-BMFF (``.mp4``, ``.mov``, ``.m4v``:
+  ``moov`` wherever it lies, the sample tables, edit lists) holding MJPEG,
+  MPEG-4 Part 2 Simple profile (mp4v, XVID, DIVX, DX50, FMP4), uncompressed
+  24-bit BI_RGB or I420. Frames come out as cv2 gives them: BGR uint8, an
+  MJPEG frame's planes through ffmpeg's simple IDCT and converted as
+  ffmpeg's swscale converts them (full range, chroma replicated), MPEG-4's
+  likewise in limited range, BI_RGB copied (equal to cv2's frames on every
+  test clip). ``fps``, ``total`` and ``fourcc`` are what ``CAP_PROP_FPS``,
+  ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FOURCC`` give.
+* :class:`VideoWriter` writes what ``VideoSink`` asks cv2 for: ``.avi`` as
+  MJPG (``encode_jpeg``'s frames, an ``idx1`` index), any other suffix as
+  mp4v (I-VOPs at a fixed quantiser in an MP4 with ``moov``), odd sizes
+  cropped to even and an fps of 0 taken as 30, as cv2's writer does.
+
+H.264 / HEVC, fragmented MP4, interlaced MJPEG, and Matroska / WebM,
+MPEG-PS, ASF / WMV and GIF raise ``ValueError`` naming the file, its
+container and its codec, as do truncated and corrupt files.
+"""
+
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import BinaryIO, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from mga_yolo_tpu_torch import native
+from mga_yolo_tpu_torch.data.image_io import encode_jpeg
+
+MJPEG_TAGS = {b"MJPG", b"mjpg", b"AVRn", b"AVDJ", b"dmb1", b"JPEG", b"jpeg", b"IJPG", b"JPGL", b"mjpa"}
+MPEG4_TAGS = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"mp4v", b"MP4V", b"M4S2",
+              b"m4s2"}
+I420_TAGS = {b"I420", b"IYUV", b"i420", b"iyuv"}
+NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.264", b"X264": "H.264",
+              b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"DIV3": "MS MPEG-4 v3",
+              b"MP42": "MS MPEG-4 v2", b"WMV3": "WMV9", b"vp09": "VP9", b"av01": "AV1"}
+# what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
+CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0"}
+REFUSED_CONTAINERS = {".mkv": "Matroska", ".webm": "WebM", ".mpg": "MPEG-PS", ".mpeg": "MPEG-PS",
+                      ".wmv": "ASF/WMV", ".gif": "GIF"}
+_SIGNATURES = ((b"\x1a\x45\xdf\xa3", "Matroska/WebM"), (b"\x00\x00\x01\xba", "MPEG-PS"),
+               (b"\x30\x26\xb2\x75", "ASF/WMV"), (b"GIF8", "GIF"))
+MPEG4_QP = 2  # the writer's fixed quantiser: reconstruction steps of 4 on DCT coefficients
+
+
+def _tag(t: bytes) -> str:
+    return t.decode("latin-1").strip("\x00") or "0"
+
+
+def _codec_of(tag: bytes) -> Optional[str]:
+    if tag in MJPEG_TAGS:
+        return "mjpeg"
+    if tag in MPEG4_TAGS:
+        return "mpeg4"
+    if tag in I420_TAGS:
+        return "i420"
+    return None
+
+
+def cv2_fps_fraction(fps: float) -> Tuple[int, int]:
+    """fps as (num, den), den a power of ten, as cv2's writer turns a
+    double into a frame rate."""
+    den = 1
+    num = int(fps + 0.5)
+    while abs(num / den - fps) > 0.001:
+        den *= 10
+        num = int(fps * den + 0.5)
+    return num, den
+
+
+# ------------------------------------------------------------------ reading
+
+
+class VideoReader:
+    """Frames of a video file, BGR uint8, in order; ``fps``, ``total``,
+    ``fourcc`` and ``size`` (width, height) as cv2 reports them. Use as an
+    iterable, once; :meth:`close` (or ``with``) releases the file."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self._f: BinaryIO = open(self.path, "rb")
+        try:
+            self._open()
+        except (ValueError, struct.error, IndexError) as e:
+            self._f.close()
+            if isinstance(e, ValueError) and str(e).startswith(str(self.path)):
+                raise
+            raise ValueError(f"{self.path}: corrupt or truncated {self.container} file ({e})") from None
+        except BaseException:
+            self._f.close()
+            raise
+
+    # container dispatch
+    container = "video"
+
+    def _open(self) -> None:
+        head = self._f.read(12)
+        self._f.seek(0, 2)
+        self._size = self._f.tell()
+        self.extradata = b""
+        self.keyframes: Optional[set] = None  # MP4 stss: the sync samples, None when all are
+        self.shown: Optional[list] = None  # MP4 edit list: the samples shown, None for all
+        self.bottom_up = False
+        if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+            self.container = "AVI"
+            self._open_avi()
+        elif head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip", b"pnot", b"moof", b"uuid"):
+            self.container = "MP4" if self.path.suffix.lower() in (".mp4", ".m4v") else "QuickTime/MP4"
+            self._open_mp4()
+        else:
+            what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
+            what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
+            if what:
+                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads AVI and MP4/MOV "
+                                 f"holding MJPEG, MPEG-4 Part 2 or uncompressed video)")
+            raise ValueError(f"{self.path}: not a video file the port reads (AVI, MP4, MOV)")
+        self.fourcc = CV2_FOURCC[self.codec]
+
+    def _refuse(self, what: str) -> None:
+        raise ValueError(f"{self.path}: {self.container} with {what} is not supported")
+
+    def _read(self, off: int, n: int) -> bytes:
+        if off < 0 or n < 0 or off + n > self._size:
+            raise ValueError(f"{self.path}: truncated {self.container} file (a chunk of {n} bytes at {off} "
+                             f"is past the end of {self._size})")
+        self._f.seek(off)
+        return self._f.read(n)
+
+    # ---- AVI
+
+    def _riff_chunks(self, off: int, end: int) -> Iterator[Tuple[bytes, int, int]]:
+        """(fourcc, data offset, data size) of the chunks in [off, end)."""
+        while off + 8 <= end:
+            cid, n = struct.unpack("<4sI", self._read(off, 8))
+            if off + 8 + n > self._size:
+                if cid == b"LIST" or cid == b"RIFF":
+                    n = self._size - off - 8  # a list cut short: its chunks are read as far as they go
+                else:
+                    raise ValueError(f"{self.path}: truncated AVI file (chunk {_tag(cid)} of {n} bytes)")
+            yield cid, off + 8, n
+            off += 8 + n + (n & 1)
+
+    def _open_avi(self) -> None:
+        riff_end = min(self._size, 8 + struct.unpack("<I", self._read(4, 4))[0])
+        hdrl = movi = None
+        idx1 = None
+        for cid, o, n in self._riff_chunks(12, riff_end):
+            if cid == b"LIST":
+                kind = self._read(o, 4)
+                if kind == b"hdrl":
+                    hdrl = (o + 4, o + n)
+                elif kind == b"movi":
+                    movi = (o, o + n)
+            elif cid == b"idx1":
+                idx1 = (o, n)
+        if hdrl is None or movi is None:
+            raise ValueError(f"{self.path}: corrupt AVI file (no {'hdrl' if hdrl is None else 'movi'} list)")
+        stream = 0
+        strh = strf = None
+        for cid, o, n in self._riff_chunks(*hdrl):
+            if cid == b"LIST" and self._read(o, 4) == b"strl":
+                h = f = None
+                for c2, o2, n2 in self._riff_chunks(o + 4, o + n):
+                    if c2 == b"strh":
+                        h = self._read(o2, n2)
+                    elif c2 == b"strf":
+                        f = self._read(o2, n2)
+                if h is not None and h[:4] == b"vids" and f is not None:
+                    strh, strf = h, f
+                    break
+                stream += 1
+        if strh is None:
+            raise ValueError(f"{self.path}: AVI file without a video stream")
+        handler = strh[4:8]
+        scale, rate = struct.unpack("<II", strh[20:28])
+        length = struct.unpack("<I", strh[32:36])[0]
+        _, width, height, _, bits, compression = struct.unpack("<IiiHHI", strf[:20])
+        tag = struct.pack("<I", compression)
+        if compression == 0:
+            if bits != 24:
+                self._refuse(f"{bits}-bit uncompressed (BI_RGB) video")
+            self.codec = "bgr24"
+            self.bottom_up = height > 0
+        else:
+            self.codec = _codec_of(tag) or _codec_of(handler)
+            if self.codec is None:
+                name = NAMED_TAGS.get(tag, NAMED_TAGS.get(handler, f"the '{_tag(tag)}' codec"))
+                self._refuse(f"{name} video ('{_tag(tag)}')")
+            if self.codec == "mpeg4" and len(strf) > 40:
+                self.extradata = strf[40:]
+        self.size = (abs(width), abs(height))
+        if not (scale and rate):
+            raise ValueError(f"{self.path}: corrupt AVI file (stream rate {rate}/{scale})")
+        self.fps = rate / scale
+        ids = (b"%02ddc" % stream, b"%02ddb" % stream)
+        samples = self._avi_index(idx1, movi, ids) if idx1 else []
+        if not samples:
+            samples = list(self._scan_movi(*movi, ids))
+        # OpenDML: the RIFF AVIX segments after the first hold more of movi
+        off = riff_end + (riff_end & 1)
+        while off + 12 <= self._size:
+            cid, n, kind = struct.unpack("<4sI4s", self._read(off, 12))
+            if cid != b"RIFF" or kind != b"AVIX":
+                break
+            end = min(self._size, off + 8 + n)
+            for c2, o2, n2 in self._riff_chunks(off + 12, end):
+                if c2 == b"LIST" and self._read(o2, 4) == b"movi":
+                    samples += list(self._scan_movi(o2, o2 + n2, ids))
+            off = end + (end & 1)
+        self.samples = [(o, n) for o, n in samples if n > 0]
+        self.total = length if length else len(self.samples)
+
+    def _avi_index(self, idx1, movi, ids) -> List[Tuple[int, int]]:
+        o, n = idx1
+        raw = self._read(o, n - n % 16)
+        entries = [struct.unpack("<4sIII", raw[i:i + 16]) for i in range(0, len(raw), 16)]
+        entries = [(e[2], e[3]) for e in entries if e[0] in ids]
+        if not entries:
+            return []
+        # offsets count from the movi list's fourcc, or from the file's start
+        base = movi[0]
+        first_off, _ = entries[0]
+        if self._read(first_off + base, 4) not in ids and first_off + 8 <= self._size and \
+                self._read(first_off, 4) in ids:
+            base = 0
+        out = []
+        for off, size in entries:
+            if self._read(base + off, 4) not in ids:
+                raise ValueError(f"{self.path}: corrupt AVI index (entry at {off} does not name the video stream)")
+            out.append((base + off + 8, size))
+            self._read(base + off + 8, size)  # bounds
+        return out
+
+    def _scan_movi(self, o: int, end: int, ids) -> Iterator[Tuple[int, int]]:
+        for cid, o2, n2 in self._riff_chunks(o + 4 if self._read(o, 4) == b"movi" else o, end):
+            if cid in ids:
+                yield o2, n2
+            elif cid == b"LIST" and self._read(o2, 4) == b"rec ":
+                yield from self._scan_movi(o2 + 4, o2 + n2, ids)
+
+    # ---- ISO-BMFF
+
+    def _boxes(self, off: int, end: int) -> Iterator[Tuple[bytes, int, int]]:
+        """(type, payload offset, payload size) of the boxes in [off, end)."""
+        while off + 8 <= end:
+            n, t = struct.unpack(">I4s", self._read(off, 8))
+            h = 8
+            if n == 1:
+                n = struct.unpack(">Q", self._read(off + 8, 8))[0]
+                h = 16
+            elif n == 0:
+                n = end - off
+            if n < h or off + n > end:
+                raise ValueError(f"{self.path}: truncated {self.container} file (box '{_tag(t)}' of {n} bytes)")
+            yield t, off + h, n - h
+            off += n
+
+    def _child(self, o: int, n: int, t: bytes) -> Optional[Tuple[int, int]]:
+        return next(((o2, n2) for t2, o2, n2 in self._boxes(o, o + n) if t2 == t), None)
+
+    def _open_mp4(self) -> None:
+        moov = None
+        for t, o, n in self._boxes(0, self._size):
+            if t in (b"moof", b"mfra"):
+                raise ValueError(f"{self.path}: fragmented MP4 ('{_tag(t)}' boxes) is not supported")
+            if t == b"moov":
+                moov = (o, n)
+        if moov is None:
+            raise ValueError(f"{self.path}: {self.container} file without a 'moov' box")
+        if self._child(*moov, b"mvex"):
+            raise ValueError(f"{self.path}: fragmented MP4 ('mvex' box) is not supported")
+        mvhd = self._child(*moov, b"mvhd")
+        movie_scale = self._full_box_times(mvhd)[0] if mvhd else 1000
+        for t, o, n in self._boxes(moov[0], moov[0] + moov[1]):
+            if t != b"trak":
+                continue
+            mdia = self._child(o, n, b"mdia")
+            hdlr = mdia and self._child(*mdia, b"hdlr")
+            if not hdlr or self._read(hdlr[0] + 8, 4) != b"vide":
+                continue
+            self._read_track(o, n, mdia, movie_scale)
+            return
+        raise ValueError(f"{self.path}: {self.container} file without a video track")
+
+    def _full_box_times(self, box) -> Tuple[int, int]:
+        """(timescale, duration) of an mvhd or mdhd box."""
+        o, _ = box
+        if self._read(o, 1)[0] == 1:
+            scale, duration = struct.unpack(">IQ", self._read(o + 20, 12))
+        else:
+            scale, duration = struct.unpack(">II", self._read(o + 12, 8))
+        return scale, duration
+
+    def _read_track(self, o: int, n: int, mdia, movie_scale: int) -> None:
+        mdhd = self._child(*mdia, b"mdhd")
+        if not mdhd:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (video track without an 'mdhd' box)")
+        timescale = self._full_box_times(mdhd)[0]
+        minf = self._child(*mdia, b"minf")
+        stbl = minf and self._child(*minf, b"stbl")
+        if not stbl or not timescale:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (video track without a sample table)")
+        box = {t: (o2, n2) for t, o2, n2 in self._boxes(stbl[0], stbl[0] + stbl[1])}
+        if b"stsd" not in box:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (no 'stsd' box)")
+        so, _ = box[b"stsd"]
+        entry_size, fmt = struct.unpack(">I4s", self._read(so + 8, 8))
+        entry = self._read(so + 8, entry_size)
+        self.codec = _codec_of(fmt)
+        if self.codec is None or self.codec == "i420":
+            name = NAMED_TAGS.get(fmt, f"the '{_tag(fmt)}' codec")
+            self._refuse(f"{name} video ('{_tag(fmt)}')")
+        width, height = struct.unpack(">HH", entry[32:36])
+        self.size = (width, height)
+        if self.codec == "mpeg4":
+            esds = entry.find(b"esds")
+            if esds < 0:
+                raise ValueError(f"{self.path}: mp4v sample entry without an 'esds' box")
+            self.extradata = self._decoder_specific_info(entry[esds + 4:])
+        # the sample table
+        sizes = self._stsz(box)
+        chunks = self._chunk_offsets(box)
+        stsc = self._table(box, b"stsc", ">III")
+        offsets = []
+        for i, (first, per, _) in enumerate(stsc):
+            last = stsc[i + 1][0] - 1 if i + 1 < len(stsc) else len(chunks)
+            for c in range(first - 1, min(last, len(chunks))):
+                off = chunks[c]
+                for _ in range(per):
+                    if len(offsets) == len(sizes):
+                        break
+                    offsets.append(off)
+                    off += sizes[len(offsets) - 1]
+        if len(offsets) != len(sizes):
+            raise ValueError(f"{self.path}: corrupt {self.container} sample table ({len(offsets)} offsets for "
+                             f"{len(sizes)} samples)")
+        durations = []
+        for count, delta in self._table(box, b"stts", ">II"):
+            durations += [delta] * count
+        durations = durations[:len(sizes)]
+        if b"stss" in box:
+            self.keyframes = {k - 1 for (k,) in self._table(box, b"stss", ">I")}
+        total_duration = sum(durations)
+        self.fps = timescale * len(durations) / total_duration if total_duration else 0.0
+        self.total = len(sizes)
+        samples = [(o2, s) for o2, s in zip(offsets, sizes)]
+        for o2, s in samples:
+            if o2 + s > self._size:
+                raise ValueError(f"{self.path}: truncated {self.container} file (sample at {o2} past the end)")
+        self.samples = samples
+        self.shown = self._edit_list(o, n, durations, timescale, movie_scale)
+
+    def _decoder_specific_info(self, esds: bytes) -> bytes:
+        """The DecoderSpecificInfo (tag 5) of an esds payload (after version/flags)."""
+        p = 4
+
+        def desc(p):
+            tag = esds[p]
+            p += 1
+            size = 0
+            for _ in range(4):
+                b = esds[p]
+                p += 1
+                size = (size << 7) | (b & 0x7F)
+                if not b & 0x80:
+                    break
+            return tag, p, size
+
+        tag, p, size = desc(p)
+        if tag != 3:
+            raise ValueError(f"{self.path}: corrupt esds (no ES descriptor)")
+        flags = esds[p + 2]
+        p += 3 + (2 if flags & 0x80 else 0)
+        if flags & 0x40:
+            p += 1 + esds[p]
+        if flags & 0x20:
+            p += 2
+        tag, p, size = desc(p)
+        if tag != 4:
+            raise ValueError(f"{self.path}: corrupt esds (no decoder configuration)")
+        oti = esds[p]
+        if oti != 0x20:
+            raise ValueError(f"{self.path}: mp4v track of object type 0x{oti:02x} (not MPEG-4 Visual) is not supported")
+        p += 13
+        if p >= len(esds):
+            return b""
+        tag, p, size = desc(p)
+        return esds[p:p + size] if tag == 5 else b""
+
+    def _table(self, box, name: bytes, fmt: str) -> list:
+        if name not in box:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (no '{_tag(name)}' box)")
+        o, n = box[name]
+        count = struct.unpack(">I", self._read(o + 4, 4))[0]
+        width = struct.calcsize(fmt)
+        if 8 + count * width > n:
+            raise ValueError(f"{self.path}: corrupt {self.container} file ('{_tag(name)}' holds {count} entries "
+                             f"in {n} bytes)")
+        raw = self._read(o + 8, count * width)
+        return list(struct.iter_unpack(fmt, raw))
+
+    def _stsz(self, box) -> list:
+        if b"stsz" not in box:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (no 'stsz' box)")
+        o, n = box[b"stsz"]
+        uniform, count = struct.unpack(">II", self._read(o + 4, 8))
+        if uniform:
+            return [uniform] * count
+        if 12 + 4 * count > n:
+            raise ValueError(f"{self.path}: corrupt {self.container} file ('stsz' holds {count} entries in {n} bytes)")
+        return list(np.frombuffer(self._read(o + 12, 4 * count), ">u4").astype(np.int64))
+
+    def _chunk_offsets(self, box) -> list:
+        if b"stco" in box:
+            return [v for (v,) in self._table(box, b"stco", ">I")]
+        if b"co64" in box:
+            return [v for (v,) in self._table(box, b"co64", ">Q")]
+        raise ValueError(f"{self.path}: corrupt {self.container} file (no 'stco' or 'co64' box)")
+
+    def _edit_list(self, o: int, n: int, durations: list, timescale: int, movie_scale: int) -> Optional[list]:
+        """The indices of the samples the edit list shows, in order, or None
+        for all; as ffmpeg's mov demuxer applies a list (rate 1) to video
+        without composition offsets: each edit shows the samples whose time
+        lies in [media_time, media_time + duration); empty edits shift
+        presentation only."""
+        edts = self._child(o, n, b"edts")
+        elst = edts and self._child(*edts, b"elst")
+        if not elst:
+            return None
+        eo, _ = elst
+        version = self._read(eo, 1)[0]
+        count = struct.unpack(">I", self._read(eo + 4, 4))[0]
+        fmt = ">QqHH" if version == 1 else ">IiHH"
+        width = struct.calcsize(fmt)
+        edits = list(struct.iter_unpack(fmt, self._read(eo + 8, count * width)))
+        starts = np.concatenate([[0], np.cumsum(durations)])[:-1]
+        shown: list = []
+        for seg, media_time, rate, _ in edits:
+            if media_time == -1:
+                continue
+            if rate != 1:
+                raise ValueError(f"{self.path}: an edit list with rate {rate} is not supported")
+            stop = media_time + -(-seg * timescale // movie_scale)  # an edit of duration 0 shows nothing
+            shown += [i for i, t in enumerate(starts) if media_time <= t < stop]
+        return None if shown == list(range(len(durations))) else shown
+
+    # ---- frames
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        if self.codec == "mpeg4":
+            yield from self._mpeg4_frames()
+            return
+        order = self.shown if self.shown is not None else range(len(self.samples))
+        for i in order:
+            o, n = self.samples[i]
+            data = self._read(o, n)
+            try:
+                img = self._still(data)
+            except ValueError as e:
+                if str(e).startswith(str(self.path)):
+                    raise
+                raise ValueError(f"{self.path}: {self.container} with {self.codec} video, frame {i}: {e}") from None
+            yield img
+
+    def _still(self, data: bytes) -> np.ndarray:
+        w, h = self.size
+        if self.codec == "mjpeg":
+            return self._mjpeg_frame(data)
+        if self.codec == "bgr24":
+            stride = (w * 3 + 3) & ~3
+            if len(data) < stride * h:
+                raise ValueError(f"{self.path}: an uncompressed frame of {len(data)} bytes, want {stride * h}")
+            img = np.frombuffer(data, np.uint8, stride * h).reshape(h, stride)[:, :w * 3].reshape(h, w, 3)
+            return (img[::-1] if self.bottom_up else img).copy()
+        cw, ch = (w + 1) // 2, (h + 1) // 2  # i420
+        if len(data) < w * h + 2 * cw * ch:
+            raise ValueError(f"{self.path}: an I420 frame of {len(data)} bytes, want {w * h + 2 * cw * ch}")
+        a = np.frombuffer(data, np.uint8)
+        y = a[:w * h].reshape(h, w)
+        u = a[w * h:w * h + cw * ch].reshape(ch, cw)
+        v = a[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
+        return native.yuv_to_bgr(y, u, v, full_range=False)
+
+    def _mjpeg_frame(self, data: bytes) -> np.ndarray:
+        """One MJPEG frame as cv2.VideoCapture gives it."""
+        planes, meta = native.jpeg_decode_planes(data)
+        if meta["rgb"]:
+            self._refuse("MJPEG frames in RGB")
+        if len(planes) == 1:
+            return np.repeat(planes[0][:, :, None], 3, axis=2)
+        eoi = data.rfind(b"\xff\xd9")
+        if meta["height"] * 2 in (self.size[1], self.size[1] - 1) or data.find(b"\xff\xd8", 2, eoi) > 0:
+            self._refuse("interlaced MJPEG (two fields per chunk)")
+        return native.yuv_to_bgr(*planes, full_range=True)
+
+    def _mpeg4_frames(self) -> Iterator[np.ndarray]:
+        wanted = set(self.shown) if self.shown is not None else None
+        start = 0  # an edit list's first frame decodes from the sync sample before it
+        if wanted and self.keyframes:
+            start = max((k for k in self.keyframes if k <= min(wanted)), default=0)
+        dec = native.Mpeg4Decoder()
+        try:
+            if self.extradata:
+                dec.decode(self.extradata)
+            for i, (o, n) in enumerate(self.samples[start:], start):
+                if wanted is not None and i > max(wanted, default=-1):
+                    break
+                got = dec.decode(self._read(o, n))
+                if got is None or (wanted is not None and i not in wanted):
+                    continue
+                (y, u, v), _ = got
+                yield native.yuv_to_bgr(y, u, v, full_range=False)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {self.container} with MPEG-4 video: {e}") from None
+        finally:
+            dec.close()
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self) -> "VideoReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# ------------------------------------------------------------------ writing
+
+
+class VideoWriter:
+    """Writes BGR uint8 frames of one size: ``.avi`` as MJPG, any other
+    suffix as mp4v, as ``cv2.VideoWriter`` with the JAX ``VideoSink``'s
+    fourccs. Frames are cropped to even width and height; an fps of 0 (or
+    less) is 30. :meth:`close` finishes the file (the index and headers)."""
+
+    def __init__(self, path: str | Path, fps: float, size: Tuple[int, int]):
+        self.path = Path(path)
+        self.fps = fps if fps and fps > 0 else 30.0
+        self.num, self.den = cv2_fps_fraction(self.fps)
+        w, h = size
+        self.width, self.height = w - (w & 1), h - (h & 1)
+        if self.width < 2 or self.height < 2:
+            raise ValueError(f"{self.path}: a video of {w}x{h} pixels is too small to write")
+        self.avi = self.path.suffix.lower() == ".avi"
+        self.sizes: List[int] = []
+        self._f: Optional[BinaryIO] = open(self.path, "wb")
+        if self.avi:
+            self._f.write(self._avi_header(0, 0))
+        else:
+            self.res = self.num
+            while self.res > 65535:  # the VOP time resolution is 16 bits
+                self.res //= 10
+            self.vol = native.mpeg4_header(self.width, self.height, self.res)
+            self._f.write(self._box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2mp41"))
+            self._mdat = self._f.tell()
+            self._f.write(struct.pack(">I4sQ", 1, b"mdat", 16))
+
+    @property
+    def frames_written(self) -> int:
+        return len(self.sizes)
+
+    def write(self, img: np.ndarray) -> None:
+        if self._f is None:
+            raise ValueError(f"{self.path}: the writer is closed")
+        img = np.asarray(img)
+        if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+            raise ValueError(f"{self.path}: want (H, W, 3) uint8 BGR frames, got {img.shape} {img.dtype}")
+        h, w = img.shape[:2]
+        if (w - (w & 1), h - (h & 1)) != (self.width, self.height):
+            raise ValueError(f"{self.path}: a frame of {w}x{h} in a video of {self.width}x{self.height}")
+        img = img[:self.height, :self.width]
+        if self.avi:
+            data = encode_jpeg(img)
+            if self._f.tell() + 8 + len(data) + 16 * (len(self.sizes) + 1) >= 1 << 31:
+                raise ValueError(f"{self.path}: past the 2 GiB an AVI 1.0 file holds")
+            self._f.write(struct.pack("<4sI", b"00dc", len(data)) + data + b"\0" * (len(data) & 1))
+        else:
+            i = len(self.sizes)
+            t0, t1 = (i - 1) * self.den * self.res // self.num if i else 0, i * self.den * self.res // self.num
+            seconds = t1 // self.res - (t0 // self.res if i else 0)
+            y, u, v = native.bgr_to_yuv420(img)
+            data = native.mpeg4_encode_intra(y, u, v, self.res, seconds, t1 % self.res, MPEG4_QP)
+            self._f.write(data)
+        self.sizes.append(len(data))
+
+    def close(self) -> None:
+        if self._f is None:
+            return
+        try:
+            if self.avi:
+                self._finish_avi()
+            else:
+                self._finish_mp4()
+        finally:
+            self._f.close()
+            self._f = None
+
+    def __enter__(self) -> "VideoWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ---- AVI
+
+    def _avi_header(self, movi_size: int, riff_size: int) -> bytes:
+        n = len(self.sizes)
+        biggest = max(self.sizes, default=0)
+        avih = struct.pack("<IIIIIIIIII4I", round(1e6 * self.den / self.num), 0, 0, 0x10, n, 0, 1, biggest,
+                           self.width, self.height, 0, 0, 0, 0)
+        strh = struct.pack("<4s4sIHH8I4h", b"vids", b"MJPG", 0, 0, 0, 0, self.den, self.num, 0, n, biggest,
+                           0xFFFFFFFF, 0, 0, 0, self.width, self.height)
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, b"MJPG", self.width * self.height * 3,
+                           0, 0, 0, 0)
+        strl = self._list(b"strl", self._chunk(b"strh", strh) + self._chunk(b"strf", strf))
+        hdrl = self._list(b"hdrl", self._chunk(b"avih", avih) + strl)
+        return struct.pack("<4sI4s", b"RIFF", riff_size, b"AVI ") + hdrl + struct.pack("<4sI4s", b"LIST", movi_size,
+                                                                                         b"movi")
+
+    @staticmethod
+    def _chunk(cid: bytes, data: bytes) -> bytes:
+        return struct.pack("<4sI", cid, len(data)) + data + b"\0" * (len(data) & 1)
+
+    @staticmethod
+    def _list(kind: bytes, data: bytes) -> bytes:
+        return struct.pack("<4sI4s", b"LIST", 4 + len(data), kind) + data
+
+    def _finish_avi(self) -> None:
+        f = self._f
+        header_len = len(self._avi_header(0, 0))
+        movi_end = f.tell()
+        idx = bytearray()
+        off = 4
+        for n in self.sizes:
+            idx += struct.pack("<4sIII", b"00dc", 0x10, off, n)
+            off += 8 + n + (n & 1)
+        f.write(self._chunk(b"idx1", bytes(idx)))
+        end = f.tell()
+        f.seek(0)
+        f.write(self._avi_header(movi_end - header_len + 4, end - 8))
+
+    # ---- MP4
+
+    @staticmethod
+    def _box(t: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I4s", 8 + len(payload), t) + payload
+
+    def _finish_mp4(self) -> None:
+        f = self._f
+        end = f.tell()
+        f.seek(self._mdat + 8)
+        f.write(struct.pack(">Q", end - self._mdat))
+        f.seek(end)
+        n = len(self.sizes)
+        ts, delta = self.num, self.den
+        duration = n * delta
+        movie_duration = duration * 1000 // ts
+        box = self._box
+        offsets, o = [], self._mdat + 16
+        for s in self.sizes:
+            offsets.append(o)
+            o += s
+        matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+        mvhd = struct.pack(">IIIII", 0, 0, 0, 1000, movie_duration) + struct.pack(">IH10x", 0x10000, 0x100) + matrix + \
+            b"\0" * 24 + struct.pack(">I", 2)
+        tkhd = struct.pack(">IIIII4xI8xHHH2x", 3, 0, 0, 1, 0, movie_duration, 0, 0, 0) + matrix + \
+            struct.pack(">II", self.width << 16, self.height << 16)
+        mdhd = struct.pack(">IIIIIHH", 0, 0, 0, ts, duration, 0x55C4, 0)
+        hdlr = struct.pack(">II4s12x", 0, 0, b"vide") + b"VideoHandler\0"
+        vmhd = struct.pack(">I4H", 1, 0, 0, 0, 0)
+        dref = box(b"dref", struct.pack(">II", 0, 1) + box(b"url ", struct.pack(">I", 1)))
+
+        def desc(tag: int, body: bytes) -> bytes:  # an MPEG-4 descriptor, its size in 4 bytes of 7 bits
+            n = len(body)
+            size = [0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F, 0x80 | (n >> 7) & 0x7F, n & 0x7F]
+            return bytes([tag, *size]) + body
+
+        bitrate = int(8 * sum(self.sizes) * ts / max(duration, 1))
+        dcd = desc(4, struct.pack(">BB3sII", 0x20, 0x11, max(self.sizes, default=0).to_bytes(3, "big")
+                                  if max(self.sizes, default=0) < 1 << 24 else b"\xff\xff\xff", bitrate, bitrate) +
+                   desc(5, self.vol))
+        esds = box(b"esds", struct.pack(">I", 0) + desc(3, struct.pack(">HB", 1, 0) + dcd + desc(6, b"\x02")))
+        mp4v = box(b"mp4v", b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 +
+                   struct.pack(">HHIIIH", self.width, self.height, 0x480000, 0x480000, 0, 1) + b"\0" * 32 +
+                   struct.pack(">Hh", 24, -1) + esds)
+        stsd = box(b"stsd", struct.pack(">II", 0, 1) + mp4v)
+        stts = box(b"stts", struct.pack(">IIII", 0, 1, n, delta) if n else struct.pack(">II", 0, 0))
+        stsc = box(b"stsc", struct.pack(">IIIII", 0, 1, 1, 1, 1) if n else struct.pack(">II", 0, 0))
+        stsz = box(b"stsz", struct.pack(">III", 0, 0, n) + b"".join(struct.pack(">I", s) for s in self.sizes))
+        if offsets and offsets[-1] >= 1 << 32:
+            stco = box(b"co64", struct.pack(">II", 0, n) + b"".join(struct.pack(">Q", x) for x in offsets))
+        else:
+            stco = box(b"stco", struct.pack(">II", 0, n) + b"".join(struct.pack(">I", x) for x in offsets))
+        stbl = box(b"stbl", stsd + stts + stsc + stsz + stco)
+        minf = box(b"minf", box(b"vmhd", vmhd) + box(b"dinf", dref) + stbl)
+        mdia = box(b"mdia", box(b"mdhd", mdhd) + box(b"hdlr", hdlr) + minf)
+        trak = box(b"trak", box(b"tkhd", tkhd) + mdia)
+        f.write(box(b"moov", box(b"mvhd", mvhd) + trak))

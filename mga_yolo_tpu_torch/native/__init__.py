@@ -1,8 +1,10 @@
 """ctypes bindings of the port's host C++: ``maskops.cpp`` (mask pyramid, PNG
 rows, the port's copy of ``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG
-decoding and encoding) and ``bmp.cpp`` (BMP decoding).
+decoding and encoding, and MJPEG frames' planes), ``bmp.cpp`` (BMP
+decoding), ``yuv.cpp`` (video colour conversion) and ``mpeg4.cpp`` (MPEG-4
+Part 2 decoding and I-VOP encoding), with ``simple_idct.h``.
 
-The three sources are compiled at first use, together, with ``g++ -O3
+The five sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
@@ -27,7 +29,7 @@ from typing import Optional
 import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
-CODEC_SOURCES = (Path(__file__).with_name("jpeg.cpp"), Path(__file__).with_name("bmp.cpp"))
+CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -40,8 +42,12 @@ def sources() -> tuple[Path, ...]:
     return (*CODEC_SOURCES, SOURCE)
 
 
+HEADERS = (Path(__file__).with_name("simple_idct.h"),)
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"".join(p.read_bytes() for p in sources())).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode()
+                       + b"".join(p.read_bytes() for p in (*sources(), *HEADERS))).hexdigest()[:16]
     return BUILD_DIR / f"libmaskops-{h}.so"
 
 
@@ -108,6 +114,24 @@ def _open(target: Path):
         fn.restype = c
     lib.mga_jpeg_encode.argtypes = [u8p, c, c, c, c, u8p, n64, buf, c]
     lib.mga_jpeg_encode.restype = n64
+    lib.mga_jpeg_decode_planes.argtypes = [buf, n64, u8p, n64, i32p, buf, c]
+    lib.mga_jpeg_decode_planes.restype = n64
+    lib.mga_yuv_to_bgr.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, c, u8p]
+    lib.mga_yuv_to_bgr.restype = None
+    lib.mga_bgr_to_yuv420.argtypes = [u8p, c, c, u8p, u8p, u8p]
+    lib.mga_bgr_to_yuv420.restype = None
+    lib.mga_mpeg4_decoder_new.argtypes = []
+    lib.mga_mpeg4_decoder_new.restype = ctypes.c_void_p
+    lib.mga_mpeg4_decoder_free.argtypes = [ctypes.c_void_p]
+    lib.mga_mpeg4_decoder_free.restype = None
+    lib.mga_mpeg4_decode.argtypes = [ctypes.c_void_p, buf, n64, i32p, buf, c]
+    lib.mga_mpeg4_decode.restype = c
+    lib.mga_mpeg4_frame.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
+    lib.mga_mpeg4_frame.restype = None
+    lib.mga_mpeg4_encode_header.argtypes = [c, c, c, u8p, n64, buf, c]
+    lib.mga_mpeg4_encode_header.restype = n64
+    lib.mga_mpeg4_encode_intra.argtypes = [u8p, u8p, u8p, c, c, c, c, c, c, u8p, n64, buf, c]
+    lib.mga_mpeg4_encode_intra.restype = n64
     return lib, None
 
 
@@ -213,6 +237,19 @@ def jpeg_header(data: bytes) -> dict:
     return {"height": h, "width": w, "components": c, "orientation": orientation, "progressive": bool(progressive)}
 
 
+def _grow(call, cap: int) -> bytes:
+    """The bytes of an encoder entry that returns its size, called again with room when short."""
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = call(out, cap, err)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+
+
 def jpeg_encode(img: np.ndarray, quality: int = 95) -> bytes:
     """(H, W) grey or (H, W, 3) BGR uint8 -> baseline JPEG bytes, as
     ``cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])``."""
@@ -220,16 +257,129 @@ def jpeg_encode(img: np.ndarray, quality: int = 95) -> bytes:
     img = np.ascontiguousarray(img, np.uint8)
     h, w = img.shape[:2]
     c = 1 if img.ndim == 2 else img.shape[2]
+    return _grow(lambda out, cap, err: lib.mga_jpeg_encode(_u8(img), h, w, c, int(quality), _u8(out), cap, err,
+                                                           _ERR_LEN), img.size + 4096)
+
+
+def jpeg_decode_planes(data: bytes) -> tuple[list[np.ndarray], dict]:
+    """JPEG bytes -> the component planes as ffmpeg's MJPEG decoder makes
+    them (its simple IDCT), each (rows, cols) uint8 at its own sampled size
+    (no upsampling, colour conversion or EXIF orientation), and
+    {"height", "width", "rgb", "sampling": [(h, v), ...]}."""
+    lib = load()
+    data = bytes(data)
+    h, w = _header(lib.mga_jpeg_header, data)[:2]
+    cap = 3 * h * w
+    out = np.empty(cap, np.uint8)
+    info = (ctypes.c_int32 * 16)()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    cap = img.size + 4096
-    while True:
-        out = np.empty(cap, np.uint8)
-        n = lib.mga_jpeg_encode(_u8(img), h, w, c, int(quality), _u8(out), cap, err, _ERR_LEN)
-        if n < 0:
+    n = lib.mga_jpeg_decode_planes(data, len(data), _u8(out), cap, info, err, _ERR_LEN)
+    if n < 0:
+        raise ValueError(err.value.decode())
+    planes, off = [], 0
+    for i in range(info[2]):
+        rows, cols = info[4 + 4 * i], info[5 + 4 * i]
+        planes.append(out[off:off + rows * cols].reshape(rows, cols))
+        off += rows * cols
+    meta = {"height": info[0], "width": info[1], "rgb": bool(info[3]),
+            "sampling": [(info[6 + 4 * i], info[7 + 4 * i]) for i in range(info[2])]}
+    return planes, meta
+
+
+def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool) -> np.ndarray:
+    """(H, W, 3) BGR uint8 from a luma plane and two chroma planes of half
+    (4:2:0) or half-width (4:2:2) or equal size, as cv2.VideoCapture converts
+    a frame (swscale's unscaled yuv2rgb, chroma replicated; JPEG's range when
+    ``full_range``, else limited; BT.601)."""
+    lib = load()
+    y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
+    h, w = y.shape
+    if u.shape != v.shape:
+        raise ValueError(f"chroma planes of {u.shape} and {v.shape}")
+    sy, sx = (0 if u.shape[0] == h else 1), (0 if u.shape[1] == w else 1)
+    if u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
+        raise ValueError(f"chroma planes of {u.shape} for luma of {y.shape}")
+    out = np.empty((h, w, 3), np.uint8)
+    lib.mga_yuv_to_bgr(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(full_range), _u8(out))
+    return out
+
+
+def bgr_to_yuv420(img: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(H, W, 3) BGR uint8, H and W even -> limited-range BT.601 planes y
+    (H, W), u and v (H/2, W/2), chroma the mean of each 2x2 block."""
+    lib = load()
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    if img.ndim != 3 or img.shape[2] != 3 or h % 2 or w % 2:
+        raise ValueError(f"want an (H, W, 3) image of even sizes, got {img.shape}")
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((h // 2, w // 2), np.uint8)
+    v = np.empty_like(u)
+    lib.mga_bgr_to_yuv420(_u8(img), h, w, _u8(y), _u8(u), _u8(v))
+    return y, u, v
+
+
+class Mpeg4Decoder:
+    """An MPEG-4 Part 2 Simple profile decoder (``mpeg4.cpp``): feed it the
+    stream's chunks in order (the container's decoder configuration first,
+    where it has one). Holds its reference frame; :meth:`close` frees it."""
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.mga_mpeg4_decoder_new()
+        if not self._h:
+            raise MemoryError("MPEG-4 decoder")
+
+    def decode(self, chunk: bytes):
+        """(y, u, v) planes and the VOP type (0 I, 1 P) of the frame the
+        chunk gives, or None for a chunk that gives none (headers only, or an
+        uncoded VOP, which ffmpeg passes over too). Raises ValueError naming
+        what it does not decode."""
+        if not self._h:
+            raise ValueError("the MPEG-4 decoder is closed")
+        chunk = bytes(chunk)
+        info = (ctypes.c_int32 * 3)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._lib.mga_mpeg4_decode(self._h, chunk, len(chunk), info, err, _ERR_LEN)
+        if rc < 0:
             raise ValueError(err.value.decode())
-        if n <= cap:
-            return out[:n].tobytes()
-        cap = n
+        if rc == 0:
+            return None
+        w, h = info[0], info[1]
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.mga_mpeg4_frame(self._h, _u8(y), _u8(u), _u8(v))
+        return (y, u, v), info[2]
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_mpeg4_decoder_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def mpeg4_header(width: int, height: int, time_resolution: int) -> bytes:
+    """The VOS, VO and VOL headers of an I-VOP-only Simple profile stream."""
+    lib = load()
+    return _grow(lambda out, cap, err: lib.mga_mpeg4_encode_header(width, height, time_resolution, _u8(out), cap,
+                                                                   err, _ERR_LEN), 64)
+
+
+def mpeg4_encode_intra(y: np.ndarray, u: np.ndarray, v: np.ndarray, time_resolution: int, seconds: int,
+                       increment: int, qp: int) -> bytes:
+    """One I-VOP of 4:2:0 planes at quantiser ``qp``: ``seconds`` whole
+    seconds past the previous VOP's, ``increment`` ticks into its second."""
+    lib = load()
+    y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
+    h, w = y.shape
+    if u.shape != (h // 2, w // 2) or v.shape != u.shape:
+        raise ValueError(f"chroma planes of {u.shape}, {v.shape} for luma of {y.shape}")
+    return _grow(lambda out, cap, err: lib.mga_mpeg4_encode_intra(
+        _u8(y), _u8(u), _u8(v), w, h, time_resolution, seconds, increment, qp, _u8(out), cap, err, _ERR_LEN),
+        y.size + 4096)
 
 
 def bmp_decode(data: bytes, gray: bool = False) -> np.ndarray:

@@ -12,6 +12,15 @@
 // colour file is the luma plane (jdcolor.c's RGB -> grey for an RGB file).
 // The EXIF orientation is applied, as cv2.imread and cv2.imdecode do.
 //
+// A sequential scan that uses Huffman table 0 or 1 where no DHT defined it
+// gets the standard Annex K.3 table, as in libjpeg-turbo (MJPEG frames often
+// carry no DHT); a progressive one is refused, as there.
+//
+// mga_jpeg_decode_planes serves the video path: the component planes as
+// ffmpeg's MJPEG decoder reconstructs them (its simple IDCT,
+// simple_idct.h), at their own sampled size, for yuv.cpp to convert as
+// ffmpeg's swscale does.
+//
 // Refused with a message: 4 components (CMYK/YCCK), 12-bit samples,
 // arithmetic coding, lossless and hierarchical frames, more than 2^30
 // pixels, and any truncated or corrupt stream (libjpeg pads those with grey
@@ -38,6 +47,8 @@
 #include <stdexcept>
 #include <string>
 #include <vector>
+
+#include "simple_idct.h"
 
 namespace {
 
@@ -71,6 +82,40 @@ inline int clamp_int(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi 
 
 // ------------------------------------------------------------------ Huffman
 
+// The standard tables (Annex K.3): the encoder writes them, and the decoder
+// loads them for a sequential scan that uses table 0 or 1 when no DHT
+// defined it, as libjpeg-turbo does (jdhuff.c, jstdhuff.c).
+constexpr uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+constexpr uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+constexpr uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+constexpr uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+constexpr uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+constexpr uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+
+
 struct HuffTable {
   bool defined = false;
   uint8_t fast_len[512];  // codes of <= 9 bits, looked up by the next 9 bits
@@ -89,6 +134,7 @@ void build_table(HuffTable& t, const uint8_t* counts, const uint8_t* vals, int n
     const int n = counts[len - 1];
     t.valoff[len] = k - code;
     for (int i = 0; i < n; ++i, ++k, ++code) {
+      if (code >= (1 << len)) refuse("corrupt JPEG data: bad Huffman table");  // before it indexes fast_*
       if (len <= 9) {
         const int lo = code << (9 - len), hi = (code + 1) << (9 - len);
         for (int j = lo; j < hi; ++j) {
@@ -105,6 +151,14 @@ void build_table(HuffTable& t, const uint8_t* counts, const uint8_t* vals, int n
     for (int i = 0; i < nvals; ++i)
       if (vals[i] > 15) refuse("corrupt JPEG data: bad Huffman table");
   t.defined = true;
+}
+
+// A table that no DHT defined: the standard one for numbers 0 and 1 in a
+// sequential scan, else refused (libjpeg-turbo refuses it in a progressive scan).
+void std_table(HuffTable& t, int number, bool dc, bool progressive) {
+  if (number > 1 || progressive) refuse("corrupt JPEG data: Huffman table %d is not defined", number);
+  if (dc) build_table(t, number ? kDcChromaBits : kDcLumaBits, kDcVals, 12, true);
+  else build_table(t, number ? kAcChromaBits : kAcLumaBits, number ? kAcChromaVals : kAcLumaVals, 162, false);
 }
 
 // Entropy-coded bits: 0xFF00 unstuffed; at a marker or the end of the data
@@ -563,8 +617,8 @@ struct Decoder {
       }
       const bool need_dc = !progressive || (sc.ss == 0 && sc.ah == 0);
       const bool need_ac = !progressive || sc.ss > 0;
-      if (need_dc && !dc[sc.td[i]].defined) refuse("corrupt JPEG data: Huffman table %d is not defined", sc.td[i]);
-      if (need_ac && !ac[sc.ta[i]].defined) refuse("corrupt JPEG data: Huffman table %d is not defined", sc.ta[i]);
+      if (need_dc && !dc[sc.td[i]].defined) std_table(dc[sc.td[i]], sc.td[i], true, progressive);
+      if (need_ac && !ac[sc.ta[i]].defined) std_table(ac[sc.ta[i]], sc.ta[i], false, progressive);
       c.dc_pred = 0;
       if (progressive)
         for (int k = sc.ss; k <= sc.se; ++k) c.coef_bits[k] = sc.al;
@@ -725,6 +779,23 @@ struct Decoder {
     return plane;
   }
 
+  // The component's samples as ffmpeg's MJPEG decoder reconstructs them: the
+  // dequantised block, level-shifted by 128 in its DC, through the simple IDCT.
+  std::vector<uint8_t> component_plane_simple(Component& c) const {
+    const int stride = c.bw * 8;
+    std::vector<uint8_t> plane((size_t)stride * c.bh * 8);
+    if (!c.qlatched) return plane;
+    int16_t blk[64];
+    for (int by = 0; by < c.bh; ++by)
+      for (int bx = 0; bx < c.bw; ++bx) {
+        const int16_t* in = c.block(by, bx);
+        for (int k = 0; k < 64; ++k) blk[k] = (int16_t)(in[k] * c.q[k]);
+        blk[0] = (int16_t)(blk[0] + 1024);
+        simple_idct::idct(blk, plane.data() + (size_t)by * 8 * stride + bx * 8, stride, false);
+      }
+    return plane;
+  }
+
   // jdsample.c: the component upsampled to width x height.
   std::vector<uint8_t> upsample(Component& c) const {
     std::vector<uint8_t> plane = component_plane(c);
@@ -775,13 +846,15 @@ struct Decoder {
   }
 
   // The decoded image, before orientation: (height, width, 3) BGR or (height, width) grey.
+  // The 3 components are R, G, B (else Y, Cb, Cr).
+  bool is_rgb() const {
+    if (ncomp != 3 || saw_jfif) return false;
+    if (saw_adobe) return adobe_transform == 0;
+    return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+  }
+
   std::vector<uint8_t> pixels(bool gray) {
-    bool rgb = false;  // the 3 components are R, G, B (else Y, Cb, Cr)
-    if (ncomp == 3) {
-      if (saw_jfif) rgb = false;
-      else if (saw_adobe) rgb = adobe_transform == 0;
-      else rgb = comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
-    }
+    const bool rgb = is_rgb();
     if (progressive) check_no_smoothing();
     const size_t np = (size_t)width * height;
     if (ncomp == 1 || (gray && !rgb)) {
@@ -887,36 +960,6 @@ constexpr uint8_t kStdChromaQ[64] = {
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-constexpr uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-constexpr uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-constexpr uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-constexpr uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-constexpr uint8_t kAcLumaVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
-    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
-    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
-    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
-    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
-    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
-    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
-    0xf9, 0xfa};
-constexpr uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-constexpr uint8_t kAcChromaVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
-    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
-    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
-    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
-    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
-    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
-    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
-    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
-    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
-    0xf9, 0xfa};
 
 struct EncTable {
   uint16_t code[256];
@@ -1275,6 +1318,47 @@ int mga_jpeg_decode(const uint8_t* data, int64_t n, int gray, uint8_t* out, int3
     else
       std::memcpy(out, img.data(), img.size());
   });
+}
+
+// The component planes through ffmpeg's simple IDCT, each at its own sampled
+// size, back to back in frame order: no upsampling, no colour conversion and
+// no EXIF orientation, as ffmpeg's MJPEG decoder hands a video frame on.
+// info (16 entries): height, width, components, 1 when they are R, G, B;
+// then for each component its rows, columns and h, v sampling factors.
+// Returns the bytes of the planes; when that is more than cap nothing is
+// copied; -1 with a message on failure.
+int64_t mga_jpeg_decode_planes(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int32_t* info, char* err,
+                               int errlen) {
+  int64_t size = -1;
+  guarded(err, errlen, [&] {
+    Decoder dec(data, (size_t)n);
+    dec.run(false);
+    if (dec.progressive) dec.check_no_smoothing();
+    std::memset(info, 0, 16 * sizeof(int32_t));
+    info[0] = dec.height;
+    info[1] = dec.width;
+    info[2] = dec.ncomp;
+    info[3] = dec.is_rgb();
+    int64_t total = 0;
+    for (int i = 0; i < dec.ncomp; ++i) {
+      const Component& c = dec.comp[i];
+      info[4 + 4 * i] = c.ds_h;
+      info[5 + 4 * i] = c.ds_w;
+      info[6 + 4 * i] = c.h;
+      info[7 + 4 * i] = c.v;
+      total += (int64_t)c.ds_h * c.ds_w;
+    }
+    size = total;
+    if (total > cap) return;
+    uint8_t* o = out;
+    for (int i = 0; i < dec.ncomp; ++i) {
+      Component& c = dec.comp[i];
+      const std::vector<uint8_t> plane = dec.component_plane_simple(c);
+      const int stride = c.bw * 8;
+      for (int y = 0; y < c.ds_h; ++y, o += c.ds_w) std::memcpy(o, plane.data() + (size_t)y * stride, (size_t)c.ds_w);
+    }
+  });
+  return size;
 }
 
 // Encodes an (h, w) grey or (h, w, 3) BGR image. Returns the size of the

@@ -427,3 +427,77 @@ def test_codecs_raise_when_the_library_does_not_build(tmp_path, monkeypatch):
                  lambda: image_io.encode_jpeg(_image(8, 8, 3, 0))):
         with pytest.raises(RuntimeError, match=r"jpeg\.cpp.* is not available: g\+\+ .* failed:\n.*error"):
             call()
+
+
+def _without_dht(data: bytes, selectors: int | None = None) -> bytes:
+    """``data`` with every DHT segment before its first scan taken out (later
+    ones, between progressive scans, stay); with ``selectors`` the first
+    scan's table numbers set to it, DC and AC."""
+    out, p = bytearray(data[:2]), 2
+    while data[p + 1] != 0xDA:
+        n = (data[p + 2] << 8) | data[p + 3]
+        if data[p + 1] != 0xC4:
+            out += data[p:p + 2 + n]
+        p += 2 + n
+    sos = bytearray(data[p:])
+    if selectors is not None:
+        for i in range(sos[4]):
+            sos[6 + 2 * i] = selectors * 0x11
+    return bytes(out + sos)
+
+
+@pytest.mark.parametrize("case", [f"bgr{s}" for s in SAMPLING] + ["grey", "grey_restarts"])
+def test_jpeg_without_dht_decodes_as_cv2_with_the_standard_tables(case):
+    """A sequential scan whose Huffman tables no DHT defined gets the Annex
+    K.3 tables, as libjpeg-turbo (and MJPEG cameras) assume: colour at each
+    sampling and grey, equal to cv2 in colour and grey reads, tolerance 0."""
+    from mga_yolo_tpu_torch.data import image_io
+
+    if case.startswith("grey"):
+        params = [Q, 85] + ([R, 2] if case == "grey_restarts" else [])
+        data = cv2.imencode(".jpg", _image(37, 53, 1, 21), params)[1].tobytes()
+    else:
+        data = cv2.imencode(".jpg", _image(37, 53, 3, 22), [Q, 85, S, SAMPLING[case[3:]]])[1].tobytes()
+    stripped = _without_dht(data)
+    assert b"\xff\xc4" not in stripped[:stripped.index(b"\xff\xda")]
+    for gray, flag in ((False, cv2.IMREAD_COLOR), (True, cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imdecode(np.frombuffer(stripped, np.uint8), flag)
+        assert want is not None
+        np.testing.assert_array_equal(image_io.decode(stripped, gray=gray), want)
+        np.testing.assert_array_equal(want, cv2.imdecode(np.frombuffer(data, np.uint8), flag))
+
+
+@pytest.mark.parametrize("case", ["progressive420", "progressive444", "grey_progressive", "table2", "table3"])
+def test_jpeg_without_dht_that_cv2_refuses_is_refused(case):
+    """Where cv2 decodes no DHT-less file, neither does the port: libjpeg-turbo
+    loads no standard table for a progressive scan, and has none for table
+    numbers 2 and 3."""
+    from mga_yolo_tpu_torch.data import image_io
+
+    if case.startswith("table"):
+        data = _without_dht(cv2.imencode(".jpg", _image(37, 53, 3, 23), [Q, 85])[1].tobytes(), int(case[-1]))
+    elif case == "grey_progressive":
+        data = _without_dht(cv2.imencode(".jpg", _image(37, 53, 1, 24), [Q, 85, P, 1])[1].tobytes())
+    else:
+        data = _without_dht(cv2.imencode(".jpg", _image(37, 53, 3, 25), [Q, 85, P, 1, S, SAMPLING[case[-3:]]])[1]
+                            .tobytes())
+    assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=r"Huffman table \d is not defined"):
+        image_io.decode(data)
+
+
+@pytest.mark.parametrize("samp", list(SAMPLING))
+def test_jpeg_planes_are_the_unconverted_components(samp):
+    """``jpeg_decode_planes`` (the video path's MJPEG read) gives each
+    component at its sampled size, through ffmpeg's simple IDCT: its luma
+    plane is within one level of libjpeg's (cv2's grey read)."""
+    from mga_yolo_tpu_torch import native
+
+    h, w = 37, 53
+    data = cv2.imencode(".jpg", _image(h, w, 3, 26), [Q, 90, S, SAMPLING[samp]])[1].tobytes()
+    planes, meta = native.jpeg_decode_planes(_without_dht(data))
+    hs, vs = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2), "411": (4, 1)}[samp]
+    assert meta["sampling"][0] == (hs, vs) and (meta["height"], meta["width"], meta["rgb"]) == (h, w, False)
+    assert [p.shape for p in planes] == [(h, w)] + [(-(-h // vs), -(-w // hs))] * 2
+    grey = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
+    assert np.abs(planes[0].astype(np.int16) - grey).max() <= 1

@@ -23,7 +23,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mga_yolo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mga_yolo_tpu", "cv2", "yaml", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mga_yolo_tpu", "cv2", "yaml", "PIL", "av", "imageio", "ffmpeg")
 
 
 def _forbidden(name: str) -> bool:

@@ -120,7 +120,28 @@ def test_stream_order_facade_and_load_predictor(pair):
         load_predictor(pair["root"] / "model.tflite")
 
 
+def _clips(root: Path) -> dict:
+    """Two short clips written by cv2 (the JAX package's writer): an MJPG
+    .avi and an mp4v .mp4, seeded frames no larger than IMGSZ."""
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, fourcc, fps, n in (("clip.avi", "MJPG", 25.0, 5), ("run.mp4", "mp4v", 29.97, 4)):
+        vw = cv2.VideoWriter(str(root / name), cv2.VideoWriter_fourcc(*fourcc), fps, (56, 40))
+        rng = np.random.default_rng(len(name))
+        for _ in range(n):
+            vw.write(cv2.GaussianBlur(rng.integers(0, 256, (40, 56, 3)).astype(np.uint8), (5, 5), 2))
+        vw.release()
+        out[name] = (fps, n)
+    return out
+
+
 def test_sources_kinds_equal_jax_and_video_raises(pair, tmp_path):
+    """Images and videos: the JAX package's paths, indices, ``is_video``,
+    ``fps``, ``total`` and ``max_frames`` caps, frames within the video
+    bounds of ``tests/test_torch_video.py``; webcams and stream URLs (which
+    the JAX package opens with cv2) raise NotImplementedError naming why."""
+    import shutil
+
     from mga_yolo_tpu.data import sources as J
     from mga_yolo_tpu_torch.data import sources as P
 
@@ -131,13 +152,76 @@ def test_sources_kinds_equal_jax_and_video_raises(pair, tmp_path):
     assert [f.path for f in frames] == [str(p) for p in J.list_files(imgs)] + ["<array>"]
     for f, jf in zip(frames, J.iter_source(str(imgs))):
         np.testing.assert_array_equal(f.img, jf.img)
-        assert f.stem == jf.stem and f.index == jf.index == 0
-    (tmp_path / "clip.mp4").write_bytes(b"\0")
-    for src in (str(tmp_path / "clip.mp4"), tmp_path, 0, "0", "rtsp://127.0.0.1/stream"):
-        with pytest.raises(NotImplementedError, match="video decoder"):
+        assert f.stem == jf.stem and f.index == jf.index == 0 and not f.is_video and f.fps == jf.fps == 0.0
+    mixed = tmp_path / "mixed"
+    shutil.copytree(imgs, mixed)
+    _clips(mixed / "vids")
+    assert P.list_files(mixed) == J.list_files(mixed)
+    for cap in (0, 2):
+        got, want = list(P.iter_source(mixed, max_frames=cap)), list(J.iter_source(mixed, max_frames=cap))
+        assert [(f.path, f.index, f.is_video, f.fps, f.total) for f in got] == \
+            [(f.path, f.index, f.is_video, f.fps, f.total) for f in want]
+        for f, jf in zip(got, want):
+            d = np.abs(f.img.astype(np.int16) - jf.img)
+            assert f.img.shape == jf.img.shape and d.mean() <= 0.75 and d.max() <= 8 if f.is_video else not d.any()
+    assert sum(f.is_video for f in got) == 4
+    for src in (0, "0", "rtsp://127.0.0.1/stream", "http://127.0.0.1/a.mp4"):
+        with pytest.raises(NotImplementedError, match="camera|stream URLs"):
             list(P.iter_source(src))
-    with pytest.raises(NotImplementedError, match="video decoder"):
-        P.VideoSink(tmp_path / "out.mp4", 30.0)
+    with pytest.raises(ValueError, match=r"clip\.mkv: the Matroska/WebM container is not supported"):
+        (tmp_path / "clip.mkv").write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
+        list(P.iter_source(tmp_path / "clip.mkv"))
+    sink = P.VideoSink(tmp_path / "out.mp4", 0.0)
+    for f in got[:3]:
+        sink.write(f.img if f.img.shape == (40, 56, 3) else np.zeros((40, 56, 3), np.uint8))
+    sink.close()
+    assert sink.frames_written == 3 and sink.fps == 30.0
+    assert int(cv2.VideoCapture(str(tmp_path / "out.mp4")).get(cv2.CAP_PROP_FRAME_COUNT)) == 3
+
+
+def test_cli_predict_over_video_writes_what_the_jax_cli_writes(pair, tmp_path, monkeypatch, capsys):
+    """``cli.predict`` over a directory of two images, an .avi and an .mp4
+    writes the file names and summary lines of the JAX package's
+    ``cli.predict`` (run here with the port's predictor in place of its
+    own, so both draw the same boxes), and cv2 reads its videos with the
+    JAX outputs' frame counts and fps."""
+    import shutil
+
+    import mga_yolo_tpu.train.predictor as jax_predictor
+    from mga_yolo_tpu.cli import predict as jax_cli
+    from mga_yolo_tpu.utils import compile_cache
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.train.predictor import load_predictor
+
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("im0.png", "im1.png"):
+        shutil.copy(pair["imgs"] / name, src / name)
+    clips = _clips(src)
+    args = ["--weights", str(pair["ckpt"]), "--source", str(src), "--conf", "0.01", "--batch", "3",
+            "--save-frame-masks"]
+    port_out, jax_out = tmp_path / "port", tmp_path / "jax"
+    res = cli_predict.main(args + ["--out", str(port_out), "--device", "cpu"])
+    port_lines = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(jax_predictor, "load_predictor", lambda *a, **k: load_predictor(
+        pair["ckpt"], conf=0.01, device="cpu"))
+    monkeypatch.setattr(compile_cache, "enable_compile_cache", lambda: None)  # no JAX compile here to cache
+    jax_cli.main(args + ["--out", str(jax_out)])
+    jax_lines = capsys.readouterr().out.splitlines()
+    assert res["images"] == 2 and res["frames"] == sum(n for _, n in clips.values()) == 9
+    names = sorted(p.name for p in port_out.iterdir())
+    assert names == sorted(p.name for p in jax_out.iterdir())
+    assert {"clip_pred.avi", "run_pred.mp4", "clip_f00004_mask_p3.png", "run_f00003_mask_p5.png"} <= set(names)
+    assert [ln.replace(str(port_out), "OUT") for ln in port_lines] == \
+        [ln.replace(str(jax_out), "OUT") for ln in jax_lines]
+    assert port_lines[-3:] == ["clip.avi: 5 frames -> clip_pred.avi", "run.mp4: 4 frames -> run_pred.mp4",
+                               f"[mga-predict] 2 images, 9 video frames -> {port_out}"]
+    for name in ("clip_pred.avi", "run_pred.mp4"):
+        caps = [cv2.VideoCapture(str(d / name)) for d in (port_out, jax_out)]
+        for prop in (cv2.CAP_PROP_FRAME_COUNT, cv2.CAP_PROP_FPS, cv2.CAP_PROP_FOURCC, cv2.CAP_PROP_FRAME_WIDTH,
+                     cv2.CAP_PROP_FRAME_HEIGHT):
+            assert caps[0].get(prop) == caps[1].get(prop), (name, prop)
+        assert caps[0].get(cv2.CAP_PROP_FPS) == clips["clip.avi" if name.endswith("avi") else "run.mp4"][0]
 
 
 def test_rectangle_equals_cv2_and_plot_draws_labels(pair):
