@@ -185,6 +185,18 @@ Then the baseline toolchain and the experiment grid:
              and two images on best.pt: the JAX package's file names, the
              annotated videos' frame counts and fps, each frame's boxes
              against the predictor's (launches exact); frames/s.
+16. formats — the still formats of the JAX package's ``IMG_EXTS`` (PNG at
+             every bit depth and Adam7, TIFF, WebP; ``data/image_io.py``
+             on ``native/maskops.cpp``, ``native/tiff.cpp``,
+             ``native/webp.cpp``): the committed fixtures
+             (``tests/still_fixtures``) decoded equal to cv2's pixels,
+             colour and grey; decode ms of a 512 px grey angiogram as a
+             16-bit PNG, an LZW TIFF, a lossless and a lossy WebP; the
+             flagship behind ``MGAServer`` answering 16-bit PNG, LZW TIFF,
+             eXIf-turned PNG and WebP uploads with the boxes of the port's
+             decode of the same bytes (launches exact); 4 + 1 micro-steps
+             fed from 64 16-bit PNGs with 1-bit PNG masks, then from 64 LZW
+             TIFFs with TIFF masks (launches exact).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -198,7 +210,8 @@ and exits non-zero unless the first passes and every fault fails.
 ``--spatial-alone`` and ``--spatial-faults`` do the same for ``[spatial]``
 and ``SPATIAL_FAULTS`` (a halo row dropped, the reductions not all-reduced
 over the space ranks, the detection loss counted k times, the max's ties
-counted on one band).
+counted on one band). ``--formats-alone`` runs ``[formats]`` alone, on a
+synthetic set of 64 + 16 images.
 """
 
 from __future__ import annotations
@@ -2859,6 +2872,222 @@ def jpeg_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda"
     return {k: sum(v[k] for v in (launches["JPEG"], launches["fed"])) for k in launches["JPEG"]}
 
 
+STILL_FIXTURES = Path(__file__).resolve().parent / "tests" / "still_fixtures"
+FORMATS_UPLOADS = 16  # uploads of each kind POSTed to the server
+FORMATS_FED_IMAGES, FORMATS_DISTINCT_TIFF = 64, 16  # training files a format; distinct LZW encodes among them
+
+
+def formats_dataset(np, data_yaml, root: Path, kind: str) -> Path:
+    """The first ``FORMATS_FED_IMAGES`` training images of ``data_yaml``'s
+    dataset with their labels, as 16-bit PNG images with 1-bit PNG masks
+    (``kind`` "png16") or as LZW TIFF images (predictor 2) with PackBits
+    1-bit TIFF masks ("tiff"), written here by the test writers (numpy and
+    zlib; the card's host has no cv2 or PIL). The TIFF set holds
+    ``FORMATS_DISTINCT_TIFF`` pictures, each under four names with its
+    labels: the writer's Python LZW takes ~0.25 s a picture."""
+    import shutil
+
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.utils import yaml_lite
+    from tests.still_fixtures import writers
+
+    src = Path(data_yaml).parent
+    for d in ("images/train", "labels/train", "masks"):
+        (root / d).mkdir(parents=True)
+    pngs = sorted((src / "images" / "train").iterdir())
+    for i in range(FORMATS_FED_IMAGES):
+        png = pngs[i if kind == "png16" else i % FORMATS_DISTINCT_TIFF]
+        stem = f"{kind}{i:04d}"
+        img = image_io.imread_gray(png)[..., None].astype(np.int64)
+        mask = (image_io.imread_gray(src / "masks" / png.name) > 0).astype(np.uint8)[..., None]
+        if kind == "png16":
+            (root / "images/train" / f"{stem}.png").write_bytes(
+                writers.png_bytes(img * 256 + (255 - img), 16, 0, filters=(1,), level=6))
+            (root / "masks" / f"{stem}.png").write_bytes(writers.png_bytes(mask, 1, 0, filters=(0,), level=6))
+        elif i < FORMATS_DISTINCT_TIFF:
+            (root / "images/train" / f"{stem}.tif").write_bytes(
+                writers.tiff_bytes(img, 8, 1, compression=5, predictor=2, rows_per_strip=64))
+            (root / "masks" / f"{stem}.tif").write_bytes(writers.tiff_bytes(mask, 1, 1, compression=32773))
+        else:
+            first = f"{kind}{i % FORMATS_DISTINCT_TIFF:04d}"
+            shutil.copy(root / "images/train" / f"{first}.tif", root / "images/train" / f"{stem}.tif")
+            shutil.copy(root / "masks" / f"{first}.tif", root / "masks" / f"{stem}.tif")
+        shutil.copy(src / "labels" / "train" / f"{png.stem}.txt", root / "labels/train" / f"{stem}.txt")
+    yaml_lite.dump({"path": str(root), "train": "images/train", "val": "images/train", "dataset": str(root),
+                    "masks_dir": "masks", "names": {0: "stenosis"}, "nc": 1}, root / "data.yaml")
+    return root / "data.yaml"
+
+
+def formats_phase(torch, np, data_yaml, tmp: Path, device: str = "cuda") -> dict:
+    """The still formats the JAX package lists (``IMG_EXTS``): PNG at every
+    bit depth and Adam7, TIFF, WebP (``data/image_io.py`` on
+    ``native/maskops.cpp``, ``native/tiff.cpp``, ``native/webp.cpp``),
+    built on the card's host.
+
+    (a) each committed fixture (``tests/still_fixtures``) decoded, colour
+    and grey, equal to cv2's pixels stored beside it; the four timing files'
+    decodes to their stored SHA-256. (b) decode ms of the 512 x 512 grey
+    angiogram on one thread, colour and grey read: 16-bit PNG, LZW TIFF,
+    lossless and lossy WebP. (c) the flagship (seed 0, bf16, BN-folded)
+    behind ``MGAServer`` on 127.0.0.1: 16 uploads of each kind (16-bit PNG,
+    LZW TIFF, PNG with eXIf orientation 6, written from the val pictures;
+    WebP, the committed lossless and lossy files) POSTed from 4 threads,
+    each reply's boxes within ``[parity]``'s tolerance of
+    ``InferenceEngine`` on the port's decode of the same bytes, the turned
+    PNG answered at its turned size, launches exact (3 CAM gates and 1 NMS
+    a batch). (d) 4 + 1 bf16 micro-steps at batch 16, 640 px, fed through
+    MGADataset and DataLoader from 64 16-bit PNG images with 1-bit PNG
+    masks, then from 64 LZW TIFF images with PackBits TIFF masks: launches
+    exact (3 CAM gates and 1 DFL backward a micro-step). Returns the
+    launches of (c) and (d)."""
+    import hashlib
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.config import load_config
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.dataset import MGADataset
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.serve import InferenceEngine, MGAServer, MicroBatcher
+    from mga_yolo_tpu_torch.train import optim
+    from mga_yolo_tpu_torch.train import state as S
+    from tests.still_fixtures import writers
+
+    t_phase = time.perf_counter()
+    # (a) the fixtures, exactly
+    pixels = np.load(STILL_FIXTURES / "pixels.npz")
+    digests = json.loads((STILL_FIXTURES / "bench.json").read_text())
+    names = sorted(k for k in pixels.files if not k.endswith("_gray"))
+    check(len(names) >= 30, f"[formats] {len(names)} fixtures")
+    for name in names:
+        data = (STILL_FIXTURES / name).read_bytes()
+        for key, got in ((name, image_io.imdecode(data, name)), (f"{name}_gray", image_io.decode(data, name, True))):
+            check(got.shape == pixels[key].shape and bool((got == pixels[key]).all()),
+                  f"[formats] {key}: the port's decode differs from cv2's pixels")
+    bench = {name: (STILL_FIXTURES / name).read_bytes() for name in digests}
+    for name, data in bench.items():
+        for mode, gray in (("color", False), ("gray", True)):
+            got = hashlib.sha256(image_io.decode(data, name, gray).tobytes()).hexdigest()
+            check(got == digests[name][mode], f"[formats] {name} {mode}: SHA-256 {got[:12]} is not cv2's")
+    by_kind = {k: sum(n.startswith(k) for n in names) for k in ("png", "tiff", "webp")}
+    print(f"[formats] (a) {len(names)} fixtures ({by_kind}) decoded by {native.library_path().name}, built on this "
+          f"host: colour and grey equal to cv2's pixels exactly; the 4 timing files' decodes have cv2's SHA-256")
+
+    # (b) decode times, one thread
+    for name, data in bench.items():
+        color = decode_ms(image_io.imdecode, data, 15, 1)
+        grey = decode_ms(lambda d: image_io.decode(d, gray=True), data, 15, 1)
+        print(f"[formats] (b) decode {name} (512x512 grey, {len(data) / 1e3:.1f} kB): {color:.3f} ms to BGR, "
+              f"{grey:.3f} ms to grey, on 1 thread")
+
+    # (c) the flagship behind MGAServer, uploads in each format
+    val_pngs = sorted((Path(data_yaml).parent / "images" / "val").iterdir())[:FORMATS_UPLOADS]
+    greys = [image_io.imread_gray(p)[..., None].astype(np.int64) for p in val_pngs]
+    uploads = {
+        "PNG 16-bit": [writers.png_bytes(g * 256 + (255 - g), 16, 0, filters=(1,), level=6) for g in greys],
+        "TIFF LZW": [writers.tiff_bytes(g, 8, 1, compression=5, predictor=2, rows_per_strip=64) for g in greys[:8]],
+        "PNG eXIf 6": [writers.png_bytes(g[:, :384], 8, 0, filters=(1,), level=6, orientation=6) for g in greys],
+        "WebP": [bench["grey512_lossless.webp"], bench["grey512_lossy.webp"]] * 4
+                + [(STILL_FIXTURES / n).read_bytes() for n in names if n.endswith(".webp")][:8],
+    }
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, device=device)
+    eng = InferenceEngine(model, imgsz=IMGSZ, batch=BATCH, conf=0.001)  # bf16, BN-folded on the card
+    eng.warmup()
+    del model
+    launches, n_boxes, err = {}, 0, 0.0
+    for kind, datas in uploads.items():
+        decoded = [image_io.imdecode(d) for d in datas]
+        want = []
+        for i in range(0, len(decoded), BATCH):
+            lbs, metas = zip(*(eng.preprocess(im) for im in decoded[i:i + BATCH]))
+            want += eng.infer_batch(list(lbs), list(metas))
+        server = MGAServer(MicroBatcher(eng, max_wait_ms=5.0), host="127.0.0.1", port=0)
+        server.start()
+
+        def post(data: bytes, port=server.port) -> dict:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=data, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                got = list(pool.map(post, datas))
+            rate = len(datas) / (time.perf_counter() - t0)
+            counts = read_launches()
+            n_batches = server.batcher.stats()["batches"]
+        finally:
+            server.stop()
+        want_l = want_launches({"cam_gate": 3 * n_batches, "nms_suppress": n_batches})
+        check(counts == want_l, f"[formats] {kind} uploads: launches {counts} for {n_batches} batches, want {want_l}")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        for r, w in zip(got, want):
+            boxes = np.array([[b["x1"], b["y1"], b["x2"], b["y2"], b["conf"], b["cls"]] for b in r["boxes"]],
+                             np.float32).reshape(-1, 6)
+            check(r["orig_shape"] == list(w.orig_shape) and boxes.shape == w.boxes.shape
+                  and bool(np.allclose(boxes, w.boxes, rtol=PATH_RTOL, atol=PATH_ATOL)),
+                  f"[formats] a {kind} upload's boxes {boxes.shape} differ from the engine's on the port's decode "
+                  f"{w.boxes.shape}")
+            n_boxes += len(boxes)
+            err = max(err, float(np.abs(boxes - w.boxes).max(initial=0.0)))
+        if kind == "PNG eXIf 6":
+            check(all(r["orig_shape"] == [384, 512] for r in got), "[formats] a turned PNG answered unturned")
+        print(f"[formats] (c) {len(datas)} {kind} uploads ({sum(map(len, datas)) / len(datas) / 1e3:.1f} kB each, "
+              f"shown {sorted({tuple(r['orig_shape']) for r in got})}) POSTed from 4 threads to MGAServer on the "
+              f"flagship: {n_batches} batches, {rate:.1f} requests/s; launches {counts}")
+    check(n_boxes > 0, "[formats] no boxes at conf 0.001")
+    print(f"[formats] (c) every reply's boxes ({n_boxes}) equal InferenceEngine's on the port's decode of the same "
+          f"bytes: max abs error {err:.3g} (rtol {PATH_RTOL}, atol {PATH_ATOL})")
+    del eng
+
+    # (d) fed training from 16-bit PNG and from LZW TIFF files
+    t0 = time.perf_counter()
+    yamls = {kind: formats_dataset(np, data_yaml, tmp / f"formats_{kind}", kind) for kind in ("png16", "tiff")}
+    print(f"[formats] (d) wrote {FORMATS_FED_IMAGES} 16-bit PNGs with 1-bit PNG masks and {FORMATS_FED_IMAGES} LZW "
+          f"TIFFs ({FORMATS_DISTINCT_TIFF} pictures) with PackBits TIFF masks in {time.perf_counter() - t0:.2f} s")
+    kw = dict(imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True, device=device)
+    sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                           warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+    step = make_step(torch, model, max(round(NBS / TRAIN_BATCH), 1), torch.bfloat16, warmup_steps=sched.warmup_steps)
+    st = S.create_train_state(model)
+    st.step = st.last_apply = sched.warmup_steps - 4
+    for kind, y in yamls.items():
+        ds = MGADataset(load_config("configs/hyperparams/cbam_defaults.yaml", data=str(y), **kw), "train",
+                        augment=True)
+        check(len(ds) == FORMATS_FED_IMAGES and {p.suffix for p in ds.img_files} == {".png" if kind == "png16" else
+                                                                                     ".tif"},
+              f"[formats] {kind}: {len(ds)} images")
+        src = Path(data_yaml).parent
+        for i in (0, FORMATS_FED_IMAGES - 1):  # the 16-bit high byte and the LZW strips are the source's pixels
+            raw, png = ds.load_raw(i), sorted((src / "images" / "train").iterdir())[
+                i if kind == "png16" else i % FORMATS_DISTINCT_TIFF]
+            check(bool((raw["img"] == image_io.imread(png)).all()) and bool(
+                (raw["mask"] == (image_io.imread_gray(src / "masks" / png.name) > 0)).all()),
+                f"[formats] {kind} {ds.img_files[i].name}: image or mask differs from its source")
+        loader = DataLoader(ds, TRAIN_BATCH, seed=0, workers=8)
+        rate, n_img, n_b = host_rate(np, loader, 1)
+        n_steps = len(loader)
+        zero_launches()
+        st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+        got = read_launches()
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        want_l = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+        check(got == want_l, f"[formats] {kind}-fed: launches {got} in {n_steps} + 1 micro-steps, want {want_l}")
+        print(f"[formats] (d) {kind}: the loader alone {rate:.1f} images/s ({n_img} images, {n_b} boxes); "
+              f"{n_steps} + 1 micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by it: {fed_summary(rows)}; last loss "
+              f"{float(metrics['loss']):.4f}; launches {got}")
+    del step, st, model
+    print(f"[formats] the phase took {time.perf_counter() - t_phase:.1f} s on {gpu_name_and_power()}")
+    return launches
+
+
 VIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "video_fixtures"
 VIDEO_FRAMES, VIDEO_SIZE = 64, 512  # each clip [video] writes: 64 frames of 512 x 512
 VIDEO_FPS = {"avi": 25.0, "mp4": 29.97}
@@ -3111,17 +3340,23 @@ def planted_faults(tag: str, faults: dict) -> int:
 
 
 def phase_alone(tag: str) -> int:
-    """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``
-    or ``[spatial]``."""
+    """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
+    ``[spatial]`` or ``[formats]`` (on a synthetic set of 64 + 16 images)."""
     import numpy as np
     import torch
 
+    from mga_yolo_tpu_torch.data.synthetic import write_synthetic_dataset
     from mga_yolo_tpu_torch.kernels import _build
 
+    print(gpu_name_and_power())
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        {"ddp": ddp_phase, "spatial": spatial_phase}[tag](torch, np, Path(tmp))
+        if tag == "formats":
+            data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
+            formats_phase(torch, np, data_yaml, Path(tmp))
+        else:
+            {"ddp": ddp_phase, "spatial": spatial_phase}[tag](torch, np, Path(tmp))
     return 0
 
 
@@ -3207,15 +3442,17 @@ def main() -> int:
         print(f"[base] [grid] the baseline toolchain and the grid took {time.perf_counter() - t0:.1f} s")
         paths["jpeg"] = jpeg_phase(torch, np, data_yaml, best, Path(tmp))
         paths["video"] = video_phase(torch, np, data_yaml, best, Path(tmp))
-    # each kernel's launches are those of this slice's path first (cli.predict
-    # over video), then the earlier slices' (JPEG uploads served and
+        paths["formats"] = formats_phase(torch, np, data_yaml, Path(tmp))
+    # each kernel's launches are those of this slice's path first (uploads of
+    # the still formats served and micro-steps fed from them), then the
+    # earlier slices' (cli.predict over video, JPEG uploads served and
     # JPEG-fed micro-steps, cli.val on an exported file, where tensorflow imports, the baseline
     # toolchain's run, the spatial-mesh run with device
     # augmentation, the spatial-mesh run and
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -3233,7 +3470,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"]):
+    if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
+                        ["--formats-alone"]):
         import torch
 
         if not torch.cuda.is_available():

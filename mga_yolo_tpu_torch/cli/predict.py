@@ -9,7 +9,7 @@ annotated video, ``{stem}_pred.avi`` (MJPG) for an ``.avi`` source and
 ``{stem}_pred.mp4`` (mp4v) for any other, at the source's fps; with
 ``--save-frame-masks`` (or ``--save-feature-maps``) each frame's masks as
 ``{stem}_f{index:05d}_mask_*.png`` (and ``_masks.npz``). ``--max-frames``
-caps the frames taken per video. Sources are PNG, JPEG or BMP images and
+caps the frames taken per video. Sources are PNG, JPEG, BMP, TIFF or WebP images and
 AVI / MP4 / MOV videos (``data/image_io.py``, ``data/video_io.py``). Stems
 are made unique across a recursive directory (``a/x.png``, ``b/x.png`` ->
 ``x``, ``x_2``). The run is on CUDA unless ``--device cpu`` (or
@@ -32,7 +32,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser("mga-predict")
     p.add_argument("--weights", required=True, help="checkpoint .pt, an exported .tflite or a SavedModel directory")
     p.add_argument("--source", required=True,
-                   help="image or video file, directory, or glob (PNG, JPEG, BMP; AVI, MP4, MOV)")
+                   help="image or video file, directory, or glob (PNG, JPEG, BMP, TIFF, WebP; AVI, MP4, MOV)")
     p.add_argument("--imgsz", type=int, default=None)
     p.add_argument("--conf", type=float, default=0.25)
     p.add_argument("--iou", type=float, default=0.45)

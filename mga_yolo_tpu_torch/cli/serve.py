@@ -2,8 +2,8 @@
 
 Counterpart of ``mga_yolo_tpu/cli/serve.py``: ``serve.build_server`` on a
 checkpoint (the trainer's ``.pt`` or an ``export-torch`` file), then the
-HTTP server until interrupted (``POST /predict`` with PNG, JPEG or
-BMP bytes). The last
+HTTP server until interrupted (``POST /predict`` with PNG, JPEG,
+BMP, TIFF or WebP bytes). The last
 line printed before serving names the bound port, so ``--port 0`` (any
 free port) can be used. The run is on CUDA unless ``--device cpu`` (or
 ``cuda:N``); ``--use-pallas`` is accepted and changes nothing.

@@ -3,7 +3,7 @@
 Counterpart of ``mga_yolo_tpu/data/dataset.py``: YOLO txt labels (parsed
 once into an on-disk cache), stem-matched mask discovery, the mask-synced
 augmentation pipeline and the mask pyramid at strides 8/16/32, emitted at
-fixed shapes. Images (PNG, JPEG, BMP) are read by ``data/image_io.py``; the data YAML
+fixed shapes. Images (PNG, JPEG, BMP, TIFF, WebP) are read by ``data/image_io.py``; the data YAML
 is read by the port's own reader (``config.read_yaml``).
 
 A sample (:meth:`MGADataset.get`) is numpy on the host: ``image`` (S, S, 3)

@@ -52,7 +52,7 @@ def infer_mask_path(im_file: str | Path, data_root: Optional[str], masks_dir: Op
 
 
 def load_binary_mask(path: str | Path) -> np.ndarray:
-    """Greyscale read (PNG, JPEG, BMP, as cv2.IMREAD_GRAYSCALE), > 0 -> 1, uint8."""
+    """Greyscale read (any format image_io reads, as cv2.IMREAD_GRAYSCALE), > 0 -> 1, uint8."""
     return (image_io.imread_gray(path) > 0).astype(np.uint8)
 
 

@@ -99,8 +99,8 @@ def _representative_gen(source, batch: int, size: int, n_max: int = 32):
     of images, one image, a list of image paths, or None (8 uniform-noise
     batches from ``default_rng(0)``: functional but weak calibration). A
     source that does not exist or holds no image is a ValueError; images are
-    read with ``data.image_io`` (PNG, JPEG or BMP: any other file raises,
-    naming the file and its format) and letterboxed to ``size`` without upscaling."""
+    read with ``data.image_io`` (PNG, JPEG, BMP, TIFF or WebP: any other file
+    raises, naming the file and its format) and letterboxed to ``size`` without upscaling."""
     from mga_yolo_tpu_torch.data.dataset import IMG_EXTS
 
     paths = []

@@ -1,19 +1,22 @@
 """ctypes bindings of the port's host C++: ``maskops.cpp`` (mask pyramid, PNG
-rows, the port's copy of ``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG
-decoding and encoding, and MJPEG frames' planes), ``bmp.cpp`` (BMP
-decoding), ``yuv.cpp`` (video colour conversion) and ``mpeg4.cpp`` (MPEG-4
-Part 2 decoding and I-VOP encoding), with ``simple_idct.h``.
+rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
+``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG decoding and encoding, and
+MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
+colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
+encoding), ``tiff.cpp`` (TIFF's LZW, PackBits and predictor) and
+``webp.cpp`` (WebP's VP8L and VP8 bitstreams), with ``simple_idct.h``.
 
-The five sources are compiled at first use, together, with ``g++ -O3
+The seven sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
 the library cannot be built or loaded, :func:`load` (and so every entry
 point) raises RuntimeError with the compiler's or the loader's message. The
 numpy twins in ``data/mask_ops.py`` and ``data/image_io.py`` are the oracle
-the tests hold the mask ops and PNG rows equal to; cv2, the JAX package's
-decoder, is the codecs' oracle. The codecs hold no global state, and ctypes
-releases the GIL around each call, so threads decode at once.
+the tests hold the mask ops, PNG rows and TIFF strips equal to; cv2, the
+JAX package's decoder, is the codecs' oracle. The codecs hold no global
+state, and ctypes releases the GIL around each call, so threads decode at
+once.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from typing import Optional
 import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
-CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp"))
+CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "tiff.cpp",
+                                                                 "webp.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -102,8 +106,15 @@ def _open(target: Path):
     lib.close3x3_u8.argtypes = [u8p, u8p, c, c]
     lib.png_unfilter_u8.argtypes = [u8p, u8p, c, c, c]
     lib.png_unfilter_u8.restype = c
+    lib.png_unpack_u8.argtypes = [u8p, u8p, c, c, c, c, c]
+    lib.png_adam7_scatter_u8.argtypes = [u8p, c, c, c, c, u8p, c]
+    lib.png_strip16_u8.argtypes = [u8p, u8p, ctypes.c_int64]
+    lib.png_rgb16_to_gray_u8.argtypes = [u8p, u8p, ctypes.c_int64, c]
+    lib.bgr_to_gray_u8.argtypes = [u8p, u8p, ctypes.c_int64, c]
+    lib.gray_to_bgr_u8.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
     for fn in ("block_reduce_max_u8", "block_reduce_mean_u8", "zhang_suen_thin_u8",
-               "rasterize_edges_u8", "close3x3_u8"):
+               "rasterize_edges_u8", "close3x3_u8", "png_unpack_u8", "png_adam7_scatter_u8", "png_strip16_u8",
+               "png_rgb16_to_gray_u8", "bgr_to_gray_u8", "gray_to_bgr_u8"):
         getattr(lib, fn).restype = None
     i32p, buf, n64 = ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64
     for fn in (lib.mga_jpeg_header, lib.mga_bmp_header):
@@ -132,6 +143,14 @@ def _open(target: Path):
     lib.mga_mpeg4_encode_header.restype = n64
     lib.mga_mpeg4_encode_intra.argtypes = [u8p, u8p, u8p, c, c, c, c, c, c, u8p, n64, buf, c]
     lib.mga_mpeg4_encode_intra.restype = n64
+    for fn in (lib.mga_tiff_lzw, lib.mga_tiff_packbits):
+        fn.argtypes = [buf, n64, u8p, n64]
+        fn.restype = n64
+    lib.mga_tiff_predict.argtypes = [u8p, n64, n64, c, c, c]
+    lib.mga_tiff_predict.restype = None
+    for fn in (lib.mga_webp_vp8l_decode, lib.mga_webp_vp8_decode):
+        fn.argtypes = [buf, n64, c, c, u8p, buf, c]
+        fn.restype = c
     return lib, None
 
 
@@ -199,6 +218,82 @@ def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     bad = lib.png_unfilter_u8(_u8(raw), _u8(out), h, stride, bpp)
     if bad:
         raise ValueError(f"PNG row {bad - 1} has filter type {int(raw[(bad - 1) * (stride + 1)])}")
+    return out
+
+
+def png_unpack(rows: np.ndarray, n: int, depth: int, scale: int) -> np.ndarray:
+    """(h, n) uint8 samples from (h, stride) rows of ``depth``-bit (1, 2, 4)
+    samples, high bits first, each times ``scale``."""
+    lib = load()
+    rows = np.ascontiguousarray(rows, np.uint8)
+    h, stride = rows.shape
+    if stride * 8 < n * depth or depth not in (1, 2, 4):
+        raise ValueError(f"rows of {stride} bytes do not hold {n} samples of {depth} bits")
+    out = np.empty((h, n), np.uint8)
+    lib.png_unpack_u8(_u8(rows), _u8(out), h, stride, n, depth, scale)
+    return out
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+"""Adam7's passes as (x0, y0, dx, dy)."""
+
+
+def png_adam7_scatter(pixels: np.ndarray, p: int, out: np.ndarray) -> None:
+    """Write pass ``p``'s (ph, pw, px) pixels into ``out``, the whole
+    (h, w, px) uint8 image, in place."""
+    lib = load()
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    ph, pw, px = pixels.shape
+    x0, y0, dx, dy = ADAM7[p]
+    h, w = out.shape[:2]
+    if (not out.flags.c_contiguous or out.dtype != np.uint8 or out.shape[2] != px
+            or (ph and y0 + (ph - 1) * dy >= h) or (pw and x0 + (pw - 1) * dx >= w)):
+        raise ValueError(f"pass {p} of {pixels.shape} does not fit an image of {out.shape}")
+    lib.png_adam7_scatter_u8(_u8(pixels), pw, ph, p, px, _u8(out), w)
+
+
+def png_strip16(samples: np.ndarray) -> np.ndarray:
+    """The high byte of each big-endian 16-bit sample: (..., 2n) -> (..., n)."""
+    lib = load()
+    samples = np.ascontiguousarray(samples, np.uint8)
+    out = np.empty(samples.shape[:-1] + (samples.shape[-1] // 2,), np.uint8)
+    lib.png_strip16_u8(_u8(samples), _u8(out), out.size)
+    return out
+
+
+def png_rgb16_to_gray(pixels: np.ndarray) -> np.ndarray:
+    """(h, w) grey from (h, w, 6 or 8) big-endian RGB(A) 16-bit pixels,
+    libpng's conversion at 16 bits, then the high byte."""
+    lib = load()
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.ndim != 3 or pixels.shape[2] not in (6, 8):
+        raise ValueError(f"want (h, w, 6 or 8) pixels, got {pixels.shape}")
+    out = np.empty(pixels.shape[:2], np.uint8)
+    lib.png_rgb16_to_gray_u8(_u8(pixels), _u8(out), out.size, pixels.shape[2] // 2)
+    return out
+
+
+GRAY_WEIGHTS = {"cvtcolor": 0, "tiff": 1, "libpng": 2}
+
+
+def bgr_to_gray(bgr: np.ndarray, weights: str) -> np.ndarray:
+    """(h, w) grey from (h, w, 3) BGR uint8 with one of cv2's conversions'
+    weights (``GRAY_WEIGHTS``)."""
+    lib = load()
+    bgr = np.ascontiguousarray(bgr, np.uint8)
+    if bgr.ndim != 3 or bgr.shape[2] != 3:
+        raise ValueError(f"want (h, w, 3) BGR, got {bgr.shape}")
+    out = np.empty(bgr.shape[:2], np.uint8)
+    lib.bgr_to_gray_u8(_u8(bgr), _u8(out), out.size, GRAY_WEIGHTS[weights])
+    return out
+
+
+def gray_to_bgr(img: np.ndarray) -> np.ndarray:
+    """(h, w, 3) with the first sample of each pixel of (h, w, c) uint8 in B, G and R."""
+    lib = load()
+    img = np.ascontiguousarray(img, np.uint8)
+    out = np.empty(img.shape[:2] + (3,), np.uint8)
+    lib.gray_to_bgr_u8(_u8(img), img.shape[2] if img.ndim == 3 else 1, _u8(out), out.size // 3)
     return out
 
 
@@ -387,3 +482,57 @@ def bmp_decode(data: bytes, gray: bool = False) -> np.ndarray:
     ``cv2.imdecode``. Raises ValueError naming what it does not read."""
     lib = load()
     return _decode(lib.mga_bmp_header, lib.mga_bmp_decode, bytes(data), gray)
+
+
+_TIFF_ERRORS = {-1: "old-style (LSB-first) LZW", -2: "corrupt LZW data (a code its table does not hold)",
+                -3: "the data ends before the strip or tile is full"}
+
+
+def _tiff_expand(fn, data: bytes, size: int) -> np.ndarray:
+    out = np.empty(size, np.uint8)
+    n = fn(bytes(data), len(data), _u8(out), size)
+    if n < 0:
+        raise ValueError(_TIFF_ERRORS[n])
+    if n < size:
+        raise ValueError(f"the data holds {n} bytes of a strip or tile of {size}")
+    return out
+
+
+def tiff_lzw(data: bytes, size: int) -> np.ndarray:
+    """The ``size`` bytes of a TIFF strip or tile from its LZW data, as
+    libtiff decodes it; ValueError for corrupt or short data."""
+    return _tiff_expand(load().mga_tiff_lzw, data, size)
+
+
+def tiff_packbits(data: bytes, size: int) -> np.ndarray:
+    """The ``size`` bytes of a TIFF strip or tile from its PackBits data."""
+    return _tiff_expand(load().mga_tiff_packbits, data, size)
+
+
+def tiff_predict(buf: np.ndarray, rows: int, row_samples: int, spp: int, bits: int, big_endian: bool) -> None:
+    """Undo TIFF's horizontal predictor (2) in place on ``rows`` rows of
+    ``row_samples`` samples of ``bits`` (8 or 16) bits each, ``spp`` a pixel."""
+    if not buf.flags.c_contiguous or buf.dtype != np.uint8 or buf.size < rows * row_samples * bits // 8:
+        raise ValueError(f"a buffer of {buf.size} bytes does not hold {rows} rows of {row_samples} samples")
+    load().mga_tiff_predict(_u8(buf), rows, row_samples, spp, bits, int(big_endian))
+
+
+def _webp(fn, data: bytes, h: int, w: int) -> np.ndarray:
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    data = bytes(data)
+    if fn(data, len(data), w, h, _u8(out), err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def webp_vp8l_decode(data: bytes, h: int, w: int) -> np.ndarray:
+    """A VP8L (lossless WebP) bitstream of an h x w image -> (h, w, 3) BGR, as
+    libwebp decodes it; ValueError naming what is wrong with a corrupt one."""
+    return _webp(load().mga_webp_vp8l_decode, data, h, w)
+
+
+def webp_vp8_decode(data: bytes, h: int, w: int) -> np.ndarray:
+    """A VP8 (lossy WebP) key frame of an h x w image -> (h, w, 3) BGR, as
+    libwebp decodes it for cv2 (fancy upsampling, its YUV -> BGR)."""
+    return _webp(load().mga_webp_vp8_decode, data, h, w)

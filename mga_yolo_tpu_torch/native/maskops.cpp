@@ -16,6 +16,12 @@
 //   rasterize_edges_u8    - Bresenham lines of skeleton edges on coarse grid
 //   close3x3_u8           - 3x3 morphological closing (bridge)
 //   png_unfilter_u8       - undo PNG's per-row filters (types 0-4)
+//   png_unpack_u8         - 1/2/4-bit samples to one byte each, scaled
+//   png_adam7_scatter_u8  - one Adam7 pass's pixels into the whole image
+//   png_strip16_u8        - 16-bit big-endian samples to their high byte
+//   png_rgb16_to_gray_u8  - libpng's 16-bit rgb_to_gray, then the strip
+//   bgr_to_gray_u8        - BGR -> grey with cv2's, libtiff-raster or libpng weights
+//   gray_to_bgr_u8        - grey replicated into B, G and R
 
 #include <algorithm>
 #include <cstdint>
@@ -196,6 +202,69 @@ int png_unfilter_u8(const uint8_t* in, uint8_t* out, int h, int stride, int bpp)
         }
     }
     return 0;
+}
+
+// Unpacked rows: in is h rows of stride bytes holding n samples of depth
+// 1, 2 or 4 bits each, the first in the high bits; out is h rows of n
+// bytes, each sample times scale (libpng's grey expansion to 8 bits is
+// 255, 85 or 17; palette indices take 1).
+void png_unpack_u8(const uint8_t* in, uint8_t* out, int h, int stride, int n, int depth, int scale) {
+    const int per = 8 / depth, mask = (1 << depth) - 1;
+    for (int y = 0; y < h; ++y) {
+        const uint8_t* r = in + (size_t)y * stride;
+        uint8_t* o = out + (size_t)y * n;
+        for (int x = 0; x < n; ++x) {
+            int shift = 8 - depth * (x % per + 1);
+            o[x] = (uint8_t)(((r[x / per] >> shift) & mask) * scale);
+        }
+    }
+}
+
+// Adam7 pass p (0-6) of pw x ph pixels of px bytes each, into out, the
+// whole image of w pixels a row: pixel (y, x) of the pass lands at row
+// y0 + y * dy, column x0 + x * dx.
+void png_adam7_scatter_u8(const uint8_t* pass, int pw, int ph, int p, int px, uint8_t* out, int w) {
+    static const int X0[7] = {0, 4, 0, 2, 0, 1, 0}, Y0[7] = {0, 0, 4, 0, 2, 0, 1};
+    static const int DX[7] = {8, 8, 4, 4, 2, 2, 1}, DY[7] = {8, 8, 8, 4, 4, 2, 2};
+    for (int y = 0; y < ph; ++y) {
+        uint8_t* o = out + ((size_t)(Y0[p] + y * DY[p]) * w + X0[p]) * px;
+        const uint8_t* s = pass + (size_t)y * pw * px;
+        for (int x = 0; x < pw; ++x) std::memcpy(o + (size_t)x * DX[p] * px, s + (size_t)x * px, px);
+    }
+}
+
+// png_set_strip_16: each big-endian 16-bit sample's high byte.
+void png_strip16_u8(const uint8_t* in, uint8_t* out, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) out[i] = in[2 * i];
+}
+
+// libpng's rgb_to_gray on 16-bit samples (RGB or RGBA, alpha ignored) with
+// cv2's weights 0.299, 0.587 in 15-bit fixed point, rounded, before the
+// strip to 8 bits takes the high byte: libpng converts before it strips.
+void png_rgb16_to_gray_u8(const uint8_t* in, uint8_t* out, int64_t npx, int channels) {
+    for (int64_t i = 0; i < npx; ++i) {
+        const uint8_t* s = in + i * channels * 2;
+        uint32_t r = (s[0] << 8) | s[1], g = (s[2] << 8) | s[3], b = (s[4] << 8) | s[5];
+        out[i] = (uint8_t)(((9797 * r + 19234 * g + 3737 * b + 16384) >> 15) >> 8);
+    }
+}
+
+// Grey from BGR pixels (stride 3), with the weights of one of cv2's
+// conversions: 0 cvtColor's BGR2GRAY (15-bit, rounded), 1 the BGRA2Gray cv2
+// applies to libtiff's RGBA raster (14-bit, rounded), 2 libpng's
+// rgb_to_gray at 8 bits (15-bit, truncated).
+void bgr_to_gray_u8(const uint8_t* bgr, uint8_t* out, int64_t npx, int kind) {
+    static const uint32_t W[3][5] = {{3735, 19235, 9798, 16384, 15}, {1868, 9617, 4899, 8192, 14},
+                                     {3737, 19234, 9797, 0, 15}};
+    const uint32_t* w = W[kind];
+    for (int64_t i = 0; i < npx; ++i) {
+        const uint8_t* p = bgr + 3 * i;
+        out[i] = (uint8_t)((p[0] * w[0] + p[1] * w[1] + p[2] * w[2] + w[3]) >> w[4]);
+    }
+}
+
+void gray_to_bgr_u8(const uint8_t* gray, int64_t stride, uint8_t* out, int64_t npx) {
+    for (int64_t i = 0; i < npx; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = gray[i * stride];
 }
 
 }  // extern "C"

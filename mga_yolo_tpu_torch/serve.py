@@ -272,7 +272,7 @@ class MGAServer:
     """Threaded HTTP server over a MicroBatcher.
 
     Endpoints:
-      POST /predict        PNG, JPEG or BMP image bytes -> detections JSON
+      POST /predict        PNG, JPEG, BMP, TIFF or WebP bytes -> detections JSON
                            (another format, or a corrupt file: 400)
                            (?masks=1 adds base64-PNG sigmoid masks)
       GET  /healthz        200 once warm

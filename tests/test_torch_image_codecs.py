@@ -236,16 +236,27 @@ def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     """CMYK, 12-bit, arithmetic-coded, lossless and hierarchical JPEGs, more
     than 2^30 pixels (refused from the header, before any allocation), a
     progressive file whose blocks libjpeg would smooth, a cut file, and
-    other formats raise ValueError naming the file and what it is (libjpeg
-    pads a cut file with grey and cv2 returns it; the port refuses it)."""
+    other formats (GIF) raise ValueError naming the file and what it is
+    (libjpeg pads a cut file with grey and cv2 returns it; the port refuses
+    it). WebP, once refused, now reads as cv2 reads it, at the JAX
+    package's ``image_size``."""
+    from mga_yolo_tpu.data.dataset import image_size as jax_image_size
     from mga_yolo_tpu_torch.data import image_io
 
+    if kind == "webp":
+        ok, enc = cv2.imencode(".webp", _image(16, 16, 3, 0))
+        assert ok
+        path = tmp_path / "x.img"
+        path.write_bytes(enc.tobytes())
+        np.testing.assert_array_equal(image_io.imread(path), cv2.imread(str(path)))
+        np.testing.assert_array_equal(image_io.decode(enc.tobytes(), gray=True),
+                                      cv2.imdecode(enc, cv2.IMREAD_GRAYSCALE))
+        assert image_io.image_size(path) == jax_image_size(path) == (16, 16)
+        return
     if kind == "cmyk":
         data, what = _exif_jpeg(_image(16, 16, 3, 0), 1, mode="CMYK"), r"4-component \(CMYK/YCCK\)"
-    elif kind in ("webp", "gif"):
-        ok, enc = cv2.imencode(".webp", _image(16, 16, 3, 0)) if kind == "webp" else (True, b"GIF89a" + bytes(20))
-        assert ok
-        data, what = bytes(enc), {"webp": "RIFF/WebP", "gif": "GIF"}[kind] + "; the port reads PNG, JPEG and BMP"
+    elif kind == "gif":
+        data, what = b"GIF89a" + bytes(20), "GIF; the port reads PNG, JPEG, BMP, TIFF and WebP"
     else:
         data, what = _refused()[kind]
     path = tmp_path / "x.img"
@@ -299,8 +310,9 @@ def test_cut_and_flipped_files_raise_or_decode_at_their_header_size(source):
 @pytest.mark.parametrize("kind", ["png", "png_grey", "bmp", "bmp_top_down", "jpeg", "jpeg_progressive", "tiff"])
 def test_image_size_equals_jax(tmp_path, kind):
     """``image_io.image_size`` is the JAX package's ``image_size``: PNG, BMP
-    and JPEG headers (EXIF orientations: the parametrised test above), a full
-    decode for another format (here TIFF, which both refuse to read)."""
+    and JPEG headers (EXIF orientations: the parametrised test above); for
+    TIFF the port reads the first IFD where the JAX package decodes with cv2,
+    and both give cv2's (h, w)."""
     from mga_yolo_tpu.data.dataset import image_size as jax_image_size
     from mga_yolo_tpu_torch.data import image_io
 
@@ -313,10 +325,7 @@ def test_image_size_equals_jax(tmp_path, kind):
     else:
         cv2.imwrite(str(path), img, [P, 1] if kind == "jpeg_progressive" else [])
     if kind == "tiff":
-        with pytest.raises(ValueError, match="TIFF"):
-            image_io.image_size(path)
-        assert jax_image_size(path) == (29, 45)  # cv2 reads TIFF; the card's host has no TIFF decoder
-        return
+        np.testing.assert_array_equal(image_io.imread(path), cv2.imread(str(path)))
     assert image_io.image_size(path) == jax_image_size(path) == (29, 45)
 
 
