@@ -197,6 +197,17 @@ Then the baseline toolchain and the experiment grid:
              decode of the same bytes (launches exact); 4 + 1 micro-steps
              fed from 64 16-bit PNGs with 1-bit PNG masks, then from 64 LZW
              TIFFs with TIFF masks (launches exact).
+17. formats2 — the formats only cv2 gave the JAX package until now: CCITT
+             TIFF masks, GIF as a still and as a video, PNM / PAM / PFM,
+             Sun raster and Radiance HDR (``native/tiff.cpp``,
+             ``native/gif.cpp``, ``native/raster.cpp``): the committed
+             fixtures (``tests/format_fixtures``) equal to cv2's pixels and
+             cv2.VideoCapture's frames; decode ms of 640 px files; the
+             flagship behind ``MGAServer`` answering uploads of each
+             (launches exact); 2 + 1 micro-steps fed from PNGs with T.6
+             TIFF masks whose pyramids equal the PNG masks'; ``cli.predict``
+             over two GIF clips, its ``_pred.mp4`` read back (launches
+             exact).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -210,8 +221,9 @@ and exits non-zero unless the first passes and every fault fails.
 ``--spatial-alone`` and ``--spatial-faults`` do the same for ``[spatial]``
 and ``SPATIAL_FAULTS`` (a halo row dropped, the reductions not all-reduced
 over the space ranks, the detection loss counted k times, the max's ties
-counted on one band). ``--formats-alone`` runs ``[formats]`` alone, on a
-synthetic set of 64 + 16 images.
+counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
+``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
+images (``[formats2]``'s ``cli.predict`` on the seeded flagship).
 """
 
 from __future__ import annotations
@@ -3088,6 +3100,340 @@ def formats_phase(torch, np, data_yaml, tmp: Path, device: str = "cuda") -> dict
     return launches
 
 
+FORMAT2_FIXTURES = Path(__file__).resolve().parent / "tests" / "format_fixtures"
+FORMATS2_UPLOADS = 8  # uploads of each kind POSTed to the server
+FORMATS2_FED_IMAGES = 32  # PNG images with T.6 TIFF masks, fed to the step
+FORMATS2_GIF_FRAMES, FORMATS2_GIF_SIZE = 8, 256  # the clip cli.predict reads besides the 640 px GIF
+
+
+def formats2_files(np, frame) -> dict:
+    """640 x 640 files of the upload-only formats, written here from the
+    BGR ``frame`` by numpy and the test writers (the card's host has no
+    encoder of them): binary PPM (decodes to ``frame``), a 24-bit standard
+    Sun raster (decodes to ``frame``) and a run-length Radiance HDR of
+    RGBE ``frame`` / 256 (exponent 128)."""
+    from tests.still_fixtures import writers
+
+    h, w = frame.shape[:2]
+    rgbe = np.concatenate([frame[..., ::-1], np.full((h, w, 1), 128, np.uint8)], -1)
+    return {"PPM": b"P6\n%d %d\n255\n" % (w, h) + frame[..., ::-1].tobytes(),
+            "Sun raster": writers.sun_bytes(frame, 24), "HDR": writers.hdr_bytes(rgbe)}
+
+
+def seeded_checkpoint(torch, path: Path, device: str = "cuda") -> Path:
+    """The flagship (``torch.manual_seed(0)``) saved as ``cli.train`` saves best.pt."""
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.models.yolo import create_model
+
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, device=device)
+    cfg = "configs/models/yolov8_cbam.yaml"
+    torch.save({"ema_state_dict": model.state_dict(), "train_args": {"nc": 1, "model": cfg, "model_scale": "n"},
+                "meta": {"imgsz": IMGSZ, "model_yaml": cfg, "model_scale": "n", "nc": 1}}, path)
+    return path
+
+
+def formats2_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """The formats only cv2 gave the JAX package until now: CCITT TIFF
+    masks (``native/tiff.cpp``), GIF as a still and as a video
+    (``native/gif.cpp``, ``data/video_io.py``), PNM / PAM / PFM, Sun raster
+    and Radiance HDR (``data/raster_io.py`` on ``native/raster.cpp``), on
+    the card's host.
+
+    (a) each committed fixture (``tests/format_fixtures``) decoded, colour
+    and grey, equal to cv2's stored pixels; each GIF clip's frames, fps,
+    count and fourcc equal to cv2.VideoCapture's; the two timing files to
+    their stored SHA-256. (b) decode ms on one host thread: the 640 px
+    vessel mask as a T.6 TIFF (the mask read), the 640 px GIF's first
+    frame (imdecode) and a later one (the video reader), and 640 px PPM,
+    Sun raster and HDR files written here. (c) the flagship (seed 0, bf16,
+    BN-folded) behind ``MGAServer``: 8 uploads of each kind (T.6 TIFF, GIF,
+    PNM / PAM / PFM, Sun raster, HDR) POSTed from 4 threads, each reply's
+    boxes within ``[parity]``'s tolerance of ``InferenceEngine`` on the
+    port's decode of the same bytes, launches exact (3 CAM gates and 1 NMS
+    a batch). (d) 32 PNG images with their masks as T.6 TIFFs (the test
+    writer's codes): each sample's mask pyramid equal to the PNG-mask
+    dataset's, then 2 + 1 bf16 micro-steps at batch 16 fed by the loader,
+    launches exact (3 CAM gates and 1 DFL backward a micro-step). (e)
+    ``cli.predict`` on ``best`` over the 640 px GIF and an 8-frame 256 px
+    GIF: the JAX package's file names, every frame read and written, each
+    ``_pred.mp4`` read back by the port's reader at the source's fps and
+    frame count, each frame's boxes equal to the predictor's on the frames
+    decoded anew, launches exact (3 CAM gates a batch); frames/s. Returns
+    the launches of (c), (d) and (e)."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.config import load_config
+    from mga_yolo_tpu_torch.configs import YOLOV8_CBAM
+    from mga_yolo_tpu_torch.data import image_io
+    from mga_yolo_tpu_torch.data.dataset import MGADataset
+    from mga_yolo_tpu_torch.data.loader import DataLoader
+    from mga_yolo_tpu_torch.data.synthetic import vessel_image
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+    from mga_yolo_tpu_torch.models.yolo import create_model
+    from mga_yolo_tpu_torch.serve import InferenceEngine, MGAServer, MicroBatcher
+    from mga_yolo_tpu_torch.train import optim
+    from mga_yolo_tpu_torch.train import predictor as predictor_mod
+    from mga_yolo_tpu_torch.train import state as S
+    from mga_yolo_tpu_torch.utils import yaml_lite
+    from tests.still_fixtures import writers
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures, exactly
+    pixels = np.load(FORMAT2_FIXTURES / "pixels.npz")
+    stored = np.load(FORMAT2_FIXTURES / "frames.npz")
+    clips = json.loads((FORMAT2_FIXTURES / "clips.json").read_text())
+    digests = json.loads((FORMAT2_FIXTURES / "bench.json").read_text())
+    names = sorted(k for k in pixels.files if not k.endswith("_gray"))
+    check(len(names) >= 35 and len(clips) >= 6, f"[formats2] {len(names)} fixtures, {len(clips)} clips")
+    for name in names:
+        data = (FORMAT2_FIXTURES / name).read_bytes()
+        for key, got in ((name, image_io.imdecode(data, name)), (f"{name}_gray", image_io.decode(data, name, True))):
+            check(got.shape == pixels[key].shape and bool((got == pixels[key]).all()),
+                  f"[formats2] {key}: the port's decode differs from cv2's pixels")
+    for name, meta in clips.items():
+        with VideoReader(FORMAT2_FIXTURES / name) as r:
+            got = np.stack(list(r))
+            check((r.fps, r.total, r.fourcc.decode("latin-1")) == (meta["fps"], meta["total"], meta["fourcc"])
+                  and got.shape == stored[name].shape and bool((got == stored[name]).all()),
+                  f"[formats2] {name}: frames, fps {r.fps} or count {r.total} differ from cv2.VideoCapture's {meta}")
+    bench = {name: (FORMAT2_FIXTURES / name).read_bytes() for name in digests}
+    gif_frames = []
+    for name, data in bench.items():
+        for mode, gray in (("color", False), ("gray", True)):
+            got = hashlib.sha256(image_io.decode(data, name, gray).tobytes()).hexdigest()
+            check(got == digests[name][mode], f"[formats2] {name} {mode}: SHA-256 {got[:12]} is not cv2's")
+        if "frames" in digests[name]:
+            with VideoReader(FORMAT2_FIXTURES / name) as r:
+                gif_frames = list(r)
+            check([hashlib.sha256(f.tobytes()).hexdigest() for f in gif_frames] == digests[name]["frames"],
+                  f"[formats2] {name}: video frames differ from cv2's digests")
+    by_kind = {k: sum(n.startswith(k) for n in names) for k in ("ccitt", "gif", "pnm", "pam", "pfm", "sun", "hdr")}
+    print(f"[formats2] (a) {len(names)} fixtures ({by_kind}) and {len(clips)} GIF clips decoded by "
+          f"{native.library_path().name}, built on this host: colour and grey equal to cv2's pixels, every clip's "
+          f"frames, fps, count and fourcc equal to cv2.VideoCapture's; the 2 timing files' decodes have cv2's "
+          f"SHA-256")
+
+    # (b) decode times, one thread
+    made = formats2_files(np, gif_frames[0])
+    for kind, data in made.items():
+        check(kind == "HDR" or bool((image_io.imdecode(data) == gif_frames[0]).all()),
+              f"[formats2] the 640 px {kind} does not decode to the frame written")
+    gif = bench["bench_angio640.gif"]
+    times = {"T.6 TIFF mask (grey read)": decode_ms(lambda d: image_io.decode(d, gray=True),
+                                                    bench["bench_mask640_g4.tif"], 15, 1),
+             "GIF first frame (imdecode)": decode_ms(image_io.imdecode, gif, 15, 1)}
+    reps = []
+    for _ in range(7):
+        with VideoReader(FORMAT2_FIXTURES / "bench_angio640.gif") as r:
+            it = iter(r)
+            next(it)
+            t0 = time.perf_counter()
+            next(it)
+            reps.append((time.perf_counter() - t0) * 1e3)
+    times["GIF later frame (video reader)"] = sorted(reps)[len(reps) // 2]
+    for kind, data in made.items():
+        times[kind] = decode_ms(image_io.imdecode, data, 15, 1)
+    sizes = {"T.6 TIFF mask (grey read)": len(bench["bench_mask640_g4.tif"]), "GIF first frame (imdecode)": len(gif),
+             "GIF later frame (video reader)": len(gif), **{k: len(v) for k, v in made.items()}}
+    print("[formats2] (b) decode 640x640 on 1 thread, " + card + ": " + ", ".join(
+        f"{k} {v:.3f} ms ({sizes[k] / 1e3:.1f} kB)" for k, v in times.items()))
+
+    # (c) the flagship behind MGAServer, uploads of each new format
+    def fixtures(*prefixes):
+        return [(FORMAT2_FIXTURES / n).read_bytes() for n in names
+                if n.startswith(prefixes) and pixels[n].ndim == 3][:FORMATS2_UPLOADS - 1]
+
+    uploads = {"TIFF T.6": [bench["bench_mask640_g4.tif"]] + fixtures("ccitt"),
+               "GIF": [gif] + fixtures("gif"),
+               "PNM / PAM / PFM": [made["PPM"]] + fixtures("pnm", "pam", "pfm"),
+               "Sun raster": [made["Sun raster"]] + fixtures("sun"),
+               "HDR": [made["HDR"]] + fixtures("hdr")}
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, device=device)
+    eng = InferenceEngine(model, imgsz=IMGSZ, batch=BATCH, conf=0.001)
+    eng.warmup()
+    del model
+    launches, n_boxes, err = {}, 0, 0.0
+    kinds = [k for k, datas in uploads.items() for _ in datas]
+    datas = [d for ds in uploads.values() for d in ds]
+    decoded = [image_io.imdecode(d) for d in datas]
+    want = []
+    for i in range(0, len(decoded), BATCH):
+        lbs, metas = zip(*(eng.preprocess(im) for im in decoded[i:i + BATCH]))
+        want += eng.infer_batch(list(lbs), list(metas))
+    server = MGAServer(MicroBatcher(eng, max_wait_ms=5.0), host="127.0.0.1", port=0)
+    server.start()
+
+    def post(data: bytes, port=server.port) -> dict:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(post, datas))
+        rate = len(datas) / (time.perf_counter() - t0)
+        counts = read_launches()
+        n_batches = server.batcher.stats()["batches"]
+    finally:
+        server.stop()
+    want_l = want_launches({"cam_gate": 3 * n_batches, "nms_suppress": n_batches})
+    check(counts == want_l, f"[formats2] uploads: launches {counts} for {n_batches} batches, want {want_l}")
+    launches = dict(counts)
+    for kind, r, w in zip(kinds, got, want):
+        boxes = np.array([[b["x1"], b["y1"], b["x2"], b["y2"], b["conf"], b["cls"]] for b in r["boxes"]],
+                         np.float32).reshape(-1, 6)
+        check(r["orig_shape"] == list(w.orig_shape) and boxes.shape == w.boxes.shape
+              and bool(np.allclose(boxes, w.boxes, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[formats2] a {kind} upload's boxes {boxes.shape} differ from the engine's on the port's decode "
+              f"{w.boxes.shape}")
+        n_boxes += len(boxes)
+        err = max(err, float(np.abs(boxes - w.boxes).max(initial=0.0)))
+    check(n_boxes > 0, "[formats2] no boxes at conf 0.001")
+    print(f"[formats2] (c) {len(datas)} uploads ({', '.join(f'{len(v)} {k}' for k, v in uploads.items())}) POSTed "
+          f"from 4 threads to MGAServer on the flagship: {n_batches} batches, {rate:.1f} requests/s; every reply's "
+          f"boxes ({n_boxes}) equal InferenceEngine's on the port's decode of the same bytes, max abs error "
+          f"{err:.3g}; launches {counts}")
+    del eng
+
+    # (d) a dataset with T.6 TIFF masks, fed by the loader
+    src = Path(data_yaml).parent
+    root = tmp / "formats2_g4"
+    for d in ("images/train", "labels/train", "masks"):
+        (root / d).mkdir(parents=True)
+    t0 = time.perf_counter()
+    for png in sorted((src / "images" / "train").iterdir())[:FORMATS2_FED_IMAGES]:
+        shutil.copy(png, root / "images/train" / png.name)
+        shutil.copy(src / "labels" / "train" / f"{png.stem}.txt", root / "labels/train")
+        mask = image_io.imread_gray(src / "masks" / png.name) > 0
+        (root / "masks" / f"{png.stem}.tif").write_bytes(writers.t6_tiff_bytes(mask.astype(np.uint8), photometric=1))
+    yaml_lite.dump({"path": str(root), "train": "images/train", "val": "images/train", "dataset": str(root),
+                    "masks_dir": "masks", "names": {0: "stenosis"}, "nc": 1}, root / "data.yaml")
+    write_s = time.perf_counter() - t0
+    kw = dict(imgsz=IMGSZ, batch=TRAIN_BATCH, workers=8, max_boxes=MAX_BOXES)
+    hyp = "configs/hyperparams/cbam_defaults.yaml"
+    g4 = MGADataset(load_config(hyp, data=str(root / "data.yaml"), **kw), "train", augment=False)
+    png = MGADataset(load_config(hyp, data=str(data_yaml), **kw), "train", augment=False)
+    check(len(g4) == FORMATS2_FED_IMAGES and all(p.suffix == ".tif" for p in g4.mask_paths),
+          f"[formats2] the T.6 mask dataset holds {len(g4)} images")
+    for i in range(FORMATS2_FED_IMAGES):
+        a, b = g4.get(i)["masks"], png.get(i)["masks"]
+        check(len(a) == len(b) == 3 and all(x.shape == y.shape and bool((x == y).all()) for x, y in zip(a, b)),
+              f"[formats2] {g4.img_files[i].name}: the T.6 mask's pyramid differs from the PNG mask's")
+    ds = MGADataset(load_config(hyp, data=str(root / "data.yaml"), **kw), "train", augment=True)
+    torch.manual_seed(0)
+    model, _ = create_model(YOLOV8_CBAM, scale="n", nc=1, training=True, device=device)
+    sched = optim.Schedule(lr0=0.01, lrf=0.01, momentum=0.937, warmup_epochs=3.0, warmup_momentum=0.8,
+                           warmup_bias_lr=0.1, epochs=100, steps_per_epoch=10)
+    step = make_step(torch, model, max(round(NBS / TRAIN_BATCH), 1), torch.bfloat16, warmup_steps=sched.warmup_steps)
+    st = S.create_train_state(model)
+    st.step = st.last_apply = sched.warmup_steps - 4
+    loader = DataLoader(ds, TRAIN_BATCH, seed=0, workers=8)
+    rate, n_img, n_b = host_rate(np, loader, 1)
+    n_steps = len(loader)
+    zero_launches()
+    st, metrics, rows = fed_steps(torch, np, loader, step, st, sched, n_steps)
+    got_l = read_launches()
+    launches = {k: launches.get(k, 0) + v for k, v in got_l.items()}
+    want_l = want_launches({"cam_gate": 3 * (n_steps + 1), "dfl_bwd": n_steps + 1})
+    check(got_l == want_l, f"[formats2] T.6-mask-fed: launches {got_l} in {n_steps} + 1 micro-steps, want {want_l}")
+    print(f"[formats2] (d) {FORMATS2_FED_IMAGES} PNGs with T.6 TIFF masks written in {write_s:.2f} s; every "
+          f"sample's mask pyramid equal to the PNG-mask dataset's; the loader alone {rate:.1f} images/s ({n_img} "
+          f"images, {n_b} boxes); {n_steps} + 1 micro-steps B={TRAIN_BATCH}x{IMGSZ} bf16 fed by it: "
+          f"{fed_summary(rows)}; last loss {float(metrics['loss']):.4f}; launches {got_l}")
+    del step, st, model, loader
+
+    # (e) cli.predict over two GIF clips
+    clip_dir = tmp / "formats2_gifs"
+    clip_dir.mkdir()
+    (clip_dir / "angio640.gif").write_bytes(gif)
+    rng = np.random.default_rng(1)
+    small = [vessel_image(rng, FORMATS2_GIF_SIZE, MAX_BOXES)[0] // 16 for _ in range(FORMATS2_GIF_FRAMES)]
+    (clip_dir / "vessels.gif").write_bytes(writers.gif_bytes(
+        (FORMATS2_GIF_SIZE, FORMATS2_GIF_SIZE), [{"indices": f, "delay": 8} for f in small],
+        palette=np.repeat(np.arange(0, 256, 17)[:, None], 3, 1)))
+    recorded, loaded = [], []
+    real_load = predictor_mod.load_predictor
+
+    def recording_load(*a, **k):
+        pred = real_load(*a, **k)
+        stream = pred.stream
+
+        def recording_stream(*sa, **sk):
+            for frame, r in stream(*sa, **sk):
+                recorded.append((frame.path, frame.index, r.boxes.copy()))
+                yield frame, r
+
+        pred.stream = recording_stream
+        loaded.append(pred)
+        return pred
+
+    out_dir = tmp / "formats2_predict"
+    predictor_mod.load_predictor = recording_load
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            res = cli_predict.main(["--weights", str(best), "--source", str(clip_dir), "--out", str(out_dir),
+                                    "--batch", str(TRAIN_BATCH), "--conf", "0.01"]
+                                   + ([] if device == "cuda" else ["--device", device]))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        predictor_mod.load_predictor = real_load
+    n_frames = len(gif_frames) + FORMATS2_GIF_FRAMES
+    n_batches = -(-n_frames // TRAIN_BATCH)  # the predictor's batches run on across sources
+    want_l = want_launches({"cam_gate": 3 * n_batches})
+    check(counts == want_l, f"[formats2] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
+    launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    names_out = {p.name for p in out_dir.iterdir()}
+    check(res["frames"] == n_frames and res["images"] == 0 and names_out == {"angio640_pred.mp4", "vessels_pred.mp4"},
+          f"[formats2] cli.predict wrote {sorted(names_out)}, result {res}")
+    check(log.getvalue().splitlines()[-3:-1] == [f"angio640.gif: {len(gif_frames)} frames -> angio640_pred.mp4",
+                                                  f"vessels.gif: {FORMATS2_GIF_FRAMES} frames -> vessels_pred.mp4"],
+          f"[formats2] cli.predict summary {log.getvalue().splitlines()[-3:]}")
+    for name, src_name in (("angio640_pred.mp4", "angio640.gif"), ("vessels_pred.mp4", "vessels.gif")):
+        with VideoReader(clip_dir / src_name) as s, VideoReader(out_dir / name) as r:
+            n = sum(1 for _ in r)
+            check(n == r.total == s.total and r.fps == s.fps and r.size == s.size,
+                  f"[formats2] {name}: {n} frames at {r.fps} fps, {r.size}; the source {s.total} at {s.fps}, {s.size}")
+    pred = loaded[0]
+    del pred.stream  # the class's own stream again
+    frames_again = []  # the frames decoded anew, in cli.predict's order and batches
+    for f in sorted(clip_dir.iterdir()):
+        with VideoReader(f) as r:
+            frames_again += list(r)
+    again = [b for _, b in pred.stream(frames_again, batch_size=TRAIN_BATCH)]
+    check(len(recorded) == len(again) == n_frames, f"[formats2] {len(recorded)} results, {len(again)} again")
+    n_boxes, err = 0, 0.0
+    for (path, idx, got_b), w in zip(recorded, again):
+        check(got_b.shape == w.boxes.shape, f"[formats2] {Path(path).name} frame {idx}: {got_b.shape} boxes, the "
+                                            f"predictor's {w.boxes.shape}")
+        e = float(np.abs(got_b - w.boxes).max(initial=0.0))
+        check(bool(np.allclose(got_b, w.boxes, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[formats2] {Path(path).name} frame {idx}: boxes differ from the predictor's by up to {e:.3g}")
+        n_boxes += len(got_b)
+        err = max(err, e)
+    print(f"[formats2] (e) cli.predict on {best.name} over angio640.gif ({len(gif_frames)} frames, 640 px) and "
+          f"vessels.gif ({FORMATS2_GIF_FRAMES} frames, {FORMATS2_GIF_SIZE} px): {sorted(names_out)} read back by "
+          f"the port's reader at the sources' fps and counts; {n_boxes} boxes, each frame's equal to the "
+          f"predictor's on the frames decoded anew (max abs error {err:.3g}); launches {counts}; "
+          f"{n_frames / wall:.1f} frames/s on one host thread, model load included ({wall:.2f} s), {card}")
+    print(f"[formats2] the phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 VIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "video_fixtures"
 VIDEO_FRAMES, VIDEO_SIZE = 64, 512  # each clip [video] writes: 64 frames of 512 x 512
 VIDEO_FPS = {"avi": 25.0, "mp4": 29.97}
@@ -3341,7 +3687,8 @@ def planted_faults(tag: str, faults: dict) -> int:
 
 def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
-    ``[spatial]`` or ``[formats]`` (on a synthetic set of 64 + 16 images)."""
+    ``[spatial]``, ``[formats]`` or ``[formats2]`` (on a synthetic set of
+    64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -3352,9 +3699,12 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag == "formats":
+        if tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
-            formats_phase(torch, np, data_yaml, Path(tmp))
+            if tag == "formats":
+                formats_phase(torch, np, data_yaml, Path(tmp))
+            else:
+                formats2_phase(torch, np, data_yaml, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         else:
             {"ddp": ddp_phase, "spatial": spatial_phase}[tag](torch, np, Path(tmp))
     return 0
@@ -3443,16 +3793,19 @@ def main() -> int:
         paths["jpeg"] = jpeg_phase(torch, np, data_yaml, best, Path(tmp))
         paths["video"] = video_phase(torch, np, data_yaml, best, Path(tmp))
         paths["formats"] = formats_phase(torch, np, data_yaml, Path(tmp))
+        paths["formats2"] = formats2_phase(torch, np, data_yaml, best, Path(tmp))
     # each kernel's launches are those of this slice's path first (uploads of
-    # the still formats served and micro-steps fed from them), then the
-    # earlier slices' (cli.predict over video, JPEG uploads served and
+    # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
+    # fed from T.6 masks, cli.predict over GIF clips), then the earlier
+    # slices' (uploads of the still formats served and micro-steps fed from
+    # them, cli.predict over video, JPEG uploads served and
     # JPEG-fed micro-steps, cli.val on an exported file, where tensorflow imports, the baseline
     # toolchain's run, the spatial-mesh run with device
     # augmentation, the spatial-mesh run and
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -3471,12 +3824,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
-                        ["--formats-alone"]):
+                        ["--formats-alone"], ["--formats2-alone"]):
         import torch
 
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: CUDA is not available; this script runs on a CUDA card only")
-        tag, what = sys.argv[1][2:].split("-")
+        tag, what = sys.argv[1][2:].rsplit("-", 1)
         sys.exit(planted_faults(tag, {"ddp": DDP_FAULTS, "spatial": SPATIAL_FAULTS}[tag]) if what == "faults"
                  else phase_alone(tag))
     sys.exit(main())

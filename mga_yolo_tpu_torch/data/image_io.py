@@ -1,11 +1,12 @@
-"""Image decoding and encoding without OpenCV or PIL: PNG and the TIFF and
-WebP containers in Python (the standard library's ``zlib`` inflates),
-their byte loops and the JPEG, BMP, TIFF and WebP codecs in the host C++
-library (``mga_yolo_tpu_torch.native``).
+"""Image decoding and encoding without OpenCV or PIL: PNG and the TIFF,
+WebP and GIF containers in Python (the standard library's ``zlib``
+inflates), their byte loops and the JPEG, BMP, TIFF, WebP and GIF codecs
+in the host C++ library (``mga_yolo_tpu_torch.native``).
 
 The card's host has no OpenCV and no PIL, so the port reads and writes its
 images itself, and reads every still format the JAX package's ``IMG_EXTS``
-lists as ``cv2.imread`` reads it, to the bit:
+lists, and the ones its server's ``cv2.imdecode`` takes beyond them, as
+cv2 reads them, to the bit:
 
 * PNG, bit depths 1, 2, 4, 8 and 16 in the five colour types (grey, grey +
   alpha, RGB, RGBA, palette, with tRNS), all five row filters, Adam7
@@ -20,22 +21,29 @@ lists as ``cv2.imread`` reads it, to the bit:
   (``native/bmp.cpp``);
 * TIFF, classic, either byte order, the first page: strips or tiles,
   chunky or planar, uncompressed, LZW (``native/tiff.cpp``), Deflate,
-  PackBits or JPEG (``native/jpeg.cpp``, with the JPEGTables tag), grey
+  PackBits, JPEG (``native/jpeg.cpp``, with the JPEGTables tag) or CCITT
+  (modified Huffman, T.4 1-D and 2-D, T.6: ``native/tiff.cpp``), grey
   (1, 8, 16 bits, MinIsWhite or MinIsBlack), RGB (8, 16), palette (1, 4,
   8) and YCbCr JPEG, extra samples, the horizontal predictor and FillOrder
   2, put together as libtiff's RGBA interface does for cv2 (16-bit colour
   rounded to 8 bits, unassociated alpha multiplied in);
 * WebP, lossless (VP8L) and lossy (VP8, libwebp's fancy upsampling and
   YUV -> BGR), simple or extended (VP8X), alpha dropped, an animation's
-  first frame on its canvas (``native/webp.cpp``).
+  first frame on its canvas (``native/webp.cpp``);
+* GIF, its first frame as cv2's own GIF codec puts it on the canvas
+  (``native/gif.cpp``; a GIF read as a video is ``data/video_io.py``'s);
+* PNM / PAM / PFM, Sun raster and Radiance HDR (``data/raster_io.py``),
+  which only the JAX server's uploads and single files named to its
+  predictor reach.
 
 The EXIF orientation is applied as cv2 applies it: a JPEG's APP1, a PNG's
 eXIf chunk (before or after the image data), a TIFF's Orientation tag, a
 WebP's EXIF chunk. CMYK, 12-bit, arithmetic-coded and lossless JPEGs,
-compressed BMPs, TIFF compressions other than those above (CCITT, LZMA,
-ZSTD, WebP, old-style JPEG), float or 32-bit TIFF samples, BigTIFF, raw
-YCbCr TIFF, GIF and every other format raise ``ValueError`` naming the
-file and the feature, as do truncated or corrupt files. Dispatch is on the
+compressed BMPs, TIFF compressions other than those above (LZMA, ZSTD,
+WebP, old-style JPEG, LERC, JPEG 2000), float or 32-bit TIFF samples,
+BigTIFF, raw YCbCr TIFF, JPEG 2000, AVIF and every other format raise
+``ValueError`` naming the file and the feature, as do truncated or
+corrupt files. Dispatch is on the
 file's signature, not its suffix.
 
 ``imread`` / ``imdecode`` return what ``cv2.imread(path)`` /
@@ -65,6 +73,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from mga_yolo_tpu_torch import native
+from mga_yolo_tpu_torch.data import raster_io
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -72,12 +81,16 @@ BMP_SIGNATURE = b"BM"
 JPEG_QUALITY = 95  # cv2.imwrite's default
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # classic TIFF and BigTIFF, both byte orders
-_SIGNATURES = ((PNG_SIGNATURE, "PNG"), (JPEG_SIGNATURE, "JPEG"), (BMP_SIGNATURE, "BMP"), (b"GIF8", "GIF"),
-               *((sig, "TIFF") for sig in TIFF_SIGNATURES), (b"RIFF", "RIFF/WebP"))
+# formats the port still refuses, named in its message: JPEG 2000 (codestream and JP2 box) and AVIF / HEIF
+_SIGNATURES = ((b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"))
+READS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PNM / PAM / PFM, Sun raster and Radiance HDR"
 
 
 def _what(data: bytes) -> str:
-    return next((name for sig, name in _SIGNATURES if data.startswith(sig)), "not an image the port reads")
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"heix", b"mif1", b"msf1"):
+        return f"AVIF / HEIF ('{data[8:12].decode()}'), which the port does not read"
+    return next((f"{name}, which the port does not read" for sig, name in _SIGNATURES if data.startswith(sig)),
+                "not an image the port reads")
 
 
 def unfilter_rows(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -361,8 +374,8 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
 # ------------------------------------------------------------------ TIFF
 
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}  # the unsigned types; a tag of another is passed over
-_TIFF_REFUSED = {2: "CCITT modified Huffman", 3: "CCITT G3", 4: "CCITT G4", 6: "old-style JPEG",
-                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34887: "LERC", 34712: "JPEG 2000"}
+_TIFF_REFUSED = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34887: "LERC", 34712: "JPEG 2000"}
+_TIFF_CCITT = (2, 3, 4)  # modified Huffman, T.4 (Group 3), T.6 (Group 4)
 _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))  # FillOrder 2
 
 
@@ -462,9 +475,12 @@ def undo_predictor(buf: np.ndarray, rows: int, row_samples: int, spp: int, bits:
     return np.cumsum(v, 1, dtype=np.uint64).astype(dtype).view(np.uint8).reshape(-1)
 
 
-def _tiff_chunk(raw: bytes, comp: int, size: int, name: str) -> np.ndarray:
-    """A strip's or tile's ``size`` bytes from its compressed data."""
+def _tiff_chunk(raw: bytes, comp: int, size: int, name: str, cols: int = 0, t4: int = 0) -> np.ndarray:
+    """A strip's or tile's ``size`` bytes from its compressed data (a CCITT
+    one of 1-bit rows ``cols`` pixels wide, ``t4`` its T4Options)."""
     try:
+        if comp in _TIFF_CCITT:
+            return native.tiff_fax(raw, comp, t4, cols, size // ((cols + 7) // 8))
         if comp == 1:
             if len(raw) < size:
                 raise ValueError(f"the data holds {len(raw)} bytes of a strip or tile of {size}")
@@ -528,9 +544,12 @@ def _tiff(data: bytes, name: str, gray: bool) -> np.ndarray:
     bits = bits_all[0]
     if comp in _TIFF_REFUSED:
         raise ValueError(f"{name}: TIFF compressed with {_TIFF_REFUSED[comp]} (compression {comp}); "
-                         f"the port reads none, LZW, Deflate, PackBits and JPEG")
-    if comp not in (1, 5, 7, 8, 32773, 32946):
-        raise ValueError(f"{name}: TIFF compression {comp}; the port reads none, LZW, Deflate, PackBits and JPEG")
+                         f"the port reads none, LZW, Deflate, PackBits, JPEG and CCITT")
+    if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946):
+        raise ValueError(f"{name}: TIFF compression {comp}; the port reads none, LZW, Deflate, PackBits, JPEG and CCITT")
+    if comp in _TIFF_CCITT and (bits != 1 or spp != 1):
+        raise ValueError(f"{name}: CCITT-compressed TIFF of {spp} samples of {bits} bits a pixel; CCITT codes 1-bit "
+                         f"samples, one a pixel")
     if any(b != bits for b in bits_all):
         raise ValueError(f"{name}: TIFF with samples of {'/'.join(map(str, bits_all))} bits")
     if any(f == 3 for f in t.get(339, (1,))):
@@ -611,7 +630,7 @@ def _tiff(data: bytes, name: str, gray: bool) -> np.ndarray:
                 if comp == 7:
                     block = _tiff_jpeg(raw, tables, rows, tw, spp, name)
                 else:
-                    buf = _tiff_chunk(raw, comp, rows * row_bytes, name)
+                    buf = _tiff_chunk(raw, comp, rows * row_bytes, name, tw, one(292, 0))
                     if predictor == 2:
                         buf = buf.copy()
                         native.tiff_predict(buf, rows, tw * n, n, bits, bo == ">")
@@ -689,13 +708,13 @@ def _tiff_size(data: bytes, name: str) -> tuple[int, int]:
 
 
 def _riff_chunks(data: bytes, start: int, end: int, name: str):
-    """(fourcc, payload) of each RIFF chunk in data[start:end]."""
+    """(fourcc, payload, payload offset) of each RIFF chunk in data[start:end]."""
     pos = start
     while pos + 8 <= end:
         kind, n = data[pos:pos + 4], int.from_bytes(data[pos + 4:pos + 8], "little")
         if pos + 8 + n > end:
             raise ValueError(f"{name}: truncated WebP chunk {kind!r}")
-        yield kind, data[pos + 8:pos + 8 + n]
+        yield kind, data[pos + 8:pos + 8 + n], pos + 8
         pos += 8 + n + (n & 1)
 
 
@@ -721,7 +740,7 @@ def _webp_parse(data: bytes, name: str):
         raise ValueError(f"{name}: truncated WebP (RIFF size {riff}, file of {len(data)} bytes)")
     end = riff + 8
     canvas, frame, orientation, animated = None, None, 0, False
-    for kind, body in _riff_chunks(data, 12, end, name):
+    for kind, body, at in _riff_chunks(data, 12, end, name):
         if kind == b"VP8X":
             if len(body) < 10:
                 raise ValueError(f"{name}: WebP VP8X chunk of {len(body)} bytes")
@@ -729,13 +748,16 @@ def _webp_parse(data: bytes, name: str):
             canvas = (int.from_bytes(body[7:10], "little") + 1, int.from_bytes(body[4:7], "little") + 1)
         elif kind in (b"VP8 ", b"VP8L") and frame is None and not animated:
             h, w = _webp_frame_size(kind, body, name)
-            frame = (kind, body, 0, 0, h, w)
+            # libwebp's last VP8 token partition runs to the end of the
+            # buffer it is given, past the chunk: where a cut partition
+            # reads a byte it lacks is decided there
+            frame = (kind, data[at:] if kind == b"VP8 " else body, 0, 0, h, w)
         elif kind == b"ANMF" and frame is None and animated:
             if len(body) < 16:
                 raise ValueError(f"{name}: WebP ANMF chunk of {len(body)} bytes")
             x, y = 2 * int.from_bytes(body[0:3], "little"), 2 * int.from_bytes(body[3:6], "little")
             fw, fh = int.from_bytes(body[6:9], "little") + 1, int.from_bytes(body[9:12], "little") + 1
-            sub = [(k, b) for k, b in _riff_chunks(body, 16, len(body), name) if k in (b"VP8 ", b"VP8L")]
+            sub = [(k, b) for k, b, _ in _riff_chunks(body, 16, len(body), name) if k in (b"VP8 ", b"VP8L")]
             if not sub:
                 raise ValueError(f"{name}: WebP animation frame without a VP8 or VP8L bitstream")
             if _webp_frame_size(*sub[0], name) != (fh, fw):
@@ -775,6 +797,56 @@ def _webp(data: bytes, name: str, gray: bool) -> np.ndarray:
     return native.bgr_to_gray(img, "cvtcolor") if gray else img
 
 
+# ------------------------------------------------------------------ GIF
+
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+
+
+def _gif(data: bytes, name: str, gray: bool) -> np.ndarray:
+    """A GIF's first frame as cv2's own GIF codec gives it: the canvas
+    filled with the global table's background colour (black without a
+    global table), the frame's opaque pixels drawn at their place (a file
+    with no colour table at all through cv2's grey ramp, index 1 white);
+    grey as cvtColor's of that. What cv2 refuses raises: a background index
+    past the global table, a disposal method past 3, an index past the
+    frame's colour table, a frame outside the canvas."""
+    try:
+        g, off = native.gif_header(data)
+        f = next(native.gif_frames(data, off), None)
+    except ValueError as e:
+        raise ValueError(f"{name}: GIF: {e}") from None
+    if not g.width or not g.height:
+        raise ValueError(f"{name}: GIF of {g.width} x {g.height} pixels")
+    if g.width * g.height > 2 ** 30:
+        raise ValueError(f"{name}: GIF of {g.width} x {g.height} pixels is past the limit of 2^30 pixels")
+    if f is None:
+        raise ValueError(f"{name}: GIF without an image")
+    h, w = f.indices.shape
+    palette = f.palette if f.palette is not None else g.palette
+    size = f.table_size if f.palette is not None else g.table_size
+    if palette is None:  # cv2's table for a file without one: grey ramp, index 1 white
+        palette, size = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1), 256
+        palette[1] = 255
+    if g.palette is not None and g.background >= g.table_size:
+        raise ValueError(f"{name}: GIF background index {g.background} past its global table of {g.table_size}")
+    if f.disposal > 3:
+        raise ValueError(f"{name}: GIF disposal method {f.disposal} (cv2 reads 0-3)")
+    if not w or not h or f.x + w > g.width or f.y + h > g.height:
+        raise ValueError(f"{name}: GIF frame of {w} x {h} at ({f.x}, {f.y}) outside its canvas of {g.width} x {g.height}")
+    if int(f.indices.max()) >= size:
+        raise ValueError(f"{name}: GIF colour index past its table of {size}")
+    canvas = np.empty((g.height, g.width, 3), np.uint8)
+    canvas[:] = g.palette[g.background, ::-1] if g.palette is not None else 0
+    bgr = np.ascontiguousarray(palette[:, ::-1])
+    sub = canvas[f.y:f.y + h, f.x:f.x + w]
+    if f.transparent < 0:
+        sub[:] = bgr[f.indices]
+    else:
+        opaque = f.indices != f.transparent
+        sub[opaque] = bgr[f.indices[opaque]]
+    return native.bgr_to_gray(canvas, "cvtcolor") if gray else canvas
+
+
 def cvt_gray(bgr: np.ndarray) -> np.ndarray:
     """Numpy twin of the C++ ``bgr_to_gray`` with cvtColor's weights:
     ``cv2.cvtColor(bgr, COLOR_BGR2GRAY)``, 15-bit fixed point, rounded."""
@@ -798,8 +870,9 @@ def png_gray(bgr: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes, name: str = "<bytes>", gray: bool = False) -> np.ndarray:
-    """PNG, JPEG or BMP bytes -> BGR (H, W, 3) uint8, or with ``gray`` (H, W),
-    as ``cv2.imdecode`` with IMREAD_COLOR / IMREAD_GRAYSCALE."""
+    """Image bytes -> BGR (H, W, 3) uint8, or with ``gray`` (H, W), as
+    ``cv2.imdecode`` with IMREAD_COLOR / IMREAD_GRAYSCALE (a PFM keeps its
+    channel count either way, as cv2's does)."""
     if data.startswith(PNG_SIGNATURE):
         png = _png(data, name)
         colour = png.ctype in (2, 3, 6)
@@ -817,10 +890,14 @@ def decode(data: bytes, name: str = "<bytes>", gray: bool = False) -> np.ndarray
         return _tiff(data, name, gray)
     if data.startswith(b"RIFF"):
         return _webp(data, name, gray)
+    if data.startswith(GIF_SIGNATURES):
+        return _gif(data, name, gray)
+    if raster_io.kind(data):
+        return raster_io.decode(data, name, gray)
     codec = (native.jpeg_decode if data.startswith(JPEG_SIGNATURE)
              else native.bmp_decode if data.startswith(BMP_SIGNATURE) else None)
     if codec is None:
-        raise ValueError(f"{name}: {_what(data)}; the port reads PNG, JPEG, BMP, TIFF and WebP")
+        raise ValueError(f"{name}: {_what(data)}; the port reads {READS}")
     try:
         return codec(data, gray)
     except ValueError as e:
@@ -828,7 +905,7 @@ def decode(data: bytes, name: str = "<bytes>", gray: bool = False) -> np.ndarray
 
 
 def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG, JPEG or BMP bytes -> BGR (H, W, 3) uint8, as ``cv2.imdecode(..., IMREAD_COLOR)``."""
+    """Image bytes -> BGR (H, W, 3) uint8, as ``cv2.imdecode(..., IMREAD_COLOR)``."""
     return decode(data, name)
 
 

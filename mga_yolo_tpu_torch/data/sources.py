@@ -3,8 +3,9 @@ arrays as one stream of frames (counterpart of ``mga_yolo_tpu/data/sources.py``)
 
 Every source kind yields :class:`Frame` records, so the predictor has one
 code path. Images are read with ``data/image_io.py`` (PNG, JPEG, BMP,
-TIFF and WebP, decoded as cv2 decodes them), video files with ``data/video_io.py`` (AVI and
-MP4/MOV holding MJPEG, MPEG-4 Part 2 or uncompressed frames, decoded as
+TIFF, WebP, PNM / PAM / PFM, Sun raster and HDR, decoded as cv2 decodes
+them), video files with ``data/video_io.py`` (GIF, and AVI and MP4/MOV
+holding MJPEG, MPEG-4 Part 2 or uncompressed frames, decoded as
 ``cv2.VideoCapture`` decodes them), and :class:`VideoSink` writes the
 annotated video as the JAX package's does (MJPG for ``.avi``, mp4v
 otherwise). Webcams and stream URLs raise ``NotImplementedError``: the

@@ -20,9 +20,15 @@ writes the video files the JAX package reads and writes through
   mp4v (I-VOPs at a fixed quantiser in an MP4 with ``moov``), odd sizes
   cropped to even and an fps of 0 taken as 30, as cv2's writer does.
 
+  GIF's frames come out as cv2 gives them through ffmpeg's gif decoder
+  (``native/gif.cpp`` decodes the LZW data; the frames are put on the
+  canvas by ffmpeg's rule of disposal and transparency, see
+  :meth:`VideoReader._gif_frames`), with its frame count, frame rate and
+  fourcc ``gif ``.
+
 H.264 / HEVC, fragmented MP4, interlaced MJPEG, and Matroska / WebM,
-MPEG-PS, ASF / WMV and GIF raise ``ValueError`` naming the file, its
-container and its codec, as do truncated and corrupt files.
+MPEG-PS and ASF / WMV raise ``ValueError`` naming the file, its container
+and its codec, as do truncated and corrupt files.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 import numpy as np
 
 from mga_yolo_tpu_torch import native
-from mga_yolo_tpu_torch.data.image_io import encode_jpeg
+from mga_yolo_tpu_torch.data.image_io import GIF_SIGNATURES, encode_jpeg
 
 MJPEG_TAGS = {b"MJPG", b"mjpg", b"AVRn", b"AVDJ", b"dmb1", b"JPEG", b"jpeg", b"IJPG", b"JPGL", b"mjpa"}
 MPEG4_TAGS = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"mp4v", b"MP4V", b"M4S2",
@@ -44,11 +50,13 @@ NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.
               b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"DIV3": "MS MPEG-4 v3",
               b"MP42": "MS MPEG-4 v2", b"WMV3": "WMV9", b"vp09": "VP9", b"av01": "AV1"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
-CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0"}
+CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif "}
 REFUSED_CONTAINERS = {".mkv": "Matroska", ".webm": "WebM", ".mpg": "MPEG-PS", ".mpeg": "MPEG-PS",
-                      ".wmv": "ASF/WMV", ".gif": "GIF"}
+                      ".wmv": "ASF/WMV"}
 _SIGNATURES = ((b"\x1a\x45\xdf\xa3", "Matroska/WebM"), (b"\x00\x00\x01\xba", "MPEG-PS"),
-               (b"\x30\x26\xb2\x75", "ASF/WMV"), (b"GIF8", "GIF"))
+               (b"\x30\x26\xb2\x75", "ASF/WMV"))
+GIF_DEFAULT_DELAY = 10  # ffmpeg's, in 1/100 s, for a graphic control delay of 0
+GIF_TRANSPARENT = np.array([255, 255, 255], np.uint8)  # ffmpeg's trans_color 0x00ffffff, its alpha dropped
 MPEG4_QP = 2  # the writer's fixed quantiser: reconstruction steps of 4 on DCT coefficients
 
 
@@ -113,6 +121,9 @@ class VideoReader:
         if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
             self.container = "AVI"
             self._open_avi()
+        elif head.startswith(GIF_SIGNATURES):
+            self.container = "GIF"
+            self._open_gif()
         elif head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip", b"pnot", b"moof", b"uuid"):
             self.container = "MP4" if self.path.suffix.lower() in (".mp4", ".m4v") else "QuickTime/MP4"
             self._open_mp4()
@@ -120,9 +131,9 @@ class VideoReader:
             what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
             what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
             if what:
-                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads AVI and MP4/MOV "
-                                 f"holding MJPEG, MPEG-4 Part 2 or uncompressed video)")
-            raise ValueError(f"{self.path}: not a video file the port reads (AVI, MP4, MOV)")
+                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, and AVI "
+                                 f"and MP4/MOV holding MJPEG, MPEG-4 Part 2 or uncompressed video)")
+            raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV)")
         self.fourcc = CV2_FOURCC[self.codec]
 
     def _refuse(self, what: str) -> None:
@@ -453,9 +464,82 @@ class VideoReader:
             shown += [i for i, t in enumerate(starts) if media_time <= t < stop]
         return None if shown == list(range(len(durations))) else shown
 
+    # ---- GIF
+
+    def _open_gif(self) -> None:
+        """ffmpeg's gif demuxer: the frame count is the images', the frame
+        rate 100 over the graphic control delays' sum divided by that count
+        in whole hundredths (a delay of 0 counted as 10), as cv2 reports
+        them; where that is 0 (frames without a graphic control extension),
+        100, the time base's rate, which ffmpeg's own guess from the
+        timestamps gives for files of one or two frames."""
+        self._f.seek(0)
+        self._gif_data = self._f.read()
+        self.codec = "gif"
+        self._gif, self._gif_off = native.gif_header(self._gif_data)
+        self.size = (self._gif.width, self._gif.height)
+        if not self._gif.width or not self._gif.height or self._gif.width * self._gif.height > 2 ** 30:
+            raise ValueError(f"{self.path}: GIF of {self._gif.width} x {self._gif.height} pixels (1 to 2^30)")
+        delays = [(f.delay or GIF_DEFAULT_DELAY) if f.has_gce else 0
+                  for f in native.gif_frames(self._gif_data, self._gif_off, decode=False)]
+        self.total = len(delays)
+        per = sum(delays) // max(self.total, 1)
+        self.fps = 100.0 / per if per else 100.0
+
+    def _gif_frames(self) -> Iterator[np.ndarray]:
+        """Each frame on the canvas as ffmpeg's gif decoder composes it and
+        cv2 converts it (BGRA to BGR, alpha dropped): the first frame's
+        canvas the global background colour when that frame has no
+        transparent index and the file a global table, else ffmpeg's
+        transparent colour (white once its alpha is dropped); a frame's
+        transparent pixels left as they are; disposal 2 filling its
+        rectangle before the next frame (with the transparent colour when
+        the frame had a transparent index), 3 restoring the rectangle as it
+        was before it, 0, 1 and 4-7 keeping it."""
+        g = self._gif
+        h, w = g.height, g.width
+        canvas = np.empty((h, w, 3), np.uint8)
+        background = g.palette[g.background, ::-1] if g.palette is not None else np.zeros(3, np.uint8)
+        pending = None  # (rectangle, what to put back) of the previous frame's disposal
+        for i, f in enumerate(native.gif_frames(self._gif_data, self._gif_off)):
+            fh, fw = f.indices.shape
+            if not fw or not fh or f.x + fw > w or f.y + fh > h:
+                raise ValueError(f"{self.path}: GIF frame {i} of {fw} x {fh} at ({f.x}, {f.y}) outside its canvas "
+                                 f"of {w} x {h}")
+            palette = f.palette if f.palette is not None else g.palette
+            if palette is None:
+                raise ValueError(f"{self.path}: GIF frame {i} without a colour table")
+            if i == 0:
+                canvas[:] = background if f.transparent < 0 and g.palette is not None else GIF_TRANSPARENT
+            elif pending is not None:
+                (y, x, ph, pw), fill = pending
+                canvas[y:y + ph, x:x + pw] = fill
+            rect = (f.y, f.x, fh, fw)
+            sub = canvas[f.y:f.y + fh, f.x:f.x + fw]
+            pending = None
+            if f.disposal == 2:
+                pending = rect, GIF_TRANSPARENT if f.transparent >= 0 else background
+            elif f.disposal == 3:
+                pending = rect, sub.copy()
+            bgr = np.ascontiguousarray(palette[:, ::-1])
+            if f.transparent < 0:
+                sub[:] = bgr[f.indices]
+            else:
+                opaque = f.indices != f.transparent
+                sub[opaque] = bgr[f.indices[opaque]]
+            yield canvas.copy()
+
     # ---- frames
 
     def __iter__(self) -> Iterator[np.ndarray]:
+        if self.codec == "gif":
+            try:
+                yield from self._gif_frames()
+            except ValueError as e:
+                if str(e).startswith(str(self.path)):
+                    raise
+                raise ValueError(f"{self.path}: GIF: {e}") from None
+            return
         if self.codec == "mpeg4":
             yield from self._mpeg4_frames()
             return

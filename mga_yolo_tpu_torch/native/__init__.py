@@ -3,10 +3,12 @@ rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
 ``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG decoding and encoding, and
 MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
-encoding), ``tiff.cpp`` (TIFF's LZW, PackBits and predictor) and
-``webp.cpp`` (WebP's VP8L and VP8 bitstreams), with ``simple_idct.h``.
+encoding), ``tiff.cpp`` (TIFF's LZW, PackBits, CCITT fax codes and predictor),
+``webp.cpp`` (WebP's VP8L and VP8 bitstreams), ``gif.cpp`` (GIF's blocks
+and LZW) and ``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
+``simple_idct.h``.
 
-The seven sources are compiled at first use, together, with ``g++ -O3
+The nine sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
@@ -27,13 +29,13 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
 CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "tiff.cpp",
-                                                                 "webp.cpp"))
+                                                                 "webp.cpp", "gif.cpp", "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -148,6 +150,16 @@ def _open(target: Path):
         fn.restype = n64
     lib.mga_tiff_predict.argtypes = [u8p, n64, n64, c, c, c]
     lib.mga_tiff_predict.restype = None
+    lib.mga_tiff_fax.argtypes = [buf, n64, c, c, n64, n64, u8p, n64, buf, c]
+    lib.mga_tiff_fax.restype = c
+    lib.mga_gif_header.argtypes = [buf, n64, i32p, u8p, buf, c]
+    lib.mga_gif_header.restype = c
+    lib.mga_gif_frame.argtypes = [buf, n64, n64, ctypes.POINTER(n64), u8p, u8p, n64, buf, c]
+    lib.mga_gif_frame.restype = c
+    lib.mga_pnm_numbers.argtypes = [buf, n64, ctypes.POINTER(n64), n64, c, i32p]
+    lib.mga_pnm_numbers.restype = c
+    lib.mga_hdr_pixels.argtypes = [buf, n64, n64, n64, n64, u8p]
+    lib.mga_hdr_pixels.restype = c
     for fn in (lib.mga_webp_vp8l_decode, lib.mga_webp_vp8_decode):
         fn.argtypes = [buf, n64, c, c, u8p, buf, c]
         fn.restype = c
@@ -517,6 +529,20 @@ def tiff_predict(buf: np.ndarray, rows: int, row_samples: int, spp: int, bits: i
     load().mga_tiff_predict(_u8(buf), rows, row_samples, spp, bits, int(big_endian))
 
 
+def tiff_fax(data: bytes, compression: int, options: int, width: int, rows: int) -> np.ndarray:
+    """``rows`` rows of ``width`` pixels of CCITT-coded TIFF data
+    (``compression`` 2 modified Huffman, 3 T.4 with its T4Options, 4 T.6),
+    packed a bit a pixel, black 1, each row (width + 7) // 8 bytes, as
+    libtiff decodes them; ValueError for corrupt or short data."""
+    size = (width + 7) // 8 * rows
+    out = np.empty(size, np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    data = bytes(data)
+    if load().mga_tiff_fax(data, len(data), compression, options, width, rows, _u8(out), size, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
 def _webp(fn, data: bytes, h: int, w: int) -> np.ndarray:
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -536,3 +562,100 @@ def webp_vp8_decode(data: bytes, h: int, w: int) -> np.ndarray:
     """A VP8 (lossy WebP) key frame of an h x w image -> (h, w, 3) BGR, as
     libwebp decodes it for cv2 (fancy upsampling, its YUV -> BGR)."""
     return _webp(load().mga_webp_vp8_decode, data, h, w)
+
+
+_PNM_ERRORS = {-1: "a character that is not a digit, a space or a comment", -2: "the data ends before its numbers",
+               -3: "a number past 2^31 - 1"}
+
+
+def pnm_numbers(data: bytes, pos: int, count: int, maxdigits: int = 0) -> tuple[np.ndarray, int]:
+    """``count`` decimal numbers of a PNM file from byte ``pos`` as OpenCV's
+    ReadNumber reads them (whitespace and '#' comments before each, at most
+    ``maxdigits`` digits, the byte after each passed over): the int32
+    numbers and the offset after them. ValueError naming what is wrong."""
+    out = np.empty(count, np.int32)
+    at = ctypes.c_int64(pos)
+    data = bytes(data)
+    rc = load().mga_pnm_numbers(data, len(data), ctypes.byref(at), count, maxdigits,
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc:
+        raise ValueError(f"{_PNM_ERRORS[rc]} (byte {at.value})")
+    return out, at.value
+
+
+def hdr_pixels(data: bytes, pos: int, width: int, height: int) -> np.ndarray:
+    """(height, width, 4) RGBE bytes of a Radiance HDR's scanlines from byte
+    ``pos``, run-length or flat, as OpenCV's rgbe.cpp reads them."""
+    out = np.empty((height, width, 4), np.uint8)
+    data = bytes(data)
+    rc = load().mga_hdr_pixels(data, len(data), pos, width, height, _u8(out))
+    if rc == -1:
+        raise ValueError("corrupt run-length scanline")
+    if rc == -2:
+        raise ValueError("the data ends before the image is full")
+    return out
+
+
+class GifFrame(NamedTuple):
+    """One GIF image as the file holds it: its place on the canvas, its
+    colour indices (h, w; interlaced rows put in order), its colour table
+    ((256, 3) RGB, or None to use the global one) and the graphic control
+    extension before it."""
+
+    x: int
+    y: int
+    indices: np.ndarray
+    palette: Optional[np.ndarray]
+    disposal: int
+    delay: int  # 1/100 s
+    transparent: int  # -1 for none
+    has_gce: bool
+    table_size: int  # entries of the local table (0 for none)
+
+
+class Gif(NamedTuple):
+    width: int
+    height: int
+    background: int
+    palette: Optional[np.ndarray]  # (256, 3) RGB, zeros past the table, or None
+    table_size: int  # entries of the global table (0 for none)
+    frames: list
+
+
+def gif_header(data: bytes) -> tuple[Gif, int]:
+    """A GIF's logical screen and global colour table (``frames`` empty)
+    and the offset of its first block after them."""
+    info = (ctypes.c_int32 * 5)()
+    pal = np.empty((256, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if load().mga_gif_header(data, len(data), info, _u8(pal), err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    width, height, background, entries, off = list(info)
+    return Gif(width, height, background, pal if entries else None, entries, []), off
+
+
+def gif_frames(data: bytes, off: int, decode: bool = True) -> Iterator[GifFrame]:
+    """Each image of a GIF from offset ``off`` to its trailer, its LZW data
+    decoded to indices (``gif.cpp``); with ``decode`` False the data is
+    passed over and ``indices`` is an empty (h, w) view. Raises ValueError
+    naming what is corrupt or cut."""
+    lib = load()
+    info = (ctypes.c_int64 * 11)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    buf = np.empty(0 if not decode else 1 << 16, np.uint8)
+    while True:
+        local = np.empty((256, 3), np.uint8)
+        out = _u8(buf) if decode else None
+        rc = lib.mga_gif_frame(data, len(data), off, info, _u8(local), out, buf.size, err, _ERR_LEN)
+        if rc == -2:
+            if info[2] * info[3] > 2 ** 30:
+                raise ValueError(f"GIF image of {info[2]} x {info[3]} pixels is past the limit of 2^30 pixels")
+            buf = np.empty(info[2] * info[3], np.uint8)
+            rc = lib.mga_gif_frame(data, len(data), off, info, _u8(local), _u8(buf), buf.size, err, _ERR_LEN)
+        if rc < 0:
+            raise ValueError(err.value.decode())
+        if rc == 0:
+            return
+        x, y, w, h, _, n_local, disposal, delay, transparent, gce, off = list(info)
+        indices = buf[:w * h].reshape(h, w).copy() if decode else np.broadcast_to(np.uint8(0), (h, w))
+        yield GifFrame(x, y, indices, local if n_local else None, disposal, delay, transparent, bool(gce), n_local)

@@ -766,28 +766,31 @@ const uint8_t* const kCat3456[4] = {kCat3, kCat4, kCat5, kCat6};
 // libwebp's order of the 4x4 intra modes; the 16x16 and chroma modes use DC, TM, VE, HE
 enum { B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU };
 
-// RFC 6386's boolean decoder. Reading more than two bytes past the end of
-// its data marks it at its end (libwebp's "premature end of file").
+// RFC 6386's boolean decoder. Like libwebp's (its "premature end of file"),
+// it is at its end once a bit is asked for when every bit of its n bytes has
+// been shifted in: that is, more than 8 (n - 1) shifts before the call.
 struct BoolDec {
     const uint8_t* p = nullptr;
     const uint8_t* end = nullptr;
     uint32_t value = 0;
-    int range = 255, count = 0, over = 0;
+    int range = 255, count = 0;
+    int64_t shifts = 0, limit = 0;
+    bool at_end = false;
 
     void init(const uint8_t* data, int64_t n) {
         p = data;
         end = data + n;
         range = 255;
-        count = over = 0;
+        count = 0;
+        shifts = 0;
+        limit = 8 * (n - 1);
+        at_end = n == 0;
         value = (uint32_t)byte() << 8;
         value |= byte();
     }
-    uint32_t byte() {
-        if (p < end) return *p++;
-        ++over;
-        return 0;
-    }
+    uint32_t byte() { return p < end ? *p++ : 0; }
     int get(int prob) {
+        if (shifts > limit) at_end = true;
         uint32_t split = 1 + (((uint32_t)(range - 1) * (uint32_t)prob) >> 8);
         uint32_t big = split << 8;
         int bit;
@@ -802,6 +805,7 @@ struct BoolDec {
         while (range < 128) {
             value <<= 1;
             range <<= 1;
+            ++shifts;
             if (++count == 8) {
                 count = 0;
                 value |= byte();
@@ -818,7 +822,7 @@ struct BoolDec {
         int v = lit(n);
         return get(128) ? -v : v;
     }
-    bool eof() const { return over > 2; }
+    bool eof() const { return at_end; }
 };
 
 struct MbInfo {

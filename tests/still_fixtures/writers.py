@@ -1,8 +1,11 @@
-"""PNG and TIFF writers for the still-format tests and fixtures: the layouts
-cv2 and PIL do not write (sub-byte and 16-bit PNG of every colour type,
-Adam7 interlace, eXIf chunks; TIFF tiles, planar configuration 2, both byte
-orders, MinIsWhite, palettes, 1- and 4-bit samples, the Orientation tag),
-from numpy arrays. cv2, the JAX package's decoder, reads what they write and
+"""PNG, TIFF, GIF, Sun raster and Radiance HDR writers for the still-format
+tests and fixtures: the layouts cv2 and PIL do not write (sub-byte and
+16-bit PNG of every colour type, Adam7 interlace, eXIf chunks; TIFF tiles,
+planar configuration 2, both byte orders, MinIsWhite, palettes, 1- and
+4-bit samples, the Orientation tag; GIF frames of any disposal,
+transparency, place and colour table, LZW with a deferred clear; Sun
+raster types, colour maps and byte encoding; HDR scanlines run-length or
+flat), from numpy arrays. cv2, the JAX package's decoder, reads what they write and
 is the oracle; the port's decoders are what is tested.
 """
 
@@ -430,3 +433,248 @@ def libwebp_encode(rgb: np.ndarray, **settings) -> bytes:
     finally:
         lib.WebPPictureFree(ctypes.byref(pic))
         lib.WebPMemoryWriterClear(ctypes.byref(wrt))
+
+
+# ------------------------------------------------------------------ GIF
+
+
+def gif_lzw(indices: np.ndarray, min_size: int, *, clear_at_full: bool = True) -> bytes:
+    """GIF's LZW of the indices (codes least significant bit first), the
+    code width growing to 12 bits. With ``clear_at_full`` a clear code
+    follows the table's 4096th entry, as most encoders write; without it
+    the table stays full and the codes 12 bits wide (a deferred clear), as
+    PIL never writes."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    table, width, nxt = {}, min_size + 1, clear + 2
+    put(clear, width)
+    data = bytes(np.asarray(indices, np.uint8).reshape(-1))
+    prefix = b""
+    for ch in data:
+        s = prefix + bytes([ch])
+        if len(s) == 1 or s in table:
+            prefix = s
+            continue
+        put(table[prefix] if len(prefix) > 1 else prefix[0], width)
+        if nxt < 4096:
+            table[s] = nxt
+            nxt += 1
+            if nxt == (1 << width) + 1 and width < 12:  # the decoder widens a code after the encoder adds
+                width += 1
+        elif clear_at_full:
+            put(clear, width)
+            table, width, nxt = {}, min_size + 1, clear + 2
+        prefix = bytes([ch])
+    if prefix:
+        put(table[prefix] if len(prefix) > 1 else prefix[0], width)
+    put(eoi, width)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_table(palette) -> tuple[int, bytes]:
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    bits = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    full = np.zeros((1 << bits, 3), np.uint8)
+    full[:len(pal)] = pal
+    return bits - 1, full.tobytes()
+
+
+def gif_bytes(size: tuple[int, int], frames, *, palette=None, background: int = 0, loop: bool = True) -> bytes:
+    """A GIF of ``size`` (width, height). Each frame is a dict: ``indices``
+    (h, w) uint8, and optionally ``x``, ``y``, ``palette`` (a local table),
+    ``interlace``, ``disposal``, ``delay`` (1/100 s), ``transparent`` (an
+    index), ``gce`` (False: no graphic control extension), ``min_size``
+    (the LZW minimum code size), ``clear_at_full``."""
+    w, h = size
+    flags = 0
+    table = b""
+    if palette is not None:
+        bits, table = _gif_table(palette)
+        flags = 0x80 | 0x70 | bits
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", w, h, flags, background, 0) + table)
+    if loop and len(frames) > 1:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        fh, fw = idx.shape
+        if f.get("gce", True):
+            t = f.get("transparent")
+            packed = (f.get("disposal", 0) << 2) | (t is not None)
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", packed, f.get("delay", 10), t or 0) + b"\x00"
+        dflags, local = 0, b""
+        if f.get("palette") is not None:
+            bits, local = _gif_table(f["palette"])
+            dflags = 0x80 | bits
+        rows = idx
+        if f.get("interlace"):
+            dflags |= 0x40
+            rows = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]])
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0), fw, fh, dflags) + local
+        min_size = f.get("min_size", max(2, int(idx.max(initial=0)).bit_length()))
+        codes = gif_lzw(rows, min_size, clear_at_full=f.get("clear_at_full", True))
+        out.append(min_size)
+        for i in range(0, len(codes), 255):
+            out += bytes([len(codes[i:i + 255])]) + codes[i:i + 255]
+        out.append(0)
+    return bytes(out + b"\x3b")
+
+
+# ------------------------------------------- PNM, Sun raster, Radiance HDR
+
+
+def sun_bytes(rows: np.ndarray, depth: int, *, kind: int = 1, colormap=None) -> bytes:
+    """A Sun raster of (h, w) 1- or 8-bit samples, or (h, w, 3 / 4) bytes a
+    pixel as they lie, each row padded to 16 bits (``kind`` 1 standard,
+    0 old, 3 RGB); ``kind`` 2 (byte-encoded) run-length codes the rows,
+    unpadded; ``colormap`` (3, n) uint8 is an RGB colour map."""
+    rows = np.asarray(rows, np.uint8)
+    h, w = rows.shape[:2]
+    data = np.packbits(rows, axis=1) if depth == 1 else rows.reshape(h, -1)
+    if kind == 2:
+        body = sun_rle(data.tobytes())
+    else:
+        pad = (-data.shape[1]) % 2
+        body = np.pad(data, ((0, 0), (0, pad))).tobytes()
+    cmap = b"" if colormap is None else np.asarray(colormap, np.uint8).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), kind, 1 if cmap else 0, len(cmap)) + cmap + body
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte encoding: 0x80 n v for n + 1 copies of v, 0x80 0 for a lone 0x80."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+        else:
+            for _ in range(j - i):
+                out += b"\x80\x00" if data[i] == 0x80 else bytes([data[i]])
+        i = j
+    return bytes(out)
+
+
+def hdr_bytes(rgbe: np.ndarray, *, rle: bool = True, header: bytes = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n",
+              resolution: bytes | None = None) -> bytes:
+    """A Radiance HDR of (h, w, 4) RGBE bytes: new-style run-length
+    scanlines (widths 8-32767) or flat ones."""
+    rgbe = np.asarray(rgbe, np.uint8)
+    h, w = rgbe.shape[:2]
+    out = bytearray(header + (resolution or b"-Y %d +X %d\n" % (h, w)))
+    for row in rgbe:
+        if not rle or not 8 <= w <= 0x7FFF:
+            out += row.tobytes()
+            continue
+        out += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            d, i = row[:, c], 0
+            while i < w:
+                j = i
+                while j < w and d[j] == d[i] and j - i < 127:
+                    j += 1
+                if j - i >= 3:
+                    out += bytes([128 + j - i, d[i]])
+                    i = j
+                    continue
+                k = i
+                while k < w and k - i < 128 and not (k + 2 < w and d[k] == d[k + 1] == d[k + 2]):
+                    k += 1
+                out += bytes([k - i]) + d[i:k].tobytes()
+                i = k
+    return bytes(out)
+
+
+# ------------------------------------------------------------ CCITT T.6
+
+_WHITE_TERM = ("00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 110101 "
+               "101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 0010011 0100100 "
+               "0011000 00000010 00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110 00010111 "
+               "00101000 00101001 00101010 00101011 00101100 00101101 00000100 00000101 00001010 00001011 01010010 "
+               "01010011 01010100 01010101 00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 "
+               "00110010 00110011 00110100").split()
+_BLACK_TERM = ("0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 00000111 "
+               "000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 00000110111 "
+               "00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 000011001101 "
+               "000001101000 000001101001 000001101010 000001101011 000011010010 000011010011 000011010100 "
+               "000011010101 000011010110 000011010111 000001101100 000001101101 000011011010 000011011011 "
+               "000001010100 000001010101 000001010110 000001010111 000001100100 000001100101 000001010010 "
+               "000001010011 000000100100 000000110111 000000111000 000000100111 000000101000 000001011000 "
+               "000001011001 000000101011 000000101100 000001011010 000001100110 000001100111").split()
+_WHITE_MAKEUP = ("11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 "
+                 "011001101 011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 "
+                 "011011010 011011011 010011000 010011001 010011010 011000 010011011").split()
+_BLACK_MAKEUP = ("0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+                 "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+                 "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+                 "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+                 "0000001100100 0000001100101").split()
+_EXT_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 "
+               "000000010110 000000010111 000000011100 000000011101 000000011110 000000011111").split()
+_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010", -3: "0000010"}
+
+
+def _fax_run(n: int, black: bool) -> str:
+    """ITU-T T.4's codes of one run: 2560 make-ups, a make-up, a terminating code."""
+    term, makeup = (_BLACK_TERM, _BLACK_MAKEUP) if black else (_WHITE_TERM, _WHITE_MAKEUP)
+    out = ""
+    while n >= 2624:
+        out += _EXT_MAKEUP[-1]
+        n -= 2560
+    if n >= 64:
+        m = n // 64
+        out += makeup[m - 1] if m <= 27 else _EXT_MAKEUP[m - 28]
+        n -= 64 * m
+    return out + term[n]
+
+
+def ccitt_t6(bits: np.ndarray) -> bytes:
+    """T.6 (Group 4) codes of (h, w) 0/1 pixels (1 black), with pass,
+    vertical and horizontal modes chosen as T.4 says, and the EOFB."""
+    h, w = bits.shape
+    out, ref = [], [w, w]
+    for row in np.asarray(bits, np.uint8):
+        d = np.flatnonzero(np.diff(np.concatenate([[0], row]).astype(np.int8))).tolist()
+        cur = d + [w, w]
+        a0, colour = -1, 0
+        while a0 < w:
+            a1 = next(x for x in cur if x > a0 or (a0 < 0 and x >= 0))
+            i = next(k for k, x in enumerate(ref) if (x > a0 or (a0 < 0 and x >= 0)) and k % 2 == colour)
+            b1, b2 = ref[i], ref[i + 1] if i + 1 < len(ref) else w
+            if b2 < a1:
+                out.append("0001")
+                a0 = b2
+            elif abs(a1 - b1) <= 3:
+                out.append(_VERTICAL[a1 - b1])
+                a0, colour = a1, 1 - colour
+            else:
+                a2 = next((x for x in cur if x > a1), w)
+                out.append("001" + _fax_run(a1 - max(a0, 0), bool(colour)) + _fax_run(a2 - a1, not colour))
+                a0 = a2
+        ref = d + [w, w, w]
+    code = "".join(out) + "000000000001" * 2
+    code += "0" * (-len(code) % 8)
+    return int(code, 2).to_bytes(len(code) // 8, "big") if code else b""
+
+
+def t6_tiff_bytes(bits: np.ndarray, *, photometric: int = 0) -> bytes:
+    """A one-strip T.6 TIFF of (h, w) 0/1 pixels (1 black; MinIsWhite by default)."""
+    h, w = bits.shape
+    data = ccitt_t6(bits)
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 1), (259, 3, 4), (262, 3, photometric), (273, 4, 8), (277, 3, 1),
+            (278, 4, h), (279, 4, len(data))]
+    ifd = struct.pack("<H", len(tags)) + b"".join(struct.pack("<HHII", t, k, 1, v) if k == 4 else
+                                                  struct.pack("<HHIHH", t, k, 1, v, 0) for t, k, v in tags)
+    return b"II*\x00" + struct.pack("<I", 8 + len(data)) + data + ifd + b"\x00\x00\x00\x00"

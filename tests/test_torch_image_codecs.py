@@ -231,32 +231,43 @@ def _refused():
 
 
 @pytest.mark.parametrize("kind", ["cmyk", "12-bit", "arithmetic", "lossless", "hierarchical", "past_2e30_pixels",
-                                  "unrefined_progressive", "truncated", "no_eoi", "webp", "gif"])
+                                  "unrefined_progressive", "truncated", "no_eoi", "webp", "gif", "jpeg2000"])
 def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     """CMYK, 12-bit, arithmetic-coded, lossless and hierarchical JPEGs, more
     than 2^30 pixels (refused from the header, before any allocation), a
     progressive file whose blocks libjpeg would smooth, a cut file, and
-    other formats (GIF) raise ValueError naming the file and what it is
-    (libjpeg pads a cut file with grey and cv2 returns it; the port refuses
-    it). WebP, once refused, now reads as cv2 reads it, at the JAX
-    package's ``image_size``."""
+    other formats (JPEG 2000) raise ValueError naming the file and what it
+    is (libjpeg pads a cut file with grey and cv2 returns it; the port
+    refuses it). WebP and GIF, once refused, now read as cv2 reads them,
+    with their ``image_size`` (the JAX package's too for WebP)."""
     from mga_yolo_tpu.data.dataset import image_size as jax_image_size
     from mga_yolo_tpu_torch.data import image_io
 
-    if kind == "webp":
-        ok, enc = cv2.imencode(".webp", _image(16, 16, 3, 0))
-        assert ok
+    if kind in ("webp", "gif"):
+        if kind == "webp":
+            ok, enc = cv2.imencode(".webp", _image(16, 16, 3, 0))
+            assert ok
+            data = enc.tobytes()
+        else:
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.fromarray(_image(16, 16, 3, 0)[..., ::-1]).quantize(16).save(buf, "GIF")
+            data = buf.getvalue()
         path = tmp_path / "x.img"
-        path.write_bytes(enc.tobytes())
+        path.write_bytes(data)
         np.testing.assert_array_equal(image_io.imread(path), cv2.imread(str(path)))
-        np.testing.assert_array_equal(image_io.decode(enc.tobytes(), gray=True),
-                                      cv2.imdecode(enc, cv2.IMREAD_GRAYSCALE))
-        assert image_io.image_size(path) == jax_image_size(path) == (16, 16)
+        np.testing.assert_array_equal(image_io.decode(data, gray=True),
+                                      cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+        assert image_io.image_size(path) == (16, 16)
+        if kind == "webp":
+            assert jax_image_size(path) == (16, 16)
         return
     if kind == "cmyk":
         data, what = _exif_jpeg(_image(16, 16, 3, 0), 1, mode="CMYK"), r"4-component \(CMYK/YCCK\)"
-    elif kind == "gif":
-        data, what = b"GIF89a" + bytes(20), "GIF; the port reads PNG, JPEG, BMP, TIFF and WebP"
+    elif kind == "jpeg2000":
+        data = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40)
+        what = "JPEG 2000 \\(JP2\\), which the port does not read; the port reads PNG, JPEG"
     else:
         data, what = _refused()[kind]
     path = tmp_path / "x.img"

@@ -5,7 +5,9 @@
   OpenCV, PyYAML, PIL or TensorFlow, which the card's host does not have;
   the plotting suite, the baseline tools and the grid orchestrator load no
   matplotlib, pandas or scipy.
-* No source of the port, nor ``chip_smoke.py``, imports them.
+* No source of the port, nor ``chip_smoke.py``, imports them; the host
+  C++ library's build names every source in ``native/`` and includes no
+  library header beyond the C++ standard library's.
 * Entry points given no ``device`` raise when CUDA is absent.
 * ``chip_smoke.py`` exits non-zero with no result line without a card, and
   in a directory that holds nothing else of the repository.
@@ -107,3 +109,14 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
                              text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (PKG / "native").glob("*.cpp")))
+def test_native_source_is_built_and_needs_only_the_standard_library(path):
+    import re
+
+    from mga_yolo_tpu_torch import native
+
+    assert ROOT / path in {p.resolve() for p in native.sources()}
+    for header in re.findall(r'^#include\s*[<"]([^>"]+)[>"]', (ROOT / path).read_text(), re.M):
+        assert header == "simple_idct.h" or re.fullmatch(r"[a-z_]+", header), f"{path} includes {header}"

@@ -320,10 +320,11 @@ def _refused_tiffs():
     grey = img[..., 0]
     base = W.tiff_bytes(img, 8, 2, compression=5)
     return {
-        "ccitt_g4": (_tiff_with_tag(W.tiff_bytes((grey[..., None] > 128).astype(np.uint8), 1, 0), 259, 4),
-                     "CCITT G4 \\(compression 4\\)"),
+        # raw 1-bit rows labelled CCITT: read as T.6 codes they happen to decode (as in cv2); as T.4 they
+        # are no valid code, which the port raises on and libtiff conceals
+        "ccitt_g4": (_tiff_with_tag(W.tiff_bytes((grey[..., None] > 128).astype(np.uint8), 1, 0), 259, 4), None),
         "ccitt_g3": (_tiff_with_tag(W.tiff_bytes((grey[..., None] > 128).astype(np.uint8), 1, 0), 259, 3),
-                     "CCITT G3 \\(compression 3\\)"),
+                     "corrupt CCITT data"),
         "lzma": (_tiff_with_tag(base, 259, 34925), "LZMA \\(compression 34925\\)"),
         "zstd": (_tiff_with_tag(base, 259, 50000), "ZSTD \\(compression 50000\\)"),
         "webp_in_tiff": (_tiff_with_tag(base, 259, 50001), "WebP \\(compression 50001\\)"),
@@ -344,16 +345,20 @@ def _refused_tiffs():
 
 @pytest.mark.parametrize("kind", list(_refused_tiffs()))
 def test_tiff_features_the_port_does_not_read_raise_naming_them(tmp_path, kind):
-    """CCITT G3 / G4, LZMA, ZSTD, WebP-in-TIFF, old-style JPEG, float and
-    32-bit samples (cv2 returns None for them too), BigTIFF, raw YCbCr,
-    CMYK, 4-bit grey and 2-bit samples (cv2 refuses them too) and the
-    floating-point predictor raise ValueError naming the file and the
-    feature."""
+    """LZMA, ZSTD, WebP-in-TIFF, old-style JPEG, float and 32-bit samples
+    (cv2 returns None for them too), BigTIFF, raw YCbCr, CMYK, 4-bit grey
+    and 2-bit samples (cv2 refuses them too) and the floating-point
+    predictor raise ValueError naming the file and the feature. CCITT,
+    once refused, now decodes: raw rows labelled T.6 read as cv2 reads
+    them, and labelled T.4 (no valid code) raise as corrupt."""
     from mga_yolo_tpu_torch.data import image_io
 
     data, what = _refused_tiffs()[kind]
     path = tmp_path / "r.tif"
     path.write_bytes(data)
+    if what is None:
+        _assert_reads_as_cv2(tmp_path, data, "ccitt.tif")
+        return
     with pytest.raises(ValueError, match=rf"r\.tif: .*{what}"):
         image_io.imread(path)
     with pytest.raises(ValueError, match=what):
@@ -454,6 +459,57 @@ def test_vp8_encoder_settings_equal_cv2(tmp_path, setting):
     for i, img in enumerate((picture(131, 173, 3, 4)[..., ::-1],
                              np.random.default_rng(1).integers(0, 256, (67, 45, 3)).astype(np.uint8))):
         _assert_reads_as_cv2(tmp_path, W.libwebp_encode(img, **VP8_SETTINGS[setting]), f"s{i}.webp")
+
+
+def _libwebp_decodes(data: bytes) -> bool:
+    """Whether libwebp (PIL's, through ctypes) decodes ``data``."""
+    import ctypes
+
+    lib = W._libwebp()
+    lib.WebPDecodeBGR.restype = ctypes.c_void_p
+    w, h = ctypes.c_int(), ctypes.c_int()
+    out = lib.WebPDecodeBGR(data, len(data), ctypes.byref(w), ctypes.byref(h))
+    if out:
+        lib.WebPFree(ctypes.c_void_p(out))
+    return bool(out)
+
+
+def _cut_vp8(data: bytes, k: int) -> bytes:
+    """The lossy WebP with its last token partition ``k`` bytes short (the
+    chunk left odd, unpadded, so that no pad byte stands in for the cut)."""
+    body = W.riff_chunks(data)[b"VP8 "][:-k]
+    chunk = b"VP8 " + struct.pack("<I", len(body)) + body
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+@pytest.mark.parametrize("partitions", [1, 4])
+def test_vp8_cut_in_its_last_token_partition_raises_where_libwebp_fails(tmp_path, partitions):
+    """Lossy files (libwebp's encoder, 1 and 4 token partitions) with their
+    last partition cut 1, 2 and 3 bytes short: the port raises ValueError
+    naming the file exactly where libwebp fails ("premature end of file":
+    a bit asked for past the data), and reads the others as cv2 does. Cut
+    2 bytes, some of the six pictures fail in libwebp; the port read those
+    while it allowed two bytes past a partition. libwebp's encoder never
+    needs its last byte, so no 1-byte cut fails in either."""
+    from mga_yolo_tpu_torch.data import image_io
+    from tests.jpeg_fixtures.make import picture
+
+    failed = {1: 0, 2: 0, 3: 0}
+    for seed in range(6):
+        data = W.libwebp_encode(np.ascontiguousarray(picture(45, 61, 3, seed)[..., ::-1]),
+                                partitions={1: 0, 4: 2}[partitions], method=2, quality=70.0)
+        for k in failed:
+            cut = _cut_vp8(data, k)
+            path = tmp_path / f"cut{seed}_{k}.webp"
+            path.write_bytes(cut)
+            if _libwebp_decodes(cut):
+                _assert_reads_as_cv2(tmp_path, cut, f"ok{seed}_{k}.webp")
+                continue
+            failed[k] += 1
+            assert cv2.imread(str(path)) is None
+            with pytest.raises(ValueError, match=rf"cut{seed}_{k}\.webp: WebP: truncated VP8 data \(token partition"):
+                image_io.imread(path)
+    assert failed[1] == 0 and failed[2] >= 2 and failed[3] >= failed[2]
 
 
 def test_webp_at_angiogram_size_equals_cv2(tmp_path):

@@ -219,10 +219,9 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
         data, what = pack_avi(mhead, [c + c for c in mchunks]), r"interlaced MJPEG \(two fields per chunk\)"
     else:  # containers by signature or suffix
         body = {"mkv": b"\x1a\x45\xdf\xa3" + bytes(60), "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
-                "mpg": b"\x00\x00\x01\xba" + bytes(60), "mpeg": bytes(64), "wmv": b"\x30\x26\xb2\x75" + bytes(60),
-                "gif": b"GIF89a" + bytes(58)}[kind]
+                "mpg": b"\x00\x00\x01\xba" + bytes(60), "mpeg": bytes(64), "wmv": b"\x30\x26\xb2\x75" + bytes(60)}[kind]
         name = {"mkv": "Matroska/WebM", "webm": "Matroska/WebM", "mpg": "MPEG-PS", "mpeg": "MPEG-PS",
-                "wmv": "ASF/WMV", "gif": "GIF"}[kind]
+                "wmv": "ASF/WMV"}[kind]
         path = tmp_path / f"clip.{kind}"
         path.write_bytes(body)
         return path, f"the {name} container is not supported"
@@ -234,8 +233,18 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
 @pytest.mark.parametrize("kind", ["avc1", "hvc1", "moof", "b_vop", "s_vop", "packed", "h264_avi", "interlaced",
                                   "mkv", "webm", "mpg", "mpeg", "wmv", "gif"])
 def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
+    """Each refused codec, layout and container raises ValueError naming the
+    file and what it is. GIF, once refused, now reads as cv2.VideoCapture
+    reads it (``tests/test_torch_more_formats.py`` holds every frame)."""
     from mga_yolo_tpu_torch.data.video_io import VideoReader
 
+    if kind == "gif":
+        clip = Path(__file__).resolve().parent / "format_fixtures" / "gif_pil_disposals_interlaced.gif"
+        cap = cv2.VideoCapture(str(clip))
+        with VideoReader(clip) as r:
+            assert (len(list(r)), r.fps, r.total, r.fourcc) == (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                                                                cap.get(cv2.CAP_PROP_FPS), 4, b"gif ")
+        return
     path, what = _refused(kind, tmp_path)
     with pytest.raises(ValueError, match=rf"{path.name}: .*{what}"):
         with VideoReader(path) as r:
