@@ -208,6 +208,14 @@ Then the baseline toolchain and the experiment grid:
              TIFF masks whose pyramids equal the PNG masks'; ``cli.predict``
              over two GIF clips, its ``_pred.mp4`` read back (launches
              exact).
+18. matroska — Matroska and WebM (``data/video_io.py``'s EBML demuxer and
+             muxer, ``native/vp8.cpp``'s VP8 key and inter frames): the
+             committed ``.mkv`` / ``.webm`` fixtures equal to cv2's frame
+             digests, fps, counts and fourccs; VP8 decode ms a frame at
+             512 px, key and inter frames apart; ``cli.predict`` on the
+             seeded flagship over a 512 px VP8 WebM and an MJPEG ``.mkv``
+             (launches exact, boxes against the predictor's); the ``.mkv``
+             writer read back.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -223,12 +231,14 @@ and ``SPATIAL_FAULTS`` (a halo row dropped, the reductions not all-reduced
 over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
-images (``[formats2]``'s ``cli.predict`` on the seeded flagship).
+images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
+``--matroska-alone`` runs ``[matroska]`` alone.
 """
 
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3481,6 +3491,7 @@ def video_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda
     meta = json.loads((VIDEO_FIXTURES / "meta.json").read_text())
     stored = np.load(VIDEO_FIXTURES / "frames.npz")
     worst = {"mjpeg": [0.0, 0], "mpeg4": [float("inf"), 0.0]}
+    meta = {n: m for n, m in meta.items() if not n.endswith((".mkv", ".webm"))}  # [matroska] reads those
     for name, m in sorted(meta.items()):
         with VideoReader(VIDEO_FIXTURES / name) as r:
             got = list(r)
@@ -3648,6 +3659,199 @@ def video_phase(torch, np, data_yaml, best: Path, tmp: Path, device: str = "cuda
     return counts
 
 
+MKV_PREDICT_FRAMES = 16  # the MJPEG .mkv [matroska] writes for cli.predict: 16 frames of 512 x 512, as big512.webm
+MKV_TIMING_REPS = 5  # big512.webm decoded 5 times for its per-frame times
+
+
+def mjpeg_mkv(frames: list, fps: float) -> bytes:
+    """An MJPEG Matroska file (``V_MJPEG``, one cluster of key-frame
+    SimpleBlocks, Duration and DefaultDuration) of BGR frames, laid out as
+    ffmpeg's muxer lays out cv2's."""
+    from mga_yolo_tpu_torch.data.image_io import encode_jpeg
+    from mga_yolo_tpu_torch.data.video_io import MKV, _ebml, _ebml_uint
+
+    h, w = frames[0].shape[:2]
+    ms = 1000 / fps
+    head = _ebml(MKV["EBML"], _ebml_uint(0x4286, 1) + _ebml_uint(0x42F7, 1) + _ebml_uint(0x42F2, 4) +
+                 _ebml_uint(0x42F3, 8) + _ebml(MKV["DocType"], b"matroska") + _ebml_uint(0x4287, 4) +
+                 _ebml_uint(0x4285, 2))
+    info = _ebml_uint(MKV["TimestampScale"], 1000000) + _ebml(MKV["Duration"], struct.pack(">d", len(frames) * ms))
+    entry = _ebml_uint(MKV["TrackNumber"], 1) + _ebml(MKV["CodecID"], b"V_MJPEG") + _ebml_uint(MKV["TrackType"], 1) + \
+        _ebml_uint(MKV["DefaultDuration"], round(1e9 / fps)) + \
+        _ebml(MKV["Video"], _ebml_uint(MKV["PixelWidth"], w) + _ebml_uint(MKV["PixelHeight"], h))
+    cluster = _ebml_uint(MKV["Timestamp"], 0) + b"".join(
+        _ebml(MKV["SimpleBlock"], b"\x81" + int(round(i * ms)).to_bytes(2, "big") + b"\x80" + encode_jpeg(img))
+        for i, img in enumerate(frames))
+    return head + _ebml(MKV["Segment"], _ebml(MKV["Info"], info) + _ebml(MKV["Tracks"], _ebml(MKV["TrackEntry"], entry))
+                        + _ebml(MKV["Cluster"], cluster))
+
+
+def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """Matroska and WebM on the card's host (``data/video_io.py``'s EBML
+    demuxer and muxer, ``native/vp8.cpp``'s VP8 key and inter frames), and
+    ``cli.predict`` over them on the flagship.
+
+    (a) each committed Matroska / WebM fixture (``tests/video_fixtures``:
+    cv2's writer, and libvpx with hidden alt-ref frames, key frames every 5,
+    token partitions, error-resilient frames, profiles 1 and 3, odd widths)
+    decoded and held to cv2's frame digests, fps, count and fourcc. (b) VP8
+    decode to BGR on one host thread, ms a frame, key and inter frames
+    apart (big512.webm: 16 frames of 512 x 512, key frames 0 and 8). (c)
+    ``cli.predict`` on ``best`` over big512.webm and a 512 px MJPEG .mkv (16
+    frames each): the JAX package's file names (a ``_pred.mp4`` per clip),
+    each frame's boxes equal to the predictor's on the frames decoded anew,
+    CAM-gate launches exactly 3 a batch. (d) 16 synthetic 512 px angiograms
+    written as ``.mkv`` (mp4v in Matroska) and read back: count, fps, PSNR.
+    Returns (c)'s launches."""
+    import contextlib
+    import hashlib
+    import io
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.data.synthetic import vessel_image
+    from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
+    from mga_yolo_tpu_torch.train import predictor as predictor_mod
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures against cv2's digests
+    meta = json.loads((VIDEO_FIXTURES / "meta.json").read_text())
+    names = sorted(n for n in meta if n.endswith((".mkv", ".webm")))
+    check(len(names) >= 17, f"[matroska] {len(names)} Matroska / WebM fixtures")
+    tally: dict = {}
+    n_frames = 0
+    for name in names:
+        m = meta[name]
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in r]
+            check(got == m["sha256"], f"[matroska] {name}: frames differ from cv2's digests")
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[matroska] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m}")
+            for k, v in getattr(r, "vp8_tally", {}).items():
+                tally[k] = tally.get(k, 0) + v
+        n_frames += len(got)
+    print(f"[matroska] (a) {len(names)} Matroska / WebM fixtures ({n_frames} frames) decoded on this host with "
+          f"{native.library_path().name}, each frame equal to cv2's digest, fps, count and fourcc as cv2's; VP8 "
+          f"features decoded: " + ", ".join(f"{k} {v}" for k, v in tally.items() if v))
+    never = sorted(k for k, v in tally.items() if not v)
+    print(f"[matroska] (a) VP8 features no fixture has: {', '.join(never) or 'none'}")
+
+    # (b) VP8 decode times at 512 px, key and inter frames apart
+    big = VideoReader(VIDEO_FIXTURES / "big512.webm")
+    with big:
+        blocks = [big._read(o, n) for o, n in big.samples]
+    times: dict = {True: [], False: []}
+    for _ in range(MKV_TIMING_REPS):
+        dec = native.Vp8Decoder()
+        for b in blocks:
+            t0 = time.perf_counter()
+            got = dec.decode(b)
+            if got is not None:
+                native.yuv_to_bgr(*got[0], False)
+                times[got[1]].append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    check(len(times[True]) == 2 * MKV_TIMING_REPS and len(times[False]) == 14 * MKV_TIMING_REPS,
+          f"[matroska] big512.webm: {len(times[True])} key and {len(times[False])} inter frames timed")
+    print(f"[matroska] (b) VP8 decode to BGR on one host thread, {card}: {med[True]:.3f} ms a key frame, "
+          f"{med[False]:.3f} ms an inter frame (512x512, medians of {len(times[True])} and {len(times[False])})")
+
+    # (c) cli.predict over the WebM and an MJPEG .mkv on the flagship
+    rng = np.random.default_rng(3)
+    frames = [np.repeat(vessel_image(rng, VIDEO_SIZE, MAX_BOXES)[0][:, :, None], 3, axis=2)
+              for _ in range(MKV_PREDICT_FRAMES)]
+    src = tmp / "mkv_src"
+    src.mkdir()
+    (src / "big512.webm").write_bytes((VIDEO_FIXTURES / "big512.webm").read_bytes())
+    (src / "angio.mkv").write_bytes(mjpeg_mkv(frames, 25.0))
+    recorded, loaded = [], []
+    real_load = predictor_mod.load_predictor
+
+    def recording_load(*a, **k):
+        pred = real_load(*a, **k)
+        stream = pred.stream
+
+        def recording_stream(*sa, **sk):
+            for frame, r in stream(*sa, **sk):
+                recorded.append((frame.path, frame.index, r.boxes.copy()))
+                yield frame, r
+
+        pred.stream = recording_stream
+        loaded.append(pred)
+        return pred
+
+    out_dir = tmp / "mkv_predict"
+    predictor_mod.load_predictor = recording_load
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
+                                    str(TRAIN_BATCH), "--conf", "0.01"] + ([] if device == "cuda" else
+                                                                            ["--device", device]))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        predictor_mod.load_predictor = real_load
+    n_video = 16 + MKV_PREDICT_FRAMES
+    n_batches = -(-n_video // TRAIN_BATCH)
+    want_l = want_launches({"cam_gate": 3 * n_batches})
+    check(counts == want_l, f"[matroska] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
+    check(res["images"] == 0 and res["frames"] == n_video, f"[matroska] cli.predict result {res}")
+    written = {p.name for p in out_dir.iterdir()}
+    check(written == {"angio_pred.mp4", "big512_pred.mp4"}, f"[matroska] cli.predict wrote {sorted(written)}")
+    lines = log.getvalue().splitlines()
+    check(lines[-3:] == [f"angio.mkv: {MKV_PREDICT_FRAMES} frames -> angio_pred.mp4",
+                         "big512.webm: 16 frames -> big512_pred.mp4",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[matroska] cli.predict summary {lines[-3:]}")
+    for name, fps in (("angio_pred.mp4", 25.0), ("big512_pred.mp4", 25.0)):
+        with VideoReader(out_dir / name) as r:
+            n = sum(1 for _ in r)
+            check(n == r.total == 16 and r.fps == fps and r.size == (VIDEO_SIZE, VIDEO_SIZE),
+                  f"[matroska] {name}: {n} frames at {r.fps} fps, {r.size}")
+    pred = loaded[0]
+    del pred.stream  # the class's own stream again
+    again = []
+    for f in sorted(src.iterdir()):
+        with VideoReader(f) as r:
+            again += list(r)
+    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
+    check(len(recorded) == len(want) == n_video, f"[matroska] {len(recorded)} results, {len(want)} again")
+    n_boxes, err = 0, 0.0
+    for (path, idx, got), w in zip(recorded, want):
+        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[matroska] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
+        n_boxes += len(got)
+        err = max(err, float(np.abs(got - w).max(initial=0.0)))
+    print(f"[matroska] (c) cli.predict on the seeded flagship over big512.webm (VP8) and angio.mkv (MJPEG), 16 "
+          f"frames of {VIDEO_SIZE}x{VIDEO_SIZE} each: {sorted(written)} as the JAX package names them; {n_boxes} "
+          f"boxes, each frame's equal to the predictor's on the frames decoded anew (max abs error {err:.3g}); "
+          f"launches {counts} ({n_batches} batches of {TRAIN_BATCH}); {n_video / wall:.1f} frames/s on one host "
+          f"thread, model load included ({wall:.2f} s), {card}")
+
+    # (d) the .mkv writer, read back
+    path = tmp / "angio_out.mkv"
+    t0 = time.perf_counter()
+    with VideoWriter(path, 29.97, (VIDEO_SIZE, VIDEO_SIZE)) as vw:
+        for img in frames:
+            vw.write(img)
+    enc = (time.perf_counter() - t0) * 1e3 / len(frames)
+    with VideoReader(path) as r:
+        back = list(r)
+        check(r.container == "Matroska" and len(back) == r.total == len(frames) and r.fps == 29.97
+              and r.size == (VIDEO_SIZE, VIDEO_SIZE), f"[matroska] {path.name}: {len(back)} frames, {r.total}, "
+                                                      f"fps {r.fps}, {r.size}")
+    q = min(psnr(np, b, f) for b, f in zip(back, frames))
+    check(q >= VIDEO_PSNR, f"[matroska] {path.name}: PSNR {q:.2f} dB against the frames written")
+    print(f"[matroska] (d) {len(frames)} angiograms written as {path.name} (mp4v in Matroska, 29.97 fps, "
+          f"{path.stat().st_size / 1e3 / len(frames):.1f} kB a frame, {enc:.3f} ms a frame on one host thread) and "
+          f"read back: count, total and fps exact, PSNR {q:.2f} dB")
+    print(f"[matroska] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -3687,8 +3891,9 @@ def planted_faults(tag: str, faults: dict) -> int:
 
 def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
-    ``[spatial]``, ``[formats]`` or ``[formats2]`` (on a synthetic set of
-    64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship)."""
+    ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
+    64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship) or
+    ``[matroska]`` (the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -3699,7 +3904,9 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag in ("formats", "formats2"):
+        if tag == "matroska":
+            matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
+        elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
             if tag == "formats":
                 formats_phase(torch, np, data_yaml, Path(tmp))
@@ -3794,10 +4001,12 @@ def main() -> int:
         paths["video"] = video_phase(torch, np, data_yaml, best, Path(tmp))
         paths["formats"] = formats_phase(torch, np, data_yaml, Path(tmp))
         paths["formats2"] = formats2_phase(torch, np, data_yaml, best, Path(tmp))
-    # each kernel's launches are those of this slice's path first (uploads of
+        paths["matroska"] = matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mkv_seeded.pt"), Path(tmp))
+    # each kernel's launches are those of this slice's path first (cli.predict
+    # over a VP8 WebM and an MJPEG .mkv), then the earlier slices' (uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
-    # fed from T.6 masks, cli.predict over GIF clips), then the earlier
-    # slices' (uploads of the still formats served and micro-steps fed from
+    # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
+    # formats served and micro-steps fed from
     # them, cli.predict over video, JPEG uploads served and
     # JPEG-fed micro-steps, cli.val on an exported file, where tensorflow imports, the baseline
     # toolchain's run, the spatial-mesh run with device
@@ -3805,7 +4014,7 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -3824,7 +4033,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
-                        ["--formats-alone"], ["--formats2-alone"]):
+                        ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"]):
         import torch
 
         if not torch.cuda.is_available():

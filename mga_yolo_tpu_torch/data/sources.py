@@ -103,8 +103,9 @@ def iter_source(source: Union[SourceLike, Iterable[SourceLike]], max_frames: int
 
 class VideoSink:
     """Lazily-opened annotated-video writer, one per source video: MJPG for
-    ``.avi`` and mp4v otherwise, sized by the first frame
-    (``data/video_io.VideoWriter``)."""
+    ``.avi`` and mp4v otherwise, in the container the suffix names, sized by
+    the first frame (``data/video_io.VideoWriter``). A suffix cv2's writer
+    refuses (``.webm`` among them) raises RuntimeError at the first write."""
 
     def __init__(self, out_path: Path, fps: float):
         self.out_path = Path(out_path)

@@ -1,5 +1,6 @@
 """Video files without OpenCV: the containers in Python, the codecs in the
-host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``, ``native/yuv.cpp``).
+host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``, ``native/vp8.cpp``,
+``native/yuv.cpp``).
 
 The card's host has no OpenCV and no libavcodec, so the port reads and
 writes the video files the JAX package reads and writes through
@@ -15,10 +16,22 @@ writes the video files the JAX package reads and writes through
   likewise in limited range, BI_RGB copied (equal to cv2's frames on every
   test clip). ``fps``, ``total`` and ``fourcc`` are what ``CAP_PROP_FPS``,
   ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FOURCC`` give.
-* :class:`VideoWriter` writes what ``VideoSink`` asks cv2 for: ``.avi`` as
-  MJPG (``encode_jpeg``'s frames, an ``idx1`` index), any other suffix as
-  mp4v (I-VOPs at a fixed quantiser in an MP4 with ``moov``), odd sizes
-  cropped to even and an fps of 0 taken as 30, as cv2's writer does.
+* It reads Matroska and WebM (EBML: the first video track; Segments and
+  Clusters of known or unknown size, SimpleBlocks and BlockGroups; SeekHead,
+  Cues, Tags, CRC-32 and Void skipped) holding VP8 (``native.Vp8Decoder``:
+  key and inter frames, hidden alt-ref frames decoded and not shown, each
+  frame converted as MPEG-4's), MJPEG, MPEG-4 Part 2 (``CodecPrivate`` its
+  configuration), ``V_MS/VFW/FOURCC`` tracks of those codecs, and
+  ``V_UNCOMPRESSED`` I420 (what cv2's writer puts in ``.mkv`` for a fourcc of
+  0). See :meth:`VideoReader._open_mkv` for cv2's fps and frame count.
+* :class:`VideoWriter` writes what ``VideoSink`` asks cv2 for, by suffix:
+  ``.avi`` as MJPG (``encode_jpeg``'s frames, an ``idx1`` index), ``.mkv``
+  as mp4v in Matroska, ``.mp4``, ``.mov`` and ``.m4v`` as mp4v in an MP4
+  with cv2's ``ftyp`` brand (I-VOPs at a fixed quantiser, ``moov`` last),
+  odd sizes cropped to even and an fps of 0 taken as 30, as cv2's writer
+  does. ``.webm`` and suffixes cv2's writer refuses raise ``RuntimeError``
+  as ``VideoSink`` does; ``.mpg``, ``.mpeg``, ``.wmv`` and ``.gif`` are
+  written as MP4 (cv2 writes MPEG-PS, ASF and GIF there).
 
   GIF's frames come out as cv2 gives them through ffmpeg's gif decoder
   (``native/gif.cpp`` decodes the LZW data; the frames are put on the
@@ -26,13 +39,15 @@ writes the video files the JAX package reads and writes through
   :meth:`VideoReader._gif_frames`), with its frame count, frame rate and
   fourcc ``gif ``.
 
-H.264 / HEVC, fragmented MP4, interlaced MJPEG, and Matroska / WebM,
-MPEG-PS and ASF / WMV raise ``ValueError`` naming the file, its container
-and its codec, as do truncated and corrupt files.
+H.264 / HEVC, VP9, AV1, FFV1, fragmented MP4, interlaced MJPEG, Matroska's
+content encodings and laced blocks, MPEG-PS and ASF / WMV raise
+``ValueError`` naming the file, its container and its codec, as do
+truncated and corrupt files (libavcodec conceals damage; the port refuses).
 """
 
 from __future__ import annotations
 
+import math
 import struct
 from pathlib import Path
 from typing import BinaryIO, Iterator, List, Optional, Tuple
@@ -50,14 +65,38 @@ NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.
               b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"DIV3": "MS MPEG-4 v3",
               b"MP42": "MS MPEG-4 v2", b"WMV3": "WMV9", b"vp09": "VP9", b"av01": "AV1"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
-CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif "}
-REFUSED_CONTAINERS = {".mkv": "Matroska", ".webm": "WebM", ".mpg": "MPEG-PS", ".mpeg": "MPEG-PS",
-                      ".wmv": "ASF/WMV"}
-_SIGNATURES = ((b"\x1a\x45\xdf\xa3", "Matroska/WebM"), (b"\x00\x00\x01\xba", "MPEG-PS"),
-               (b"\x30\x26\xb2\x75", "ASF/WMV"))
+CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif ",
+              "vp8": b"VP80"}
+REFUSED_CONTAINERS = {".mpg": "MPEG-PS", ".mpeg": "MPEG-PS", ".wmv": "ASF/WMV"}
+_SIGNATURES = ((b"\x00\x00\x01\xba", "MPEG-PS"), (b"\x30\x26\xb2\x75", "ASF/WMV"))
+EBML_MAGIC = b"\x1a\x45\xdf\xa3"
+# Matroska's element IDs (marker bits kept) that the reader and the writer use
+MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead": 0x114D9B74, "Info": 0x1549A966,
+       "TimestampScale": 0x2AD7B1, "Duration": 0x4489, "MuxingApp": 0x4D80, "WritingApp": 0x5741,
+       "Tracks": 0x1654AE6B, "TrackEntry": 0xAE, "TrackNumber": 0xD7, "TrackUID": 0x73C5, "TrackType": 0x83,
+       "FlagLacing": 0x9C, "Language": 0x22B59C, "CodecID": 0x86, "CodecPrivate": 0x63A2,
+       "DefaultDuration": 0x23E383, "Video": 0xE0, "PixelWidth": 0xB0, "PixelHeight": 0xBA,
+       "ColourSpace": 0x2EB524, "ContentEncodings": 0x6D80, "Cluster": 0x1F43B675, "Timestamp": 0xE7,
+       "SimpleBlock": 0xA3, "BlockGroup": 0xA0, "Block": 0xA1, "EncryptedBlock": 0xAF, "Cues": 0x1C53BB6B,
+       "CuePoint": 0xBB, "CueTime": 0xB3, "CueTrackPositions": 0xB7, "CueTrack": 0xF7,
+       "CueClusterPosition": 0xF1, "Tags": 0x1254C367, "Chapters": 0x1043A770, "Attachments": 0x1941A469}
+MKV_TOP_LEVEL = {MKV[k] for k in ("SeekHead", "Info", "Tracks", "Cluster", "Cues", "Tags", "Chapters", "Attachments")}
+MKV_CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4",
+              "V_MPEG4/ISO/AP": "mpeg4"}
+MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
+             "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MPEG1": "MPEG-1", "V_MPEG2": "MPEG-2",
+             "V_MS/VFW/FOURCC": "VfW"}
+# ffmpeg's standard frame rates (get_std_framerate), as fractions over 12 * 1001
+_STD_RATES = [(i + 1) * 1001 for i in range(30 * 12)] + [(i + 61) * 1001 * 12 for i in range(30)] + \
+    [r * 1001 * 12 for r in (80, 120, 240)] + [r * 1000 * 12 for r in (24, 30, 60, 12, 15, 48)]
 GIF_DEFAULT_DELAY = 10  # ffmpeg's, in 1/100 s, for a graphic control delay of 0
 GIF_TRANSPARENT = np.array([255, 255, 255], np.uint8)  # ffmpeg's trans_color 0x00ffffff, its alpha dropped
 MPEG4_QP = 2  # the writer's fixed quantiser: reconstruction steps of 4 on DCT coefficients
+# the ftyp box (major brand, minor version, compatible brands) cv2 writes per suffix
+MP4_FTYP = {".mp4": b"isom\0\0\2\0isomiso2mp41", ".mov": b"qt  \0\0\2\0qt  ", ".m4v": b"M4V \0\0\2\0M4V isomiso2"}
+# suffixes cv2 writes in containers the port does not write yet (MPEG-PS, ASF, GIF): written as MP4
+WRITER_AS_MP4 = {".mpg", ".mpeg", ".wmv", ".gif"}
+MKV_CLUSTER_MS = 5000  # ffmpeg's cluster_time_limit
 
 
 def _tag(t: bytes) -> str:
@@ -72,6 +111,32 @@ def _codec_of(tag: bytes) -> Optional[str]:
     if tag in I420_TAGS:
         return "i420"
     return None
+
+
+def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
+    """num / den as the closest fraction with both terms at most limit, as
+    libavutil's av_reduce computes it (continued fractions)."""
+    g = math.gcd(num, den)
+    if g:
+        num, den = num // g, den // g
+    a0n, a0d, a1n, a1d = 0, 1, 1, 0
+    if num <= limit and den <= limit:
+        return num, den
+    while den:
+        x = num // den
+        nxt = num - den * x
+        a2n, a2d = x * a1n + a0n, x * a1d + a0d
+        if a2n > limit or a2d > limit:
+            if a1n:
+                x = (limit - a0n) // a1n
+            if a1d:
+                x = min(x, (limit - a0d) // a1d)
+            if den * (2 * x * a1d + a0d) > num * a1d:
+                a1n, a1d = x * a1n + a0n, x * a1d + a0d
+            break
+        a0n, a0d, a1n, a1d = a1n, a1d, a2n, a2d
+        num, den = den, nxt
+    return a1n, a1d
 
 
 def cv2_fps_fraction(fps: float) -> Tuple[int, int]:
@@ -121,6 +186,9 @@ class VideoReader:
         if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
             self.container = "AVI"
             self._open_avi()
+        elif head.startswith(EBML_MAGIC):
+            self.container = "Matroska"
+            self._open_mkv()
         elif head.startswith(GIF_SIGNATURES):
             self.container = "GIF"
             self._open_gif()
@@ -131,9 +199,10 @@ class VideoReader:
             what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
             what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
             if what:
-                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, and AVI "
-                                 f"and MP4/MOV holding MJPEG, MPEG-4 Part 2 or uncompressed video)")
-            raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV)")
+                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, AVI and "
+                                 f"MP4/MOV holding MJPEG, MPEG-4 Part 2 or uncompressed video, and Matroska/WebM "
+                                 f"holding those or VP8)")
+            raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV, Matroska, WebM)")
         self.fourcc = CV2_FOURCC[self.codec]
 
     def _refuse(self, what: str) -> None:
@@ -464,6 +533,225 @@ class VideoReader:
             shown += [i for i, t in enumerate(starts) if media_time <= t < stop]
         return None if shown == list(range(len(durations))) else shown
 
+    # ---- Matroska / WebM
+
+    def _vint(self, off: int, marker: bool) -> Tuple[Optional[int], int]:
+        """(value, length) of the EBML number at off: an element ID with its
+        marker bit kept, or a size without it (None when all its bits are
+        set: an unknown size)."""
+        first = self._read(off, 1)[0]
+        n = 9 - first.bit_length()
+        if n > (4 if marker else 8):
+            raise ValueError(f"{self.path}: corrupt {self.container} file (a bad EBML {'ID' if marker else 'size'} "
+                             f"at {off})")
+        raw = int.from_bytes(self._read(off, n), "big")
+        if marker:
+            return raw, n
+        v = raw & ((1 << (7 * n)) - 1)
+        return (None if v == (1 << (7 * n)) - 1 else v), n
+
+    def _element(self, off: int, end: int) -> Tuple[int, int, Optional[int]]:
+        """(ID, data offset, size or None) of the element at off, inside a
+        parent that ends at end."""
+        eid, n1 = self._vint(off, True)
+        size, n2 = self._vint(off + n1, False)
+        data = off + n1 + n2
+        if data > end or (size is not None and data + size > end):
+            raise ValueError(f"{self.path}: truncated {self.container} file (element 0x{eid:X} of "
+                             f"{size} bytes at {off} is past its end at {end})")
+        return eid, data, size
+
+    def _children(self, off: int, end: int) -> Iterator[Tuple[int, int, int]]:
+        while off < end:
+            eid, data, size = self._element(off, end)
+            if size is None:
+                raise ValueError(f"{self.path}: corrupt {self.container} file (element 0x{eid:X} of unknown size)")
+            yield eid, data, size
+            off = data + size
+
+    def _uint(self, off: int, size: int) -> int:
+        return int.from_bytes(self._read(off, size), "big") if size else 0
+
+    def _open_mkv(self) -> None:
+        """Matroska and WebM as ffmpeg's demuxer reads them for cv2: the first
+        video track's blocks in file order. ``fps`` is ffmpeg's average frame
+        rate, 1e9 / DefaultDuration as av_reduce gives it with terms up to
+        30000 (29.97 for a DefaultDuration of 33366700 ns, 30000/1001 for
+        33366667); without DefaultDuration, the first of ffmpeg's standard
+        rates that puts every block on its timestamp (rounded to the tick),
+        else the mean rate of the timestamps. ``total`` is cv2's
+        floor(duration * fps + 0.5) on the Info Duration (in microseconds,
+        truncated), and without a Duration the same on INT64_MIN ticks, the
+        negative count cv2 reports for such a file (ffmpeg's live output).
+        Measured against cv2 at 25, 30, 29.97 and 30000/1001 fps, without a
+        Duration, and without a DefaultDuration at 25, 3.003 and 30000/1001."""
+        eid, data, size = self._element(0, self._size)
+        if size is None:
+            raise ValueError(f"{self.path}: corrupt Matroska file (EBML header of unknown size)")
+        doctype = ""
+        for e, o, n in self._children(data, data + size):
+            if e == MKV["DocType"]:
+                doctype = self._read(o, n).rstrip(b"\0").decode("latin-1")
+        if doctype not in ("matroska", "webm"):
+            raise ValueError(f"{self.path}: an EBML file of DocType '{doctype}' is not Matroska or WebM")
+        self.container = "WebM" if doctype == "webm" else "Matroska"
+        off = data + size
+        while True:
+            eid, data, size = self._element(off, self._size)
+            if eid == MKV["Segment"]:
+                break
+            if size is None:
+                raise ValueError(f"{self.path}: corrupt {self.container} file (element 0x{eid:X} of unknown size)")
+            off = data + size
+        seg_end = self._size if size is None else data + size
+        scale, duration, entries, blocks = 1000000, None, [], []
+        pos = data
+        while pos < seg_end:
+            eid, o, n = self._element(pos, seg_end)
+            if eid == MKV["Cluster"]:
+                pos = self._mkv_cluster(o, n, seg_end, blocks)
+                continue
+            if n is None:
+                raise ValueError(f"{self.path}: corrupt {self.container} file (element 0x{eid:X} of unknown size)")
+            if eid == MKV["Info"]:
+                for e, o2, n2 in self._children(o, o + n):
+                    if e == MKV["TimestampScale"]:
+                        scale = self._uint(o2, n2)
+                    elif e == MKV["Duration"] and n2 in (4, 8):
+                        duration = struct.unpack(">f" if n2 == 4 else ">d", self._read(o2, n2))[0]
+            elif eid == MKV["Tracks"]:
+                entries += [self._mkv_track(o2, n2) for e, o2, n2 in self._children(o, o + n)
+                            if e == MKV["TrackEntry"]]
+            pos = o + n
+        track = next((t for t in entries if t.get("type") == 1), None)
+        if track is None:
+            raise ValueError(f"{self.path}: {self.container} file without a video track")
+        if not scale:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (TimestampScale 0)")
+        self._mkv_codec(track)
+        self.size = (track.get("width", 0), track.get("height", 0))
+        mine = [(ts, o, n) for num, ts, o, n in blocks if num == track.get("number")]
+        self.samples = [(o, n) for _, o, n in mine]
+        tick_num, tick_den = scale // math.gcd(scale, 10 ** 9), 10 ** 9 // math.gcd(scale, 10 ** 9)
+        dd = track.get("default_duration")
+        if dd:
+            num, den = av_reduce(10 ** 9, dd, 30000)
+        else:
+            num, den = self._mkv_guess_rate([ts for ts, _, _ in mine], tick_num, tick_den)
+        self.fps = num / den if den else 0.0
+        if duration is not None:
+            seconds = int(duration * scale * 1000 / 1000000) / 1000000
+        else:
+            seconds = float(-2 ** 63) * (tick_num / tick_den)
+        self.total = int(math.floor(seconds * self.fps + 0.5))
+
+    def _mkv_track(self, off: int, size: int) -> dict:
+        t: dict = {}
+        for e, o, n in self._children(off, off + size):
+            if e == MKV["TrackNumber"]:
+                t["number"] = self._uint(o, n)
+            elif e == MKV["TrackType"]:
+                t["type"] = self._uint(o, n)
+            elif e == MKV["CodecID"]:
+                t["codec"] = self._read(o, n).rstrip(b"\0").decode("latin-1")
+            elif e == MKV["CodecPrivate"]:
+                t["private"] = self._read(o, n)
+            elif e == MKV["DefaultDuration"]:
+                t["default_duration"] = self._uint(o, n)
+            elif e == MKV["ContentEncodings"]:
+                t["encoded"] = True
+            elif e == MKV["Video"]:
+                for e2, o2, n2 in self._children(o, o + n):
+                    if e2 == MKV["PixelWidth"]:
+                        t["width"] = self._uint(o2, n2)
+                    elif e2 == MKV["PixelHeight"]:
+                        t["height"] = self._uint(o2, n2)
+                    elif e2 == MKV["ColourSpace"]:
+                        t["colour_space"] = self._read(o2, n2)
+        return t
+
+    def _mkv_codec(self, track: dict) -> None:
+        cid = track.get("codec", "")
+        if track.get("encoded"):
+            self._refuse(f"a content encoding (compression or encryption) on its {cid} track")
+        private = track.get("private", b"")
+        self.codec = MKV_CODECS.get(cid)
+        if cid == "V_MS/VFW/FOURCC" and len(private) >= 40:
+            tag = private[16:20]
+            self.codec = _codec_of(tag)
+            if self.codec is None:
+                self._refuse(f"{NAMED_TAGS.get(tag, f'the {_tag(tag)!r} codec')} video ('V_MS/VFW/FOURCC', "
+                             f"'{_tag(tag)}')")
+            private = private[40:]
+        elif cid == "V_UNCOMPRESSED":
+            space = track.get("colour_space", b"")
+            if space[:4] not in I420_TAGS:
+                self._refuse(f"uncompressed video of ColourSpace '{_tag(space[:4])}'")
+            self.codec = "i420"
+        if self.codec is None:
+            self._refuse(f"{MKV_NAMED.get(cid, f'the {cid!r} codec')} video ('{cid}')")
+        if self.codec == "mpeg4":
+            self.extradata = private
+
+    def _mkv_cluster(self, off: int, size: Optional[int], seg_end: int, blocks: list) -> int:
+        """Appends the cluster's blocks (track, timestamp, offset, size) to
+        blocks; returns where the cluster ends (for one of unknown size, at
+        the next element of the segment's level)."""
+        end = seg_end if size is None else off + size
+        t0 = None
+        pos = off
+        while pos < end:
+            eid, o, n = self._element(pos, end)
+            if size is None and eid in MKV_TOP_LEVEL:
+                return pos
+            if n is None:
+                raise ValueError(f"{self.path}: corrupt {self.container} file (element 0x{eid:X} of unknown size)")
+            if eid == MKV["Timestamp"]:
+                t0 = self._uint(o, n)
+            elif eid == MKV["SimpleBlock"]:
+                blocks.append(self._mkv_block(o, n, t0))
+            elif eid == MKV["BlockGroup"]:
+                blocks += [self._mkv_block(o2, n2, t0) for e, o2, n2 in self._children(o, o + n) if e == MKV["Block"]]
+            elif eid == MKV["EncryptedBlock"]:
+                self._refuse("encrypted blocks")
+            pos = o + n
+        return end
+
+    def _mkv_block(self, off: int, size: int, t0: Optional[int]) -> Tuple[int, int, int, int]:
+        track, n = self._vint(off, False)
+        if size < n + 4 or track is None:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (a block of {size} bytes at {off})")
+        rel, flags = struct.unpack(">hB", self._read(off + n, 3))
+        if flags & 0x06:
+            self._refuse("laced blocks")
+        if t0 is None:
+            raise ValueError(f"{self.path}: corrupt {self.container} file (a block before its cluster's Timestamp)")
+        return track, t0 + rel, off + n + 3, size - n - 3
+
+    @staticmethod
+    def _mkv_guess_rate(stamps: list, tick_num: int, tick_den: int) -> Tuple[int, int]:
+        """(num, den) frame rate of a track without DefaultDuration: of
+        ffmpeg's standard rates whose frame times, rounded to the tick, are
+        within a tick of every timestamp, the one whose frame phases vary
+        least (ffmpeg's error measure), else the mean rate of the timestamps."""
+        if len(stamps) < 2 or stamps[-1] <= stamps[0]:
+            return 0, 1
+        rel = np.array([t - stamps[0] for t in stamps], np.float64)
+        seconds = rel * tick_num / tick_den
+        best, best_error = None, 0.01
+        for rate in _STD_RATES:  # frames per 12 * 1001 seconds
+            frames = seconds * rate / (12 * 1001)
+            if np.abs(np.floor(np.arange(len(rel)) * 12 * 1001 * tick_den / (rate * tick_num) + 0.5) - rel).max() > 1:
+                continue
+            for k in (0, 0.5):
+                phase = frames - np.rint(frames + k) + k
+                error = (phase ** 2).mean() - phase.mean() ** 2
+                if error < best_error:
+                    best, best_error = rate, error
+        if best is not None:
+            return av_reduce(best, 12 * 1001, 2 ** 31 - 1)
+        return av_reduce((len(stamps) - 1) * tick_den, int(rel[-1]) * tick_num, 60000)
+
     # ---- GIF
 
     def _open_gif(self) -> None:
@@ -543,6 +831,9 @@ class VideoReader:
         if self.codec == "mpeg4":
             yield from self._mpeg4_frames()
             return
+        if self.codec == "vp8":
+            yield from self._vp8_frames()
+            return
         order = self.shown if self.shown is not None else range(len(self.samples))
         for i in order:
             o, n = self.samples[i]
@@ -608,6 +899,30 @@ class VideoReader:
         finally:
             dec.close()
 
+    def _vp8_frames(self) -> Iterator[np.ndarray]:
+        """Each shown frame, its planes converted as MPEG-4's are (swscale's
+        limited-range BT.601, as cv2 converts vp8's yuv420p); a hidden frame
+        (an alt-ref) updates the references and gives none, as in ffmpeg."""
+        dec = native.Vp8Decoder()
+        try:
+            for i, (o, n) in enumerate(self.samples):
+                data = self._read(o, n)
+                if n >= 10 and not data[0] & 1:  # a key frame: its size is the track's (or memory runs away)
+                    size = (int.from_bytes(data[6:8], "little") & 0x3FFF, int.from_bytes(data[8:10], "little") & 0x3FFF)
+                    if size != self.size:
+                        raise ValueError(f"{self.path}: {self.container} with VP8 video, block {i}: a key frame of "
+                                         f"{size[0]}x{size[1]} in a track of {self.size[0]}x{self.size[1]}")
+                try:
+                    got = dec.decode(data)
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: {self.container} with VP8 video, block {i}: {e}") from None
+                if got is not None:
+                    (y, u, v), _ = got
+                    yield native.yuv_to_bgr(y, u, v, full_range=False)
+            self.vp8_tally = dec.tally()
+        finally:
+            dec.close()
+
     def close(self) -> None:
         self._f.close()
 
@@ -621,31 +936,54 @@ class VideoReader:
 # ------------------------------------------------------------------ writing
 
 
+def _ebml(eid: int, payload: bytes) -> bytes:
+    """An EBML element: its ID, its size (in the fewest bytes), its payload."""
+    n = len(payload)
+    width = next(k for k in range(1, 9) if n < (1 << (7 * k)) - 1)
+    return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + ((1 << (7 * width)) | n).to_bytes(width, "big") + payload
+
+
+def _ebml_uint(eid: int, v: int) -> bytes:
+    return _ebml(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+
 class VideoWriter:
-    """Writes BGR uint8 frames of one size: ``.avi`` as MJPG, any other
-    suffix as mp4v, as ``cv2.VideoWriter`` with the JAX ``VideoSink``'s
-    fourccs. Frames are cropped to even width and height; an fps of 0 (or
-    less) is 30. :meth:`close` finishes the file (the index and headers)."""
+    """Writes BGR uint8 frames of one size as ``cv2.VideoWriter`` does with
+    the JAX ``VideoSink``'s fourccs: ``.avi`` as MJPG, ``.mkv`` as mp4v in
+    Matroska, ``.mp4`` / ``.mov`` / ``.m4v`` as mp4v in MP4 with cv2's
+    brands (and ``.mpg``, ``.mpeg``, ``.wmv``, ``.gif`` as MP4, where cv2
+    writes MPEG-PS, ASF and GIF). Any other suffix, ``.webm`` among them,
+    raises RuntimeError as ``VideoSink`` does when cv2's writer does not open.
+    Frames are cropped to even width and height; an fps of 0 (or less) is 30.
+    :meth:`close` finishes the file (the index and headers)."""
 
     def __init__(self, path: str | Path, fps: float, size: Tuple[int, int]):
         self.path = Path(path)
+        suffix = self.path.suffix.lower()
+        if suffix not in (".avi", ".mkv", *MP4_FTYP, *WRITER_AS_MP4):
+            raise RuntimeError(f"cannot open video writer: {self.path}")
         self.fps = fps if fps and fps > 0 else 30.0
         self.num, self.den = cv2_fps_fraction(self.fps)
         w, h = size
         self.width, self.height = w - (w & 1), h - (h & 1)
         if self.width < 2 or self.height < 2:
             raise ValueError(f"{self.path}: a video of {w}x{h} pixels is too small to write")
-        self.avi = self.path.suffix.lower() == ".avi"
+        self.avi = suffix == ".avi"
+        self.mkv = suffix == ".mkv"
         self.sizes: List[int] = []
         self._f: Optional[BinaryIO] = open(self.path, "wb")
         if self.avi:
             self._f.write(self._avi_header(0, 0))
+            return
+        self.res = self.num
+        while self.res > 65535:  # the VOP time resolution is 16 bits
+            self.res //= 10
+        self.vol = native.mpeg4_header(self.width, self.height, self.res)
+        if self.mkv:
+            self._start_mkv()
         else:
-            self.res = self.num
-            while self.res > 65535:  # the VOP time resolution is 16 bits
-                self.res //= 10
-            self.vol = native.mpeg4_header(self.width, self.height, self.res)
-            self._f.write(self._box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2mp41"))
+            self._f.write(self._box(b"ftyp", MP4_FTYP.get(suffix, MP4_FTYP[".mp4"])))
             self._mdat = self._f.tell()
             self._f.write(struct.pack(">I4sQ", 1, b"mdat", 16))
 
@@ -674,7 +1012,10 @@ class VideoWriter:
             seconds = t1 // self.res - (t0 // self.res if i else 0)
             y, u, v = native.bgr_to_yuv420(img)
             data = native.mpeg4_encode_intra(y, u, v, self.res, seconds, t1 % self.res, MPEG4_QP)
-            self._f.write(data)
+            if self.mkv:
+                self._mkv_block(data)
+            else:
+                self._f.write(data)
         self.sizes.append(len(data))
 
     def close(self) -> None:
@@ -683,6 +1024,8 @@ class VideoWriter:
         try:
             if self.avi:
                 self._finish_avi()
+            elif self.mkv:
+                self._finish_mkv()
             else:
                 self._finish_mp4()
         finally:
@@ -790,3 +1133,67 @@ class VideoWriter:
         mdia = box(b"mdia", box(b"mdhd", mdhd) + box(b"hdlr", hdlr) + minf)
         trak = box(b"trak", box(b"tkhd", tkhd) + mdia)
         f.write(box(b"moov", box(b"mvhd", mvhd) + trak))
+
+    # ---- Matroska
+
+    def _mkv_ms(self, i: int) -> int:
+        """Frame i's time in milliseconds, rounded as ffmpeg rescales it."""
+        return (2 * i * 1000 * self.den + self.num) // (2 * self.num)
+
+    def _start_mkv(self) -> None:
+        """The EBML header, the Segment (its size written at close), Info (its
+        Duration at close) and the mp4v track, as ffmpeg's muxer lays them out
+        for cv2."""
+        f = self._f
+        f.write(_ebml(MKV["EBML"], _ebml_uint(0x4286, 1) + _ebml_uint(0x42F7, 1) + _ebml_uint(0x42F2, 4) +
+                      _ebml_uint(0x42F3, 8) + _ebml(MKV["DocType"], b"matroska") + _ebml_uint(0x4287, 4) +
+                      _ebml_uint(0x4285, 2)))
+        f.write(MKV["Segment"].to_bytes(4, "big"))
+        self._segment = f.tell()
+        f.write(b"\x01" + b"\0" * 7)  # an 8-byte size, filled in at close
+        app = b"mga_yolo_tpu_torch"
+        info = _ebml_uint(MKV["TimestampScale"], 1000000) + _ebml(MKV["MuxingApp"], app) + \
+            _ebml(MKV["WritingApp"], app)
+        f.write(_ebml(MKV["Info"], info + _ebml(MKV["Duration"], struct.pack(">d", 0.0))))
+        self._duration = f.tell() - 8
+        video = _ebml_uint(MKV["PixelWidth"], self.width) + _ebml_uint(MKV["PixelHeight"], self.height)
+        entry = _ebml_uint(MKV["TrackNumber"], 1) + _ebml_uint(MKV["TrackUID"], 1) + \
+            _ebml_uint(MKV["FlagLacing"], 0) + _ebml(MKV["Language"], b"und") + \
+            _ebml(MKV["CodecID"], b"V_MPEG4/ISO/ASP") + _ebml_uint(MKV["TrackType"], 1) + \
+            _ebml_uint(MKV["DefaultDuration"], (2 * 10 ** 9 * self.den + self.num) // (2 * self.num)) + \
+            _ebml(MKV["Video"], video) + _ebml(MKV["CodecPrivate"], self.vol)
+        f.write(_ebml(MKV["Tracks"], _ebml(MKV["TrackEntry"], entry)))
+        self._cluster: Optional[Tuple[int, bytearray]] = None
+        self._cues: List[Tuple[int, int]] = []  # (cluster time, cluster position in the segment)
+
+    def _mkv_block(self, data: bytes) -> None:
+        t = self._mkv_ms(len(self.sizes))
+        if self._cluster is not None and (t - self._cluster[0] >= MKV_CLUSTER_MS or len(self._cluster[1]) >= 5 << 20):
+            self._flush_cluster()
+        if self._cluster is None:
+            self._cluster = (t, bytearray(_ebml_uint(MKV["Timestamp"], t)))
+        block = b"\x81" + struct.pack(">hB", t - self._cluster[0], 0x80) + data  # track 1, key frame
+        self._cluster[1].extend(_ebml(MKV["SimpleBlock"], block))
+
+    def _flush_cluster(self) -> None:
+        t0, body = self._cluster
+        self._cues.append((t0, self._f.tell() - self._segment - 8))
+        self._f.write(_ebml(MKV["Cluster"], bytes(body)))
+        self._cluster = None
+
+    def _finish_mkv(self) -> None:
+        f = self._f
+        if self._cluster is not None:
+            self._flush_cluster()
+        if self._cues:
+            f.write(_ebml(MKV["Cues"], b"".join(
+                _ebml(MKV["CuePoint"], _ebml_uint(MKV["CueTime"], t) + _ebml(MKV["CueTrackPositions"], _ebml_uint(
+                    MKV["CueTrack"], 1) + _ebml_uint(MKV["CueClusterPosition"], pos))) for t, pos in self._cues)))
+        end = f.tell()
+        n = len(self.sizes)
+        duration = self._mkv_ms(n - 1) + self._mkv_ms(1) if n else 0
+        f.seek(self._duration)
+        f.write(struct.pack(">d", float(duration)))
+        f.seek(self._segment)
+        f.write(((1 << 56) | (end - self._segment - 8)).to_bytes(8, "big"))
+        f.seek(end)

@@ -4,11 +4,12 @@ rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
 MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
 encoding), ``tiff.cpp`` (TIFF's LZW, PackBits, CCITT fax codes and predictor),
-``webp.cpp`` (WebP's VP8L and VP8 bitstreams), ``gif.cpp`` (GIF's blocks
-and LZW) and ``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
-``simple_idct.h``.
+``webp.cpp`` (WebP's VP8L bitstream, and the upsampling of a lossy
+still), ``vp8.cpp`` (VP8 key and inter frames, for WebM / Matroska video
+and WebP stills), ``gif.cpp`` (GIF's blocks and LZW) and ``raster.cpp``
+(PNM numbers, Radiance HDR scanlines), with ``simple_idct.h``.
 
-The nine sources are compiled at first use, together, with ``g++ -O3
+The ten sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
@@ -35,7 +36,7 @@ import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
 CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "tiff.cpp",
-                                                                 "webp.cpp", "gif.cpp", "raster.cpp"))
+                                                                 "webp.cpp", "vp8.cpp", "gif.cpp", "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -163,6 +164,16 @@ def _open(target: Path):
     for fn in (lib.mga_webp_vp8l_decode, lib.mga_webp_vp8_decode):
         fn.argtypes = [buf, n64, c, c, u8p, buf, c]
         fn.restype = c
+    lib.mga_vp8_new.argtypes = []
+    lib.mga_vp8_new.restype = ctypes.c_void_p
+    lib.mga_vp8_free.argtypes = [ctypes.c_void_p]
+    lib.mga_vp8_free.restype = None
+    lib.mga_vp8_decode.argtypes = [ctypes.c_void_p, buf, n64, i32p, buf, c]
+    lib.mga_vp8_decode.restype = c
+    lib.mga_vp8_planes.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
+    lib.mga_vp8_planes.restype = None
+    lib.mga_vp8_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_vp8_tally.restype = c
     return lib, None
 
 
@@ -462,6 +473,65 @@ class Mpeg4Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.mga_mpeg4_decoder_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what a Vp8Decoder counts (vp8.cpp's Tally, in its order)
+VP8_TALLY = ("frames", "key_frames", "inter_frames", "hidden_frames", "intra16_in_inter", "bpred_in_inter", "zero_mv",
+             "nearest_mv", "near_mv", "new_mv", "split_16x8", "split_8x16", "split_8x8", "split_4x4", "ref_last",
+             "ref_golden", "ref_altref", "sign_bias_flips", "golden_refreshes", "altref_refreshes", "golden_copies",
+             "altref_copies", "entropy_saves", "no_refresh_last", "segmented_frames", "segment_map_updates",
+             "partitioned_frames", "subpel_sixtap", "subpel_bilinear", "edge_emulated", "mv_clamped", "mv_long",
+             "lf_delta_frames", "inner_edges_skipped", "mode_prob_updates", "mv_prob_updates", "simple_filter_frames",
+             "submv_left", "submv_above", "submv_zero", "submv_new", "golden_sign_bias", "altref_sign_bias",
+             "full_pixel_frames")
+
+
+class Vp8Decoder:
+    """A VP8 decoder (``vp8.cpp``) for a WebM / Matroska track: feed it the
+    track's blocks in order. Holds its reference frames; :meth:`close` frees
+    them."""
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.mga_vp8_new()
+        if not self._h:
+            raise MemoryError("VP8 decoder")
+
+    def decode(self, frame: bytes):
+        """(y, u, v) planes (cropped to the frame's size, chroma
+        ((h + 1) // 2, (w + 1) // 2)) and whether it is a key frame, or None
+        for a frame that is not shown (an alt-ref). Raises ValueError naming
+        what is wrong with a cut or corrupt frame."""
+        if not self._h:
+            raise ValueError("the VP8 decoder is closed")
+        frame = bytes(frame)
+        info = (ctypes.c_int32 * 3)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._lib.mga_vp8_decode(self._h, frame, len(frame), info, err, _ERR_LEN)
+        if rc < 0:
+            raise ValueError(err.value.decode())
+        if rc == 0:
+            return None
+        w, h = info[0], info[1]
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.mga_vp8_planes(self._h, _u8(y), _u8(u), _u8(v))
+        return (y, u, v), bool(info[2])
+
+    def tally(self) -> dict:
+        """The features decoded so far, counted (``VP8_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(VP8_TALLY))()
+        self._lib.mga_vp8_tally(self._h, out, len(VP8_TALLY))
+        return dict(zip(VP8_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_vp8_free(self._h)
             self._h = None
 
     def __del__(self):

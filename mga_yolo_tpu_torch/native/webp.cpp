@@ -9,11 +9,9 @@
 // indexing), the colour cache, meta Huffman codes and LZ77 backward
 // references of the WebP lossless format, to ARGB, then B, G, R.
 //
-// VP8: a key frame as RFC 6386 decodes it (boolean decoder, segments, the
-// 16x16, chroma and 4x4 intra predictors on the unfiltered reconstruction,
-// dequantisation, the inverse WHT and DCT, the simple and normal loop
-// filters with segment and mode deltas), then libwebp's fancy upsampling
-// of the chroma and its fixed-point YUV -> BGR (14-bit coefficients).
+// VP8: a key frame as vp8.cpp decodes it (RFC 6386, with libwebp's test for
+// a macroblock without coefficients), then libwebp's fancy upsampling of the
+// chroma and its fixed-point YUV -> BGR (14-bit coefficients).
 //
 // No global state; every read is bounds-checked: a cut or corrupt file is
 // refused with a message, never read past its end.
@@ -29,6 +27,10 @@
 #include <functional>
 #include <string>
 #include <vector>
+
+// vp8.cpp: a lossy still's key frame into macroblock-aligned planes
+extern "C" int mga_vp8_still(const uint8_t* data, int64_t n, int32_t w, int32_t h, uint8_t* y, uint8_t* u,
+                             uint8_t* v, char* err, int errlen);
 
 namespace {
 
@@ -441,1027 +443,9 @@ struct Vp8l {
 
 // ======================================================================== VP8
 
-// VP8's constant tables (RFC 6386): the dequantisation steps, the key
-// frame's 4x4 intra mode probabilities and the coefficient probabilities.
-
-static const uint8_t kDcTable[128] = {
-    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
-    18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28,
-    29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43,
-    44, 45, 46, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
-    59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
-    75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89,
-    91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
-    122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157};
-static const uint16_t kAcTable[128] = {
-    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-    20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35,
-    36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
-    52, 53, 54, 55, 56, 57, 58, 60, 62, 64, 66, 68, 70, 72, 74, 76,
-    78, 80, 82, 84, 86, 88, 90, 92, 94, 96, 98, 100, 102, 104, 106, 108,
-    110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152,
-    155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193, 197, 201, 205, 209,
-    213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284};
-static const uint8_t kBModesProba[10][10][9] = {
-    231, 120, 48, 89, 115, 113, 120, 152, 112,
-    152, 179, 64, 126, 170, 118, 46, 70, 95,
-    175, 69, 143, 80, 85, 82, 72, 155, 103,
-    56, 58, 10, 171, 218, 189, 17, 13, 152,
-    114, 26, 17, 163, 44, 195, 21, 10, 173,
-    121, 24, 80, 195, 26, 62, 44, 64, 85,
-    144, 71, 10, 38, 171, 213, 144, 34, 26,
-    170, 46, 55, 19, 136, 160, 33, 206, 71,
-    63, 20, 8, 114, 114, 208, 12, 9, 226,
-    81, 40, 11, 96, 182, 84, 29, 16, 36,
-    134, 183, 89, 137, 98, 101, 106, 165, 148,
-    72, 187, 100, 130, 157, 111, 32, 75, 80,
-    66, 102, 167, 99, 74, 62, 40, 234, 128,
-    41, 53, 9, 178, 241, 141, 26, 8, 107,
-    74, 43, 26, 146, 73, 166, 49, 23, 157,
-    65, 38, 105, 160, 51, 52, 31, 115, 128,
-    104, 79, 12, 27, 217, 255, 87, 17, 7,
-    87, 68, 71, 44, 114, 51, 15, 186, 23,
-    47, 41, 14, 110, 182, 183, 21, 17, 194,
-    66, 45, 25, 102, 197, 189, 23, 18, 22,
-    88, 88, 147, 150, 42, 46, 45, 196, 205,
-    43, 97, 183, 117, 85, 38, 35, 179, 61,
-    39, 53, 200, 87, 26, 21, 43, 232, 171,
-    56, 34, 51, 104, 114, 102, 29, 93, 77,
-    39, 28, 85, 171, 58, 165, 90, 98, 64,
-    34, 22, 116, 206, 23, 34, 43, 166, 73,
-    107, 54, 32, 26, 51, 1, 81, 43, 31,
-    68, 25, 106, 22, 64, 171, 36, 225, 114,
-    34, 19, 21, 102, 132, 188, 16, 76, 124,
-    62, 18, 78, 95, 85, 57, 50, 48, 51,
-    193, 101, 35, 159, 215, 111, 89, 46, 111,
-    60, 148, 31, 172, 219, 228, 21, 18, 111,
-    112, 113, 77, 85, 179, 255, 38, 120, 114,
-    40, 42, 1, 196, 245, 209, 10, 25, 109,
-    88, 43, 29, 140, 166, 213, 37, 43, 154,
-    61, 63, 30, 155, 67, 45, 68, 1, 209,
-    100, 80, 8, 43, 154, 1, 51, 26, 71,
-    142, 78, 78, 16, 255, 128, 34, 197, 171,
-    41, 40, 5, 102, 211, 183, 4, 1, 221,
-    51, 50, 17, 168, 209, 192, 23, 25, 82,
-    138, 31, 36, 171, 27, 166, 38, 44, 229,
-    67, 87, 58, 169, 82, 115, 26, 59, 179,
-    63, 59, 90, 180, 59, 166, 93, 73, 154,
-    40, 40, 21, 116, 143, 209, 34, 39, 175,
-    47, 15, 16, 183, 34, 223, 49, 45, 183,
-    46, 17, 33, 183, 6, 98, 15, 32, 183,
-    57, 46, 22, 24, 128, 1, 54, 17, 37,
-    65, 32, 73, 115, 28, 128, 23, 128, 205,
-    40, 3, 9, 115, 51, 192, 18, 6, 223,
-    87, 37, 9, 115, 59, 77, 64, 21, 47,
-    104, 55, 44, 218, 9, 54, 53, 130, 226,
-    64, 90, 70, 205, 40, 41, 23, 26, 57,
-    54, 57, 112, 184, 5, 41, 38, 166, 213,
-    30, 34, 26, 133, 152, 116, 10, 32, 134,
-    39, 19, 53, 221, 26, 114, 32, 73, 255,
-    31, 9, 65, 234, 2, 15, 1, 118, 73,
-    75, 32, 12, 51, 192, 255, 160, 43, 51,
-    88, 31, 35, 67, 102, 85, 55, 186, 85,
-    56, 21, 23, 111, 59, 205, 45, 37, 192,
-    55, 38, 70, 124, 73, 102, 1, 34, 98,
-    125, 98, 42, 88, 104, 85, 117, 175, 82,
-    95, 84, 53, 89, 128, 100, 113, 101, 45,
-    75, 79, 123, 47, 51, 128, 81, 171, 1,
-    57, 17, 5, 71, 102, 57, 53, 41, 49,
-    38, 33, 13, 121, 57, 73, 26, 1, 85,
-    41, 10, 67, 138, 77, 110, 90, 47, 114,
-    115, 21, 2, 10, 102, 255, 166, 23, 6,
-    101, 29, 16, 10, 85, 128, 101, 196, 26,
-    57, 18, 10, 102, 102, 213, 34, 20, 43,
-    117, 20, 15, 36, 163, 128, 68, 1, 26,
-    102, 61, 71, 37, 34, 53, 31, 243, 192,
-    69, 60, 71, 38, 73, 119, 28, 222, 37,
-    68, 45, 128, 34, 1, 47, 11, 245, 171,
-    62, 17, 19, 70, 146, 85, 55, 62, 70,
-    37, 43, 37, 154, 100, 163, 85, 160, 1,
-    63, 9, 92, 136, 28, 64, 32, 201, 85,
-    75, 15, 9, 9, 64, 255, 184, 119, 16,
-    86, 6, 28, 5, 64, 255, 25, 248, 1,
-    56, 8, 17, 132, 137, 255, 55, 116, 128,
-    58, 15, 20, 82, 135, 57, 26, 121, 40,
-    164, 50, 31, 137, 154, 133, 25, 35, 218,
-    51, 103, 44, 131, 131, 123, 31, 6, 158,
-    86, 40, 64, 135, 148, 224, 45, 183, 128,
-    22, 26, 17, 131, 240, 154, 14, 1, 209,
-    45, 16, 21, 91, 64, 222, 7, 1, 197,
-    56, 21, 39, 155, 60, 138, 23, 102, 213,
-    83, 12, 13, 54, 192, 255, 68, 47, 28,
-    85, 26, 85, 85, 128, 128, 32, 146, 171,
-    18, 11, 7, 63, 144, 171, 4, 4, 246,
-    35, 27, 10, 146, 174, 171, 12, 26, 128,
-    190, 80, 35, 99, 180, 80, 126, 54, 45,
-    85, 126, 47, 87, 176, 51, 41, 20, 32,
-    101, 75, 128, 139, 118, 146, 116, 128, 85,
-    56, 41, 15, 176, 236, 85, 37, 9, 62,
-    71, 30, 17, 119, 118, 255, 17, 18, 138,
-    101, 38, 60, 138, 55, 70, 43, 26, 142,
-    146, 36, 19, 30, 171, 255, 97, 27, 20,
-    138, 45, 61, 62, 219, 1, 81, 188, 64,
-    32, 41, 20, 117, 151, 142, 20, 21, 163,
-    112, 19, 12, 61, 195, 128, 48, 4, 24};
-static const uint8_t kCoeffsProba0[4][8][3][11] = {
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
-    189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
-    106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
-    1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
-    181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
-    78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
-    1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
-    184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
-    77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
-    1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
-    170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
-    37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
-    1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
-    207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
-    102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
-    1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
-    177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
-    80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
-    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
-    131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
-    68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
-    1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
-    184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
-    81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
-    1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
-    99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
-    23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
-    1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
-    109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
-    44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
-    1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
-    94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
-    22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
-    1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
-    124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
-    35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
-    1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
-    121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
-    45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
-    1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
-    203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
-    253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
-    175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
-    73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
-    1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
-    239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
-    155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
-    1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
-    201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
-    69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
-    1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
-    223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
-    141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
-    149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
-    213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
-    55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
-    126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
-    61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
-    1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
-    166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
-    39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
-    1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
-    124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
-    24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
-    1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
-    149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
-    28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
-    1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
-    123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
-    20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
-    1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
-    168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
-    47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
-    1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
-    141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
-    42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
-    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128};
-static const uint8_t kCoeffsUpdateProba[4][8][3][11] = {
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
-    250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
-    234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
-    234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
-    251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
-    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
-    248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
-    255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-    255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255};
-
-const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
-const uint8_t kCat3[] = {173, 148, 140, 0}, kCat4[] = {176, 155, 140, 135, 0},
-              kCat5[] = {180, 157, 141, 134, 130, 0}, kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
-const uint8_t* const kCat3456[4] = {kCat3, kCat4, kCat5, kCat6};
-// libwebp's order of the 4x4 intra modes; the 16x16 and chroma modes use DC, TM, VE, HE
-enum { B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU };
-
-// RFC 6386's boolean decoder. Like libwebp's (its "premature end of file"),
-// it is at its end once a bit is asked for when every bit of its n bytes has
-// been shifted in: that is, more than 8 (n - 1) shifts before the call.
-struct BoolDec {
-    const uint8_t* p = nullptr;
-    const uint8_t* end = nullptr;
-    uint32_t value = 0;
-    int range = 255, count = 0;
-    int64_t shifts = 0, limit = 0;
-    bool at_end = false;
-
-    void init(const uint8_t* data, int64_t n) {
-        p = data;
-        end = data + n;
-        range = 255;
-        count = 0;
-        shifts = 0;
-        limit = 8 * (n - 1);
-        at_end = n == 0;
-        value = (uint32_t)byte() << 8;
-        value |= byte();
-    }
-    uint32_t byte() { return p < end ? *p++ : 0; }
-    int get(int prob) {
-        if (shifts > limit) at_end = true;
-        uint32_t split = 1 + (((uint32_t)(range - 1) * (uint32_t)prob) >> 8);
-        uint32_t big = split << 8;
-        int bit;
-        if (value >= big) {
-            range -= (int)split;
-            value -= big;
-            bit = 1;
-        } else {
-            range = (int)split;
-            bit = 0;
-        }
-        while (range < 128) {
-            value <<= 1;
-            range <<= 1;
-            ++shifts;
-            if (++count == 8) {
-                count = 0;
-                value |= byte();
-            }
-        }
-        return bit;
-    }
-    int lit(int n) {
-        int v = 0;
-        while (n--) v = (v << 1) | get(128);
-        return v;
-    }
-    int signed_lit(int n) {
-        int v = lit(n);
-        return get(128) ? -v : v;
-    }
-    bool eof() const { return at_end; }
-};
-
-struct MbInfo {
-    uint8_t segment = 0, skip = 0, is_i4x4 = 0, uvmode = 0;
-    uint8_t imodes[16] = {0};
-};
-
-struct Vp8 {
-    int width = 0, height = 0, mb_w = 0, mb_h = 0;
-    BoolDec br;
-    std::vector<BoolDec> parts;
-    // header
-    int use_segment = 0, update_map = 0, absolute_delta = 0;
-    int quantizer[4] = {0}, filter_strength[4] = {0};
-    int seg_probs[3] = {255, 255, 255};
-    int simple = 0, level = 0, sharpness = 0, use_lf_delta = 0;
-    int ref_lf_delta[4] = {0}, mode_lf_delta[4] = {0};
-    int filter_type = 0;
-    int dq[4][3][2];  // segment, (y1, y2, uv), (dc, ac)
-    uint8_t proba[4][8][3][11];
-    int use_skip = 0, skip_p = 0;
-    // frame
-    int ystride = 0, uvstride = 0;
-    std::vector<uint8_t> Y, U, V;
-    std::vector<MbInfo> mbs;
-    std::vector<uint8_t> fl_limit, fl_ilevel, fl_hev, fl_inner;
-
-    static int clip(int v, int m) { return v < 0 ? 0 : v > m ? m : v; }
-
-    void headers(const uint8_t* data, int64_t n) {
-        if (n < 10) fail("truncated VP8 header");
-        uint32_t bits = data[0] | (data[1] << 8) | (data[2] << 16);
-        int key = !(bits & 1), profile = (bits >> 1) & 7, show = (bits >> 4) & 1;
-        uint32_t part0 = bits >> 5;
-        if (!key) fail("VP8 data that is not a key frame");
-        if (profile > 3) fail("VP8 profile " + std::to_string(profile));
-        if (!show) fail("VP8 frame not displayable");
-        if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a) fail("VP8 start code missing");
-        width = (data[6] | (data[7] << 8)) & 0x3fff;
-        height = (data[8] | (data[9] << 8)) & 0x3fff;
-        if (!width || !height) fail("VP8 frame of no pixels");
-        data += 10;
-        n -= 10;
-        if (part0 > (uint64_t)n) fail("truncated VP8 data (first partition)");
-        br.init(data, part0);
-        const uint8_t* rest = data + part0;
-        int64_t rest_n = n - part0;
-        br.get(128);  // colour space
-        br.get(128);  // clamping type
-        use_segment = br.get(128);
-        if (use_segment) {
-            update_map = br.get(128);
-            if (br.get(128)) {
-                absolute_delta = br.get(128);
-                for (int s = 0; s < 4; ++s) quantizer[s] = br.get(128) ? br.signed_lit(7) : 0;
-                for (int s = 0; s < 4; ++s) filter_strength[s] = br.get(128) ? br.signed_lit(6) : 0;
-            }
-            if (update_map)
-                for (int s = 0; s < 3; ++s) seg_probs[s] = br.get(128) ? br.lit(8) : 255;
-        }
-        simple = br.get(128);
-        level = br.lit(6);
-        sharpness = br.lit(3);
-        use_lf_delta = br.get(128);
-        if (use_lf_delta && br.get(128)) {
-            for (int i = 0; i < 4; ++i)
-                if (br.get(128)) ref_lf_delta[i] = br.signed_lit(6);
-            for (int i = 0; i < 4; ++i)
-                if (br.get(128)) mode_lf_delta[i] = br.signed_lit(6);
-        }
-        filter_type = level == 0 ? 0 : simple ? 1 : 2;
-        if (br.eof()) fail("truncated VP8 header");
-        // token partitions
-        const int nparts = 1 << br.lit(2);
-        if (rest_n < 3 * (nparts - 1)) fail("truncated VP8 data (partition sizes)");
-        const uint8_t* sz = rest;
-        const uint8_t* start = rest + 3 * (nparts - 1);
-        int64_t left = rest_n - 3 * (nparts - 1);
-        parts.assign(nparts, BoolDec());
-        for (int p = 0; p < nparts - 1; ++p) {
-            int64_t psize = sz[0] | (sz[1] << 8) | (sz[2] << 16);
-            if (psize > left) psize = left;
-            parts[p].init(start, psize);
-            start += psize;
-            left -= psize;
-            sz += 3;
-        }
-        if (left <= 0) fail("truncated VP8 data (token partitions)");
-        parts[nparts - 1].init(start, left);
-        // quantisers
-        const int base_q = br.lit(7);
-        int d[5];
-        for (int i = 0; i < 5; ++i) d[i] = br.get(128) ? br.signed_lit(4) : 0;
-        for (int s = 0; s < 4; ++s) {
-            int q = base_q;
-            if (use_segment) q = quantizer[s] + (absolute_delta ? 0 : base_q);
-            else if (s > 0) {
-                std::memcpy(dq[s], dq[0], sizeof(dq[0]));
-                continue;
-            }
-            dq[s][0][0] = kDcTable[clip(q + d[0], 127)];
-            dq[s][0][1] = kAcTable[clip(q, 127)];
-            dq[s][1][0] = kDcTable[clip(q + d[1], 127)] * 2;
-            dq[s][1][1] = (kAcTable[clip(q + d[2], 127)] * 101581) >> 16;
-            if (dq[s][1][1] < 8) dq[s][1][1] = 8;
-            dq[s][2][0] = kDcTable[clip(q + d[3], 117)];
-            dq[s][2][1] = kAcTable[clip(q + d[4], 127)];
-        }
-        br.get(128);  // refresh entropy probabilities: a single frame either way
-        for (int t = 0; t < 4; ++t)
-            for (int b = 0; b < 8; ++b)
-                for (int c = 0; c < 3; ++c)
-                    for (int p = 0; p < 11; ++p)
-                        proba[t][b][c][p] = br.get(kCoeffsUpdateProba[t][b][c][p]) ? (uint8_t)br.lit(8)
-                                                                                   : kCoeffsProba0[t][b][c][p];
-        use_skip = br.get(128);
-        if (use_skip) skip_p = br.lit(8);
-        if (br.eof()) fail("truncated VP8 header");
-    }
-
-    void intra_modes(MbInfo& mb, uint8_t* top, uint8_t* left) {
-        if (update_map)
-            mb.segment = !br.get(seg_probs[0]) ? br.get(seg_probs[1]) : br.get(seg_probs[2]) + 2;
-        if (use_skip) mb.skip = br.get(skip_p);
-        mb.is_i4x4 = !br.get(145);
-        if (!mb.is_i4x4) {
-            int ymode = br.get(156) ? (br.get(128) ? B_TM : B_HE) : (br.get(163) ? B_VE : B_DC);
-            mb.imodes[0] = (uint8_t)ymode;
-            std::memset(top, ymode, 4);
-            std::memset(left, ymode, 4);
-        } else {
-            for (int y = 0; y < 4; ++y) {
-                int ymode = left[y];
-                for (int x = 0; x < 4; ++x) {
-                    const uint8_t* prob = kBModesProba[top[x]][ymode];
-                    ymode = !br.get(prob[0])   ? B_DC
-                            : !br.get(prob[1]) ? B_TM
-                            : !br.get(prob[2]) ? B_VE
-                            : !br.get(prob[3]) ? (!br.get(prob[4]) ? B_HE : (!br.get(prob[5]) ? B_RD : B_VR))
-                                               : (!br.get(prob[6]) ? B_LD
-                                                  : !br.get(prob[7]) ? B_VL
-                                                  : !br.get(prob[8]) ? B_HD
-                                                                     : B_HU);
-                    top[x] = (uint8_t)ymode;
-                    mb.imodes[y * 4 + x] = (uint8_t)ymode;
-                }
-                left[y] = (uint8_t)ymode;
-            }
-        }
-        mb.uvmode = !br.get(142) ? B_DC : !br.get(114) ? B_VE : br.get(183) ? B_TM : B_HE;
-    }
-
-    static int large_value(BoolDec& b, const uint8_t* p) {
-        int v;
-        if (!b.get(p[3])) {
-            v = !b.get(p[4]) ? 2 : 3 + b.get(p[5]);
-        } else if (!b.get(p[6])) {
-            if (!b.get(p[7])) {
-                v = 5 + b.get(159);
-            } else {
-                v = 7 + 2 * b.get(165);
-                v += b.get(145);
-            }
-        } else {
-            const int bit1 = b.get(p[8]);
-            const int bit0 = b.get(p[9 + bit1]);
-            const int cat = 2 * bit1 + bit0;
-            v = 0;
-            for (const uint8_t* tab = kCat3456[cat]; *tab; ++tab) v += v + b.get(*tab);
-            v += 3 + (8 << cat);
-        }
-        return v;
-    }
-
-    // The coefficients of one 4x4 block from position n on, dequantised,
-    // into out (natural order); returns the position after the last token.
-    int coeffs(BoolDec& b, int type, int ctx, const int* q, int n, int16_t* out) {
-        const uint8_t* p = proba[type][kBands[n]][ctx];
-        for (; n < 16; ++n) {
-            if (!b.get(p[0])) return n;
-            while (!b.get(p[1])) {
-                p = proba[type][kBands[++n]][0];
-                if (n == 16) return 16;
-            }
-            int v;
-            if (!b.get(p[2])) {
-                v = 1;
-                p = proba[type][kBands[n + 1]][1];
-            } else {
-                v = large_value(b, p);
-                p = proba[type][kBands[n + 1]][2];
-            }
-            const int s = b.get(128) ? -v : v;
-            out[kZigzag[n]] = (int16_t)(s * q[n > 0]);
-        }
-        return 16;
-    }
-
-    static void wht(const int16_t* in, int16_t* out) {
-        int tmp[16];
-        for (int i = 0; i < 4; ++i) {
-            const int a0 = in[0 + i] + in[12 + i], a1 = in[4 + i] + in[8 + i];
-            const int a2 = in[4 + i] - in[8 + i], a3 = in[0 + i] - in[12 + i];
-            tmp[0 + i] = a0 + a1;
-            tmp[8 + i] = a0 - a1;
-            tmp[4 + i] = a3 + a2;
-            tmp[12 + i] = a3 - a2;
-        }
-        for (int i = 0; i < 4; ++i) {
-            const int dc = tmp[0 + i * 4] + 3;
-            const int a0 = dc + tmp[3 + i * 4], a1 = tmp[1 + i * 4] + tmp[2 + i * 4];
-            const int a2 = tmp[1 + i * 4] - tmp[2 + i * 4], a3 = dc - tmp[3 + i * 4];
-            out[0] = (int16_t)((a0 + a1) >> 3);
-            out[16] = (int16_t)((a3 + a2) >> 3);
-            out[32] = (int16_t)((a0 - a1) >> 3);
-            out[48] = (int16_t)((a3 - a2) >> 3);
-            out += 64;
-        }
-    }
-
-    static uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
-    // in 64 bits: the products overflow 32 only on corrupt coefficients, where libwebp's C is undefined
-    static int mul1(int a) { return (int)(((int64_t)a * 20091) >> 16) + a; }
-    static int mul2(int a) { return (int)(((int64_t)a * 35468) >> 16); }
-
-    // the inverse DCT of in, added to the 4x4 pixels at dst (stride bps)
-    static void idct_add(const int16_t* in, uint8_t* dst, int bps) {
-        int C[16], *tmp = C;
-        for (int i = 0; i < 4; ++i) {
-            const int a = in[0] + in[8], b = in[0] - in[8];
-            const int c = mul2(in[4]) - mul1(in[12]), d = mul1(in[4]) + mul2(in[12]);
-            tmp[0] = a + d;
-            tmp[1] = b + c;
-            tmp[2] = b - c;
-            tmp[3] = a - d;
-            tmp += 4;
-            ++in;
-        }
-        tmp = C;
-        for (int i = 0; i < 4; ++i) {
-            const int dc = tmp[0] + 4;
-            const int a = dc + tmp[8], b = dc - tmp[8];
-            const int c = mul2(tmp[4]) - mul1(tmp[12]), d = mul1(tmp[4]) + mul2(tmp[12]);
-            dst[0] = clip8(dst[0] + ((a + d) >> 3));
-            dst[1] = clip8(dst[1] + ((b + c) >> 3));
-            dst[2] = clip8(dst[2] + ((b - c) >> 3));
-            dst[3] = clip8(dst[3] + ((a - d) >> 3));
-            ++tmp;
-            dst += bps;
-        }
-    }
-
-    // ---- intra prediction on a work buffer of stride BPS, dst at (0, 0) with row -1 and column -1 filled
-    static constexpr int BPS = 32;
-    static uint8_t avg3(int a, int b, int c) { return (uint8_t)((a + 2 * b + c + 2) >> 2); }
-    static uint8_t avg2(int a, int b) { return (uint8_t)((a + b + 1) >> 1); }
-
-    static void pred_block(uint8_t* dst, int size, int mode, int mb_x, int mb_y) {
-        const uint8_t* top = dst - BPS;
-        if (mode == B_DC) {
-            int dc;
-            const int shift = size == 16 ? 4 : 3;
-            if (mb_x > 0 && mb_y > 0) {
-                dc = size;
-                for (int i = 0; i < size; ++i) dc += top[i] + dst[i * BPS - 1];
-                dc >>= shift + 1;
-            } else if (mb_y > 0) {
-                dc = size >> 1;
-                for (int i = 0; i < size; ++i) dc += top[i];
-                dc >>= shift;
-            } else if (mb_x > 0) {
-                dc = size >> 1;
-                for (int i = 0; i < size; ++i) dc += dst[i * BPS - 1];
-                dc >>= shift;
-            } else {
-                dc = 0x80;
-            }
-            for (int y = 0; y < size; ++y) std::memset(dst + y * BPS, dc, size);
-        } else if (mode == B_VE) {
-            for (int y = 0; y < size; ++y) std::memcpy(dst + y * BPS, top, size);
-        } else if (mode == B_HE) {
-            for (int y = 0; y < size; ++y) std::memset(dst + y * BPS, dst[y * BPS - 1], size);
-        } else {  // TrueMotion
-            const int tl = top[-1];
-            for (int y = 0; y < size; ++y)
-                for (int x = 0; x < size; ++x) dst[y * BPS + x] = clip8(top[x] + dst[y * BPS - 1] - tl);
-        }
-    }
-
-    static void pred4(uint8_t* dst, int mode) {
-#define DST(x, y) dst[(x) + (y) * BPS]
-        const uint8_t* t = dst - BPS;
-        const int X = t[-1], A = t[0], B = t[1], C = t[2], D = t[3], E = t[4], F = t[5], G = t[6], H = t[7];
-        const int I = dst[-1], J = dst[BPS - 1], K = dst[2 * BPS - 1], L = dst[3 * BPS - 1];
-        switch (mode) {
-            case B_DC: {
-                int dc = 4;
-                for (int i = 0; i < 4; ++i) dc += t[i] + dst[i * BPS - 1];
-                dc >>= 3;
-                for (int i = 0; i < 4; ++i) std::memset(dst + i * BPS, dc, 4);
-                break;
-            }
-            case B_TM:
-                for (int y = 0; y < 4; ++y)
-                    for (int x = 0; x < 4; ++x) DST(x, y) = clip8(t[x] + dst[y * BPS - 1] - X);
-                break;
-            case B_VE: {
-                const uint8_t v[4] = {avg3(X, A, B), avg3(A, B, C), avg3(B, C, D), avg3(C, D, E)};
-                for (int i = 0; i < 4; ++i) std::memcpy(dst + i * BPS, v, 4);
-                break;
-            }
-            case B_HE: {
-                const uint8_t v[4] = {avg3(X, I, J), avg3(I, J, K), avg3(J, K, L), avg3(K, L, L)};
-                for (int i = 0; i < 4; ++i) std::memset(dst + i * BPS, v[i], 4);
-                break;
-            }
-            case B_RD:
-                DST(0, 3) = avg3(J, K, L);
-                DST(1, 3) = DST(0, 2) = avg3(I, J, K);
-                DST(2, 3) = DST(1, 2) = DST(0, 1) = avg3(X, I, J);
-                DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = avg3(A, X, I);
-                DST(3, 2) = DST(2, 1) = DST(1, 0) = avg3(B, A, X);
-                DST(3, 1) = DST(2, 0) = avg3(C, B, A);
-                DST(3, 0) = avg3(D, C, B);
-                break;
-            case B_LD:
-                DST(0, 0) = avg3(A, B, C);
-                DST(1, 0) = DST(0, 1) = avg3(B, C, D);
-                DST(2, 0) = DST(1, 1) = DST(0, 2) = avg3(C, D, E);
-                DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = avg3(D, E, F);
-                DST(3, 1) = DST(2, 2) = DST(1, 3) = avg3(E, F, G);
-                DST(3, 2) = DST(2, 3) = avg3(F, G, H);
-                DST(3, 3) = avg3(G, H, H);
-                break;
-            case B_VR:
-                DST(0, 0) = DST(1, 2) = avg2(X, A);
-                DST(1, 0) = DST(2, 2) = avg2(A, B);
-                DST(2, 0) = DST(3, 2) = avg2(B, C);
-                DST(3, 0) = avg2(C, D);
-                DST(0, 3) = avg3(K, J, I);
-                DST(0, 2) = avg3(J, I, X);
-                DST(0, 1) = DST(1, 3) = avg3(I, X, A);
-                DST(1, 1) = DST(2, 3) = avg3(X, A, B);
-                DST(2, 1) = DST(3, 3) = avg3(A, B, C);
-                DST(3, 1) = avg3(B, C, D);
-                break;
-            case B_VL:
-                DST(0, 0) = avg2(A, B);
-                DST(1, 0) = DST(0, 2) = avg2(B, C);
-                DST(2, 0) = DST(1, 2) = avg2(C, D);
-                DST(3, 0) = DST(2, 2) = avg2(D, E);
-                DST(0, 1) = avg3(A, B, C);
-                DST(1, 1) = DST(0, 3) = avg3(B, C, D);
-                DST(2, 1) = DST(1, 3) = avg3(C, D, E);
-                DST(3, 1) = DST(2, 3) = avg3(D, E, F);
-                DST(3, 2) = avg3(E, F, G);
-                DST(3, 3) = avg3(F, G, H);
-                break;
-            case B_HU:
-                DST(0, 0) = avg2(I, J);
-                DST(2, 0) = DST(0, 1) = avg2(J, K);
-                DST(2, 1) = DST(0, 2) = avg2(K, L);
-                DST(1, 0) = avg3(I, J, K);
-                DST(3, 0) = DST(1, 1) = avg3(J, K, L);
-                DST(3, 1) = DST(1, 2) = avg3(K, L, L);
-                DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) = DST(3, 3) = (uint8_t)L;
-                break;
-            default:  // B_HD
-                DST(0, 0) = DST(2, 1) = avg2(I, X);
-                DST(0, 1) = DST(2, 2) = avg2(J, I);
-                DST(0, 2) = DST(2, 3) = avg2(K, J);
-                DST(0, 3) = avg2(L, K);
-                DST(3, 0) = avg3(A, B, C);
-                DST(2, 0) = avg3(X, A, B);
-                DST(1, 0) = DST(3, 1) = avg3(I, X, A);
-                DST(1, 1) = DST(3, 2) = avg3(J, I, X);
-                DST(1, 2) = DST(3, 3) = avg3(K, J, I);
-                DST(1, 3) = avg3(L, K, J);
-                break;
-        }
-#undef DST
-    }
-
-    // Residuals and reconstruction of macroblock (mb_x, mb_y) into the
-    // (unfiltered) planes; returns whether it had no non-zero coefficient.
-    bool macroblock(int mb_x, int mb_y, MbInfo& mb, BoolDec& tb, uint8_t* tnz, uint8_t* lnz) {
-        int16_t co[25 * 16];
-        std::memset(co, 0, sizeof(co));
-        const int(*q)[2] = dq[mb.segment];
-        // libwebp's test for a macroblock with no non-zero coefficient: per
-        // 4x4 block, tokens past the second position or a non-zero DC (a
-        // 16x16 block's DC from the WHT)
-        bool any = false;
-        if (!mb.skip || !use_skip) {
-            int first = 0, ytype = 3;
-            if (!mb.is_i4x4) {
-                int16_t dc[16] = {0};
-                const int ctx = tnz[8] + lnz[8];
-                const int nz = coeffs(tb, 1, ctx, q[1], 0, dc);
-                tnz[8] = lnz[8] = nz > 0;
-                wht(dc, co);
-                first = 1;
-                ytype = 0;
-            }
-            for (int y = 0; y < 4; ++y)
-                for (int x = 0; x < 4; ++x) {
-                    int16_t* blk = co + (y * 4 + x) * 16;
-                    const int nz = coeffs(tb, ytype, tnz[x] + lnz[y], q[0], first, blk);
-                    tnz[x] = lnz[y] = nz > first;
-                    any = any || nz > 1 || blk[0] != 0;
-                }
-            for (int ch = 0; ch < 2; ++ch)
-                for (int y = 0; y < 2; ++y)
-                    for (int x = 0; x < 2; ++x) {
-                        uint8_t& t = tnz[4 + ch * 2 + x];
-                        uint8_t& l = lnz[4 + ch * 2 + y];
-                        int16_t* blk = co + (16 + ch * 4 + y * 2 + x) * 16;
-                        const int nz = coeffs(tb, 2, t + l, q[2], 0, blk);
-                        t = l = nz > 0;
-                        any = any || nz > 1 || blk[0] != 0;
-                    }
-        } else {
-            for (int i = 0; i < 8; ++i) tnz[i] = lnz[i] = 0;
-            if (!mb.is_i4x4) tnz[8] = lnz[8] = 0;
-        }
-        // the work buffers: row -1 and column -1 around the block, four more pixels top right
-        uint8_t ybuf[BPS * 17], ubuf[BPS * 9], vbuf[BPS * 9];
-        uint8_t* yd = ybuf + BPS + 1;
-        uint8_t* ud = ubuf + BPS + 1;
-        uint8_t* vd = vbuf + BPS + 1;
-        const int x0 = mb_x * 16, y0 = mb_y * 16;
-        for (int pl = 0; pl < 3; ++pl) {
-            uint8_t* d = pl == 0 ? yd : pl == 1 ? ud : vd;
-            const int size = pl == 0 ? 16 : 8, stride = pl == 0 ? ystride : uvstride;
-            const uint8_t* plane = pl == 0 ? Y.data() : pl == 1 ? U.data() : V.data();
-            const int px = mb_x * size, py = mb_y * size;
-            for (int j = 0; j < size; ++j) d[j * BPS - 1] = mb_x > 0 ? plane[(size_t)(py + j) * stride + px - 1] : 129;
-            if (mb_y > 0) {
-                std::memcpy(d - BPS, plane + (size_t)(py - 1) * stride + px, size);
-                d[-BPS - 1] = mb_x > 0 ? plane[(size_t)(py - 1) * stride + px - 1] : 129;
-            } else {
-                std::memset(d - BPS - 1, 127, size + 1 + (pl == 0 ? 4 : 0));
-            }
-        }
-        if (mb.is_i4x4) {
-            uint8_t* tr = yd - BPS + 16;
-            if (mb_y > 0) {
-                if (mb_x >= mb_w - 1) std::memset(tr, Y[(size_t)(y0 - 1) * ystride + x0 + 15], 4);
-                else std::memcpy(tr, Y.data() + (size_t)(y0 - 1) * ystride + x0 + 16, 4);
-            }
-            for (int r = 1; r < 4; ++r) std::memcpy(tr + 4 * r * BPS, tr, 4);
-            for (int n = 0; n < 16; ++n) {
-                uint8_t* dst = yd + (n & 3) * 4 + (n >> 2) * 4 * BPS;
-                pred4(dst, mb.imodes[n]);
-                idct_add(co + n * 16, dst, BPS);
-            }
-        } else {
-            pred_block(yd, 16, mb.imodes[0], mb_x, mb_y);
-            for (int n = 0; n < 16; ++n) idct_add(co + n * 16, yd + (n & 3) * 4 + (n >> 2) * 4 * BPS, BPS);
-        }
-        pred_block(ud, 8, mb.uvmode, mb_x, mb_y);
-        pred_block(vd, 8, mb.uvmode, mb_x, mb_y);
-        for (int n = 0; n < 4; ++n) {
-            idct_add(co + (16 + n) * 16, ud + (n & 1) * 4 + (n >> 1) * 4 * BPS, BPS);
-            idct_add(co + (20 + n) * 16, vd + (n & 1) * 4 + (n >> 1) * 4 * BPS, BPS);
-        }
-        for (int j = 0; j < 16; ++j) std::memcpy(Y.data() + (size_t)(y0 + j) * ystride + x0, yd + j * BPS, 16);
-        for (int j = 0; j < 8; ++j) {
-            std::memcpy(U.data() + (size_t)(mb_y * 8 + j) * uvstride + mb_x * 8, ud + j * BPS, 8);
-            std::memcpy(V.data() + (size_t)(mb_y * 8 + j) * uvstride + mb_x * 8, vd + j * BPS, 8);
-        }
-        return !any;
-    }
-
-    // ---- loop filters (RFC 6386 section 15, libwebp's formulation)
-    static int sclip1(int v) { return v < -128 ? -128 : v > 127 ? 127 : v; }
-    static int sclip2(int v) { return v < -16 ? -16 : v > 15 ? 15 : v; }
-    static void filter2(uint8_t* p, int s) {
-        const int p1 = p[-2 * s], p0 = p[-s], q0 = p[0], q1 = p[s];
-        const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-        const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
-        p[-s] = clip8(p0 + a2);
-        p[0] = clip8(q0 - a1);
-    }
-    static void filter4(uint8_t* p, int s) {
-        const int p1 = p[-2 * s], p0 = p[-s], q0 = p[0], q1 = p[s];
-        const int a = 3 * (q0 - p0);
-        const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3), a3 = (a1 + 1) >> 1;
-        p[-2 * s] = clip8(p1 + a3);
-        p[-s] = clip8(p0 + a2);
-        p[0] = clip8(q0 - a1);
-        p[s] = clip8(q1 - a3);
-    }
-    static void filter6(uint8_t* p, int s) {
-        const int p2 = p[-3 * s], p1 = p[-2 * s], p0 = p[-s], q0 = p[0], q1 = p[s], q2 = p[2 * s];
-        const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
-        const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7, a3 = (9 * a + 63) >> 7;
-        p[-3 * s] = clip8(p2 + a3);
-        p[-2 * s] = clip8(p1 + a2);
-        p[-s] = clip8(p0 + a1);
-        p[0] = clip8(q0 - a1);
-        p[s] = clip8(q1 - a2);
-        p[2 * s] = clip8(q2 - a3);
-    }
-    static bool hev(const uint8_t* p, int s, int t) {
-        return std::abs(p[-2 * s] - p[-s]) > t || std::abs(p[s] - p[0]) > t;
-    }
-    static bool needs(const uint8_t* p, int s, int t) {
-        return 4 * std::abs(p[-s] - p[0]) + std::abs(p[-2 * s] - p[s]) <= t;
-    }
-    static bool needs2(const uint8_t* p, int s, int t, int it) {
-        const int p3 = p[-4 * s], p2 = p[-3 * s], p1 = p[-2 * s], p0 = p[-s];
-        const int q0 = p[0], q1 = p[s], q2 = p[2 * s], q3 = p[3 * s];
-        if (4 * std::abs(p0 - q0) + std::abs(p1 - q1) > t) return false;
-        return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it && std::abs(p1 - p0) <= it &&
-               std::abs(q3 - q2) <= it && std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
-    }
-    static void simple_edge(uint8_t* p, int hs, int vs, int thresh) {  // 16 pixels along vs
-        const int t2 = 2 * thresh + 1;
-        for (int i = 0; i < 16; ++i, p += vs)
-            if (needs(p, hs, t2)) filter2(p, hs);
-    }
-    static void edge(uint8_t* p, int hs, int vs, int size, int thresh, int ithresh, int hev_t, bool mb_edge) {
-        const int t2 = 2 * thresh + 1;
-        for (int i = 0; i < size; ++i, p += vs) {
-            if (!needs2(p, hs, t2, ithresh)) continue;
-            if (hev(p, hs, hev_t)) filter2(p, hs);
-            else if (mb_edge) filter6(p, hs);
-            else filter4(p, hs);
-        }
-    }
-
-    void loop_filter() {
-        for (int mb_y = 0; mb_y < mb_h; ++mb_y)
-            for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-                const size_t i = (size_t)mb_y * mb_w + mb_x;
-                const int limit = fl_limit[i];
-                if (limit == 0) continue;
-                const int il = fl_ilevel[i], hv = fl_hev[i];
-                const bool inner = fl_inner[i];
-                uint8_t* y = Y.data() + (size_t)mb_y * 16 * ystride + mb_x * 16;
-                uint8_t* u = U.data() + (size_t)mb_y * 8 * uvstride + mb_x * 8;
-                uint8_t* v = V.data() + (size_t)mb_y * 8 * uvstride + mb_x * 8;
-                if (filter_type == 1) {
-                    if (mb_x > 0) simple_edge(y, 1, ystride, limit + 4);
-                    if (inner)
-                        for (int k = 4; k < 16; k += 4) simple_edge(y + k, 1, ystride, limit);
-                    if (mb_y > 0) simple_edge(y, ystride, 1, limit + 4);
-                    if (inner)
-                        for (int k = 4; k < 16; k += 4) simple_edge(y + k * ystride, ystride, 1, limit);
-                } else {
-                    if (mb_x > 0) {
-                        edge(y, 1, ystride, 16, limit + 4, il, hv, true);
-                        edge(u, 1, uvstride, 8, limit + 4, il, hv, true);
-                        edge(v, 1, uvstride, 8, limit + 4, il, hv, true);
-                    }
-                    if (inner) {
-                        for (int k = 4; k < 16; k += 4) edge(y + k, 1, ystride, 16, limit, il, hv, false);
-                        edge(u + 4, 1, uvstride, 8, limit, il, hv, false);
-                        edge(v + 4, 1, uvstride, 8, limit, il, hv, false);
-                    }
-                    if (mb_y > 0) {
-                        edge(y, ystride, 1, 16, limit + 4, il, hv, true);
-                        edge(u, uvstride, 1, 8, limit + 4, il, hv, true);
-                        edge(v, uvstride, 1, 8, limit + 4, il, hv, true);
-                    }
-                    if (inner) {
-                        for (int k = 4; k < 16; k += 4) edge(y + k * ystride, ystride, 1, 16, limit, il, hv, false);
-                        edge(u + 4 * uvstride, uvstride, 1, 8, limit, il, hv, false);
-                        edge(v + 4 * uvstride, uvstride, 1, 8, limit, il, hv, false);
-                    }
-                }
-            }
-    }
-
-    void decode_frame() {
-        mb_w = (width + 15) >> 4;
-        mb_h = (height + 15) >> 4;
-        ystride = mb_w * 16;
-        uvstride = mb_w * 8;
-        Y.assign((size_t)ystride * mb_h * 16, 0);
-        U.assign((size_t)uvstride * mb_h * 8, 0);
-        V.assign(U.size(), 0);
-        const size_t nmb = (size_t)mb_w * mb_h;
-        fl_limit.assign(nmb, 0);
-        fl_ilevel.assign(nmb, 0);
-        fl_hev.assign(nmb, 0);
-        fl_inner.assign(nmb, 0);
-        // filter strength per segment and per 4x4 / 16x16 mode
-        int f_limit[4][2] = {{0}}, f_ilevel[4][2] = {{0}}, f_hev[4][2] = {{0}};
-        if (filter_type > 0)
-            for (int s = 0; s < 4; ++s) {
-                int base = level;
-                if (use_segment) base = filter_strength[s] + (absolute_delta ? 0 : level);
-                for (int i4 = 0; i4 < 2; ++i4) {
-                    int lv = base;
-                    if (use_lf_delta) lv += ref_lf_delta[0] + (i4 ? mode_lf_delta[0] : 0);
-                    lv = lv < 0 ? 0 : lv > 63 ? 63 : lv;
-                    if (lv > 0) {
-                        int il = lv;
-                        if (sharpness > 0) {
-                            il >>= sharpness > 4 ? 2 : 1;
-                            if (il > 9 - sharpness) il = 9 - sharpness;
-                        }
-                        if (il < 1) il = 1;
-                        f_ilevel[s][i4] = il;
-                        f_limit[s][i4] = 2 * lv + il;
-                        f_hev[s][i4] = lv >= 40 ? 2 : lv >= 15 ? 1 : 0;
-                    }
-                }
-            }
-        std::vector<uint8_t> intra_t((size_t)mb_w * 4, B_DC);
-        std::vector<uint8_t> top_nz((size_t)mb_w * 9, 0);
-        std::vector<MbInfo> row(mb_w);
-        for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
-            uint8_t intra_l[4] = {B_DC, B_DC, B_DC, B_DC};
-            uint8_t left_nz[9] = {0};
-            for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-                row[mb_x] = MbInfo();
-                intra_modes(row[mb_x], intra_t.data() + 4 * mb_x, intra_l);
-            }
-            if (br.eof()) fail("truncated VP8 data (first partition)");
-            BoolDec& tb = parts[mb_y & (parts.size() - 1)];
-            for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-                MbInfo& mb = row[mb_x];
-                bool skip = macroblock(mb_x, mb_y, mb, tb, top_nz.data() + 9 * mb_x, left_nz);
-                if (tb.eof()) fail("truncated VP8 data (token partition)");
-                if (filter_type > 0) {
-                    const size_t i = (size_t)mb_y * mb_w + mb_x;
-                    fl_limit[i] = (uint8_t)f_limit[mb.segment][mb.is_i4x4];
-                    fl_ilevel[i] = (uint8_t)f_ilevel[mb.segment][mb.is_i4x4];
-                    fl_hev[i] = (uint8_t)f_hev[mb.segment][mb.is_i4x4];
-                    fl_inner[i] = mb.is_i4x4 || !skip;
-                }
-            }
-        }
-        if (filter_type > 0) loop_filter();
-    }
-
+// A VP8 key frame's planes (vp8.cpp) to BGR: libwebp's fancy upsampling
+// of the chroma and its fixed-point YUV -> BGR (14-bit coefficients).
+struct Vp8Emit {
     // ---- libwebp's fancy upsampler and YUV -> BGR
     static int mult_hi(int v, int c) { return (v * c) >> 8; }
     static uint8_t clip_yuv(int v) { return (v & ~16383) == 0 ? (uint8_t)(v >> 6) : v < 0 ? 0 : 255; }
@@ -1512,11 +496,12 @@ struct Vp8 {
         }
     }
 
-    void emit(uint8_t* bgr) {
-        const int w = width, h = height, rs = w * 3;
-        auto yr = [&](int r) { return Y.data() + (size_t)r * ystride; };
-        auto ur = [&](int r) { return U.data() + (size_t)r * uvstride; };
-        auto vr = [&](int r) { return V.data() + (size_t)r * uvstride; };
+    static void emit(const uint8_t* Y, const uint8_t* U, const uint8_t* V, int ystride, int uvstride, int w, int h,
+                     uint8_t* bgr) {
+        const int rs = w * 3;
+        auto yr = [&](int r) { return Y + (size_t)r * ystride; };
+        auto ur = [&](int r) { return U + (size_t)r * uvstride; };
+        auto vr = [&](int r) { return V + (size_t)r * uvstride; };
         upsample(yr(0), nullptr, ur(0), vr(0), ur(0), vr(0), bgr, nullptr, w);
         int y = 1;
         for (; y + 1 < h; y += 2) {
@@ -1559,11 +544,11 @@ int mga_webp_vp8l_decode(const uint8_t* data, int64_t n, int32_t w, int32_t h, u
 // (h, w, 3) BGR. Returns 0, or -1 with the reason.
 int mga_webp_vp8_decode(const uint8_t* data, int64_t n, int32_t w, int32_t h, uint8_t* out, char* err, int errlen) {
     return run(err, errlen, [&] {
-        Vp8 d;
-        d.headers(data, n);
-        if (d.width != w || d.height != h) fail("VP8 frame size differs from its header");
-        d.decode_frame();
-        d.emit(out);
+        const int ystride = (w + 15) / 16 * 16, rows = (h + 15) / 16 * 16;
+        std::vector<uint8_t> y((size_t)ystride * rows), u((size_t)ystride * rows / 4), v(u.size());
+        char why[256] = {0};
+        if (mga_vp8_still(data, n, w, h, y.data(), u.data(), v.data(), why, sizeof(why))) fail(why);
+        Vp8Emit::emit(y.data(), u.data(), v.data(), ystride, ystride / 2, w, h, out);
     });
 }
 

@@ -65,7 +65,8 @@ def cv2_read(path):
 
 
 def test_fixtures_cover_every_kind():
-    assert set(META) == MJPEG | MPEG4 | RAW | {"big512.mp4"}
+    # the Matroska / WebM clips beside them are tests/test_torch_matroska.py's
+    assert {n for n in META if not n.endswith((".mkv", ".webm"))} == MJPEG | MPEG4 | RAW | {"big512.mp4"}
     assert META["odd97x63.mp4"]["shape"] == [62, 96, 3] and META["xvid.avi"]["fps"] == 29.97
 
 
@@ -217,11 +218,19 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
     elif kind == "interlaced":
         mhead, mchunks = avi_parts((FIXTURES / "mjpg.avi").read_bytes())
         data, what = pack_avi(mhead, [c + c for c in mchunks]), r"interlaced MJPEG \(two fields per chunk\)"
+    elif kind in ("mkv", "webm"):  # Matroska and WebM read now: the codecs in them the port still refuses
+        from tests.video_fixtures.make import mkv_blocks, mkv_bytes
+
+        mj = (FIXTURES / "mjpg.mkv").read_bytes()
+        packets = [(mj[o:o + n], True, 40 * i) for i, (o, n) in enumerate(mkv_blocks(mj))]
+        cid, what = ("V_FFV1", r"Matroska with FFV1 video \('V_FFV1'\)") if kind == "mkv" else \
+            ("V_VP9", r"WebM with VP9 video \('V_VP9'\)")
+        path = tmp_path / f"clip.{kind}"
+        path.write_bytes(mkv_bytes(cid, 64, 48, packets, doctype="matroska" if kind == "mkv" else "webm"))
+        return path, what
     else:  # containers by signature or suffix
-        body = {"mkv": b"\x1a\x45\xdf\xa3" + bytes(60), "webm": b"\x1a\x45\xdf\xa3" + bytes(60),
-                "mpg": b"\x00\x00\x01\xba" + bytes(60), "mpeg": bytes(64), "wmv": b"\x30\x26\xb2\x75" + bytes(60)}[kind]
-        name = {"mkv": "Matroska/WebM", "webm": "Matroska/WebM", "mpg": "MPEG-PS", "mpeg": "MPEG-PS",
-                "wmv": "ASF/WMV"}[kind]
+        body = {"mpg": b"\x00\x00\x01\xba" + bytes(60), "mpeg": bytes(64), "wmv": b"\x30\x26\xb2\x75" + bytes(60)}[kind]
+        name = {"mpg": "MPEG-PS", "mpeg": "MPEG-PS", "wmv": "ASF/WMV"}[kind]
         path = tmp_path / f"clip.{kind}"
         path.write_bytes(body)
         return path, f"the {name} container is not supported"
@@ -235,7 +244,10 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
 def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     """Each refused codec, layout and container raises ValueError naming the
     file and what it is. GIF, once refused, now reads as cv2.VideoCapture
-    reads it (``tests/test_torch_more_formats.py`` holds every frame)."""
+    reads it (``tests/test_torch_more_formats.py`` holds every frame);
+    Matroska and WebM, once refused, now read, and their cases are codecs
+    the port still refuses in them (``tests/test_torch_matroska.py`` holds
+    the rest)."""
     from mga_yolo_tpu_torch.data.video_io import VideoReader
 
     if kind == "gif":

@@ -1,5 +1,6 @@
-"""Writes the video fixtures that ``tests/test_torch_video.py`` and
-``chip_smoke.py`` ``[video]`` read: small clips written by cv2 (the JAX
+"""Writes the video fixtures that ``tests/test_torch_video.py``,
+``tests/test_torch_matroska.py`` and ``chip_smoke.py`` ``[video]`` and
+``[matroska]`` read: small clips written by cv2 (the JAX
 package's video reader and writer, with ffmpeg inside) from numpy seeds, and
 beside them what ``cv2.VideoCapture`` reads from each, the oracle:
 ``frames.npz`` (every frame, BGR uint8) and ``meta.json`` (``CAP_PROP_FPS``,
@@ -20,6 +21,22 @@ packets with resync markers, per-macroblock dquant; ``lavc_mpeg4``). And a
 512x512 mp4v clip
 (a GOP of 12 and an I-VOP), for decode times at the model's input size,
 with the SHA-256 of cv2's frames in place of the frames.
+
+Matroska and WebM (their oracle the SHA-256 of each frame cv2 reads, with
+its fps, count and fourcc): cv2's writer's MJPG and mp4v in ``.mkv``, VP8 in
+``.webm`` and ``.mkv``, a 97x63 VP8 source (cropped to 96x62) and a fourcc
+of 0 (``V_UNCOMPRESSED`` I420); libvpx (inside cv2's wheel, through
+libavcodec's ``libvpx`` encoder) with what cv2's writer leaves off, over a
+moving synthetic angiogram (shifted, turned and zoomed a little a frame):
+two-pass hidden alt-ref frames, a key-frame interval of 5, four token
+partitions, error-resilient frames (probabilities saved and put back,
+segmentation), profiles 1 and 3 (bilinear and full-pixel prediction) and an
+odd width, in files this module lays out (``mkv_bytes``): BlockGroups with
+CRC-32 and Void elements and several clusters, a live-style file (Segment
+and Clusters of unknown size, no Duration, no Cues), a track without
+DefaultDuration and a ``V_MS/VFW/FOURCC`` MJPEG track. And ``big512.webm``,
+16 VP8 frames at 512 x 512 (key frames 0 and 8) for ``[matroska]``'s decode
+times.
 """
 
 from __future__ import annotations
@@ -147,8 +164,17 @@ def lavc_mpeg4(imgs: list, options: dict) -> list:
     """The packets of ffmpeg's mpeg4 encoder (the libavcodec inside cv2's
     wheel, driven through ctypes) for BGR frames, with encoder options that
     cv2's writer does not pass on: 4MV, video packets (resync markers) and
-    per-macroblock quantiser changes (dquant). The AVFrame / AVPacket field
-    offsets are those of libavutil 60 / libavcodec 62."""
+    per-macroblock quantiser changes (dquant)."""
+    return [data for data, _, _ in lavc_encode("mpeg4", imgs, options)]
+
+
+def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_pass: bool = False) -> list:
+    """(data, key, pts) of each packet of a libavcodec encoder (the one inside
+    cv2's wheel, driven through ctypes) for BGR frames of any size, with the
+    encoder's own options; ``pts`` numbers the frames 0, 1, ... (libvpx wants
+    timestamps), ``two_pass`` runs a first pass and hands its statistics to
+    the second (libvpx's alt-ref frames need both). The AVFrame / AVPacket /
+    AVCodecContext field offsets are those of libavutil 60 / libavcodec 62."""
     import ctypes
 
     libs = Path(cv2.__file__).resolve().parents[1] / "opencv_python.libs"
@@ -166,35 +192,230 @@ def lavc_mpeg4(imgs: list, options: dict) -> list:
             (avcodec, "avcodec_receive_packet", ctypes.c_int, [vp, vp]), (avcodec, "av_packet_unref", None, [vp])):
         getattr(lib, name).restype, getattr(lib, name).argtypes = res, args
     h, w = imgs[0].shape[:2]
-    codec = avcodec.avcodec_find_encoder_by_name(b"mpeg4")
-    ctx = avcodec.avcodec_alloc_context3(codec)
-    for k, v in {"video_size": f"{w}x{h}", "pixel_format": "yuv420p", "time_base": "1/25", **options}.items():
-        assert avutil.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
-    assert avcodec.avcodec_open2(ctx, codec, None) == 0
-    frame, pkt = avutil.av_frame_alloc(), avcodec.av_packet_alloc()
-    ints, ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int)), ctypes.cast(frame, ctypes.POINTER(vp))
-    ints[26], ints[27], ints[29] = w, h, 0  # width, height, format (yuv420p)
-    assert avutil.av_frame_get_buffer(frame, 0) == 0
-    packets = []
+    codec = avcodec.avcodec_find_encoder_by_name(encoder.encode())
+    assert codec, encoder
 
-    def drain():
-        while avcodec.avcodec_receive_packet(ctx, pkt) == 0:
-            data, size = ctypes.cast(pkt, ctypes.POINTER(vp))[3], ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int))[8]
-            packets.append(ctypes.string_at(data, size))
-            avcodec.av_packet_unref(pkt)
+    def run(extra: dict, stats: bytes | None = None):
+        ctx = avcodec.avcodec_alloc_context3(codec)
+        for k, v in {"video_size": f"{w}x{h}", "pixel_format": "yuv420p", "time_base": "1/25", **options,
+                     **extra}.items():
+            assert avutil.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
+        keep = None
+        if stats is not None:  # AVCodecContext.stats_in, the pointer after stats_out
+            keep = ctypes.create_string_buffer(stats)
+            ctypes.cast(ctx, ctypes.POINTER(vp))[run.stats_out + 1] = ctypes.addressof(keep)
+        assert avcodec.avcodec_open2(ctx, codec, None) == 0
+        frame, pkt = avutil.av_frame_alloc(), avcodec.av_packet_alloc()
+        ints, ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int)), ctypes.cast(frame, ctypes.POINTER(vp))
+        ints[26], ints[27], ints[29] = w, h, 0  # width, height, format (yuv420p)
+        assert avutil.av_frame_get_buffer(frame, 0) == 0
+        packets = []
 
-    for img in imgs:
-        assert avutil.av_frame_make_writable(frame) == 0
-        yuv = cv2.cvtColor(img, cv2.COLOR_BGR2YUV_I420)
-        planes = (yuv[:h], yuv[h:h + h // 4].reshape(h // 2, w // 2), yuv[h + h // 4:].reshape(h // 2, w // 2))
-        for k, plane in enumerate(planes):
-            for r in range(plane.shape[0]):
-                ctypes.memmove(ptrs[k] + r * ints[16 + k], np.ascontiguousarray(plane[r]).ctypes.data, plane.shape[1])
-        assert avcodec.avcodec_send_frame(ctx, frame) == 0
+        def drain():
+            while avcodec.avcodec_receive_packet(ctx, pkt) == 0:
+                words, fields = ctypes.cast(pkt, ctypes.POINTER(vp)), ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int))
+                packets.append((ctypes.string_at(words[3], fields[8]), bool(fields[10] & 1),
+                                ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int64))[1]))
+                avcodec.av_packet_unref(pkt)
+
+        for i, img in enumerate(imgs):
+            assert avutil.av_frame_make_writable(frame) == 0
+            hh, ww = h + (h & 1), w + (w & 1)  # an odd size: the planes of the image with its edge repeated
+            yuv = cv2.cvtColor(cv2.copyMakeBorder(img, 0, hh - h, 0, ww - w, cv2.BORDER_REPLICATE),
+                               cv2.COLOR_BGR2YUV_I420).ravel()
+            cs = (hh // 2) * (ww // 2)
+            planes = (yuv[:hh * ww].reshape(hh, ww)[:h, :w], yuv[hh * ww:hh * ww + cs].reshape(hh // 2, ww // 2),
+                      yuv[hh * ww + cs:].reshape(hh // 2, ww // 2))
+            for k, plane in enumerate(planes):
+                for r in range(plane.shape[0]):
+                    ctypes.memmove(ptrs[k] + r * ints[16 + k], np.ascontiguousarray(plane[r]).ctypes.data,
+                                   plane.shape[1])
+            if pts:
+                ctypes.cast(frame, ctypes.POINTER(ctypes.c_int64))[17] = i  # AVFrame.pts
+            assert avcodec.avcodec_send_frame(ctx, frame) == 0
+            drain()
+        avcodec.avcodec_send_frame(ctx, None)
         drain()
-    avcodec.avcodec_send_frame(ctx, None)
-    drain()
-    return packets
+        del keep
+        return ctx, packets
+
+    if not two_pass:
+        return run({})[1]
+    ctx, _ = run({"flags": "+pass1"})
+    # stats_out: the context's pointer to the first pass's statistics (base64 text)
+    regions = [tuple(int(x, 16) for x in line.split()[0].split("-")) for line in open("/proc/self/maps")
+               if line.split()[1].startswith("r")]
+    words = ctypes.cast(ctx, ctypes.POINTER(vp))
+    b64 = set(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/=")
+    for i in range(256):
+        p = words[i]
+        if p and any(a <= p and p + 64 <= b for a, b in regions) and set(ctypes.string_at(p, 64)) <= b64:
+            run.stats_out = i
+            return run({"flags": "+pass2"}, ctypes.string_at(p))[1]
+    raise RuntimeError("no first-pass statistics in the codec context")
+
+
+def moving(n: int, h: int, w: int, seed: int) -> list:
+    """A moving synthetic angiogram: one frame of ``frames`` at twice the
+    size, shifted, turned and zoomed a little more each frame (so that
+    motion vectors, sub-pixel positions and split MVs occur)."""
+    base = frames(1, 2 * h, 2 * w, seed)[0]
+    out = []
+    for i in range(n):
+        m = cv2.getRotationMatrix2D((w, h), 1.5 * i, 1.0 + 0.01 * i)
+        m[:, 2] += (2.3 * i, -1.7 * i)
+        out.append(cv2.warpAffine(base, m, (2 * w, 2 * h), borderMode=cv2.BORDER_REFLECT)[h // 2:h // 2 + h,
+                                                                                        w // 2:w // 2 + w].copy())
+    return out
+
+
+def _ebml(eid: int, payload: bytes, unknown: bool = False) -> bytes:
+    n = len(payload)
+    size = b"\x01\xff\xff\xff\xff\xff\xff\xff" if unknown else \
+        next(((1 << (7 * k)) | n).to_bytes(k, "big") for k in range(1, 9) if n < (1 << (7 * k)) - 1)
+    return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + size + payload
+
+
+def _uint(eid: int, v: int) -> bytes:
+    return _ebml(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+def mkv_bytes(codec_id: str, w: int, h: int, packets: list, doctype: str = "webm", private: bytes = b"",
+              default_duration: int | None = None, duration: float | None = None, unknown: bool = False,
+              block_groups: bool = False, cluster_frames: int = 0, cues: bool = True, extras: bool = False,
+              colour_space: bytes = b"", track_extra: bytes = b"", block_flags: int = 0) -> bytes:
+    """A Matroska / WebM file of one video track: packets are (data, key,
+    timestamp in ms). ``unknown``: a Segment and Clusters of unknown size
+    (ffmpeg's live layout); ``block_groups``: Blocks in BlockGroups (with a
+    ReferenceBlock on inter frames); ``cluster_frames``: frames per cluster;
+    ``extras``: CRC-32, Void, SeekHead and Tags elements on the way;
+    ``track_extra``: elements added to the TrackEntry; ``block_flags``: bits
+    set in each SimpleBlock's flags (lacing)."""
+    crc = _ebml(0xBF, b"\0\0\0\0") if extras else b""
+    head = _ebml(0x1A45DFA3, _uint(0x4286, 1) + _uint(0x42F7, 1) + _uint(0x42F2, 4) + _uint(0x42F3, 8) +
+                 _ebml(0x4282, doctype.encode()) + _uint(0x4287, 4 if doctype == "matroska" else 2) +
+                 _uint(0x4285, 2))
+    info = crc + _uint(0x2AD7B1, 1000000) + _ebml(0x4D80, b"make.py") + _ebml(0x5741, b"make.py")
+    if duration is not None:
+        info += _ebml(0x4489, struct.pack(">d", float(duration)))
+    video = _uint(0xB0, w) + _uint(0xBA, h) + (_ebml(0x2EB524, colour_space) if colour_space else b"")
+    entry = _uint(0xD7, 1) + _uint(0x73C5, 1) + _uint(0x9C, 0) + _ebml(0x86, codec_id.encode()) + _uint(0x83, 1)
+    if default_duration:
+        entry += _uint(0x23E383, default_duration)
+    entry += _ebml(0xE0, video) + (_ebml(0x63A2, private) if private else b"") + track_extra
+    body = _ebml(0x1549A966, info) + _ebml(0x1654AE6B, crc + _ebml(0xAE, entry))
+    if extras:
+        body = _ebml(0x114D9B74, _ebml(0x4DBB, _ebml(0x53AB, b"\x15\x49\xa9\x66") + _uint(0x53AC, 0))) + \
+            _ebml(0xEC, bytes(20)) + body + _ebml(0x1254C367, _ebml(0x7373, _ebml(0x63C0, b"")))
+    clusters, step = [], cluster_frames or len(packets)
+    for c in range(0, len(packets), step):
+        group = packets[c:c + step]
+        t0 = group[0][2]
+        cl = (crc if c else b"") + _uint(0xE7, t0) + (_ebml(0xEC, bytes(3)) if extras else b"")
+        for data, key, ts in group:
+            blk = b"\x81" + struct.pack(">h", ts - t0)
+            if block_groups:
+                cl += _ebml(0xA0, _ebml(0xA1, blk + b"\0" + data) + (b"" if key else _ebml(0xFB, b"\xd8")))
+            else:
+                cl += _ebml(0xA3, blk + bytes([(0x80 if key else 0) | block_flags]) + data)
+        clusters.append((t0, cl))
+    out = b"".join(_ebml(0x1F43B675, cl, unknown) for _, cl in clusters)
+    if cues and not unknown:
+        pos, points = len(body), b""
+        for t0, cl in clusters:
+            points += _ebml(0xBB, _uint(0xB3, t0) + _ebml(0xB7, _uint(0xF7, 1) + _uint(0xF1, pos)))
+            pos += len(_ebml(0x1F43B675, cl))
+        out += _ebml(0x1C53BB6B, points)
+    return head + _ebml(0x18538067, body + out, unknown)
+
+
+def mkv_blocks(data: bytes) -> list:
+    """The payloads of a Matroska file's SimpleBlocks and Blocks, in order
+    (a fixture's own reader, for the tests' sweeps)."""
+    out = []
+
+    def num(p, keep):
+        n = 9 - data[p].bit_length()
+        v = int.from_bytes(data[p:p + n], "big")
+        return (v if keep else v & ((1 << (7 * n)) - 1)), n
+
+    def walk(p, end):
+        while p < end:
+            eid, n1 = num(p, True)
+            size, n2 = num(p + n1, False)
+            o = p + n1 + n2
+            unknown = size == (1 << (7 * n2)) - 1
+            if eid in (0x18538067, 0x1F43B675, 0xA0):
+                walk(o, len(data) if unknown else o + size)
+                if unknown:
+                    return
+            elif eid in (0xA3, 0xA1):
+                _, tl = num(o, False)
+                out.append((o + tl + 3, size - tl - 3))
+            p = o + size
+
+    walk(0, len(data))
+    return out
+
+
+def digests(imgs: list) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() for img in imgs]
+
+
+MKV_CV2 = {  # name: (fourcc, fps, source frames) for cv2's writer
+    "mjpg.mkv": ("MJPG", 25, lambda: frames(N, 48, 64, 21)),
+    "mp4v.mkv": ("mp4v", 29.97, lambda: frames(N, 48, 64, 22)),
+    "vp8.webm": ("VP80", 25, lambda: frames(N, 48, 64, 23)),
+    "vp8.mkv": ("VP80", 30, lambda: frames(N, 48, 64, 24)),
+    "vp8_odd97x63.webm": ("VP80", 25, lambda: frames(N, 63, 97, 25)),
+    "i420.mkv": (None, 25, lambda: frames(N, 32, 48, 26)),
+}
+
+
+def lavc_vp8_clips() -> dict:
+    """name -> the bytes of the libvpx clips (see the module's docstring)."""
+    ms = 40  # 25 fps
+    out = {}
+
+    def webm(name, imgs, options, two_pass=False, **layout):
+        h, w = imgs[0].shape[:2]
+        packets = lavc_encode("libvpx", imgs, options, pts=True, two_pass=two_pass)
+        layout.setdefault("default_duration", 40000000)
+        layout.setdefault("duration", ms * len(imgs))
+        step = layout.pop("ms", ms)
+        out[name] = mkv_bytes("V_VP8", w, h, [(d, k, int(p * step + 0.5)) for d, k, p in packets], **layout)
+
+    clip = moving(16, 64, 80, 31)
+    webm("vp8_altref.webm", moving(20, 64, 80, 32), {"auto-alt-ref": "1", "lag-in-frames": "16", "b": "300k",
+                                                     "arnr-maxframes": "5", "arnr-strength": "5"}, two_pass=True)
+    webm("vp8_keys.webm", clip, {"g": "5"})
+    webm("vp8_parts.webm", clip, {"slices": "4"}, block_groups=True, cluster_frames=6, extras=True,
+         doctype="matroska")
+    webm("vp8_error_resilient.webm", clip, {"error-resilient": "1"})
+    webm("vp8_profile1.webm", clip, {"profile": "1"})
+    webm("vp8_profile3.webm", clip, {"profile": "3"})
+    webm("vp8_odd97x64.webm", moving(12, 64, 97, 33), {})
+    webm("vp8_live.webm", moving(12, 48, 64, 34), {}, unknown=True, duration=None, cluster_frames=5)
+    webm("big512.webm", moving(16, 512, 512, 36), {"b": "400k", "g": "8"})
+    webm("vp8_no_default_duration.webm", moving(12, 48, 64, 35), {}, default_duration=None, ms=1001 / 30,
+         duration=round(12 * 1001 / 30))
+    return out
+
+
+def mkv_clips() -> dict:
+    """name -> (bytes of each Matroska / WebM fixture)."""
+    out = {}
+    for name, (fourcc, fps, make) in MKV_CV2.items():
+        cv2_write(HERE / name, fourcc, fps, make())
+        out[name] = (HERE / name).read_bytes()
+    out.update(lavc_vp8_clips())
+    # a V_MS/VFW/FOURCC track: cv2's MJPG frames behind a BITMAPINFOHEADER
+    mj = out["mjpg.mkv"]
+    bih = struct.pack("<IiiHH4sIiiII", 40, 64, 48, 1, 24, b"MJPG", 64 * 48 * 3, 0, 0, 0, 0)
+    out["mjpeg_vfw.mkv"] = mkv_bytes("V_MS/VFW/FOURCC", 64, 48,
+                                     [(mj[o:o + n], True, 40 * i) for i, (o, n) in enumerate(mkv_blocks(mj))],
+                                     doctype="matroska", private=bih, default_duration=40000000, duration=40 * N)
+    return out
 
 
 def main() -> None:
@@ -241,6 +462,11 @@ def main() -> None:
     meta["big512.mp4"]["oracle"] = "cv2, as the SHA-256 of each frame"
     meta["big512.mp4"]["sha256"] = [hashlib.sha256(img.tobytes()).hexdigest() for img in imgs]
     np.savez_compressed(HERE / "frames.npz", **stored)
+    for name, data in mkv_clips().items():
+        (HERE / name).write_bytes(data)
+        imgs, meta[name] = cv2_read(HERE / name)
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
     (HERE / "meta.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
 
 
