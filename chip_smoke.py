@@ -216,6 +216,15 @@ Then the baseline toolchain and the experiment grid:
              seeded flagship over a 512 px VP8 WebM and an MJPEG ``.mkv``
              (launches exact, boxes against the predictor's); the ``.mkv``
              writer read back.
+19. mpeg —   MPEG-1 and MPEG-2 (``data/video_io.py``'s MPEG-PS demuxer,
+             ``native/mpeg12.cpp``): the committed fixtures of
+             ``tests/video_fixtures/mpeg.json`` equal to cv2's frame
+             digests, fps, counts and fourccs (odd heights too);
+             MPEG-2 decode ms a picture at 512 px, I, P and B apart;
+             ``cli.predict`` on the seeded flagship over a 512 px MPEG-2
+             ``.mpg`` and an MPEG-1 ``.mpeg`` (launches exact, boxes against
+             the predictor's); the writer's ``.mpg``, ``.wmv`` and numbered
+             ``.gif`` equal to the CPU run's bytes, the ``.mpg`` read back.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -232,7 +241,8 @@ over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
 images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
-``--matroska-alone`` runs ``[matroska]`` alone.
+``--matroska-alone`` and ``--mpeg-alone`` run ``[matroska]`` and ``[mpeg]``
+alone.
 """
 
 from __future__ import annotations
@@ -3852,6 +3862,194 @@ def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> di
     return counts
 
 
+MPEG_WRITE_FRAMES = 6  # the 512 px angiograms [mpeg] writes as .mpg, .wmv and numbered .gif
+# what the writer makes of MPEG_WRITE_FRAMES seeded angiograms on the CPU (SHA-256 of each file)
+MPEG_WRITTEN_SHA256 = {
+    "angio_out.mpg": "c9f3620a8d218a18440d8a7ef2253349ddfd5daecd07ade972503e238857e7a5",
+    "angio_out.wmv": "3535bd6a90e4b2c1f8ef5a50c341f15e9b1bc8e07e7331936ac0a6746c8128ad",
+    "angio_out07.gif": "d8b95befd8ab10fb6fdf1557652504ca88b8476610e10dfcf562b2f999e8e2ad",
+    "angio_out08.gif": "7345b1bbc7683da99ce2e554557b04a2a9c26f7a80472def6055bef19d14bd98",
+    "angio_out09.gif": "dd5fa1b29f36a9e9a5ca13b25f6412dc9955d463401175505c8d65eea93b0fdb",
+    "angio_out10.gif": "38c38e5dff367c4bc77fb4a96209a4c68e31988b4e708bb85d03aee34a21809e",
+    "angio_out11.gif": "e3401e600153ef447e9aa2c9dc9aa559359289b00faeb830c582f766eda08c7e",
+    "angio_out12.gif": "00ebe7adfa3ccc4fc48fd96d1d141127d54ac1d9d4ccb6b58c923b03efe43bf6"}
+
+
+def mpeg_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """MPEG-1 and MPEG-2 on the card's host (``data/video_io.py``'s MPEG-PS
+    demuxer, ``native/mpeg12.cpp``), ``cli.predict`` over ``.mpg`` and
+    ``.mpeg`` on the flagship, and the writer's ``.mpg``, ``.wmv`` and
+    ``.gif``.
+
+    (a) each committed fixture of ``tests/video_fixtures/mpeg.json`` (cv2's
+    writer in PS, AVI, MP4 and Matroska; libavcodec's MPEG-1/2 with
+    B-pictures, field prediction and field DCT, alternate scan, intra_vlc,
+    DC precision 9-11, 4:2:2, loaded matrices, an open GOP; VP8 and MPEG-2
+    of odd height) decoded and held to cv2's frame digests, fps, count and
+    fourcc. (b) MPEG-2 decode
+    on one host thread, ms a picture at 512 px, I, P and B apart
+    (big512.mpg). (c) ``cli.predict`` on ``best`` over big512.mpg (MPEG-2,
+    16 frames) and big512_m1.mpeg (MPEG-1, 8): the JAX package's file names,
+    each frame's boxes equal to the predictor's on the frames decoded anew,
+    CAM-gate launches exactly 3 a batch. (d) MPEG_WRITE_FRAMES seeded 512 px
+    angiograms written as ``.mpg``, ``.wmv`` and numbered ``.gif``, each
+    file's bytes equal to the CPU run's; the ``.mpg`` read back. Returns
+    (c)'s launches."""
+    import contextlib
+    import hashlib
+    import io
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.data.synthetic import vessel_image
+    from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
+    from mga_yolo_tpu_torch.train import predictor as predictor_mod
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures against cv2's digests
+    meta = json.loads((VIDEO_FIXTURES / "mpeg.json").read_text())
+    check(len(meta) >= 24, f"[mpeg] {len(meta)} MPEG fixtures")
+    tally: dict = {}
+    n_frames = 0
+    for name, m in sorted(meta.items()):
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            imgs = list(r)
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in imgs]
+            check(got == m["sha256"], f"[mpeg] {name}: frames differ from cv2's digests")
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[mpeg] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m}")
+            for k, v in getattr(r, "mpeg12_tally", {}).items():
+                tally[k] = tally.get(k, 0) + v
+        n_frames += len(got)
+    print(f"[mpeg] (a) {len(meta)} MPEG fixtures ({n_frames} frames) decoded on this host with "
+          f"{native.library_path().name}, each frame equal to cv2's digest (odd heights too), fps, count and "
+          f"fourcc as cv2's; MPEG-1/2 features decoded: "
+          + ", ".join(f"{k} {v}" for k, v in tally.items() if v))
+    print(f"[mpeg] (a) MPEG-1/2 features no fixture has: {', '.join(sorted(k for k, v in tally.items() if not v))}")
+
+    # (b) MPEG-2 decode times at 512 px, I, P and B pictures apart
+    with VideoReader(VIDEO_FIXTURES / "big512.mpg") as big:
+        chunks = list(big._es_chunks(b"\x00\x00\x01\x00"))
+    times: dict = {1: [], 2: [], 3: []}
+    conv = []
+    for _ in range(MKV_TIMING_REPS):
+        dec = native.Mpeg12Decoder()
+        for c in chunks:
+            k = c.find(b"\x00\x00\x01\x00")
+            t0 = time.perf_counter()
+            got = dec.decode(c)
+            if k >= 0:  # the chunks but the first (the sequence header alone) hold a picture each
+                times[(c[k + 5] >> 3) & 7].append((time.perf_counter() - t0) * 1e3)
+            for planes, _ in got:
+                t0 = time.perf_counter()
+                native.yuv_to_bgr(*planes, False)
+                conv.append((time.perf_counter() - t0) * 1e3)
+        dec.flush()
+        dec.close()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    check(all(times.values()), f"[mpeg] big512.mpg: pictures timed {[len(v) for v in times.values()]}")
+    print(f"[mpeg] (b) MPEG-2 decode on one host thread, {card}: {med[1]:.3f} ms an I-picture, {med[2]:.3f} ms a "
+          f"P-picture, {med[3]:.3f} ms a B-picture, {sorted(conv)[len(conv) // 2]:.3f} ms the BGR conversion "
+          f"(512x512, medians of {len(times[1])}, {len(times[2])}, {len(times[3])} and {len(conv)})")
+
+    # (c) cli.predict over the MPEG-2 .mpg and the MPEG-1 .mpeg on the flagship
+    src = tmp / "mpeg_src"
+    src.mkdir()
+    for name in ("big512.mpg", "big512_m1.mpeg"):
+        (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
+    recorded, loaded = [], []
+    real_load = predictor_mod.load_predictor
+
+    def recording_load(*a, **k):
+        pred = real_load(*a, **k)
+        stream = pred.stream
+
+        def recording_stream(*sa, **sk):
+            for frame, r in stream(*sa, **sk):
+                recorded.append((frame.path, frame.index, r.boxes.copy()))
+                yield frame, r
+
+        pred.stream = recording_stream
+        loaded.append(pred)
+        return pred
+
+    out_dir = tmp / "mpeg_predict"
+    predictor_mod.load_predictor = recording_load
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
+                                    str(TRAIN_BATCH), "--conf", "0.01"] + ([] if device == "cuda" else
+                                                                            ["--device", device]))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        predictor_mod.load_predictor = real_load
+    n_video = 16 + 8
+    n_batches = -(-n_video // TRAIN_BATCH)
+    want_l = want_launches({"cam_gate": 3 * n_batches})
+    check(counts == want_l, f"[mpeg] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
+    check(res["images"] == 0 and res["frames"] == n_video, f"[mpeg] cli.predict result {res}")
+    written = {p.name for p in out_dir.iterdir()}
+    check(written == {"big512_pred.mp4", "big512_m1_pred.mp4"}, f"[mpeg] cli.predict wrote {sorted(written)}")
+    lines = log.getvalue().splitlines()
+    check(lines[-3:] == ["big512.mpg: 16 frames -> big512_pred.mp4", "big512_m1.mpeg: 8 frames -> big512_m1_pred.mp4",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[mpeg] cli.predict summary {lines[-3:]}")
+    pred = loaded[0]
+    del pred.stream  # the class's own stream again
+    again = []
+    for f in sorted(src.iterdir()):
+        with VideoReader(f) as r:
+            again += list(r)
+    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
+    check(len(recorded) == len(want) == n_video, f"[mpeg] {len(recorded)} results, {len(want)} again")
+    n_boxes, err = 0, 0.0
+    for (path, idx, got), w in zip(recorded, want):
+        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[mpeg] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
+        n_boxes += len(got)
+        err = max(err, float(np.abs(got - w).max(initial=0.0)))
+    print(f"[mpeg] (c) cli.predict on the seeded flagship over big512.mpg (MPEG-2, B-pictures, 16 frames) and "
+          f"big512_m1.mpeg (MPEG-1, 8 frames) of {VIDEO_SIZE}x{VIDEO_SIZE}: {sorted(written)} as the JAX package names "
+          f"them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew (max abs error "
+          f"{err:.3g}); launches {counts} ({n_batches} batches of {TRAIN_BATCH}); {n_video / wall:.1f} frames/s on "
+          f"one host thread, model load included ({wall:.2f} s), {card}")
+
+    # (d) the writer's .mpg, .wmv and numbered .gif, held to the CPU run's bytes
+    rng = np.random.default_rng(5)
+    frames = [np.repeat(vessel_image(rng, VIDEO_SIZE, MAX_BOXES)[0][:, :, None], 3, axis=2)
+              for _ in range(MPEG_WRITE_FRAMES)]
+    frames = [np.ascontiguousarray(np.concatenate([f[:, :, :2], np.clip(f[:, :, 2:] + 12, 0, 255)], 2))
+              for f in frames]  # a tint, so chroma is not flat
+    digests, t_write = {}, {}
+    out = tmp / "mpeg_written"  # apart from what earlier phases wrote
+    out.mkdir()
+    for name in ("angio_out.mpg", "angio_out.wmv", "angio_out07.gif"):
+        t0 = time.perf_counter()
+        with VideoWriter(out / name, 25, (VIDEO_SIZE, VIDEO_SIZE)) as vw:
+            for img in frames:
+                vw.write(img)
+        t_write[Path(name).suffix] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    for p in sorted(out.iterdir()):
+        digests[p.name] = hashlib.sha256(p.read_bytes()).hexdigest()
+    check(digests == MPEG_WRITTEN_SHA256, f"[mpeg] written files {digests} differ from the CPU run's")
+    with VideoReader(out / "angio_out.mpg") as r:
+        back = list(r)
+        check(r.container == "MPEG-PS" and len(back) == r.total == len(frames) and r.fps == 25.0,
+              f"[mpeg] angio_out.mpg: {len(back)} frames, {r.total}, fps {r.fps}")
+    q = min(psnr(np, b, f) for b, f in zip(back, frames))
+    check(q >= VIDEO_PSNR, f"[mpeg] angio_out.mpg: PSNR {q:.2f} dB against the frames written")
+    print(f"[mpeg] (d) {len(frames)} angiograms written as .mpg (mp4v in MPEG-PS, {t_write['.mpg']:.3f} ms a frame), "
+          f".wmv (mp4v in ASF, {t_write['.wmv']:.3f} ms) and numbered .gif stills ({t_write['.gif']:.3f} ms) on one "
+          f"host thread, {len(digests)} files equal to the CPU run's bytes; the .mpg read back: count, total and fps "
+          f"exact, PSNR {q:.2f} dB")
+    print(f"[mpeg] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -3892,8 +4090,8 @@ def planted_faults(tag: str, faults: dict) -> int:
 def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
     ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
-    64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship) or
-    ``[matroska]`` (the seeded flagship)."""
+    64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship),
+    ``[matroska]`` or ``[mpeg]`` (the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -3904,8 +4102,9 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag == "matroska":
-            matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
+        if tag in ("matroska", "mpeg"):
+            {"matroska": matroska_phase, "mpeg": mpeg_phase}[tag](
+                torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
             if tag == "formats":
@@ -4002,8 +4201,10 @@ def main() -> int:
         paths["formats"] = formats_phase(torch, np, data_yaml, Path(tmp))
         paths["formats2"] = formats2_phase(torch, np, data_yaml, best, Path(tmp))
         paths["matroska"] = matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mkv_seeded.pt"), Path(tmp))
+        paths["mpeg"] = mpeg_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mpeg_seeded.pt"), Path(tmp))
     # each kernel's launches are those of this slice's path first (cli.predict
-    # over a VP8 WebM and an MJPEG .mkv), then the earlier slices' (uploads of
+    # over an MPEG-2 .mpg and an MPEG-1 .mpeg), then the earlier slices'
+    # (cli.predict over a VP8 WebM and an MJPEG .mkv, uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
     # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
     # formats served and micro-steps fed from
@@ -4014,7 +4215,7 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -4033,7 +4234,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
-                        ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"]):
+                        ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"]):
         import torch
 
         if not torch.cuda.is_available():

@@ -103,9 +103,11 @@ def iter_source(source: Union[SourceLike, Iterable[SourceLike]], max_frames: int
 
 class VideoSink:
     """Lazily-opened annotated-video writer, one per source video: MJPG for
-    ``.avi`` and mp4v otherwise, in the container the suffix names, sized by
-    the first frame (``data/video_io.VideoWriter``). A suffix cv2's writer
-    refuses (``.webm`` among them) raises RuntimeError at the first write."""
+    ``.avi``, mp4v otherwise in the container the suffix names, and for
+    ``.gif`` cv2's numbered stills, sized by the first frame
+    (``data/video_io.VideoWriter``). A suffix cv2's writer refuses
+    (``.webm`` among them) and a ``.gif`` name without a digit raise
+    RuntimeError at the first write."""
 
     def __init__(self, out_path: Path, fps: float):
         self.out_path = Path(out_path)

@@ -1,5 +1,6 @@
 """Video files without OpenCV: the containers in Python, the codecs in the
-host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``, ``native/vp8.cpp``,
+host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``,
+``native/mpeg12.cpp``, ``native/vp8.cpp``, ``native/gif.cpp``,
 ``native/yuv.cpp``).
 
 The card's host has no OpenCV and no libavcodec, so the port reads and
@@ -9,29 +10,40 @@ writes the video files the JAX package reads and writes through
 * :class:`VideoReader` reads AVI (RIFF, ``idx1`` or a scan of ``movi``,
   OpenDML ``AVIX`` segments) and ISO-BMFF (``.mp4``, ``.mov``, ``.m4v``:
   ``moov`` wherever it lies, the sample tables, edit lists) holding MJPEG,
-  MPEG-4 Part 2 Simple profile (mp4v, XVID, DIVX, DX50, FMP4), uncompressed
+  MPEG-4 Part 2 Simple profile (mp4v, XVID, DIVX, DX50, FMP4), MPEG-1 and
+  MPEG-2 video (AVI's ``mpg1`` / ``mpg2`` / ``MPEG`` / ``PIM1`` tags and
+  their aliases, MP4's object types 0x60-0x65 and 0x6A), uncompressed
   24-bit BI_RGB or I420. Frames come out as cv2 gives them: BGR uint8, an
   MJPEG frame's planes through ffmpeg's simple IDCT and converted as
   ffmpeg's swscale converts them (full range, chroma replicated), MPEG-4's
-  likewise in limited range, BI_RGB copied (equal to cv2's frames on every
-  test clip). ``fps``, ``total`` and ``fourcc`` are what ``CAP_PROP_FPS``,
-  ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FOURCC`` give.
+  and MPEG-1/2's likewise in limited range, BI_RGB copied (equal to cv2's
+  frames on every test clip). ``fps``, ``total`` and ``fourcc`` are what
+  ``CAP_PROP_FPS``, ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FOURCC`` give.
+* It reads MPEG-PS (``.mpg``, ``.mpeg``: MPEG-1 and MPEG-2 packs, the first
+  video stream) holding MPEG-1/2 video (``native.Mpeg12Decoder``: I, P and
+  B-pictures in display order, field prediction and field DCT in frame
+  pictures, 4:2:0 and 4:2:2) or MPEG-4 Part 2 (cv2's own ``.mpg``), and a
+  bare MPEG-1/2 stream; see :meth:`VideoReader._open_ps` for cv2's fps and
+  frame count.
 * It reads Matroska and WebM (EBML: the first video track; Segments and
   Clusters of known or unknown size, SimpleBlocks and BlockGroups; SeekHead,
   Cues, Tags, CRC-32 and Void skipped) holding VP8 (``native.Vp8Decoder``:
   key and inter frames, hidden alt-ref frames decoded and not shown, each
   frame converted as MPEG-4's), MJPEG, MPEG-4 Part 2 (``CodecPrivate`` its
-  configuration), ``V_MS/VFW/FOURCC`` tracks of those codecs, and
-  ``V_UNCOMPRESSED`` I420 (what cv2's writer puts in ``.mkv`` for a fourcc of
-  0). See :meth:`VideoReader._open_mkv` for cv2's fps and frame count.
+  configuration), MPEG-1/2 (``V_MPEG1``, ``V_MPEG2``), ``V_MS/VFW/FOURCC``
+  tracks of those codecs, and ``V_UNCOMPRESSED`` I420 (what cv2's writer
+  puts in ``.mkv`` for a fourcc of 0). See :meth:`VideoReader._open_mkv`
+  for cv2's fps and frame count.
 * :class:`VideoWriter` writes what ``VideoSink`` asks cv2 for, by suffix:
   ``.avi`` as MJPG (``encode_jpeg``'s frames, an ``idx1`` index), ``.mkv``
   as mp4v in Matroska, ``.mp4``, ``.mov`` and ``.m4v`` as mp4v in an MP4
   with cv2's ``ftyp`` brand (I-VOPs at a fixed quantiser, ``moov`` last),
-  odd sizes cropped to even and an fps of 0 taken as 30, as cv2's writer
-  does. ``.webm`` and suffixes cv2's writer refuses raise ``RuntimeError``
-  as ``VideoSink`` does; ``.mpg``, ``.mpeg``, ``.wmv`` and ``.gif`` are
-  written as MP4 (cv2 writes MPEG-PS, ASF and GIF there).
+  ``.mpg`` / ``.mpeg`` as mp4v in MPEG-PS, ``.wmv`` as mp4v in ASF, and
+  ``.gif`` as cv2's images backend writes it (one still a frame, under
+  numbered names), odd sizes cropped to even and an fps of 0 taken as 30,
+  as cv2's writer does. ``.webm``, suffixes cv2's writer refuses and a
+  ``.gif`` name without a digit raise ``RuntimeError`` as ``VideoSink``
+  does.
 
   GIF's frames come out as cv2 gives them through ffmpeg's gif decoder
   (``native/gif.cpp`` decodes the LZW data; the frames are put on the
@@ -40,17 +52,25 @@ writes the video files the JAX package reads and writes through
   fourcc ``gif ``.
 
 H.264 / HEVC, VP9, AV1, FFV1, fragmented MP4, interlaced MJPEG, Matroska's
-content encodings and laced blocks, MPEG-PS and ASF / WMV raise
+content encodings and laced blocks, MPEG-2 field pictures, dual-prime
+prediction, scalable extensions, 4:4:4 and D-pictures, and ASF / WMV raise
 ``ValueError`` naming the file, its container and its codec, as do
 truncated and corrupt files (libavcodec conceals damage; the port refuses).
+Frames of odd height take swscale's scaled path as cv2's do
+(``native.yuv_to_bgr``), but for full-range (MJPEG), 4:2:2 and very short
+(under 9 rows) ones, which keep the unscaled rule (``ROADMAP.md`` section 3).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import re
 import struct
+import uuid
+from collections import deque
 from pathlib import Path
-from typing import BinaryIO, Iterator, List, Optional, Tuple
+from typing import BinaryIO, Iterator, List, NoReturn, Optional, Tuple
 
 import numpy as np
 
@@ -61,14 +81,26 @@ MJPEG_TAGS = {b"MJPG", b"mjpg", b"AVRn", b"AVDJ", b"dmb1", b"JPEG", b"jpeg", b"I
 MPEG4_TAGS = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"mp4v", b"MP4V", b"M4S2",
               b"m4s2"}
 I420_TAGS = {b"I420", b"IYUV", b"i420", b"iyuv"}
+# MPEG-1/2 tags cv2 reads in AVI (libavformat's riff tags); MPEG-1 or MPEG-2 is told by the stream itself
+MPEG12_TAGS = {b"mpg1", b"MPG1", b"PIM1", b"VCR2", b"mpg2", b"MPG2", b"PIM2", b"DVR ", b"MMES", b"mmes", b"LMP2",
+               b"slif", b"MPEG", b"mpeg", b"hdv1", b"hdv2", b"hdv3", b"hdv5", b"hdv6", b"hdv7", b"hdv8", b"hdv9",
+               b"xdv1", b"xdv2", b"xdv3", b"xdv4", b"xdv5", b"xdv6", b"xdv7", b"xdv8", b"xdv9", b"xdva", b"xdvb",
+               b"xdvc", b"xdvd", b"xdve", b"xdvf", b"mx5p", b"MPG3", b"BW10"}
+# the esds objectTypeIndication of MPEG-2 (0x60-0x65: its profiles) and MPEG-1 (0x6A) video in MP4
+MP4_MPEG12_OTI = {0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A}
+# frame_rate_code 1-8 of a sequence header, as fractions
+MPEG12_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001), 5: (30, 1), 6: (50, 1), 7: (60000, 1001),
+                8: (60, 1)}
 NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.264", b"X264": "H.264",
               b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"DIV3": "MS MPEG-4 v3",
               b"MP42": "MS MPEG-4 v2", b"WMV3": "WMV9", b"vp09": "VP9", b"av01": "AV1"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
 CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif ",
-              "vp8": b"VP80"}
-REFUSED_CONTAINERS = {".mpg": "MPEG-PS", ".mpeg": "MPEG-PS", ".wmv": "ASF/WMV"}
-_SIGNATURES = ((b"\x00\x00\x01\xba", "MPEG-PS"), (b"\x30\x26\xb2\x75", "ASF/WMV"))
+              "vp8": b"VP80", "mpeg1": b"mpg1", "mpeg2": b"mpg2"}
+REFUSED_CONTAINERS = {".wmv": "ASF/WMV"}
+_SIGNATURES = ((b"\x30\x26\xb2\x75", "ASF/WMV"),)
+PS_PACK, PS_END, PS_SYSTEM = 0xBA, 0xB9, 0xBB
+PS_TICKS = 90000  # the system clock's PTS / DTS units a second
 EBML_MAGIC = b"\x1a\x45\xdf\xa3"
 # Matroska's element IDs (marker bits kept) that the reader and the writer use
 MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead": 0x114D9B74, "Info": 0x1549A966,
@@ -82,10 +114,9 @@ MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead":
        "CueClusterPosition": 0xF1, "Tags": 0x1254C367, "Chapters": 0x1043A770, "Attachments": 0x1941A469}
 MKV_TOP_LEVEL = {MKV[k] for k in ("SeekHead", "Info", "Tracks", "Cluster", "Cues", "Tags", "Chapters", "Attachments")}
 MKV_CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4",
-              "V_MPEG4/ISO/AP": "mpeg4"}
+              "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12"}
 MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
-             "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MPEG1": "MPEG-1", "V_MPEG2": "MPEG-2",
-             "V_MS/VFW/FOURCC": "VfW"}
+             "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MS/VFW/FOURCC": "VfW"}
 # ffmpeg's standard frame rates (get_std_framerate), as fractions over 12 * 1001
 _STD_RATES = [(i + 1) * 1001 for i in range(30 * 12)] + [(i + 61) * 1001 * 12 for i in range(30)] + \
     [r * 1001 * 12 for r in (80, 120, 240)] + [r * 1000 * 12 for r in (24, 30, 60, 12, 15, 48)]
@@ -94,8 +125,15 @@ GIF_TRANSPARENT = np.array([255, 255, 255], np.uint8)  # ffmpeg's trans_color 0x
 MPEG4_QP = 2  # the writer's fixed quantiser: reconstruction steps of 4 on DCT coefficients
 # the ftyp box (major brand, minor version, compatible brands) cv2 writes per suffix
 MP4_FTYP = {".mp4": b"isom\0\0\2\0isomiso2mp41", ".mov": b"qt  \0\0\2\0qt  ", ".m4v": b"M4V \0\0\2\0M4V isomiso2"}
-# suffixes cv2 writes in containers the port does not write yet (MPEG-PS, ASF, GIF): written as MP4
-WRITER_AS_MP4 = {".mpg", ".mpeg", ".wmv", ".gif"}
+PS_SUFFIXES = (".mpg", ".mpeg")
+PS_PACK_SIZE = 2048  # ffmpeg's mpeg muxer's packet size
+PS_PRELOAD = 45000  # its preload of 0.5 s before the first PTS, in 90 kHz ticks
+PS_MUX_RATE = 2202035  # in 50 bytes/s, the rate cv2's files carry
+# the system header cv2's .mpg files carry: rate bound, one video stream, stream 0xE0's buffer bound
+PS_SYSTEM_HEADER = b"\x00\x00\x01\xbb\x00\x09\xc3\x33\x67\x00\x21\xff\xe0\xe0\xe6"
+ASF_PACKET = 3200  # ffmpeg's asf muxer's packet size
+ASF_PRELOAD_MS = 3100  # its preroll
+ASF_PAYLOAD_HEADER = 17  # stream, object number, offset, replicated data (size, time), length
 MKV_CLUSTER_MS = 5000  # ffmpeg's cluster_time_limit
 
 
@@ -110,7 +148,53 @@ def _codec_of(tag: bytes) -> Optional[str]:
         return "mpeg4"
     if tag in I420_TAGS:
         return "i420"
+    if tag in MPEG12_TAGS:
+        return "mpeg12"
     return None
+
+
+def mpeg12_kind(data: bytes) -> Optional[str]:
+    """"mpeg2" when the first sequence header in data is followed by a
+    sequence extension, "mpeg1" when it is not, None without one."""
+    i = data.find(b"\x00\x00\x01\xb3")
+    if i < 0:
+        return None
+    j = data.find(b"\x00\x00\x01", i + 4)
+    return "mpeg2" if j >= 0 and data[j + 3:j + 4] == b"\xb5" and data[j + 4:j + 5] and data[j + 4] >> 4 == 1 \
+        else "mpeg1"
+
+
+def vol_time_resolution(data: bytes) -> int:
+    """vop_time_increment_resolution of the first MPEG-4 VOL in data (0 without one)."""
+    m = re.search(rb"\x00\x00\x01[\x20-\x2f]", data)
+    if m is None:
+        return 0
+    bits = "".join(f"{b:08b}" for b in data[m.end():m.end() + 32])
+    p = 1 + 8  # random_accessible_vol, video_object_type_indication
+    p += 1 + (7 if bits[p] == "1" else 0)  # is_object_layer_identifier: verid, priority
+    p += 4 + (16 if bits[p:p + 4] == "1111" else 0)  # aspect_ratio_info: an extended PAR
+    if bits[p] == "1":  # vol_control_parameters: chroma_format, low_delay, vbv_parameters
+        p += 3
+        p += 79 if bits[p + 1] == "1" else 0
+        p += 1
+    p += 1
+    p += 2 + 1  # video_object_layer_shape, marker
+    return int(bits[p:p + 16] or "0", 2)
+
+
+def mpeg12_rate(data: bytes) -> Tuple[int, int]:
+    """The frame rate (num, den) of the first sequence header in data, with
+    MPEG-2's frame_rate_extension_n / _d, as libavcodec reports it."""
+    i = data.find(b"\x00\x00\x01\xb3")
+    if i < 0 or len(data) < i + 12:
+        return 0, 1
+    num, den = MPEG12_RATES.get(data[i + 7] & 15, (0, 1))
+    j = data.find(b"\x00\x00\x01\xb5", i + 4)
+    if j >= 0 and len(data) >= j + 10 and data[j + 4] >> 4 == 1 and mpeg12_kind(data[i:]) == "mpeg2":
+        n, d = (data[j + 9] >> 5) & 3, data[j + 9] & 31
+        num, den = num * (n + 1), den * (d + 1)
+    g = math.gcd(num, den) or 1
+    return num // g, den // g
 
 
 def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
@@ -195,17 +279,25 @@ class VideoReader:
         elif head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip", b"pnot", b"moof", b"uuid"):
             self.container = "MP4" if self.path.suffix.lower() in (".mp4", ".m4v") else "QuickTime/MP4"
             self._open_mp4()
+        elif head.startswith(b"\x00\x00\x01\xba"):
+            self.container = "MPEG-PS"
+            self._open_ps()
+        elif head.startswith(b"\x00\x00\x01\xb3"):
+            self.container = "MPEG video"
+            self._open_es()
         else:
             what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
             what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
             if what:
-                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, AVI and "
-                                 f"MP4/MOV holding MJPEG, MPEG-4 Part 2 or uncompressed video, and Matroska/WebM "
-                                 f"holding those or VP8)")
-            raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV, Matroska, WebM)")
+                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, AVI, "
+                                 f"MP4/MOV, MPEG-PS and Matroska/WebM)")
+            raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV, MPEG-PS, MPEG "
+                             f"video, Matroska, WebM)")
+        if self.codec == "mpeg12":
+            self.codec = self._mpeg12_kind()
         self.fourcc = CV2_FOURCC[self.codec]
 
-    def _refuse(self, what: str) -> None:
+    def _refuse(self, what: str) -> NoReturn:
         raise ValueError(f"{self.path}: {self.container} with {what} is not supported")
 
     def _read(self, off: int, n: int) -> bytes:
@@ -405,7 +497,12 @@ class VideoReader:
             esds = entry.find(b"esds")
             if esds < 0:
                 raise ValueError(f"{self.path}: mp4v sample entry without an 'esds' box")
-            self.extradata = self._decoder_specific_info(entry[esds + 4:])
+            oti, self.extradata = self._decoder_specific_info(entry[esds + 4:])
+            if oti in MP4_MPEG12_OTI:
+                self.codec = "mpeg12"
+            elif oti != 0x20:
+                raise ValueError(f"{self.path}: mp4v track of object type 0x{oti:02x} (not MPEG-4 Visual, MPEG-1 or "
+                                 f"MPEG-2 video) is not supported")
         # the sample table
         sizes = self._stsz(box)
         chunks = self._chunk_offsets(box)
@@ -439,8 +536,9 @@ class VideoReader:
         self.samples = samples
         self.shown = self._edit_list(o, n, durations, timescale, movie_scale)
 
-    def _decoder_specific_info(self, esds: bytes) -> bytes:
-        """The DecoderSpecificInfo (tag 5) of an esds payload (after version/flags)."""
+    def _decoder_specific_info(self, esds: bytes) -> Tuple[int, bytes]:
+        """The objectTypeIndication and the DecoderSpecificInfo (tag 5) of an
+        esds payload (after version/flags)."""
         p = 4
 
         def desc(p):
@@ -468,13 +566,11 @@ class VideoReader:
         if tag != 4:
             raise ValueError(f"{self.path}: corrupt esds (no decoder configuration)")
         oti = esds[p]
-        if oti != 0x20:
-            raise ValueError(f"{self.path}: mp4v track of object type 0x{oti:02x} (not MPEG-4 Visual) is not supported")
         p += 13
         if p >= len(esds):
-            return b""
+            return oti, b""
         tag, p, size = desc(p)
-        return esds[p:p + size] if tag == 5 else b""
+        return oti, (esds[p:p + size] if tag == 5 else b"")
 
     def _table(self, box, name: bytes, fmt: str) -> list:
         if name not in box:
@@ -637,7 +733,7 @@ class VideoReader:
         if dd:
             num, den = av_reduce(10 ** 9, dd, 30000)
         else:
-            num, den = self._mkv_guess_rate([ts for ts, _, _ in mine], tick_num, tick_den)
+            num, den = self._guess_rate([ts for ts, _, _ in mine], tick_num, tick_den, True)
         self.fps = num / den if den else 0.0
         if duration is not None:
             seconds = int(duration * scale * 1000 / 1000000) / 1000000
@@ -690,7 +786,7 @@ class VideoReader:
             self.codec = "i420"
         if self.codec is None:
             self._refuse(f"{MKV_NAMED.get(cid, f'the {cid!r} codec')} video ('{cid}')")
-        if self.codec == "mpeg4":
+        if self.codec in ("mpeg4", "mpeg12"):
             self.extradata = private
 
     def _mkv_cluster(self, off: int, size: Optional[int], seg_end: int, blocks: list) -> int:
@@ -729,11 +825,12 @@ class VideoReader:
         return track, t0 + rel, off + n + 3, size - n - 3
 
     @staticmethod
-    def _mkv_guess_rate(stamps: list, tick_num: int, tick_den: int) -> Tuple[int, int]:
-        """(num, den) frame rate of a track without DefaultDuration: of
-        ffmpeg's standard rates whose frame times, rounded to the tick, are
-        within a tick of every timestamp, the one whose frame phases vary
-        least (ffmpeg's error measure), else the mean rate of the timestamps."""
+    def _guess_rate(stamps: list, tick_num: int, tick_den: int, consecutive: bool) -> Tuple[int, int]:
+        """(num, den) frame rate of timestamps in ticks of tick_num /
+        tick_den s: of ffmpeg's standard rates (with ``consecutive``, only
+        those whose frame times, rounded to the tick, are within a tick of
+        every timestamp, one a frame), the one whose frame phases vary least
+        (ffmpeg's error measure), else the mean rate of the timestamps."""
         if len(stamps) < 2 or stamps[-1] <= stamps[0]:
             return 0, 1
         rel = np.array([t - stamps[0] for t in stamps], np.float64)
@@ -741,16 +838,222 @@ class VideoReader:
         best, best_error = None, 0.01
         for rate in _STD_RATES:  # frames per 12 * 1001 seconds
             frames = seconds * rate / (12 * 1001)
-            if np.abs(np.floor(np.arange(len(rel)) * 12 * 1001 * tick_den / (rate * tick_num) + 0.5) - rel).max() > 1:
+            if consecutive and np.abs(np.floor(np.arange(len(rel)) * 12 * 1001 * tick_den / (rate * tick_num) + 0.5)
+                                      - rel).max() > 1:
                 continue
             for k in (0, 0.5):
                 phase = frames - np.rint(frames + k) + k
                 error = (phase ** 2).mean() - phase.mean() ** 2
-                if error < best_error:
+                if error < best_error and (consecutive or best_error > 1e-9):  # a PS: the first rate that fits
                     best, best_error = rate, error
         if best is not None:
             return av_reduce(best, 12 * 1001, 2 ** 31 - 1)
         return av_reduce((len(stamps) - 1) * tick_den, int(rel[-1]) * tick_num, 60000)
+
+    # ---- MPEG-PS and MPEG video
+
+    def _pes_payload(self, o: int, end: int) -> Tuple[int, Optional[int]]:
+        """(payload offset, PTS or None) of the PES packet whose header
+        starts at o (after its length), in the MPEG-2 or the MPEG-1 form."""
+        b = self._read(o, min(end - o, 3) or 1)
+        if b[0] >> 6 == 2:  # MPEG-2: flags, header length, then PTS / DTS and the rest
+            if len(b) < 3:
+                raise ValueError(f"{self.path}: corrupt MPEG-PS file (a PES header cut at {o})")
+            hdr = o + 3 + b[2]
+            pts = self._pts(o + 3) if b[1] & 0x80 else None
+        else:  # MPEG-1: stuffing, STD buffer, PTS / DTS
+            p, k = o, 0
+            while self._read(p, 1)[0] == 0xFF:
+                p, k = p + 1, k + 1
+                if k > 16:
+                    raise ValueError(f"{self.path}: corrupt MPEG-PS file (more than 16 stuffing bytes at {o})")
+            if self._read(p, 1)[0] >> 6 == 1:
+                p += 2
+            c = self._read(p, 1)[0]
+            if c >> 4 == 2:
+                pts, hdr = self._pts(p), p + 5
+            elif c >> 4 == 3:
+                pts, hdr = self._pts(p), p + 10
+            elif c == 0x0F:
+                pts, hdr = None, p + 1
+            else:
+                raise ValueError(f"{self.path}: corrupt MPEG-PS file (a PES header byte 0x{c:02x} at {p})")
+        if hdr > end:
+            raise ValueError(f"{self.path}: corrupt MPEG-PS file (a PES header past its packet at {o})")
+        return hdr, pts
+
+    def _pts(self, o: int) -> int:
+        b = self._read(o, 5)
+        return ((b[0] >> 1) & 7) << 30 | (b[1] << 7 | b[2] >> 1) << 15 | (b[3] << 7 | b[4] >> 1)
+
+    def _open_ps(self) -> None:
+        """MPEG-PS as ffmpeg's mpeg demuxer reads it for cv2: pack headers
+        of MPEG-1 and MPEG-2, the system header, PES packets of either form
+        (MPEG-1 stuffing and STD fields, MPEG-2 header extensions), padding,
+        private and audio streams passed over; the first video stream
+        (0xE0-0xEF) in file order, its payloads joined. Its codec is what
+        the stream holds: a sequence header is MPEG-1/2 (``native.
+        Mpeg12Decoder``), a VOL MPEG-4 Part 2 (cv2's own ``.mpg`` writer).
+
+        ``fps`` is the sequence header's frame rate (MPEG-2's extension
+        applied); for MPEG-4, ffmpeg's guess among its standard rates from
+        the packets' PTS (a PTS is on the first frame that starts in a
+        packet only), and with one PTS the VOL's vop_time_increment_resolution. ``total`` is cv2's floor(seconds x fps + 0.5), seconds
+        from ffmpeg's estimate off the timestamps: the largest PTS of a
+        packet plus one packet's duration (a frame, and half a frame for
+        MPEG-1, whose parser counts fields: 90 kHz ticks rounded down), less
+        the first packet's PTS, turned into microseconds and rounded.
+        Measured against cv2's own files at 24, 25, 29.97, 30 and
+        10 fps, MPEG-1, MPEG-2 with and without B-pictures and MPEG-4; it
+        gives 11 for cv2's twelve MPEG-1 frames at 30 fps, as cv2 does."""
+        pos, end = 0, self._size
+        stream, pieces, stamps = None, [], []
+        while pos + 4 <= end:
+            head = self._read(pos, 4)
+            if head[:3] != b"\x00\x00\x01":
+                raise ValueError(f"{self.path}: corrupt MPEG-PS file (no start code at {pos})")
+            sid = head[3]
+            if sid == PS_END:
+                pos += 4
+                continue
+            if sid == PS_PACK:
+                first = self._read(pos + 4, 1)[0]
+                if first >> 6 == 1:
+                    pos += 14 + (self._read(pos + 13, 1)[0] & 7)
+                elif first >> 4 == 2:
+                    pos += 12
+                else:
+                    raise ValueError(f"{self.path}: corrupt MPEG-PS file (a pack header of neither form at {pos})")
+                continue
+            if sid < PS_SYSTEM:
+                raise ValueError(f"{self.path}: corrupt MPEG-PS file (start code 0x{sid:02X} between packets at "
+                                 f"{pos})")
+            length = int.from_bytes(self._read(pos + 4, 2), "big")
+            body, nxt = pos + 6, pos + 6 + length
+            if nxt > end:
+                raise ValueError(f"{self.path}: truncated MPEG-PS file (a packet of {length} bytes at {pos})")
+            if 0xE0 <= sid <= 0xEF and stream in (None, sid) and length:
+                stream = sid
+                hdr, pts = self._pes_payload(body, nxt)
+                if pts is not None:
+                    stamps.append(pts)
+                if nxt > hdr:
+                    pieces.append((hdr, nxt - hdr))
+            pos = nxt
+        if pos != end:
+            raise ValueError(f"{self.path}: truncated MPEG-PS file ({end - pos} bytes after its last packet)")
+        if not pieces:
+            raise ValueError(f"{self.path}: MPEG-PS file without a video stream")
+        self.samples = pieces
+        start = b"".join(self._read(o, n) for o, n in pieces[:64])[:1 << 16]
+        self.codec = self._es_codec(start)
+        if self.codec == "mpeg4":
+            steps = len(set(stamps)) > 1
+            num, den = self._guess_rate(stamps, 1, PS_TICKS, False) if steps else (vol_time_resolution(start), 1)
+        else:
+            num, den = mpeg12_rate(start)
+        self.fps = num / den if den and num else 0.0
+        self.size = self._es_size(start)
+        if not stamps or not num:
+            self.total = 0
+            return
+        per_field = 2 if self.codec == "mpeg12" and mpeg12_kind(start) == "mpeg1" else 1
+        ticks = max(stamps) + PS_TICKS * den // (num * per_field) - stamps[0]
+        us = (ticks * 1000000 + PS_TICKS // 2) // PS_TICKS  # in microseconds, rounded to the nearest
+        self.total = int(math.floor(us / 1e6 * self.fps + 0.5))
+
+    def _open_es(self) -> None:
+        """A bare MPEG-1/2 video stream (a ``.mpg`` of sequence headers and
+        pictures, no system layer), as ffmpeg's raw demuxer reads it for
+        cv2: ``fps`` the sequence header's, ``total`` from ffmpeg's estimate
+        off the header's bit rate (the file's bits over it; where that is
+        below 25 microseconds cv2 takes the stream's unknown duration,
+        INT64_MIN ticks of 1/1200000 s). Measured against cv2 on MPEG-1 and
+        MPEG-2 streams of libavcodec's."""
+        start = self._read(0, min(self._size, 1 << 16))
+        self.samples = [(0, self._size)]
+        self.codec = "mpeg12"
+        num, den = mpeg12_rate(start)
+        self.fps = num / den if den else 0.0
+        self.size = self._es_size(start)
+        i = start.find(b"\x00\x00\x01\xb3")
+        rate = (int.from_bytes(start[i + 8:i + 11], "big") >> 6) & 0x3FFFF
+        j = start.find(b"\x00\x00\x01\xb5", i + 4)
+        if mpeg12_kind(start) == "mpeg2" and j >= 0:
+            rate |= ((int.from_bytes(start[j + 5:j + 8], "big") >> 9) & 0xFFF) << 18
+        seconds = self._size * 8 / (rate * 400) if rate else 0.0
+        if seconds < 0.000025:
+            seconds = -2 ** 63 / 1200000
+        self.total = int(math.floor(seconds * self.fps + 0.5))
+
+    def _es_codec(self, data: bytes) -> str:
+        """The codec of a program stream's video payload, by its first start code."""
+        i = data.find(b"\x00\x00\x01")
+        code = data[i + 3] if 0 <= i < len(data) - 3 else None
+        if code == 0xB3:
+            return "mpeg12"
+        if code is not None and (code <= 0x2F or code in (0xB0, 0xB5)):
+            return "mpeg4"
+        if code is not None and code & 0x1F in (7, 9) and data[i - 1:i] == b"\x00":
+            self._refuse("H.264 video (an H.264 stream in its video packets)")
+        self._refuse(f"a video stream of no codec the port reads (first start code "
+                     f"{'none' if code is None else f'0x{code:02X}'})")
+
+    def _es_size(self, data: bytes) -> Tuple[int, int]:
+        i = data.find(b"\x00\x00\x01\xb3")
+        if i < 0 or len(data) < i + 7:
+            return 0, 0
+        w, h = int.from_bytes(data[i + 4:i + 7], "big") >> 12, int.from_bytes(data[i + 4:i + 7], "big") & 0xFFF
+        j = data.find(b"\x00\x00\x01\xb5", i + 4)
+        if j >= 0 and len(data) >= j + 7 and data[j + 4] >> 4 == 1 and mpeg12_kind(data[i:]) == "mpeg2":
+            w |= ((data[j + 5] & 1) << 1 | data[j + 6] >> 7) << 12
+            h |= ((data[j + 6] >> 5) & 3) << 12
+        return w, h
+
+    def _mpeg12_kind(self) -> str:
+        data = self.extradata + b"".join(self._read(o, n) for o, n in self.samples[:4])
+        kind = mpeg12_kind(data)
+        if kind is None:
+            raise ValueError(f"{self.path}: {self.container} with MPEG-1/2 video without a sequence header")
+        if self.size == (0, 0):
+            self.size = self._es_size(data)
+        return kind
+
+    def _es_chunks(self, picture: bytes) -> Iterator[bytes]:
+        """A program stream's (or a bare stream's) video as chunks that end
+        where a picture (its start code ``picture``) starts."""
+        buf = bytearray()
+        for o, n in self.samples:
+            for k in range(0, n, 1 << 20):
+                buf += self._read(o + k, min(n - k, 1 << 20))
+                at, cut = 0, buf.find(picture, 1)
+                while cut > 0:
+                    yield bytes(buf[at:cut])
+                    at, cut = cut, buf.find(picture, cut + 1)
+                del buf[:at]
+        if buf:
+            yield bytes(buf)
+
+    def _mpeg12_frames(self) -> Iterator[np.ndarray]:
+        """Each frame in display order, converted as MPEG-4's are (cv2's
+        limited-range BT.601 of yuv420p or yuv422p)."""
+        name = "MPEG-2" if self.codec == "mpeg2" else "MPEG-1"
+        dec = native.Mpeg12Decoder()
+        try:
+            chunks = self._es_chunks(b"\x00\x00\x01\x00") if self.container in ("MPEG-PS", "MPEG video") else \
+                (self._read(o, n) for o, n in self.samples)
+            for chunk in itertools.chain([self.extradata] if self.extradata else [], chunks):
+                try:
+                    got = dec.decode(chunk)
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: {self.container} with {name} video: {e}") from None
+                for (y, u, v), _ in got:
+                    yield native.yuv_to_bgr(y, u, v, full_range=False, chroma_left=self.codec == "mpeg2")
+            for (y, u, v), _ in dec.flush():
+                yield native.yuv_to_bgr(y, u, v, full_range=False, chroma_left=self.codec == "mpeg2")
+            self.mpeg12_tally = dec.tally()
+        finally:
+            dec.close()
 
     # ---- GIF
 
@@ -834,6 +1137,9 @@ class VideoReader:
         if self.codec == "vp8":
             yield from self._vp8_frames()
             return
+        if self.codec in ("mpeg1", "mpeg2"):
+            yield from self._mpeg12_frames()
+            return
         order = self.shown if self.shown is not None else range(len(self.samples))
         for i in order:
             o, n = self.samples[i]
@@ -886,14 +1192,16 @@ class VideoReader:
         try:
             if self.extradata:
                 dec.decode(self.extradata)
-            for i, (o, n) in enumerate(self.samples[start:], start):
+            chunks = self._es_chunks(b"\x00\x00\x01\xb6") if self.container == "MPEG-PS" else \
+                (self._read(o, n) for o, n in self.samples[start:])
+            for i, chunk in enumerate(chunks, start):
                 if wanted is not None and i > max(wanted, default=-1):
                     break
-                got = dec.decode(self._read(o, n))
+                got = dec.decode(chunk)
                 if got is None or (wanted is not None and i not in wanted):
                     continue
                 (y, u, v), _ = got
-                yield native.yuv_to_bgr(y, u, v, full_range=False)
+                yield native.yuv_to_bgr(y, u, v, full_range=False, chroma_left=True)
         except ValueError as e:
             raise ValueError(f"{self.path}: {self.container} with MPEG-4 video: {e}") from None
         finally:
@@ -948,42 +1256,91 @@ def _ebml_uint(eid: int, v: int) -> bytes:
 
 
 
+def _guid(text: str) -> bytes:
+    return uuid.UUID(text).bytes_le
+
+
+ASF_GUID = {name: _guid(g) for name, g in (
+    ("header", "75b22630-668e-11cf-a6d9-00aa0062ce6c"), ("file", "8cabdca1-a947-11cf-8ee4-00c00c205365"),
+    ("extension", "5fbf03b5-a92e-11cf-8ee3-00c00c205365"), ("reserved1", "abd3d211-a9ba-11cf-8ee6-00c00c205365"),
+    ("stream", "b7dc0791-a9b7-11cf-8ee6-00c00c205365"), ("video", "bc19efc0-5b4d-11cf-a8fd-00805f5c442b"),
+    ("no_ec", "20fb5700-5b55-11cf-a8fd-00805f5c442b"), ("codecs", "86d15240-311d-11d0-a3a4-00a0c90348f6"),
+    ("reserved2", "86d15241-311d-11d0-a3a4-00a0c90348f6"), ("data", "75b22636-668e-11cf-a6d9-00aa0062ce6c"),
+    ("index", "33000890-e5b1-11cf-89f4-00a0c90349cb"))}
+
+
+def gif_still_names(path: Path):
+    """cv2's images backend's file names for a video of stills at path: the
+    first run of digits in the file's name counts up from its value, zero
+    padded to its width when it starts with 0; None when the name has no
+    digit (cv2 does not open the writer)."""
+    m = re.search(r"\d+", path.name)
+    if m is None:
+        return None
+    digits = m.group(0)
+    width = len(digits) if digits.startswith("0") else 0
+
+    def name(i: int) -> Path:
+        return path.with_name(f"{path.name[:m.start()]}{int(digits) + i:0{width}d}{path.name[m.end():]}")
+
+    return name
+
+
 class VideoWriter:
     """Writes BGR uint8 frames of one size as ``cv2.VideoWriter`` does with
-    the JAX ``VideoSink``'s fourccs: ``.avi`` as MJPG, ``.mkv`` as mp4v in
-    Matroska, ``.mp4`` / ``.mov`` / ``.m4v`` as mp4v in MP4 with cv2's
-    brands (and ``.mpg``, ``.mpeg``, ``.wmv``, ``.gif`` as MP4, where cv2
-    writes MPEG-PS, ASF and GIF). Any other suffix, ``.webm`` among them,
-    raises RuntimeError as ``VideoSink`` does when cv2's writer does not open.
-    Frames are cropped to even width and height; an fps of 0 (or less) is 30.
+    the JAX ``VideoSink``'s fourccs, by suffix: ``.avi`` as MJPG, ``.mkv``
+    as mp4v in Matroska, ``.mp4`` / ``.mov`` / ``.m4v`` as mp4v in MP4 with
+    cv2's brands, ``.mpg`` / ``.mpeg`` as mp4v in MPEG-PS and ``.wmv`` as
+    mp4v in ASF (laid out as ffmpeg's muxers lay them out for cv2), and
+    ``.gif`` as cv2's images backend writes it, one still GIF a frame under
+    numbered names (:func:`gif_still_names`). Any other suffix, ``.webm``
+    among them, and a ``.gif`` name without a digit, raise RuntimeError as
+    ``VideoSink`` does when cv2's writer does not open. Frames are cropped to
+    even width and height (not the stills); an fps of 0 (or less) is 30.
     :meth:`close` finishes the file (the index and headers)."""
 
     def __init__(self, path: str | Path, fps: float, size: Tuple[int, int]):
         self.path = Path(path)
         suffix = self.path.suffix.lower()
-        if suffix not in (".avi", ".mkv", *MP4_FTYP, *WRITER_AS_MP4):
+        self.kind = {".avi": "avi", ".mkv": "mkv", ".wmv": "asf", ".gif": "gif", **{k: "mp4" for k in MP4_FTYP},
+                     **{k: "ps" for k in PS_SUFFIXES}}.get(suffix)
+        self._stills = gif_still_names(self.path) if self.kind == "gif" else None
+        if self.kind is None or (self.kind == "gif" and self._stills is None):
             raise RuntimeError(f"cannot open video writer: {self.path}")
         self.fps = fps if fps and fps > 0 else 30.0
         self.num, self.den = cv2_fps_fraction(self.fps)
         w, h = size
+        self.sizes: List[int] = []
+        if self.kind == "gif":
+            self.width, self.height = w, h
+            self._f: Optional[BinaryIO] = None
+            self._open = True
+            return
         self.width, self.height = w - (w & 1), h - (h & 1)
         if self.width < 2 or self.height < 2:
             raise ValueError(f"{self.path}: a video of {w}x{h} pixels is too small to write")
-        self.avi = suffix == ".avi"
-        self.mkv = suffix == ".mkv"
-        self.sizes: List[int] = []
-        self._f: Optional[BinaryIO] = open(self.path, "wb")
-        if self.avi:
+        self._f = open(self.path, "wb")
+        self._open = True
+        if self.kind == "avi":
             self._f.write(self._avi_header(0, 0))
             return
         self.res = self.num
         while self.res > 65535:  # the VOP time resolution is 16 bits
             self.res //= 10
         self.vol = native.mpeg4_header(self.width, self.height, self.res)
-        if self.mkv:
+        if self.kind == "mkv":
             self._start_mkv()
+        elif self.kind == "ps":
+            self._queue: deque = deque()  # [PTS or None, bytes, offset] of what is not in a pack yet
+            self._queued = 0
+            self._packs = 0
+        elif self.kind == "asf":
+            self._queue = deque()  # [object number, bytes, offset, time ms] of what is not in a packet yet
+            self._queued = 0
+            self._packets: List[int] = []  # the first object starting in each packet, or -1
+            self._f.write(self._asf_header())
         else:
-            self._f.write(self._box(b"ftyp", MP4_FTYP.get(suffix, MP4_FTYP[".mp4"])))
+            self._f.write(self._box(b"ftyp", MP4_FTYP[suffix]))
             self._mdat = self._f.tell()
             self._f.write(struct.pack(">I4sQ", 1, b"mdat", 16))
 
@@ -992,16 +1349,23 @@ class VideoWriter:
         return len(self.sizes)
 
     def write(self, img: np.ndarray) -> None:
-        if self._f is None:
+        if not self._open:
             raise ValueError(f"{self.path}: the writer is closed")
         img = np.asarray(img)
         if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
             raise ValueError(f"{self.path}: want (H, W, 3) uint8 BGR frames, got {img.shape} {img.dtype}")
         h, w = img.shape[:2]
+        if self.kind == "gif":
+            if (w, h) != (self.width, self.height):
+                raise ValueError(f"{self.path}: a frame of {w}x{h} in a video of {self.width}x{self.height}")
+            data = native.gif_encode(img)
+            self._stills(len(self.sizes)).write_bytes(data)
+            self.sizes.append(len(data))
+            return
         if (w - (w & 1), h - (h & 1)) != (self.width, self.height):
             raise ValueError(f"{self.path}: a frame of {w}x{h} in a video of {self.width}x{self.height}")
         img = img[:self.height, :self.width]
-        if self.avi:
+        if self.kind == "avi":
             data = encode_jpeg(img)
             if self._f.tell() + 8 + len(data) + 16 * (len(self.sizes) + 1) >= 1 << 31:
                 raise ValueError(f"{self.path}: past the 2 GiB an AVI 1.0 file holds")
@@ -1012,22 +1376,27 @@ class VideoWriter:
             seconds = t1 // self.res - (t0 // self.res if i else 0)
             y, u, v = native.bgr_to_yuv420(img)
             data = native.mpeg4_encode_intra(y, u, v, self.res, seconds, t1 % self.res, MPEG4_QP)
-            if self.mkv:
+            if i == 0 and self.kind in ("ps", "asf"):
+                data = self.vol + data  # the stream's headers before its first VOP, as cv2's writer sends them
+            if self.kind == "mkv":
                 self._mkv_block(data)
+            elif self.kind == "ps":
+                self._ps_frame(data, i)
+            elif self.kind == "asf":
+                self._asf_frame(data, i)
             else:
                 self._f.write(data)
         self.sizes.append(len(data))
 
     def close(self) -> None:
+        if not self._open:
+            return
+        self._open = False
         if self._f is None:
             return
         try:
-            if self.avi:
-                self._finish_avi()
-            elif self.mkv:
-                self._finish_mkv()
-            else:
-                self._finish_mp4()
+            {"avi": self._finish_avi, "mkv": self._finish_mkv, "ps": self._finish_ps, "asf": self._finish_asf,
+             "mp4": self._finish_mp4}[self.kind]()
         finally:
             self._f.close()
             self._f = None
@@ -1037,6 +1406,147 @@ class VideoWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    # ---- MPEG-PS
+
+    @staticmethod
+    def _ps_time(marker: int, t: int) -> bytes:
+        """A 33-bit PTS or SCR in the 5-byte form with its marker bits."""
+        return bytes([marker | ((t >> 29) & 0x0E) | 1, (t >> 22) & 0xFF, ((t >> 14) & 0xFE) | 1, (t >> 7) & 0xFF,
+                      ((t << 1) & 0xFE) | 1])
+
+    def _ps_frame(self, data: bytes, i: int) -> None:
+        pts = PS_PRELOAD + (2 * i * self.den * PS_TICKS + self.num) // (2 * self.num)
+        self._queue.append([pts, data, 0])
+        self._queued += len(data)
+        while self._queued >= PS_PACK_SIZE:
+            self._ps_pack()
+
+    def _ps_pack(self) -> None:
+        """One MPEG-1 pack of PS_PACK_SIZE bytes: its header (and the system
+        header in the first), then video PES packets, each frame opening a
+        packet of its own that carries its PTS, and a padding packet where
+        the data runs out. Room too small for a packet goes to the PES
+        header's stuffing bytes."""
+        scr = self._packs * PS_PACK_SIZE * PS_TICKS // (PS_MUX_RATE * 50)
+        mux = PS_MUX_RATE
+        out = bytearray(b"\x00\x00\x01\xba" + self._ps_time(0x20, scr) +
+                        bytes([0x80 | mux >> 15, (mux >> 7) & 0xFF, ((mux << 1) & 0xFE) | 1]))
+        if not self._packs:
+            out += PS_SYSTEM_HEADER
+        room = PS_PACK_SIZE - len(out)
+        while self._queue:
+            pts, data, off = self._queue[0]
+            head = 5 if off == 0 else 1
+            if room < 6 + head + 1:
+                break
+            n = min(len(data) - off, room - 6 - head)
+            left = room - 6 - head - n
+            stuff = left if left < 6 else 0
+            out += b"\x00\x00\x01\xe0" + (stuff + head + n).to_bytes(2, "big") + b"\xff" * stuff
+            out += (self._ps_time(0x20, pts) if off == 0 else b"\x0f") + data[off:off + n]
+            room -= 6 + stuff + head + n
+            self._queued -= n
+            if off + n == len(data):
+                self._queue.popleft()
+            else:
+                self._queue[0][2] = off + n
+        if room:
+            out += b"\x00\x00\x01\xbe" + (room - 6).to_bytes(2, "big") + b"\xff" * (room - 6)
+        self._f.write(out)
+        self._packs += 1
+
+    def _finish_ps(self) -> None:
+        while self._queue:
+            self._ps_pack()
+
+    # ---- ASF
+
+    def _asf_ms(self, i: int) -> int:
+        return (2 * i * self.den * 1000 + self.num) // (2 * self.num)
+
+    def _asf_header(self, packets: int = 0, index_size: int = 0) -> bytes:
+        """The Header Object (File Properties, Header Extension, Stream
+        Properties with a BITMAPINFOHEADER of mp4v and the VOL, Codec List)
+        and the Data Object's header, as ffmpeg's asf muxer writes them for
+        cv2; written again at close with the counts and durations."""
+        n = len(self.sizes)
+        send = self._asf_ms(n) * 10000  # in 100 ns
+        bitrate = int(8 * sum(self.sizes) * 1000 / max(self._asf_ms(n), 1)) if n else 0
+        g = ASF_GUID
+
+        def obj(guid: bytes, body: bytes) -> bytes:
+            return guid + struct.pack("<Q", 24 + len(body)) + body
+
+        bih = struct.pack("<IiiHH4sIiiII", 40 + len(self.vol), self.width, self.height, 1, 24, b"mp4v",
+                          self.width * self.height * 3, 0, 0, 0, 0) + self.vol
+        specific = struct.pack("<IIBH", self.width, self.height, 2, len(bih)) + bih
+        name = "mpeg4\0".encode("utf-16-le")
+        rest = obj(g["extension"], g["reserved1"] + struct.pack("<HI", 6, 0)) + \
+            obj(g["stream"], g["video"] + g["no_ec"] + struct.pack("<QIIHI", 0, len(specific), 0, 1, 0) + specific) + \
+            obj(g["codecs"], g["reserved2"] + struct.pack("<IHH", 1, 1, len(name) // 2) + name +
+                struct.pack("<HH", 0, 4) + b"mp4v")
+        size = 30 + 104 + len(rest)  # the Header Object, File Properties (104 bytes) included
+        data_size = 50 + packets * ASF_PACKET
+        fileprops = obj(g["file"], bytes(16) + struct.pack("<QQQQQQIIII", size + data_size + index_size, 0, packets,
+                                                           send + ASF_PRELOAD_MS * 10000, send, ASF_PRELOAD_MS, 2,
+                                                           ASF_PACKET, ASF_PACKET, bitrate))
+        header = g["header"] + struct.pack("<QIBB", size, 4, 1, 2) + fileprops + rest
+        return header + g["data"] + struct.pack("<Q", data_size) + bytes(16) + struct.pack("<QBB", packets, 1, 1)
+
+    def _index_entries(self) -> int:
+        return math.ceil((self._asf_ms(len(self.sizes)) + ASF_PRELOAD_MS) / 1000) + 1
+
+    def _asf_frame(self, data: bytes, i: int) -> None:
+        self._queue.append([i + 1, data, 0, self._asf_ms(i)])
+        self._queued += len(data)
+        while self._queued >= ASF_PACKET:
+            self._asf_packet()
+
+    def _asf_packet(self) -> None:
+        """One data packet of ASF_PACKET bytes: error correction data, its
+        flags, send time and duration, then payloads (a fragment of a frame
+        each, with the frame's size and presentation time), then padding
+        (its length in a WORD, when there is any)."""
+        room = ASF_PACKET - 12
+        payloads, first = [], -1
+        while self._queue and room > ASF_PAYLOAD_HEADER and len(payloads) < 63:
+            number, data, off, ms = self._queue[0]
+            n = min(len(data) - off, room - ASF_PAYLOAD_HEADER)
+            if 0 < room - ASF_PAYLOAD_HEADER - n < 2:  # the padding length's WORD must fit
+                n -= 2 - (room - ASF_PAYLOAD_HEADER - n)
+            if n <= 0:
+                break
+            if off == 0 and first < 0:
+                first = number
+            payloads.append(struct.pack("<BBIBIIH", 0x81, number & 0xFF, off, 8, len(data), ASF_PRELOAD_MS + ms, n) +
+                            data[off:off + n])
+            room -= ASF_PAYLOAD_HEADER + n
+            self._queued -= n
+            times = [ms] if len(payloads) == 1 else times + [ms]
+            if off + n == len(data):
+                self._queue.popleft()
+            else:
+                self._queue[0][2] = off + n
+        padding = room - 2 if room else 0
+        head = b"\x82\x00\x00" + (b"\x11\x5d" + struct.pack("<H", padding) if room else b"\x01\x5d")
+        head += struct.pack("<IHB", times[0], times[-1] - times[0], 0x80 | len(payloads))
+        self._f.write(head + b"".join(payloads) + bytes(padding))
+        self._packets.append(first)
+
+    def _finish_asf(self) -> None:
+        while self._queue:
+            self._asf_packet()
+        f = self._f
+        # the Simple Index: for each second of presentation time, the packet where the last frame before it starts
+        entries, starts = [], [(k, number) for k, number in enumerate(self._packets) if number > 0]
+        for t in range(self._index_entries()):
+            before = [k for k, number in starts if self._asf_ms(number - 1) <= t * 1000 - ASF_PRELOAD_MS] or [0]
+            entries.append(struct.pack("<IH", before[-1], 1))
+        f.write(ASF_GUID["index"] + struct.pack("<Q", 56 + 6 * len(entries)) + bytes(16) +
+                struct.pack("<QII", 10000000, 1, len(entries)) + b"".join(entries))
+        f.seek(0)
+        f.write(self._asf_header(len(self._packets), 56 + 6 * len(entries)))
 
     # ---- AVI
 

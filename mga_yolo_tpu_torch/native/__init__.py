@@ -3,13 +3,15 @@ rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
 ``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG decoding and encoding, and
 MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
-encoding), ``tiff.cpp`` (TIFF's LZW, PackBits, CCITT fax codes and predictor),
-``webp.cpp`` (WebP's VP8L bitstream, and the upsampling of a lossy
-still), ``vp8.cpp`` (VP8 key and inter frames, for WebM / Matroska video
-and WebP stills), ``gif.cpp`` (GIF's blocks and LZW) and ``raster.cpp``
-(PNM numbers, Radiance HDR scanlines), with ``simple_idct.h``.
+encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding), ``tiff.cpp``
+(TIFF's LZW, PackBits, CCITT fax codes and predictor), ``webp.cpp``
+(WebP's VP8L bitstream, and the upsampling of a lossy still), ``vp8.cpp``
+(VP8 key and inter frames, for WebM / Matroska video and WebP stills),
+``gif.cpp`` (GIF's blocks and LZW, and cv2's GIF encoder) and
+``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
+``simple_idct.h``.
 
-The ten sources are compiled at first use, together, with ``g++ -O3
+The eleven sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
@@ -35,8 +37,9 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
-CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "tiff.cpp",
-                                                                 "webp.cpp", "vp8.cpp", "gif.cpp", "raster.cpp"))
+CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "mpeg12.cpp",
+                                                                 "tiff.cpp", "webp.cpp", "vp8.cpp", "gif.cpp",
+                                                                 "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -132,6 +135,8 @@ def _open(target: Path):
     lib.mga_jpeg_decode_planes.restype = n64
     lib.mga_yuv_to_bgr.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, c, u8p]
     lib.mga_yuv_to_bgr.restype = None
+    lib.mga_yuv420_to_bgr_scaled.argtypes = [u8p, c, u8p, u8p, c, c, c, c, u8p]
+    lib.mga_yuv420_to_bgr_scaled.restype = None
     lib.mga_bgr_to_yuv420.argtypes = [u8p, c, c, u8p, u8p, u8p]
     lib.mga_bgr_to_yuv420.restype = None
     lib.mga_mpeg4_decoder_new.argtypes = []
@@ -157,6 +162,8 @@ def _open(target: Path):
     lib.mga_gif_header.restype = c
     lib.mga_gif_frame.argtypes = [buf, n64, n64, ctypes.POINTER(n64), u8p, u8p, n64, buf, c]
     lib.mga_gif_frame.restype = c
+    lib.mga_gif_encode.argtypes = [u8p, c, c, u8p, n64]
+    lib.mga_gif_encode.restype = n64
     lib.mga_pnm_numbers.argtypes = [buf, n64, ctypes.POINTER(n64), n64, c, i32p]
     lib.mga_pnm_numbers.restype = c
     lib.mga_hdr_pixels.argtypes = [buf, n64, n64, n64, n64, u8p]
@@ -174,6 +181,20 @@ def _open(target: Path):
     lib.mga_vp8_planes.restype = None
     lib.mga_vp8_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
     lib.mga_vp8_tally.restype = c
+    lib.mga_mpeg12_new.argtypes = []
+    lib.mga_mpeg12_new.restype = ctypes.c_void_p
+    lib.mga_mpeg12_free.argtypes = [ctypes.c_void_p]
+    lib.mga_mpeg12_free.restype = None
+    lib.mga_mpeg12_decode.argtypes = [ctypes.c_void_p, buf, n64, buf, c]
+    lib.mga_mpeg12_decode.restype = c
+    lib.mga_mpeg12_flush.argtypes = [ctypes.c_void_p]
+    lib.mga_mpeg12_flush.restype = c
+    lib.mga_mpeg12_peek.argtypes = [ctypes.c_void_p, i32p]
+    lib.mga_mpeg12_peek.restype = c
+    lib.mga_mpeg12_pop.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
+    lib.mga_mpeg12_pop.restype = None
+    lib.mga_mpeg12_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_mpeg12_tally.restype = c
     return lib, None
 
 
@@ -404,11 +425,17 @@ def jpeg_decode_planes(data: bytes) -> tuple[list[np.ndarray], dict]:
     return planes, meta
 
 
-def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool) -> np.ndarray:
+def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool,
+               chroma_left: bool = False) -> np.ndarray:
     """(H, W, 3) BGR uint8 from a luma plane and two chroma planes of half
     (4:2:0) or half-width (4:2:2) or equal size, as cv2.VideoCapture converts
     a frame (swscale's unscaled yuv2rgb, chroma replicated; JPEG's range when
-    ``full_range``, else limited; BT.601)."""
+    ``full_range``, else limited; BT.601). A limited-range 4:2:0 frame of
+    odd height takes swscale's scaled path, as cv2's does, its chroma
+    upsampled from where the codec sites it (``chroma_left``: MPEG-2 and
+    MPEG-4; centred: MPEG-1, VP8); a full-range or 4:2:2 frame, or one
+    under 9 rows (swscale's 1- and 2-tap paths), of odd height keeps the
+    unscaled rule (``ROADMAP.md`` section 3)."""
     lib = load()
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     h, w = y.shape
@@ -418,7 +445,10 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool) ->
     if u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
         raise ValueError(f"chroma planes of {u.shape} for luma of {y.shape}")
     out = np.empty((h, w, 3), np.uint8)
-    lib.mga_yuv_to_bgr(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(full_range), _u8(out))
+    if h & 1 and h >= 9 and sx and sy and not full_range:
+        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), _u8(out))
+    else:
+        lib.mga_yuv_to_bgr(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(full_range), _u8(out))
     return out
 
 
@@ -532,6 +562,75 @@ class Vp8Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.mga_vp8_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what an Mpeg12Decoder counts (mpeg12.cpp's Tally, in its order)
+MPEG12_TALLY = ("pictures_i", "pictures_p", "pictures_b", "mpeg1_pictures", "mpeg2_pictures", "mb_intra",
+                "mb_intra_in_p_b", "mb_skipped_p", "mb_skipped_b", "mb_forward", "mb_backward", "mb_interpolated",
+                "mb_no_mc", "mb_quant", "frame_pred", "field_pred", "field_dct", "halfpel_vectors",
+                "full_pel_pictures", "escapes", "escapes_long", "mismatch_toggles", "loaded_intra", "loaded_non_intra",
+                "quant_matrix_ext", "dc_precision_9", "dc_precision_10", "dc_precision_11", "intra_vlc_pictures",
+                "alternate_scan_pictures", "non_linear_q_pictures", "concealment_pictures", "chroma_422_pictures",
+                "interlaced_sequences", "open_gops", "closed_gops", "reordered", "dropped_b", "slices", "mv_wraps")
+
+
+class Mpeg12Decoder:
+    """An MPEG-1 / MPEG-2 video decoder (``mpeg12.cpp``): feed it the
+    stream's chunks in order, each holding whole pictures (a container's
+    packets, or a program stream's joined payloads), then :meth:`flush` at
+    the end. Frames come out in display order, as libavcodec gives them.
+    Holds its reference frames; :meth:`close` frees them."""
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.mga_mpeg12_new()
+        if not self._h:
+            raise MemoryError("MPEG-1/2 decoder")
+
+    def _ready(self) -> list:
+        out = []
+        info = (ctypes.c_int32 * 5)()
+        while self._lib.mga_mpeg12_peek(self._h, info):
+            w, h, cw, ch, kind = list(info)
+            y = np.empty((h, w), np.uint8)
+            u = np.empty((ch, cw), np.uint8)
+            v = np.empty_like(u)
+            self._lib.mga_mpeg12_pop(self._h, _u8(y), _u8(u), _u8(v))
+            out.append(((y, u, v), kind))
+        return out
+
+    def decode(self, chunk: bytes) -> list:
+        """The frames ready after the chunk: ((y, u, v), picture type 1 I,
+        2 P, 3 B) each, chroma at 4:2:0 or 4:2:2. Raises ValueError naming
+        what it does not decode."""
+        if not self._h:
+            raise ValueError("the MPEG-1/2 decoder is closed")
+        chunk = bytes(chunk)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        if self._lib.mga_mpeg12_decode(self._h, chunk, len(chunk), err, _ERR_LEN) < 0:
+            raise ValueError(err.value.decode())
+        return self._ready()
+
+    def flush(self) -> list:
+        """The frames left at the end of the stream (the last reference picture)."""
+        if not self._h:
+            raise ValueError("the MPEG-1/2 decoder is closed")
+        self._lib.mga_mpeg12_flush(self._h)
+        return self._ready()
+
+    def tally(self) -> dict:
+        """The features decoded so far, counted (``MPEG12_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(MPEG12_TALLY))()
+        self._lib.mga_mpeg12_tally(self._h, out, len(MPEG12_TALLY))
+        return dict(zip(MPEG12_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_mpeg12_free(self._h)
             self._h = None
 
     def __del__(self):
@@ -702,6 +801,19 @@ def gif_header(data: bytes) -> tuple[Gif, int]:
         raise ValueError(err.value.decode())
     width, height, background, entries, off = list(info)
     return Gif(width, height, background, pal if entries else None, entries, []), off
+
+
+def gif_encode(img: np.ndarray) -> bytes:
+    """(H, W, 3) BGR uint8 -> the GIF bytes cv2.imwrite writes for it
+    (``gif.cpp``: a fixed 3-3-2 palette, Floyd-Steinberg dithered)."""
+    lib = load()
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"want an (H, W, 3) BGR image, got {img.shape}")
+    h, w = img.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"a GIF of {w} x {h} pixels (1 to 65535 a side)")
+    return _grow(lambda out, cap, err: lib.mga_gif_encode(_u8(img), h, w, _u8(out), cap), img.size + 4096)
 
 
 def gif_frames(data: bytes, off: int, decode: bool = True) -> Iterator[GifFrame]:

@@ -10,12 +10,24 @@
 // the width's limit (no early change, unlike TIFF's); at 4096 entries the
 // table stops growing and the codes stay 12 bits until a clear code.
 //
+// Encoding, for the video writer's numbered stills: the file cv2.imwrite
+// writes for a BGR image (OpenCV 5's GIF encoder at its defaults, measured):
+// a fixed palette of 3-3-2 bits (R and G levels 36 k, B levels 85 k), each
+// channel Floyd-Steinberg dithered on its own (errors 7/16, 3/16, 5/16, 1/16
+// kept unrounded, levels round(v / step) clamped), a NETSCAPE2.0 loop of 0, a
+// graphic control extension of disposal 3 and a delay of 100, and LZW of
+// minimum code size 8 that sends a clear code as soon as code 4095 is taken,
+// in sub-blocks of 255 bytes.
+//
 // Exposed (extern "C"):
 //   mga_gif_header - the logical screen and the global colour table
 //   mga_gif_frame  - the next image from an offset: its descriptor, the
 //                    graphic control extension before it, its colour table,
 //                    and its indices (interlaced rows put in order)
+//   mga_gif_encode - a BGR image as cv2.imwrite's GIF
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -97,9 +109,115 @@ int lzw(const std::vector<uint8_t>& in, int min_size, uint8_t* out, int64_t coun
     return 0;
 }
 
+struct LzwWriter {
+  std::vector<uint8_t> out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  void put(int code, int width) {
+    acc |= (uint32_t)code << nbits;
+    nbits += width;
+    while (nbits >= 8) {
+      out.push_back((uint8_t)acc);
+      acc >>= 8;
+      nbits -= 8;
+    }
+  }
+};
+
+// LZW of indices at minimum code size 8, as OpenCV's GIF encoder codes them.
+std::vector<uint8_t> lzw_encode(const uint8_t* idx, int64_t n) {
+  constexpr int kClear = 256, kEoi = 257;
+  LzwWriter w;
+  std::vector<int32_t> child((size_t)4096 * 256, -1);  // (prefix code, next index) -> code
+  std::vector<size_t> taken;  // the slots of child in use, reset at a clear code
+  int width = 9, next = kEoi + 1;
+  w.put(kClear, width);
+  int cur = -1;
+  for (int64_t i = 0; i < n; ++i) {
+    const int k = idx[i];
+    if (cur < 0) {
+      cur = k;
+      continue;
+    }
+    int32_t& slot = child[(size_t)cur * 256 + k];
+    if (slot >= 0) {
+      cur = slot;
+      continue;
+    }
+    w.put(cur, width);
+    slot = next++;
+    taken.push_back((size_t)cur * 256 + k);
+    if (next > (1 << width) && width < 12) ++width;
+    if (next >= 4096) {
+      w.put(kClear, width);
+      for (size_t t : taken) child[t] = -1;
+      taken.clear();
+      next = kEoi + 1;
+      width = 9;
+    }
+    cur = k;
+  }
+  if (cur >= 0) w.put(cur, width);
+  w.put(kEoi, width);
+  if (w.nbits) w.out.push_back((uint8_t)w.acc);
+  return w.out;
+}
+
 }  // namespace
 
 extern "C" {
+
+// (h, w, 3) BGR -> the GIF cv2.imwrite writes; the file's size (written
+// only when it fits in cap).
+int64_t mga_gif_encode(const uint8_t* bgr, int32_t h, int32_t w, uint8_t* out, int64_t cap) {
+  const int64_t n = (int64_t)h * w;
+  std::vector<double> err((size_t)n * 3);
+  for (int64_t i = 0; i < n * 3; ++i) err[(size_t)i] = bgr[i];
+  std::vector<uint8_t> idx((size_t)n);
+  const int step[3] = {85, 36, 36}, top[3] = {3, 7, 7}, shift[3] = {0, 2, 5};  // B, G, R
+  std::fill(idx.begin(), idx.end(), 0);
+  for (int c = 0; c < 3; ++c)
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const int64_t p = ((int64_t)y * w + x) * 3 + c;
+        const double v = err[(size_t)p];
+        int k = (int)std::floor(v / step[c] + 0.5);
+        k = k < 0 ? 0 : k > top[c] ? top[c] : k;
+        idx[(size_t)(p / 3)] |= (uint8_t)(k << shift[c]);
+        const double e = v - k * step[c];
+        if (x + 1 < w) err[(size_t)(p + 3)] += e * 7 / 16;
+        if (y + 1 < h) {
+          const int64_t below = p + (int64_t)w * 3;
+          if (x > 0) err[(size_t)(below - 3)] += e * 3 / 16;
+          err[(size_t)below] += e * 5 / 16;
+          if (x + 1 < w) err[(size_t)(below + 3)] += e * 1 / 16;
+        }
+      }
+  std::vector<uint8_t> f = {'G', 'I', 'F', '8', '9', 'a', (uint8_t)w, (uint8_t)(w >> 8), (uint8_t)h, (uint8_t)(h >> 8),
+                            0xF7, 0, 0};
+  for (int i = 0; i < 256; ++i) {
+    f.push_back((uint8_t)((i >> 5) * 36));
+    f.push_back((uint8_t)(((i >> 2) & 7) * 36));
+    f.push_back((uint8_t)((i & 3) * 85));
+  }
+  const uint8_t app[] = {0x21, 0xFF, 0x0B, 'N', 'E', 'T', 'S', 'C', 'A', 'P', 'E', '2', '.', '0', 3, 1, 0, 0, 0};
+  const uint8_t gce[] = {0x21, 0xF9, 0x04, 0x0C, 100, 0, 0, 0};
+  f.insert(f.end(), app, app + sizeof app);
+  f.insert(f.end(), gce, gce + sizeof gce);
+  const uint8_t desc[] = {0x2C, 0, 0, 0, 0, (uint8_t)w, (uint8_t)(w >> 8), (uint8_t)h, (uint8_t)(h >> 8), 0x07, 8};
+  f.insert(f.end(), desc, desc + sizeof desc);
+  const std::vector<uint8_t> data = lzw_encode(idx.data(), n);
+  for (size_t i = 0; i < data.size(); i += 255) {
+    const size_t k = std::min<size_t>(255, data.size() - i);
+    f.push_back((uint8_t)k);
+    f.insert(f.end(), data.begin() + (int64_t)i, data.begin() + (int64_t)(i + k));
+  }
+  f.push_back(0);
+  f.push_back(0x3B);
+  if ((int64_t)f.size() <= cap) std::memcpy(out, f.data(), f.size());
+  return (int64_t)f.size();
+}
+
 
 // info: width, height, background index, global table entries (0 for
 // none), offset of the first block after the table. palette: 256 RGB

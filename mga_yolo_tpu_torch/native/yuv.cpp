@@ -8,6 +8,21 @@
 // raw I420 frames limited range; both BT.601. The coefficients are derived
 // here from the BT.601 inverse matrix, as swscale derives its own.
 //
+// A limited-range 4:2:0 frame of odd height is another matter: swscale's
+// unscaled converter takes even heights only, so cv2 gets swscale's scaled
+// path at the same size with SWS_BICUBIC (mga_yuv420_to_bgr_scaled, measured
+// against cv2 to the bit on MPEG-1, MPEG-2, MPEG-4 and VP8 frames of odd
+// height). Chroma is upsampled by swscale's initFilter bicubic filters (B 0,
+// C 0.6): vertically from ceil(h/2) rows to h, and horizontally where the
+// chroma siting differs (MPEG-2 and MPEG-4 left-sited, MPEG-1 and VP8
+// centred) or the width is odd; an odd width forces full horizontal chroma
+// (libswscale's "Forcing full internal H chroma due to odd output size")
+// and its C output stage (one rounding of 13-bit coefficients at 2^22); an
+// even width takes the x86 packed path (each tap a pmulhw, a rounder of 4,
+// then the unscaled converter's arithmetic), but for the last two rows,
+// which swscale writes with its C functions (its yuv2rgb tables). Frames
+// under 9 rows (swscale's 1- and 2-tap vertical paths) are not covered.
+//
 // BGR24 -> YUV 4:2:0 for the MPEG-4 writer: BT.601 limited range (what
 // cv2's writer hands the mp4v encoder), luma per pixel and chroma from the
 // mean of each 2x2 block, in 15-bit fixed point.
@@ -16,6 +31,8 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdlib>
+#include <vector>
 
 namespace {
 
@@ -27,6 +44,143 @@ inline int round16(int64_t x) {  // to a 16-bit coefficient, rounded
 }
 
 inline uint8_t sat(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// The BT.601 inverse matrix in 16.16 (Cr->R, Cb->B, Cb->G, Cr->G), limited range.
+constexpr int64_t kCrv = 104597, kCbu = 132201, kCgu = -25675, kCgv = -53279;
+constexpr int64_t kCy = (int64_t(1) << 16) * 255 / 219, kOy = int64_t(16) << 16;
+
+// A filter as swscale's initFilter makes it for a bicubic upscale (srcW <=
+// dstW): dstW rows of `size` coefficients summing to `one`, from source
+// position pos[i]; positions in 1/256 of a sample (get_local_pos).
+struct Filter {
+  int size = 0;
+  std::vector<int> pos;
+  std::vector<int> coef;
+};
+
+int64_t rounded_div(int64_t a, int64_t b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
+
+Filter bicubic_filter(int64_t xInc, int srcW, int dstW, int align, int64_t one, int srcPos, int dstPos) {
+  const int64_t fone = int64_t(1) << 54;  // an upscale: av_log2(srcW / dstW) is 0
+  int size = std::max(std::min(1 + 4, srcW - 2), 1);
+  std::vector<int64_t> f((size_t)dstW * size);
+  std::vector<int> pos(dstW);
+  int64_t xDstInSrc = ((dstPos * xInc) >> 7) - ((srcPos * int64_t(0x10000)) >> 7);
+  const int64_t B = 0, C = (int64_t)(0.6 * (1 << 24));
+  for (int i = 0; i < dstW; ++i) {
+    int xx = (int)((xDstInSrc - (size - 2) * (int64_t(1) << 16)) / (1 << 17));
+    pos[i] = xx;
+    for (int j = 0; j < size; ++j, ++xx) {
+      const int64_t d = std::llabs((int64_t)xx * (1 << 17) - xDstInSrc) << 13;
+      int64_t coeff = 0;
+      if (d < int64_t(1) << 31) {
+        const int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+        if (d < int64_t(1) << 30)
+          coeff = (12 * (int64_t(1) << 24) - 9 * B - 6 * C) * ddd + (-18 * (int64_t(1) << 24) + 12 * B + 6 * C) * dd +
+                  (6 * (int64_t(1) << 24) - 2 * B) * (int64_t(1) << 30);
+        else
+          coeff = (-B - 6 * C) * ddd + (6 * B + 30 * C) * dd + (-12 * B - 48 * C) * d + (8 * B + 24 * C) * (int64_t(1) << 30);
+      }
+      f[(size_t)i * size + j] = coeff;
+    }
+    xDstInSrc += 2 * xInc;
+  }
+  // drop near-zero coefficients on the left (positions kept monotonic) and find the size the right ones allow
+  const double cut = 0.002 * (double)fone;
+  int minSize = 0;
+  for (int i = dstW - 1; i >= 0; --i) {
+    int64_t* row = &f[(size_t)i * size];
+    int64_t cutOff = 0;
+    for (int j = 0; j < size; ++j) {
+      cutOff += std::llabs(row[0]);
+      if ((double)cutOff > cut) break;
+      if (i < dstW - 1 && pos[i] >= pos[i + 1]) break;
+      for (int k = 1; k < size; ++k) row[k - 1] = row[k];
+      row[size - 1] = 0;
+      ++pos[i];
+    }
+    int keep = size;
+    cutOff = 0;
+    for (int j = size - 1; j > 0; --j) {
+      cutOff += std::llabs(row[j]);
+      if ((double)cutOff > cut) break;
+      --keep;
+    }
+    minSize = std::max(minSize, keep);
+  }
+  if (align == 2 && minSize == 1) align = 1;
+  const int out_size = std::max((minSize + align - 1) & ~(align - 1), 1);
+  std::vector<int64_t> g((size_t)dstW * out_size, 0);
+  for (int i = 0; i < dstW; ++i)
+    for (int j = 0; j < out_size && j < size; ++j) g[(size_t)i * out_size + j] = f[(size_t)i * size + j];
+  // fold what lies outside the source onto its edge samples
+  for (int i = 0; i < dstW; ++i) {
+    int64_t* row = &g[(size_t)i * out_size];
+    if (pos[i] < 0) {
+      for (int j = 1; j < out_size; ++j) {
+        const int left = std::max(j + pos[i], 0);
+        row[left] += row[j];
+        row[j] = 0;
+      }
+      pos[i] = 0;
+    }
+    if (pos[i] + out_size > srcW) {
+      const int shift = pos[i] + std::min(out_size - srcW, 0);
+      int64_t acc = 0;
+      for (int j = out_size - 1; j >= 0; --j)
+        if (pos[i] + j >= srcW) {
+          acc += row[j];
+          row[j] = 0;
+        }
+      for (int j = out_size - 1; j >= 0; --j) row[j] = j < shift ? 0 : row[j - shift];
+      pos[i] -= shift;
+      row[srcW - 1 - pos[i]] += acc;
+    }
+  }
+  Filter out;
+  out.size = out_size;
+  out.pos = pos;
+  out.coef.resize((size_t)dstW * out_size);
+  for (int i = 0; i < dstW; ++i) {
+    const int64_t* row = &g[(size_t)i * out_size];
+    int64_t sum = 0, error = 0;
+    for (int j = 0; j < out_size; ++j) sum += row[j];
+    sum = (sum + one / 2) / one;
+    if (!sum) sum = 1;
+    for (int j = 0; j < out_size; ++j) {
+      const int64_t v = row[j] + error;
+      const int iv = (int)rounded_div(v, sum);
+      out.coef[(size_t)i * out_size + j] = iv;
+      error = v - (int64_t)iv * sum;
+    }
+  }
+  return out;
+}
+
+int local_pos(int subsample, int pos) {  // get_local_pos: -513 is swscale's unset, centred
+  if (pos == -1 || pos <= -513) pos = (128 << subsample) - 128;
+  return (pos + 128) >> subsample;
+}
+
+// Chroma rows (srcW samples) to 15-bit samples at dstW, as hScale8To15 filters them.
+std::vector<int> hscale(const uint8_t* c, int cs, int rows, int srcW, int dstW, int srcPos, int dstPos) {
+  std::vector<int> out((size_t)rows * dstW);
+  const int64_t inc = ((int64_t(srcW) << 16) + (dstW >> 1)) / dstW;
+  if (std::llabs(inc - 0x10000) < 10 && srcPos == dstPos) {
+    for (int r = 0; r < rows; ++r)
+      for (int x = 0; x < dstW; ++x) out[(size_t)r * dstW + x] = c[(int64_t)r * cs + x] << 7;
+    return out;
+  }
+  const Filter f = bicubic_filter(inc, srcW, dstW, 4, 1 << 14, srcPos, dstPos);
+  for (int r = 0; r < rows; ++r)
+    for (int x = 0; x < dstW; ++x) {
+      int64_t acc = 0;
+      for (int j = 0; j < f.size && f.pos[x] + j < srcW; ++j)  // past the edge every coefficient is 0
+        acc += (int64_t)c[(int64_t)r * cs + f.pos[x] + j] * f.coef[(size_t)x * f.size + j];
+      out[(size_t)r * dstW + x] = (int)std::min<int64_t>(acc >> 7, 32767);
+    }
+  return out;
+}
 
 }  // namespace
 
@@ -61,6 +215,72 @@ void mga_yuv_to_bgr(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_
       o[3 * c] = sat(yy + high16(uu, ub));
       o[3 * c + 1] = sat(yy + high16(uu, ug) + high16(vv, vg));
       o[3 * c + 2] = sat(yy + high16(vv, vr));
+    }
+  }
+}
+
+// (h, w, 3) BGR from a limited-range 4:2:0 frame of odd height h, as swscale's
+// scaled path gives it to cv2 (see the top). left: the chroma is left-sited
+// (MPEG-2, MPEG-4), else centred.
+void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_t* v, int32_t cs, int32_t h,
+                              int32_t w, int32_t left, uint8_t* out) {
+  const int ch = (h + 1) / 2, csw = (w + 1) / 2;
+  const bool full = w & 1;  // full horizontal chroma
+  const int cw = full ? w : csw;
+  const int hpos = left ? 0 : -513;
+  const std::vector<int> U = hscale(u, cs, ch, csw, cw, local_pos(1, hpos), local_pos(full ? 0 : 1, -513));
+  const std::vector<int> V = hscale(v, cs, ch, csw, cw, local_pos(1, hpos), local_pos(full ? 0 : 1, -513));
+  const int64_t vinc = ((int64_t(ch) << 16) + (h >> 1)) / h;
+  const Filter f = bicubic_filter(vinc, ch, h, 2, 1 << 12, local_pos(1, -513), local_pos(0, -513));
+  // the full path's coefficients (13-bit, rounded to 16 bits) and the packed path's (as mga_yuv_to_bgr's)
+  const int fy = round16(kCy * 8192), fyo = round16(kOy * 512), fvr = round16(kCrv * 8192), fub = round16(kCbu * 8192),
+            fug = round16(kCgu * 8192), fvg = round16(kCgv * 8192);
+  const int yc = fy, yo = round16(kOy * 8);
+  // the C tables' coefficients, in luma steps, and their luma offset
+  auto in_y = [](int64_t c) { return (int64_t)((c * 65536 + 0x8000) / kCy); };
+  const int64_t tr = in_y(kCrv), tb = in_y(kCbu), tgu = in_y(kCgu), tgv = in_y(kCgv);
+  std::vector<int64_t> ua(cw), va(cw);
+  for (int r = 0; r < h; ++r) {
+    const uint8_t* yr = y + (int64_t)r * ys;
+    uint8_t* o = out + (int64_t)r * w * 3;
+    const int* taps = &f.coef[(size_t)r * f.size];
+    const int p0 = f.pos[r];
+    const int mode = full ? 0 : r >= h - 2 ? 1 : 2;  // full C, packed C (tables), packed x86
+    for (int x = 0; x < cw; ++x) {
+      int64_t a = mode == 0 ? (1 << 9) - (128 << 19) : mode == 1 ? 1 << 18 : 4, b = a;
+      for (int j = 0; j < f.size && p0 + j < ch; ++j) {
+        const int64_t cu = U[(size_t)(p0 + j) * cw + x], cv = V[(size_t)(p0 + j) * cw + x];
+        if (mode == 2) {
+          a += (cu * taps[j]) >> 16;
+          b += (cv * taps[j]) >> 16;
+        } else {
+          a += cu * taps[j];
+          b += cv * taps[j];
+        }
+      }
+      ua[x] = mode == 0 ? a >> 10 : mode == 1 ? std::min<int64_t>(255, std::max<int64_t>(0, a >> 19)) : a;
+      va[x] = mode == 0 ? b >> 10 : mode == 1 ? std::min<int64_t>(255, std::max<int64_t>(0, b >> 19)) : b;
+    }
+    for (int c = 0; c < w; ++c) {
+      const int64_t Y = yr[c];
+      if (mode == 0) {
+        const int64_t yy = ((Y << 9) - fyo) * fy + (1 << 21), uu = ua[c], vv = va[c];
+        const int64_t chan[3] = {yy + uu * fub, yy + uu * fug + vv * fvg, yy + vv * fvr};
+        for (int k = 0; k < 3; ++k) o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, chan[k] >> 22));
+      } else if (mode == 1) {
+        const int64_t uu = ua[c >> 1], vv = va[c >> 1];
+        const int64_t t[3] = {Y + ((uu * tb) >> 16) - (tb >> 9),
+                              Y + ((uu * tgu) >> 16) - (tgu >> 9) + ((vv * tgv) >> 16) - (tgv >> 9),
+                              Y + ((vv * tr) >> 16) - (tr >> 9)};
+        for (int k = 0; k < 3; ++k)
+          o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, ((326 + t[k]) * kCy - (384 << 16) - kOy + 0x8000) >> 16));
+      } else {
+        const int yy = high16((int)(Y * 8 + 4) - yo, yc);
+        const int uu = (int)ua[c >> 1] - 1024, vv = (int)va[c >> 1] - 1024;
+        o[3 * c] = sat(yy + high16(uu, round16(kCbu * 8192)));
+        o[3 * c + 1] = sat(yy + high16(uu, round16(kCgu * 8192)) + high16(vv, round16(kCgv * 8192)));
+        o[3 * c + 2] = sat(yy + high16(vv, round16(kCrv * 8192)));
+      }
     }
   }
 }

@@ -306,11 +306,11 @@ def test_mkv_writer_starts_a_cluster_every_five_seconds(tmp_path):
 
 
 def test_writer_follows_the_suffix_as_cv2_does(tmp_path):
-    """``.mov`` and ``.m4v`` get cv2's ftyp brands; ``.mpg``, ``.mpeg``,
-    ``.wmv`` and ``.gif`` keep the MP4 bytes (a recorded fault: cv2 writes
-    MPEG-PS, ASF, GIF); ``.webm`` and a suffix cv2 refuses raise
-    RuntimeError at the first write, as the JAX ``VideoSink`` does, and
-    leave no file."""
+    """``.mov`` and ``.m4v`` get cv2's ftyp brands; ``.mpg`` and ``.mpeg``
+    are MPEG-PS, ``.wmv`` ASF and ``.gif`` cv2's numbered stills, as cv2
+    writes them (``tests/test_torch_mpeg.py`` holds them to cv2); ``.webm``
+    and a suffix cv2 refuses raise RuntimeError at the first write, as the
+    JAX ``VideoSink`` does, and leave no file."""
     from mga_yolo_tpu.data.sources import VideoSink as JSink
     from mga_yolo_tpu_torch.data.sources import VideoSink
 
@@ -327,11 +327,14 @@ def test_writer_follows_the_suffix_as_cv2_does(tmp_path):
         kind = [d[4:16] if d[4:8] == b"ftyp" else d[:4] + d[8:12] for d in outs]
         assert kind[0] == kind[1], suffix  # the same container, with the same brand
         assert cv2_read(tmp_path / "port" / f"a{suffix}")[1][:2] == (25.0, 3)
-    for suffix in (".mpg", ".mpeg", ".wmv", ".gif"):
-        sink = VideoSink(tmp_path / f"b{suffix}", 25)
+    for suffix, head in ((".mpg", b"\x00\x00\x01\xba"), (".mpeg", b"\x00\x00\x01\xba"),
+                         (".wmv", b"\x30\x26\xb2\x75"), (".gif", b"GIF89a")):
+        sink = VideoSink(tmp_path / f"b1{suffix}", 25)
         sink.write(img)
         sink.close()
-        assert (tmp_path / f"b{suffix}").read_bytes()[4:12] == b"ftypisom"
+        assert (tmp_path / f"b1{suffix}").read_bytes().startswith(head), suffix
+        if suffix != ".gif":
+            assert len(cv2_read(tmp_path / f"b1{suffix}")[0]) == 1, suffix
     for suffix in (".webm", ".xyz", ".ogv"):
         for sink_cls in (VideoSink, JSink):
             sink = sink_cls(tmp_path / f"c{suffix}", 25)

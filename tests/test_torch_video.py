@@ -228,12 +228,20 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
         path = tmp_path / f"clip.{kind}"
         path.write_bytes(mkv_bytes(cid, 64, 48, packets, doctype="matroska" if kind == "mkv" else "webm"))
         return path, what
-    else:  # containers by signature or suffix
-        body = {"mpg": b"\x00\x00\x01\xba" + bytes(60), "mpeg": bytes(64), "wmv": b"\x30\x26\xb2\x75" + bytes(60)}[kind]
-        name = {"mpg": "MPEG-PS", "mpeg": "MPEG-PS", "wmv": "ASF/WMV"}[kind]
+    elif kind in ("mpg", "mpeg"):  # MPEG-PS reads now: a stream of no video, and a codec the port refuses in it
+        from tests.video_fixtures.make import ps_bytes
+
         path = tmp_path / f"clip.{kind}"
-        path.write_bytes(body)
-        return path, f"the {name} container is not supported"
+        if kind == "mpg":
+            pes = b"\x00\x00\x01\xc0\x00\x10\x0f" + bytes(15)
+            path.write_bytes(b"\x00\x00\x01\xba\x21\x00\x01\x00\x01\x80\x1b\x83" + pes * 4)
+            return path, "MPEG-PS file without a video stream"
+        path.write_bytes(ps_bytes([(b"\x00\x00\x00\x01\x67\x42\x00\x1e" + bytes(64), True, 0)], 25))
+        return path, r"MPEG-PS with H\.264 video"
+    else:  # containers by signature or suffix
+        path = tmp_path / f"clip.{kind}"
+        path.write_bytes(b"\x30\x26\xb2\x75" + bytes(60))
+        return path, "the ASF/WMV container is not supported"
     path = tmp_path / f"clip_{kind}.{'mp4' if kind in ('avc1', 'hvc1', 'moof') else 'avi'}"
     path.write_bytes(data)
     return path, what
@@ -247,7 +255,8 @@ def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     reads it (``tests/test_torch_more_formats.py`` holds every frame);
     Matroska and WebM, once refused, now read, and their cases are codecs
     the port still refuses in them (``tests/test_torch_matroska.py`` holds
-    the rest)."""
+    the rest); so do MPEG-PS (``.mpg``, ``.mpeg``: a stream without video
+    and an H.264 stream; ``tests/test_torch_mpeg.py`` holds the rest)."""
     from mga_yolo_tpu_torch.data.video_io import VideoReader
 
     if kind == "gif":

@@ -192,6 +192,7 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
             (avcodec, "avcodec_receive_packet", ctypes.c_int, [vp, vp]), (avcodec, "av_packet_unref", None, [vp])):
         getattr(lib, name).restype, getattr(lib, name).argtypes = res, args
     h, w = imgs[0].shape[:2]
+    chroma422 = options.get("pixel_format") == "yuv422p"
     codec = avcodec.avcodec_find_encoder_by_name(encoder.encode())
     assert codec, encoder
 
@@ -207,7 +208,7 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
         assert avcodec.avcodec_open2(ctx, codec, None) == 0
         frame, pkt = avutil.av_frame_alloc(), avcodec.av_packet_alloc()
         ints, ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int)), ctypes.cast(frame, ctypes.POINTER(vp))
-        ints[26], ints[27], ints[29] = w, h, 0  # width, height, format (yuv420p)
+        ints[26], ints[27], ints[29] = w, h, 4 if chroma422 else 0  # width, height, format (yuv422p, yuv420p)
         assert avutil.av_frame_get_buffer(frame, 0) == 0
         packets = []
 
@@ -226,6 +227,8 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
             cs = (hh // 2) * (ww // 2)
             planes = (yuv[:hh * ww].reshape(hh, ww)[:h, :w], yuv[hh * ww:hh * ww + cs].reshape(hh // 2, ww // 2),
                       yuv[hh * ww + cs:].reshape(hh // 2, ww // 2))
+            if chroma422:  # 4:2:2: each chroma row of the 4:2:0 planes twice
+                planes = (planes[0], *(np.repeat(c, 2, axis=0)[:h] for c in planes[1:]))
             for k, plane in enumerate(planes):
                 for r in range(plane.shape[0]):
                     ctypes.memmove(ptrs[k] + r * ints[16 + k], np.ascontiguousarray(plane[r]).ctypes.data,
@@ -418,7 +421,197 @@ def mkv_clips() -> dict:
     return out
 
 
+def _ts(marker: int, t: int) -> bytes:
+    return bytes([marker | ((t >> 29) & 0x0E) | 1, (t >> 22) & 0xFF, ((t >> 14) & 0xFE) | 1, (t >> 7) & 0xFF,
+                  ((t << 1) & 0xFE) | 1])
+
+
+def ps_bytes(packets: list, fps: float, mpeg2: bool = False, extras: bool = False, drop: int = 0) -> bytes:
+    """An MPEG-PS of video packets (data, key, display index) in decode
+    order, as ffmpeg's mpeg muxer stamps them for MPEG video: PTS 0.5 s +
+    (display index + 1) frames, DTS 0.5 s + decode index frames (written
+    when it differs), each frame opening a PES packet of its own in packs
+    of 2048 bytes. ``mpeg2``: MPEG-2 pack and PES headers (else MPEG-1's,
+    with stuffing and STD fields); ``extras``: an audio and a private
+    stream's packets on the way; ``drop``: the first packets left out (a
+    stream cut at a later GOP)."""
+    tick = 90000 / fps
+    out, pack = bytearray(), bytearray()
+
+    def head():
+        if mpeg2:
+            h = b"\x00\x00\x01\xba" + bytes([0x44, 0, 4, 0, 4, 1, 0x01, 0x89, 0xC3, 0xF8])
+        else:
+            h = b"\x00\x00\x01\xba" + _ts(0x20, len(out) // 2048) + b"\x80\x1b\x83"
+        if not out:
+            h += b"\x00\x00\x01\xbb\x00\x0c\x80\x1b\x83\x04\xe1\xff\xe0\xe0\xe6\xc0\xc0\x20"
+        return h
+
+    def flush():
+        nonlocal pack
+        h = head()
+        room = 2048 - len(h) - len(pack)
+        pad = b"\x00\x00\x01\xbe" + (room - 6).to_bytes(2, "big") + b"\xff" * (room - 6) if room else b""
+        out.extend(h + pack + pad)
+        pack = bytearray()
+
+    def pes_head(pts=None, dts=None) -> bytes:
+        if mpeg2:
+            flags = (0x80 if pts is not None else 0) | (0x40 if dts is not None else 0)
+            opt = (_ts(0x30 if dts is not None else 0x20, pts) if pts is not None else b"") + \
+                (_ts(0x10, dts) if dts is not None else b"")
+            return bytes([0x81, flags, len(opt)]) + opt
+        return b"\xff\xff" + (b"" if pts is None else b"\x40\x20") + (
+            (_ts(0x30, pts) + _ts(0x10, dts)) if dts is not None else _ts(0x20, pts) if pts is not None else b"\x0f")
+
+    def put(sid: int, h: bytes, body: bytes):
+        pack.extend(b"\x00\x00\x01" + bytes([sid]) + (len(h) + len(body)).to_bytes(2, "big") + h + body)
+
+    def room() -> int:  # what is left of the pack, keeping 6 bytes for a padding packet's header
+        return 2048 - len(head()) - len(pack) - 6
+
+    for dec, (data, _, shown) in enumerate(packets):
+        if dec < drop:
+            continue
+        pts, dts = 45000 + round((shown + 1) * tick), 45000 + round(dec * tick)
+        if extras and dec % 3 == 1:
+            for sid, h, body in ((0xC0, pes_head(pts), bytes(range(40))), (0xBD, pes_head(), b"\x80" + bytes(30))):
+                if room() < 6 + len(h) + len(body):
+                    flush()
+                put(sid, h, body)
+        off = 0
+        while off < len(data):
+            h = pes_head(pts, dts if dts != pts else None) if off == 0 else pes_head()
+            if room() < 6 + len(h) + 16:
+                flush()
+                continue
+            n = min(room() - 6 - len(h), len(data) - off)
+            put(0xE0, h, data[off:off + n])
+            off += n
+    if pack:
+        flush()
+    return bytes(out) + b"\x00\x00\x01\xb9"
+
+
+def progressive_frames(es: bytes) -> bytes:
+    """MPEG-2 video with progressive_frame set in every picture coding
+    extension. cv2 (its swscale) refuses to convert a frame flagged
+    interlaced and hands on a stale buffer, so the clips with field DCT,
+    field prediction and alternate scan carry the flag set; no decoder
+    reads it to decode."""
+    b = bytearray(es)
+    i = b.find(b"\x00\x00\x01\xb5")
+    while i >= 0:
+        if b[i + 4] >> 4 == 8:
+            b[i + 8] |= 0x80
+        i = b.find(b"\x00\x00\x01\xb5", i + 4)
+    return bytes(b)
+
+
+ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
+          21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60,
+          61, 54, 47, 55, 62, 63]
+DEFAULT_INTRA = [8, 16, 19, 22, 26, 27, 29, 34, 16, 16, 22, 24, 27, 29, 34, 37, 19, 22, 26, 27, 29, 34, 34, 38, 22, 22, 26,
+                 27, 29, 34, 37, 40, 22, 26, 27, 29, 32, 35, 40, 48, 26, 27, 29, 32, 35, 40, 48, 58, 26, 27, 29, 34, 38,
+                 46, 56, 69, 27, 29, 35, 38, 46, 56, 69, 83]
+# matrices the encoder did not use, in zigzag order: the decoder dequantises with them all the same
+LOADED_INTRA = [8] + [DEFAULT_INTRA[ZIGZAG[i]] + i * 7 % 9 for i in range(1, 64)]
+LOADED_NON_INTRA = [16 + i % 11 for i in range(64)]
+
+
+def load_matrices(data: bytes, ext: bool = False) -> bytes:
+    """MPEG-1/2 video with LOADED_INTRA and LOADED_NON_INTRA loaded in each
+    sequence header (the encoder loads none), and with ``ext`` a quant
+    matrix extension after each picture coding extension loading the
+    non-intra matrix reversed."""
+    def bits(v: list) -> str:
+        return "".join(f"{x:08b}" for x in v)
+
+    out, i = bytearray(), 0
+    while True:
+        j = data.find(b"\x00\x00\x01\xb3", i)
+        if j < 0:
+            break
+        head = "".join(f"{b:08b}" for b in data[j + 4:j + 12])[:62]
+        body = head + "1" + bits(LOADED_INTRA) + "1" + bits(LOADED_NON_INTRA)
+        out += data[i:j + 4] + int(body, 2).to_bytes(len(body) // 8, "big")
+        i = j + 12
+    data = bytes(out + data[i:])
+    if not ext:
+        return data
+    out, i = bytearray(), 0
+    while True:
+        j = data.find(b"\x00\x00\x01\xb5", i)
+        while j >= 0 and data[j + 4] >> 4 != 8:
+            j = data.find(b"\x00\x00\x01\xb5", j + 4)
+        if j < 0:
+            break
+        k = data.find(b"\x00\x00\x01", j + 4)
+        quant = "0011" + "0" + "1" + bits(LOADED_NON_INTRA[::-1]) + "0" + "0"
+        out += data[i:k] + b"\x00\x00\x01\xb5" + int(quant, 2).to_bytes(len(quant) // 8, "big")
+        i = k
+    return bytes(out + data[i:])
+
+
+def lavc_packets(encoder: str, imgs: list, options: dict, patch=None) -> list:
+    """(data, key, display index) of each MPEG-1/2 packet in decode order."""
+    out = [(d, k, int(p)) for d, k, p in lavc_encode(encoder, imgs, options, pts=True)]
+    return [(patch(d), k, p) for d, k, p in out] if patch else out
+
+
+MPEG_CV2 = {  # name: (fourcc, fps, source frames) for cv2's writer
+    "pim1.mpg": ("PIM1", 30, lambda: frames(N, 48, 64, 41)),
+    "mpeg2.mpg": ("MPEG", 25, lambda: frames(N, 48, 64, 42)),
+    "mp4v.mpg": ("mp4v", 29.97, lambda: frames(N, 48, 64, 43)),
+    "pim1.avi": ("PIM1", 25, lambda: frames(N, 48, 64, 44)),
+    "mpeg2.avi": ("MPEG", 30, lambda: frames(N, 48, 64, 45)),
+    "pim1.mp4": ("PIM1", 25, lambda: frames(N, 48, 64, 46)),
+    "mpeg2.mp4": ("MPEG", 25, lambda: frames(N, 48, 64, 47)),
+    "pim1.mkv": ("PIM1", 25, lambda: frames(N, 48, 64, 48)),
+    "mpeg2.mkv": ("MPEG", 29.97, lambda: frames(N, 48, 64, 49)),
+}
+
+
+def mpeg_clips() -> dict:
+    """name -> bytes of the MPEG-1/2 clips of libavcodec's encoders, over
+    the moving synthetic angiogram (see the module's docstring)."""
+    clip = moving(12, 48, 64, 51)
+    m2, m1 = "mpeg2video", "mpeg1video"
+    out = {
+        "m2v_bframes.mpg": ps_bytes(lavc_packets(m2, clip, {"bf": "2", "g": "6"}), 25),
+        "m2v_field.mpg": ps_bytes(lavc_packets(m2, clip, {"flags": "+ildct+ilme", "bf": "2", "g": "6"},
+                                               progressive_frames), 25, mpeg2=True),
+        "m2v_altscan.mpg": ps_bytes(lavc_packets(m2, clip, {"alternate_scan": "1", "intra_vlc": "1",
+                                                            "intra_dc_precision": "2", "bf": "1"}, progressive_frames),
+                                    30000 / 1001, mpeg2=True, extras=True),
+        "m2v_422.mpg": ps_bytes(lavc_packets(m2, clip, {"pixel_format": "yuv422p", "bf": "2", "intra_dc_precision": "1"}), 25, mpeg2=True),
+        "m2v_tools.mpg": ps_bytes(lavc_packets(m2, clip, {"non_linear_quant": "1", "qmax": "28", "bf": "3", "g": "6",
+                                                          "mbd": "rd", "mpv_flags": "+naq", "intra_dc_precision": "3",
+                                                          "seq_disp_ext": "always", "lumi_mask": "0.4", "dark_mask": "0.3"},
+                                               lambda d: load_matrices(d, ext=True)), 30),
+        "m2v_opengop.mpg": ps_bytes(lavc_packets(m2, moving(14, 48, 64, 52), {"bf": "2", "g": "6"}), 25, drop=4),
+        "m2v_odd97x63.mpg": ps_bytes(lavc_packets(m2, moving(10, 63, 97, 53), {"bf": "2"}), 25),
+        "m2v_odd97x64.mpg": ps_bytes(lavc_packets(m2, moving(10, 64, 97, 58), {"bf": "2"}), 25),
+        "m1v_intra.mpg": ps_bytes(lavc_packets(m1, clip, {"g": "1", "qmin": "1", "qmax": "2", "b": "8M"}), 25),
+        "m1v_naq.mpeg": ps_bytes(lavc_packets(m1, clip, {"bf": "2", "g": "6", "lumi_mask": "0.4",
+                                                         "dark_mask": "0.3", "qmin": "2", "qmax": "12", "mbd": "rd",
+                                                         "mpv_flags": "+naq+qp_rd"}, load_matrices),
+                                 24, extras=True),
+        "m1v_es.mpg": b"".join(d for d, _, _ in lavc_packets(m1, moving(8, 48, 64, 54), {"bf": "1"})),
+        "big512.mpg": ps_bytes(lavc_packets(m2, moving(16, 512, 512, 55), {"bf": "2", "g": "8", "b": "300k", "qmin": "12"}), 25),
+        "big512_m1.mpeg": ps_bytes(lavc_packets(m1, moving(8, 512, 512, 56), {"bf": "2", "b": "300k", "qmin": "12"}), 25),
+    }
+    for name, w in (("vp8_lavc97x63.webm", 97), ("vp8_lavc96x63.webm", 96)):
+        packets = lavc_encode("libvpx", moving(10, 63, w, 57), {}, pts=True)
+        out[name] = mkv_bytes("V_VP8", w, 63, [(d, k, int(p * 40)) for d, k, p in packets],
+                              default_duration=40000000, duration=400)
+    return out
+
+
 def main() -> None:
+    """Writes every fixture. cv2's Matroska writer draws random UIDs, so
+    its ``.mkv`` / ``.webm`` files come out with other bytes (the same
+    frames) each time; ``mpeg_main`` remakes only the MPEG set."""
     h, w = SIZE
     clips = {
         "mjpg.avi": ("MJPG", 25, frames(N, h, w, 1)),
@@ -468,7 +661,27 @@ def main() -> None:
         meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
         meta[name]["sha256"] = digests(imgs)
     (HERE / "meta.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
+    mpeg_main()
+
+
+def mpeg_main() -> None:
+    """Writes the MPEG-1/2 and odd-height fixtures and their oracle,
+    ``mpeg.json`` (the SHA-256 of each frame cv2 reads, its fps, count and
+    fourcc), leaving the other fixtures as they are."""
+    meta = {}
+    for name, (fourcc, fps, make) in MPEG_CV2.items():
+        cv2_write(HERE / name, fourcc, fps, make())
+    clips = mpeg_clips()
+    for name, data in clips.items():
+        (HERE / name).write_bytes(data)
+    for name in [*MPEG_CV2, *clips]:
+        imgs, meta[name] = cv2_read(HERE / name)
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
+    (HERE / "mpeg.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    mpeg_main() if sys.argv[1:] == ["mpeg"] else main()
