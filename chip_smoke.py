@@ -225,6 +225,16 @@ Then the baseline toolchain and the experiment grid:
              ``.mpg`` and an MPEG-1 ``.mpeg`` (launches exact, boxes against
              the predictor's); the writer's ``.mpg``, ``.wmv`` and numbered
              ``.gif`` equal to the CPU run's bytes, the ``.mpg`` read back.
+20. asp —    MPEG-4 Part 2 Advanced Simple profile (``native/mpeg4.cpp``,
+             ``native/xvid_idct.h``): the committed fixtures of
+             ``tests/video_fixtures/asp.json`` equal to cv2's frame digests,
+             fps, counts and fourccs (B-VOPs in four containers, packed
+             DivX, MPEG matrices, quarter-sample, data partitioning, a bare
+             .m4v, the XviD IDCT), the interlaced ones' planes to the CPU
+             run's libavcodec digests; decode ms a VOP at 512 px, I, P and B
+             apart; ``cli.predict`` on the seeded flagship over an XviD
+             512 px ``.avi`` and a packed DivX one (launches exact, boxes
+             against the predictor's).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -241,8 +251,8 @@ over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
 images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
-``--matroska-alone`` and ``--mpeg-alone`` run ``[matroska]`` and ``[mpeg]``
-alone.
+``--matroska-alone``, ``--mpeg-alone`` and ``--asp-alone`` run
+``[matroska]``, ``[mpeg]`` and ``[asp]`` alone.
 """
 
 from __future__ import annotations
@@ -3696,6 +3706,68 @@ def mjpeg_mkv(frames: list, fps: float) -> bytes:
                         + _ebml(MKV["Cluster"], cluster))
 
 
+def predict_recorded(np, best: Path, src: Path, out_dir: Path, device: str, tag: str, n_video: int):
+    """``cli.predict`` on ``best`` over the videos in ``src`` with each
+    frame's boxes recorded: exactly 3 CAM-gate launches a batch (the batches
+    run on across files), ``n_video`` frames and no image, and each frame's
+    boxes equal to the warm predictor's on the frames decoded anew. Returns
+    (launches, names written, boxes, max abs error, seconds, log lines)."""
+    import contextlib
+    import io
+
+    from mga_yolo_tpu_torch.cli import predict as cli_predict
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+    from mga_yolo_tpu_torch.train import predictor as predictor_mod
+
+    recorded, loaded = [], []
+    real_load = predictor_mod.load_predictor
+
+    def recording_load(*a, **k):
+        pred = real_load(*a, **k)
+        stream = pred.stream
+
+        def recording_stream(*sa, **sk):
+            for frame, r in stream(*sa, **sk):
+                recorded.append((frame.path, frame.index, r.boxes.copy()))
+                yield frame, r
+
+        pred.stream = recording_stream
+        loaded.append(pred)
+        return pred
+
+    predictor_mod.load_predictor = recording_load
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
+                                    str(TRAIN_BATCH), "--conf", "0.01"] + ([] if device == "cuda" else
+                                                                            ["--device", device]))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        predictor_mod.load_predictor = real_load
+    n_batches = -(-n_video // TRAIN_BATCH)
+    want_l = want_launches({"cam_gate": 3 * n_batches})
+    check(counts == want_l, f"[{tag}] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
+    check(res["images"] == 0 and res["frames"] == n_video, f"[{tag}] cli.predict result {res}")
+    pred = loaded[0]
+    del pred.stream  # the class's own stream again
+    again = []
+    for f in sorted(src.iterdir()):
+        with VideoReader(f) as r:
+            again += list(r)
+    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
+    check(len(recorded) == len(want) == n_video, f"[{tag}] {len(recorded)} results, {len(want)} again")
+    n_boxes, err = 0, 0.0
+    for (path, idx, got), w in zip(recorded, want):
+        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
+              f"[{tag}] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
+        n_boxes += len(got)
+        err = max(err, float(np.abs(got - w).max(initial=0.0)))
+    return counts, {p.name for p in out_dir.iterdir()}, n_boxes, err, wall, log.getvalue().splitlines()
+
+
 def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     """Matroska and WebM on the card's host (``data/video_io.py``'s EBML
     demuxer and muxer, ``native/vp8.cpp``'s VP8 key and inter frames), and
@@ -3713,15 +3785,11 @@ def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> di
     CAM-gate launches exactly 3 a batch. (d) 16 synthetic 512 px angiograms
     written as ``.mkv`` (mp4v in Matroska) and read back: count, fps, PSNR.
     Returns (c)'s launches."""
-    import contextlib
     import hashlib
-    import io
 
     from mga_yolo_tpu_torch import native
-    from mga_yolo_tpu_torch.cli import predict as cli_predict
     from mga_yolo_tpu_torch.data.synthetic import vessel_image
     from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
-    from mga_yolo_tpu_torch.train import predictor as predictor_mod
 
     t_phase = time.perf_counter()
     card = gpu_name_and_power() if device == "cuda" else "the CPU"
@@ -3775,43 +3843,11 @@ def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> di
     src.mkdir()
     (src / "big512.webm").write_bytes((VIDEO_FIXTURES / "big512.webm").read_bytes())
     (src / "angio.mkv").write_bytes(mjpeg_mkv(frames, 25.0))
-    recorded, loaded = [], []
-    real_load = predictor_mod.load_predictor
-
-    def recording_load(*a, **k):
-        pred = real_load(*a, **k)
-        stream = pred.stream
-
-        def recording_stream(*sa, **sk):
-            for frame, r in stream(*sa, **sk):
-                recorded.append((frame.path, frame.index, r.boxes.copy()))
-                yield frame, r
-
-        pred.stream = recording_stream
-        loaded.append(pred)
-        return pred
-
     out_dir = tmp / "mkv_predict"
-    predictor_mod.load_predictor = recording_load
-    try:
-        zero_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as log:
-            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
-                                    str(TRAIN_BATCH), "--conf", "0.01"] + ([] if device == "cuda" else
-                                                                            ["--device", device]))
-        wall = time.perf_counter() - t0
-        counts = read_launches()
-    finally:
-        predictor_mod.load_predictor = real_load
     n_video = 16 + MKV_PREDICT_FRAMES
     n_batches = -(-n_video // TRAIN_BATCH)
-    want_l = want_launches({"cam_gate": 3 * n_batches})
-    check(counts == want_l, f"[matroska] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
-    check(res["images"] == 0 and res["frames"] == n_video, f"[matroska] cli.predict result {res}")
-    written = {p.name for p in out_dir.iterdir()}
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "matroska", n_video)
     check(written == {"angio_pred.mp4", "big512_pred.mp4"}, f"[matroska] cli.predict wrote {sorted(written)}")
-    lines = log.getvalue().splitlines()
     check(lines[-3:] == [f"angio.mkv: {MKV_PREDICT_FRAMES} frames -> angio_pred.mp4",
                          "big512.webm: 16 frames -> big512_pred.mp4",
                          f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
@@ -3821,20 +3857,6 @@ def matroska_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> di
             n = sum(1 for _ in r)
             check(n == r.total == 16 and r.fps == fps and r.size == (VIDEO_SIZE, VIDEO_SIZE),
                   f"[matroska] {name}: {n} frames at {r.fps} fps, {r.size}")
-    pred = loaded[0]
-    del pred.stream  # the class's own stream again
-    again = []
-    for f in sorted(src.iterdir()):
-        with VideoReader(f) as r:
-            again += list(r)
-    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
-    check(len(recorded) == len(want) == n_video, f"[matroska] {len(recorded)} results, {len(want)} again")
-    n_boxes, err = 0, 0.0
-    for (path, idx, got), w in zip(recorded, want):
-        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
-              f"[matroska] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
-        n_boxes += len(got)
-        err = max(err, float(np.abs(got - w).max(initial=0.0)))
     print(f"[matroska] (c) cli.predict on the seeded flagship over big512.webm (VP8) and angio.mkv (MJPEG), 16 "
           f"frames of {VIDEO_SIZE}x{VIDEO_SIZE} each: {sorted(written)} as the JAX package names them; {n_boxes} "
           f"boxes, each frame's equal to the predictor's on the frames decoded anew (max abs error {err:.3g}); "
@@ -3895,15 +3917,11 @@ def mpeg_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     angiograms written as ``.mpg``, ``.wmv`` and numbered ``.gif``, each
     file's bytes equal to the CPU run's; the ``.mpg`` read back. Returns
     (c)'s launches."""
-    import contextlib
     import hashlib
-    import io
 
     from mga_yolo_tpu_torch import native
-    from mga_yolo_tpu_torch.cli import predict as cli_predict
     from mga_yolo_tpu_torch.data.synthetic import vessel_image
     from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
-    from mga_yolo_tpu_torch.train import predictor as predictor_mod
 
     t_phase = time.perf_counter()
     card = gpu_name_and_power() if device == "cuda" else "the CPU"
@@ -3958,60 +3976,14 @@ def mpeg_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     src.mkdir()
     for name in ("big512.mpg", "big512_m1.mpeg"):
         (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
-    recorded, loaded = [], []
-    real_load = predictor_mod.load_predictor
-
-    def recording_load(*a, **k):
-        pred = real_load(*a, **k)
-        stream = pred.stream
-
-        def recording_stream(*sa, **sk):
-            for frame, r in stream(*sa, **sk):
-                recorded.append((frame.path, frame.index, r.boxes.copy()))
-                yield frame, r
-
-        pred.stream = recording_stream
-        loaded.append(pred)
-        return pred
-
     out_dir = tmp / "mpeg_predict"
-    predictor_mod.load_predictor = recording_load
-    try:
-        zero_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as log:
-            res = cli_predict.main(["--weights", str(best), "--source", str(src), "--out", str(out_dir), "--batch",
-                                    str(TRAIN_BATCH), "--conf", "0.01"] + ([] if device == "cuda" else
-                                                                            ["--device", device]))
-        wall = time.perf_counter() - t0
-        counts = read_launches()
-    finally:
-        predictor_mod.load_predictor = real_load
     n_video = 16 + 8
     n_batches = -(-n_video // TRAIN_BATCH)
-    want_l = want_launches({"cam_gate": 3 * n_batches})
-    check(counts == want_l, f"[mpeg] cli.predict launches {counts} for {n_batches} batches, want {want_l}")
-    check(res["images"] == 0 and res["frames"] == n_video, f"[mpeg] cli.predict result {res}")
-    written = {p.name for p in out_dir.iterdir()}
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "mpeg", n_video)
     check(written == {"big512_pred.mp4", "big512_m1_pred.mp4"}, f"[mpeg] cli.predict wrote {sorted(written)}")
-    lines = log.getvalue().splitlines()
     check(lines[-3:] == ["big512.mpg: 16 frames -> big512_pred.mp4", "big512_m1.mpeg: 8 frames -> big512_m1_pred.mp4",
                          f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
           f"[mpeg] cli.predict summary {lines[-3:]}")
-    pred = loaded[0]
-    del pred.stream  # the class's own stream again
-    again = []
-    for f in sorted(src.iterdir()):
-        with VideoReader(f) as r:
-            again += list(r)
-    want = [r.boxes for _, r in pred.stream(again, batch_size=TRAIN_BATCH)]
-    check(len(recorded) == len(want) == n_video, f"[mpeg] {len(recorded)} results, {len(want)} again")
-    n_boxes, err = 0, 0.0
-    for (path, idx, got), w in zip(recorded, want):
-        check(got.shape == w.shape and bool(np.allclose(got, w, rtol=PATH_RTOL, atol=PATH_ATOL)),
-              f"[mpeg] {Path(path).name} frame {idx}: boxes {got.shape} differ from the predictor's {w.shape}")
-        n_boxes += len(got)
-        err = max(err, float(np.abs(got - w).max(initial=0.0)))
     print(f"[mpeg] (c) cli.predict on the seeded flagship over big512.mpg (MPEG-2, B-pictures, 16 frames) and "
           f"big512_m1.mpeg (MPEG-1, 8 frames) of {VIDEO_SIZE}x{VIDEO_SIZE}: {sorted(written)} as the JAX package names "
           f"them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew (max abs error "
@@ -4047,6 +4019,108 @@ def mpeg_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
           f"host thread, {len(digests)} files equal to the CPU run's bytes; the .mpg read back: count, total and fps "
           f"exact, PSNR {q:.2f} dB")
     print(f"[mpeg] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def asp_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """MPEG-4 Part 2 Advanced Simple profile on the card's host
+    (``native/mpeg4.cpp``, ``native/xvid_idct.h``, ``data/video_io.py``) and
+    ``cli.predict`` over XviD / DivX clips on the flagship.
+
+    (a) each committed fixture of ``tests/video_fixtures/asp.json`` (B-VOPs
+    in AVI, MP4, Matroska and MPEG-PS, DivX's packed bitstream, MPEG
+    quantisation, quarter-sample motion, data partitioning, a bare .m4v, the
+    XviD IDCT and its workarounds) decoded and held to cv2's frame digests,
+    fps, count and fourcc; the interlaced ones to the CPU run's digests of
+    libavcodec's planes. (b) decode on one host thread, ms a VOP at 512 px,
+    I, P and B apart (big512_asp.avi: XviD-marked, B-VOPs, quarter-sample
+    motion). (c) ``cli.predict`` on ``best`` over big512_asp.avi (16 frames)
+    and the packed DivX clip (12): each frame's boxes equal to the
+    predictor's on the frames decoded anew, CAM-gate launches exactly 3 a
+    batch. Returns (c)'s launches."""
+    import hashlib
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures against cv2's digests, the interlaced ones against libavcodec's planes
+    meta = json.loads((VIDEO_FIXTURES / "asp.json").read_text())
+    clips = sorted(n for n in meta if (VIDEO_FIXTURES / n).exists())
+    check(len(clips) >= 24, f"[asp] {len(clips)} ASP fixtures")
+    tally: dict = {}
+    n_frames = 0
+    for name in clips:
+        m = meta[name]
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            imgs = list(r)
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[asp] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m['fps'], m['total']}")
+            for k, v in getattr(r, "mpeg4_tally", {}).items():
+                tally[k] = tally.get(k, 0) + v
+        if "sha256" in m:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in imgs]
+            check(got == m["sha256"], f"[asp] {name}: frames differ from cv2's digests")
+        else:
+            dec = native.Mpeg4Decoder(b"XVID")
+            with VideoReader(VIDEO_FIXTURES / name) as r:
+                planes = [g[0] for g in (dec.decode(r._read(o, k)) for o, k in r.samples) if g is not None]
+            tail = dec.flush()
+            dec.close()
+            planes += [tail[0]] if tail is not None else []
+            got = [hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes() for p in f)).hexdigest() for f in planes]
+            check(got == m["planes_sha256"] and len(imgs) == len(got), f"[asp] {name}: planes differ from the CPU run's")
+        n_frames += len(imgs)
+    print(f"[asp] (a) {len(clips)} MPEG-4 ASP fixtures ({n_frames} frames) decoded on this host with "
+          f"{native.library_path().name}, each frame equal to cv2's digest (the interlaced ones' planes to "
+          f"libavcodec's), fps, count and fourcc as cv2's; MPEG-4 features decoded: "
+          + ", ".join(f"{k} {v}" for k, v in tally.items() if v))
+
+    # (b) decode times at 512 px, I, P and B-VOPs apart
+    with VideoReader(VIDEO_FIXTURES / "big512_asp.avi") as big:
+        chunks = [big._read(o, k) for o, k in big.samples]
+    times: dict = {0: [], 1: [], 2: []}
+    conv = []
+    for _ in range(MKV_TIMING_REPS):
+        dec = native.Mpeg4Decoder(b"XVID")
+        for c in chunks:
+            kind = c[c.find(b"\x00\x00\x01\xb6") + 4] >> 6
+            t0 = time.perf_counter()
+            got = dec.decode(c)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            if got is not None:
+                t0 = time.perf_counter()
+                native.yuv_to_bgr(*got[0], False, chroma_left=True)
+                conv.append((time.perf_counter() - t0) * 1e3)
+        check(dec.flush() is not None and dec.tally()["xvid_idct_vops"] == len(chunks), "[asp] big512_asp.avi tally")
+        dec.close()
+    check(all(times.values()), f"[asp] big512_asp.avi: VOPs timed {[len(v) for v in times.values()]}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"[asp] (b) MPEG-4 ASP decode on one host thread, {card}: {med[0]:.3f} ms an I-VOP, {med[1]:.3f} ms a "
+          f"P-VOP, {med[2]:.3f} ms a B-VOP, {sorted(conv)[len(conv) // 2]:.3f} ms the BGR conversion (512x512, "
+          f"XviD IDCT, quarter-sample; medians of {len(times[0])}, {len(times[1])}, {len(times[2])} and {len(conv)})")
+
+    # (c) cli.predict over the XviD 512 px clip and the packed DivX clip on the flagship
+    src = tmp / "asp_src"
+    src.mkdir()
+    for name in ("big512_asp.avi", "asp_packed.avi"):
+        (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
+    out_dir = tmp / "asp_predict"
+    n_video = 16 + 12
+    n_batches = -(-n_video // TRAIN_BATCH)
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "asp", n_video)
+    check(written == {"big512_asp_pred.avi", "asp_packed_pred.avi"}, f"[asp] cli.predict wrote {sorted(written)}")
+    check(lines[-3:] == ["asp_packed.avi: 12 frames -> asp_packed_pred.avi",
+                         "big512_asp.avi: 16 frames -> big512_asp_pred.avi",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[asp] cli.predict summary {lines[-3:]}")
+    print(f"[asp] (c) cli.predict on the seeded flagship over big512_asp.avi (XviD, B-VOPs, quarter-sample, 16 "
+          f"frames of {VIDEO_SIZE}x{VIDEO_SIZE}) and asp_packed.avi (DivX packed, 12 frames): {sorted(written)} as the "
+          f"JAX package names them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded "
+          f"anew (max abs error {err:.3g}); launches {counts} ({n_batches} batches of {TRAIN_BATCH}); "
+          f"{n_video / wall:.1f} frames/s on one host thread, model load included ({wall:.2f} s), {card}")
+    print(f"[asp] the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4091,7 +4165,7 @@ def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
     ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
     64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship),
-    ``[matroska]`` or ``[mpeg]`` (the seeded flagship)."""
+    ``[matroska]``, ``[mpeg]`` or ``[asp]`` (the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -4102,8 +4176,8 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag in ("matroska", "mpeg"):
-            {"matroska": matroska_phase, "mpeg": mpeg_phase}[tag](
+        if tag in ("matroska", "mpeg", "asp"):
+            {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase}[tag](
                 torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
@@ -4202,9 +4276,11 @@ def main() -> int:
         paths["formats2"] = formats2_phase(torch, np, data_yaml, best, Path(tmp))
         paths["matroska"] = matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mkv_seeded.pt"), Path(tmp))
         paths["mpeg"] = mpeg_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mpeg_seeded.pt"), Path(tmp))
+        paths["asp"] = asp_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "asp_seeded.pt"), Path(tmp))
     # each kernel's launches are those of this slice's path first (cli.predict
-    # over an MPEG-2 .mpg and an MPEG-1 .mpeg), then the earlier slices'
-    # (cli.predict over a VP8 WebM and an MJPEG .mkv, uploads of
+    # over an XviD and a packed DivX .avi), then the earlier slices'
+    # (cli.predict over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
+    # and an MJPEG .mkv, uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
     # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
     # formats served and micro-steps fed from
@@ -4215,7 +4291,7 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -4234,7 +4310,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
-                        ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"]):
+                        ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"],
+                        ["--asp-alone"]):
         import torch
 
         if not torch.cuda.is_available():

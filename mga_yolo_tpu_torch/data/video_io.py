@@ -9,8 +9,11 @@ writes the video files the JAX package reads and writes through
 
 * :class:`VideoReader` reads AVI (RIFF, ``idx1`` or a scan of ``movi``,
   OpenDML ``AVIX`` segments) and ISO-BMFF (``.mp4``, ``.mov``, ``.m4v``:
-  ``moov`` wherever it lies, the sample tables, edit lists) holding MJPEG,
-  MPEG-4 Part 2 Simple profile (mp4v, XVID, DIVX, DX50, FMP4), MPEG-1 and
+  ``moov`` wherever it lies, the sample tables, edit lists, ``ctts``
+  display times) holding MJPEG, MPEG-4 Part 2 Simple and Advanced Simple
+  profile (mp4v, XVID, DIVX, DX50, FMP4: B-VOPs in display order, DivX's
+  packed bitstream, the XviD IDCT where ffmpeg takes it; see
+  ``native.Mpeg4Decoder``), MPEG-1 and
   MPEG-2 video (AVI's ``mpg1`` / ``mpg2`` / ``MPEG`` / ``PIM1`` tags and
   their aliases, MP4's object types 0x60-0x65 and 0x6A), uncompressed
   24-bit BI_RGB or I420. Frames come out as cv2 gives them: BGR uint8, an
@@ -23,8 +26,9 @@ writes the video files the JAX package reads and writes through
   video stream) holding MPEG-1/2 video (``native.Mpeg12Decoder``: I, P and
   B-pictures in display order, field prediction and field DCT in frame
   pictures, 4:2:0 and 4:2:2) or MPEG-4 Part 2 (cv2's own ``.mpg``), and a
-  bare MPEG-1/2 stream; see :meth:`VideoReader._open_ps` for cv2's fps and
-  frame count.
+  bare MPEG-1/2 or MPEG-4 stream (any suffix); see
+  :meth:`VideoReader._open_ps` and :meth:`VideoReader._open_m4v` for cv2's
+  fps and frame count.
 * It reads Matroska and WebM (EBML: the first video track; Segments and
   Clusters of known or unknown size, SimpleBlocks and BlockGroups; SeekHead,
   Cues, Tags, CRC-32 and Void skipped) holding VP8 (``native.Vp8Decoder``:
@@ -51,7 +55,7 @@ writes the video files the JAX package reads and writes through
   :meth:`VideoReader._gif_frames`), with its frame count, frame rate and
   fourcc ``gif ``.
 
-H.264 / HEVC, VP9, AV1, FFV1, fragmented MP4, interlaced MJPEG, Matroska's
+H.264 / HEVC, MPEG-4 GMC and RVLC, VP9, AV1, FFV1, fragmented MP4, interlaced MJPEG, Matroska's
 content encodings and laced blocks, MPEG-2 field pictures, dual-prime
 prediction, scalable extensions, 4:4:4 and D-pictures, and ASF / WMV raise
 ``ValueError`` naming the file, its container and its codec, as do
@@ -164,11 +168,12 @@ def mpeg12_kind(data: bytes) -> Optional[str]:
         else "mpeg1"
 
 
-def vol_time_resolution(data: bytes) -> int:
-    """vop_time_increment_resolution of the first MPEG-4 VOL in data (0 without one)."""
+def vol_header(data: bytes) -> Tuple[int, int, int]:
+    """(vop_time_increment_resolution, width, height) of the first MPEG-4 VOL
+    in data ((0, 0, 0) without one)."""
     m = re.search(rb"\x00\x00\x01[\x20-\x2f]", data)
     if m is None:
-        return 0
+        return 0, 0, 0
     bits = "".join(f"{b:08b}" for b in data[m.end():m.end() + 32])
     p = 1 + 8  # random_accessible_vol, video_object_type_indication
     p += 1 + (7 if bits[p] == "1" else 0)  # is_object_layer_identifier: verid, priority
@@ -179,7 +184,16 @@ def vol_time_resolution(data: bytes) -> int:
         p += 1
     p += 1
     p += 2 + 1  # video_object_layer_shape, marker
-    return int(bits[p:p + 16] or "0", 2)
+    res = int(bits[p:p + 16] or "0", 2)
+    p += 16 + 1  # marker
+    p += 1 + (max(1, (res - 1).bit_length()) if bits[p:p + 1] == "1" else 0)  # fixed_vop_rate
+    w, h = int(bits[p + 1:p + 14] or "0", 2), int(bits[p + 15:p + 28] or "0", 2)
+    return res, w, h
+
+
+def vol_time_resolution(data: bytes) -> int:
+    """vop_time_increment_resolution of the first MPEG-4 VOL in data (0 without one)."""
+    return vol_header(data)[0]
 
 
 def mpeg12_rate(data: bytes) -> Tuple[int, int]:
@@ -266,6 +280,8 @@ class VideoReader:
         self.extradata = b""
         self.keyframes: Optional[set] = None  # MP4 stss: the sync samples, None when all are
         self.shown: Optional[list] = None  # MP4 edit list: the samples shown, None for all
+        self.pts: Optional[list] = None  # MP4 composition (display) times where they differ from decode times
+        self.codec_tag = b""  # the container's fourcc for the codec (AVI, a Matroska VfW track), as ffmpeg's codec_tag
         self.bottom_up = False
         if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
             self.container = "AVI"
@@ -285,6 +301,9 @@ class VideoReader:
         elif head.startswith(b"\x00\x00\x01\xb3"):
             self.container = "MPEG video"
             self._open_es()
+        elif head.startswith(b"\x00\x00\x01") and (head[3] <= 0x2F or head[3] in (0xB0, 0xB2, 0xB5, 0xB6)):
+            self.container = "MPEG-4 video"
+            self._open_m4v()
         else:
             what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
             what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
@@ -292,7 +311,7 @@ class VideoReader:
                 raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, AVI, "
                                  f"MP4/MOV, MPEG-PS and Matroska/WebM)")
             raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV, MPEG-PS, MPEG "
-                             f"video, Matroska, WebM)")
+                             f"video, MPEG-4 video, Matroska, WebM)")
         if self.codec == "mpeg12":
             self.codec = self._mpeg12_kind()
         self.fourcc = CV2_FOURCC[self.codec]
@@ -369,6 +388,7 @@ class VideoReader:
                 self._refuse(f"{name} video ('{_tag(tag)}')")
             if self.codec == "mpeg4" and len(strf) > 40:
                 self.extradata = strf[40:]
+            self.codec_tag = tag
         self.size = (abs(width), abs(height))
         if not (scale and rate):
             raise ValueError(f"{self.path}: corrupt AVI file (stream rate {rate}/{scale})")
@@ -534,7 +554,16 @@ class VideoReader:
             if o2 + s > self._size:
                 raise ValueError(f"{self.path}: truncated {self.container} file (sample at {o2} past the end)")
         self.samples = samples
-        self.shown = self._edit_list(o, n, durations, timescale, movie_scale)
+        times = [int(t) for t in np.concatenate([[0], np.cumsum(durations)])[:-1]]
+        if b"ctts" in box:  # composition offsets: display times (B-VOPs) apart from decode times
+            version = self._read(box[b"ctts"][0], 1)[0]
+            offsets = []
+            for count, off in self._table(box, b"ctts", ">Ii" if version else ">II"):
+                offsets += [off] * count
+            offsets = (offsets + [0] * len(times))[:len(times)]
+            self.pts = [t + off for t, off in zip(times, offsets)]
+            times = self.pts
+        self.shown = self._edit_list(o, n, times, timescale, movie_scale)
 
     def _decoder_specific_info(self, esds: bytes) -> Tuple[int, bytes]:
         """The objectTypeIndication and the DecoderSpecificInfo (tag 5) of an
@@ -602,12 +631,12 @@ class VideoReader:
             return [v for (v,) in self._table(box, b"co64", ">Q")]
         raise ValueError(f"{self.path}: corrupt {self.container} file (no 'stco' or 'co64' box)")
 
-    def _edit_list(self, o: int, n: int, durations: list, timescale: int, movie_scale: int) -> Optional[list]:
-        """The indices of the samples the edit list shows, in order, or None
-        for all; as ffmpeg's mov demuxer applies a list (rate 1) to video
-        without composition offsets: each edit shows the samples whose time
-        lies in [media_time, media_time + duration); empty edits shift
-        presentation only."""
+    def _edit_list(self, o: int, n: int, times: list, timescale: int, movie_scale: int) -> Optional[list]:
+        """The indices of the samples the edit list shows, in display order,
+        or None for all in their order; as ffmpeg's mov demuxer applies a
+        list (rate 1): each edit shows the samples whose display time (the
+        decode time plus the composition offset) lies in [media_time,
+        media_time + duration); empty edits shift presentation only."""
         edts = self._child(o, n, b"edts")
         elst = edts and self._child(*edts, b"elst")
         if not elst:
@@ -618,7 +647,6 @@ class VideoReader:
         fmt = ">QqHH" if version == 1 else ">IiHH"
         width = struct.calcsize(fmt)
         edits = list(struct.iter_unpack(fmt, self._read(eo + 8, count * width)))
-        starts = np.concatenate([[0], np.cumsum(durations)])[:-1]
         shown: list = []
         for seg, media_time, rate, _ in edits:
             if media_time == -1:
@@ -626,8 +654,9 @@ class VideoReader:
             if rate != 1:
                 raise ValueError(f"{self.path}: an edit list with rate {rate} is not supported")
             stop = media_time + -(-seg * timescale // movie_scale)  # an edit of duration 0 shows nothing
-            shown += [i for i, t in enumerate(starts) if media_time <= t < stop]
-        return None if shown == list(range(len(durations))) else shown
+            shown += sorted((i for i, t in enumerate(times) if media_time <= t < stop), key=lambda i: (times[i], i))
+        everything = sorted(range(len(times)), key=lambda i: (times[i], i))
+        return None if shown == everything else shown
 
     # ---- Matroska / WebM
 
@@ -775,6 +804,7 @@ class VideoReader:
         if cid == "V_MS/VFW/FOURCC" and len(private) >= 40:
             tag = private[16:20]
             self.codec = _codec_of(tag)
+            self.codec_tag = tag
             if self.codec is None:
                 self._refuse(f"{NAMED_TAGS.get(tag, f'the {_tag(tag)!r} codec')} video ('V_MS/VFW/FOURCC', "
                              f"'{_tag(tag)}')")
@@ -953,7 +983,7 @@ class VideoReader:
         else:
             num, den = mpeg12_rate(start)
         self.fps = num / den if den and num else 0.0
-        self.size = self._es_size(start)
+        self.size = self._es_size(start) if self.codec == "mpeg12" else vol_header(start)[1:]
         if not stamps or not num:
             self.total = 0
             return
@@ -985,6 +1015,22 @@ class VideoReader:
         if seconds < 0.000025:
             seconds = -2 ** 63 / 1200000
         self.total = int(math.floor(seconds * self.fps + 0.5))
+
+    def _open_m4v(self) -> None:
+        """A bare MPEG-4 Part 2 stream (VOS / VO / VOL headers and VOPs, no
+        container, under any suffix), as ffmpeg's m4v demuxer reads it for
+        cv2: the raw demuxer's frame rate, 25 whatever the VOL says, and its
+        unknown duration, INT64_MIN ticks of 1/1200000 s, for ``total`` (the
+        negative count cv2 reports). Measured against cv2 on libavcodec's
+        streams at 10, 25, 29.97, 30 and 60 fps, with and without B-VOPs,
+        as .m4v, .bin and .avi."""
+        start = self._read(0, min(self._size, 1 << 16))
+        self.samples = [(0, self._size)]
+        self.codec = "mpeg4"
+        self.fps = 25.0
+        _, w, h = vol_header(start)
+        self.size = (w, h)
+        self.total = int(math.floor(-2 ** 63 / 1200000 * self.fps + 0.5))
 
     def _es_codec(self, data: bytes) -> str:
         """The codec of a program stream's video payload, by its first start code."""
@@ -1183,25 +1229,62 @@ class VideoReader:
             self._refuse("interlaced MJPEG (two fields per chunk)")
         return native.yuv_to_bgr(*planes, full_range=True)
 
+    def _mpeg4_chunks(self) -> Iterator[bytes]:
+        """A program stream's or a bare stream's MPEG-4 video as ffmpeg's
+        mpeg4video parser frames it: each chunk ends where a start code
+        follows a VOP (so a GOV or a VOL opens the next frame's chunk)."""
+        buf = bytearray()
+        for o, n in self.samples:
+            for k in range(0, n, 1 << 20):
+                buf += self._read(o + k, min(n - k, 1 << 20))
+                at = 0
+                while True:
+                    vop = buf.find(b"\x00\x00\x01\xb6", at)
+                    cut = buf.find(b"\x00\x00\x01", vop + 4) if vop >= 0 else -1
+                    if cut < 0:
+                        break
+                    yield bytes(buf[at:cut])
+                    at = cut
+                del buf[:at]
+        if buf:
+            yield bytes(buf)
+
     def _mpeg4_frames(self) -> Iterator[np.ndarray]:
+        """Each frame in display order, as libavcodec gives them (B-VOPs
+        reordered, one chunk late); an MP4 edit list's frames only, the
+        decoder's k-th frame being the sample with the k-th display time."""
+        n = len(self.samples)
         wanted = set(self.shown) if self.shown is not None else None
         start = 0  # an edit list's first frame decodes from the sync sample before it
         if wanted and self.keyframes:
             start = max((k for k in self.keyframes if k <= min(wanted)), default=0)
-        dec = native.Mpeg4Decoder()
+        order = sorted(range(start, n), key=lambda i: (self.pts[i], i)) if self.pts is not None else range(start, n)
+        dec = native.Mpeg4Decoder(self.codec_tag)
+
+        def shown(got, k):
+            if got is None:
+                return None
+            if wanted is not None and (k >= len(order) or order[k] not in wanted):
+                return None
+            (y, u, v), _ = got
+            return native.yuv_to_bgr(y, u, v, full_range=False, chroma_left=True)
+
         try:
             if self.extradata:
                 dec.decode(self.extradata)
-            chunks = self._es_chunks(b"\x00\x00\x01\xb6") if self.container == "MPEG-PS" else \
+            chunks = self._mpeg4_chunks() if self.container in ("MPEG-PS", "MPEG-4 video") else \
                 (self._read(o, n) for o, n in self.samples[start:])
-            for i, chunk in enumerate(chunks, start):
-                if wanted is not None and i > max(wanted, default=-1):
-                    break
+            k = 0  # frames out so far
+            for chunk in chunks:
                 got = dec.decode(chunk)
-                if got is None or (wanted is not None and i not in wanted):
-                    continue
-                (y, u, v), _ = got
-                yield native.yuv_to_bgr(y, u, v, full_range=False, chroma_left=True)
+                img = shown(got, k)
+                k += got is not None
+                if img is not None:
+                    yield img
+            img = shown(dec.flush(), k)
+            if img is not None:
+                yield img
+            self.mpeg4_tally = dec.tally()
         except ValueError as e:
             raise ValueError(f"{self.path}: {self.container} with MPEG-4 video: {e}") from None
         finally:

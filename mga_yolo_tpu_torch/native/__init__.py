@@ -9,7 +9,7 @@ encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding), ``tiff.cpp``
 (VP8 key and inter frames, for WebM / Matroska video and WebP stills),
 ``gif.cpp`` (GIF's blocks and LZW, and cv2's GIF encoder) and
 ``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
-``simple_idct.h``.
+``simple_idct.h`` and ``xvid_idct.h``.
 
 The eleven sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
@@ -52,7 +52,7 @@ def sources() -> tuple[Path, ...]:
     return (*CODEC_SOURCES, SOURCE)
 
 
-HEADERS = (Path(__file__).with_name("simple_idct.h"),)
+HEADERS = (Path(__file__).with_name("simple_idct.h"), Path(__file__).with_name("xvid_idct.h"))
 
 
 def library_path() -> Path:
@@ -139,7 +139,7 @@ def _open(target: Path):
     lib.mga_yuv420_to_bgr_scaled.restype = None
     lib.mga_bgr_to_yuv420.argtypes = [u8p, c, c, u8p, u8p, u8p]
     lib.mga_bgr_to_yuv420.restype = None
-    lib.mga_mpeg4_decoder_new.argtypes = []
+    lib.mga_mpeg4_decoder_new.argtypes = [ctypes.c_uint32]
     lib.mga_mpeg4_decoder_new.restype = ctypes.c_void_p
     lib.mga_mpeg4_decoder_free.argtypes = [ctypes.c_void_p]
     lib.mga_mpeg4_decoder_free.restype = None
@@ -147,6 +147,10 @@ def _open(target: Path):
     lib.mga_mpeg4_decode.restype = c
     lib.mga_mpeg4_frame.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
     lib.mga_mpeg4_frame.restype = None
+    lib.mga_mpeg4_flush.argtypes = [ctypes.c_void_p, i32p]
+    lib.mga_mpeg4_flush.restype = c
+    lib.mga_mpeg4_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_mpeg4_tally.restype = c
     lib.mga_mpeg4_encode_header.argtypes = [c, c, c, u8p, n64, buf, c]
     lib.mga_mpeg4_encode_header.restype = n64
     lib.mga_mpeg4_encode_intra.argtypes = [u8p, u8p, u8p, c, c, c, c, c, c, u8p, n64, buf, c]
@@ -467,22 +471,48 @@ def bgr_to_yuv420(img: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return y, u, v
 
 
-class Mpeg4Decoder:
-    """An MPEG-4 Part 2 Simple profile decoder (``mpeg4.cpp``): feed it the
-    stream's chunks in order (the container's decoder configuration first,
-    where it has one). Holds its reference frame; :meth:`close` frees it."""
+# what an Mpeg4Decoder counts (mpeg4.cpp's Tally, in its order)
+MPEG4_TALLY = ("vops_i", "vops_p", "vops_b", "vops_uncoded", "b_dropped", "b_skipped_times", "mb_intra", "mb_inter",
+               "mb_inter4v", "mb_not_coded", "mb_field_mv", "mb_field_dct", "b_direct", "b_direct_skip", "b_forward",
+               "b_backward", "b_interpolated", "b_colocated_skip", "b_direct_8x8", "b_direct_field", "qpel_vops",
+               "mpeg_quant_vops", "loaded_intra", "loaded_inter", "partitioned_vops", "video_packets",
+               "alternate_scan_vops", "interlaced_vops", "packed_stored", "packed_decoded", "nvops_skipped",
+               "xvid_idct_vops", "edge_bug_vops", "dc_clip_bug_vops", "qpel_chroma_bug_vops",
+               "mismatch_toggles", "escapes_3", "flushed")
 
-    def __init__(self):
+
+class Mpeg4Decoder:
+    """An MPEG-4 Part 2 (Simple and Advanced Simple profile) decoder
+    (``mpeg4.cpp``): feed it the stream's chunks in order (the container's
+    decoder configuration first, where it has one), then :meth:`flush` at
+    the end. Frames come out in display order, as libavcodec gives them: a
+    stream with B-VOPs one chunk late. ``fourcc`` is the container's codec
+    tag (AVI's, a Matroska VfW track's; none for MP4, Matroska's own IDs and
+    MPEG-PS), which names the encoder of a stream whose user data does not,
+    as ffmpeg reads it (``XVID`` switches to the XviD IDCT). Holds its
+    reference frames; :meth:`close` frees them."""
+
+    def __init__(self, fourcc: bytes = b""):
         self._lib = load()
-        self._h = self._lib.mga_mpeg4_decoder_new()
+        tag = bytes(fourcc[:4]).upper().ljust(4, b"\0") if fourcc else b"\0" * 4
+        self._h = self._lib.mga_mpeg4_decoder_new(int.from_bytes(tag, "little"))
         if not self._h:
             raise MemoryError("MPEG-4 decoder")
 
+    def _frame(self, info):
+        w, h = info[0], info[1]
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.mga_mpeg4_frame(self._h, _u8(y), _u8(u), _u8(v))
+        return (y, u, v), info[2]
+
     def decode(self, chunk: bytes):
-        """(y, u, v) planes and the VOP type (0 I, 1 P) of the frame the
-        chunk gives, or None for a chunk that gives none (headers only, or an
-        uncoded VOP, which ffmpeg passes over too). Raises ValueError naming
-        what it does not decode."""
+        """(y, u, v) planes and the VOP type (0 I, 1 P, 2 B) of the frame that
+        comes out after the chunk, or None when none does (headers only, an
+        uncoded VOP, a B-VOP before two references, or the first reference
+        of a stream with B-VOPs), as in ffmpeg. Raises ValueError naming what
+        it does not decode."""
         if not self._h:
             raise ValueError("the MPEG-4 decoder is closed")
         chunk = bytes(chunk)
@@ -491,14 +521,21 @@ class Mpeg4Decoder:
         rc = self._lib.mga_mpeg4_decode(self._h, chunk, len(chunk), info, err, _ERR_LEN)
         if rc < 0:
             raise ValueError(err.value.decode())
-        if rc == 0:
-            return None
-        w, h = info[0], info[1]
-        y = np.empty((h, w), np.uint8)
-        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
-        v = np.empty_like(u)
-        self._lib.mga_mpeg4_frame(self._h, _u8(y), _u8(u), _u8(v))
-        return (y, u, v), info[2]
+        return self._frame(info) if rc else None
+
+    def flush(self):
+        """The frame left at the end of the stream (the last reference of a
+        stream with B-VOPs), as decode gives it, or None."""
+        if not self._h:
+            raise ValueError("the MPEG-4 decoder is closed")
+        info = (ctypes.c_int32 * 3)()
+        return self._frame(info) if self._lib.mga_mpeg4_flush(self._h, info) else None
+
+    def tally(self) -> dict:
+        """The features decoded so far, counted (``MPEG4_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(MPEG4_TALLY))()
+        self._lib.mga_mpeg4_tally(self._h, out, len(MPEG4_TALLY))
+        return dict(zip(MPEG4_TALLY, out))
 
     def close(self) -> None:
         if self._h:

@@ -206,13 +206,15 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
         data, what = _mp4_with(mp4, b"mp4v", b"hvc1"), r"MP4 with HEVC video \('hvc1'\)"
     elif kind == "moof":
         data, what = mp4 + struct.pack(">I4s", 16, b"moof") + bytes(8), r"fragmented MP4 \('moof'"
-    elif kind == "b_vop":
-        data, what = pack_avi(head, [chunks[0], _vop_type(chunks[1], 2)] + chunks[2:]), \
-            "AVI with MPEG-4 video: MPEG-4 video with B-VOPs"
+    elif kind == "b_vop":  # B-VOPs read now: one before a second reference, which ffmpeg passes over
+        data, what = pack_avi(head, [chunks[0], _vop_type(chunks[1], 2)] + chunks[2:]), None
     elif kind == "s_vop":
         data, what = pack_avi(head, [chunks[0], _vop_type(chunks[1], 3)] + chunks[2:]), "S-VOPs"
-    elif kind == "packed":
-        data, what = pack_avi(head, [chunks[0], chunks[1] + chunks[2]] + chunks[3:]), "packed MPEG-4 bitstream"
+    elif kind == "packed":  # DivX's packed bitstream reads now: a packed chunk of three VOPs does not
+        from tests.video_fixtures.make import user_data
+
+        data, what = pack_avi(head, [user_data(chunks[0], b"DivX503b1393p"), chunks[1] + chunks[2] + chunks[3]] +
+                              chunks[4:]), "AVI with MPEG-4 video: a packed MPEG-4 chunk of three or more VOPs"
     elif kind == "h264_avi":
         data, what = (FIXTURES / "xvid.avi").read_bytes().replace(b"XVID", b"H264"), r"AVI with H\.264 video"
     elif kind == "interlaced":
@@ -256,7 +258,11 @@ def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     Matroska and WebM, once refused, now read, and their cases are codecs
     the port still refuses in them (``tests/test_torch_matroska.py`` holds
     the rest); so do MPEG-PS (``.mpg``, ``.mpeg``: a stream without video
-    and an H.264 stream; ``tests/test_torch_mpeg.py`` holds the rest)."""
+    and an H.264 stream; ``tests/test_torch_mpeg.py`` holds the rest).
+    B-VOPs and packed bitstreams, once refused, now read
+    (``tests/test_torch_mpeg4_asp.py`` holds them): the B-VOP case is one
+    before a second reference, which the port passes over as cv2 does, and
+    the packed case a packed chunk of three VOPs, which it refuses."""
     from mga_yolo_tpu_torch.data.video_io import VideoReader
 
     if kind == "gif":
@@ -267,6 +273,12 @@ def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
                                                                 cap.get(cv2.CAP_PROP_FPS), 4, b"gif ")
         return
     path, what = _refused(kind, tmp_path)
+    if what is None:
+        want, _ = cv2_read(path)
+        with VideoReader(path) as r:
+            got = list(r)
+        assert len(got) == len(want) == 12 and all((g == w).all() for g, w in zip(got, want))
+        return
     with pytest.raises(ValueError, match=rf"{path.name}: .*{what}"):
         with VideoReader(path) as r:
             list(r)
@@ -369,7 +381,7 @@ def _vol(**fields) -> bytes:
     """A video object layer header of a 64x48 stream (the fields a Simple
     profile one carries), with ``fields`` overriding its bits."""
     f = dict(verid=1, shape=0, interlaced=0, obmc_disable=1, sprite=0, not_8_bit=0, quant_type=0, quarter=0,
-             complexity_disable=1, partitioned=0, scalable=0)
+             complexity_disable=1, partitioned=0, rvlc=0, scalable=0)
     f.update(fields)
     bits = "0" + format(1, "08b")  # random_accessible_vol, object type
     bits += ("1" + format(f["verid"], "04b") + "001") if f["verid"] != 1 else "0"
@@ -377,8 +389,9 @@ def _vol(**fields) -> bytes:
     bits += "1" + format(64, "013b") + "1" + format(48, "013b") + "1"
     bits += str(f["interlaced"]) + str(f["obmc_disable"])
     bits += format(f["sprite"], "01b" if f["verid"] == 1 else "02b")
-    bits += str(f["not_8_bit"]) + str(f["quant_type"]) + (str(f["quarter"]) if f["verid"] != 1 else "")
-    bits += str(f["complexity_disable"]) + "1" + str(f["partitioned"])
+    bits += str(f["not_8_bit"]) + str(f["quant_type"]) + ("00" if f["quant_type"] else "")  # no matrices loaded
+    bits += str(f["quarter"]) if f["verid"] != 1 else ""
+    bits += str(f["complexity_disable"]) + "1" + str(f["partitioned"]) + (str(f["rvlc"]) if f["partitioned"] else "")
     bits += "00" if f["verid"] != 1 else ""
     bits += str(f["scalable"])
     bits += "0" + "1" * (-(len(bits) + 1) % 8)
@@ -387,14 +400,17 @@ def _vol(**fields) -> bytes:
 
 @pytest.mark.parametrize("fields, what", [
     ({}, None), ({"verid": 2}, None),
-    ({"shape": 1}, "non-rectangular shapes"), ({"interlaced": 1}, "interlaced MPEG-4 video"),
+    ({"shape": 1}, "non-rectangular shapes"), ({"interlaced": 1}, None),
     ({"obmc_disable": 0}, "OBMC"), ({"sprite": 1}, "sprites or GMC"), ({"verid": 2, "sprite": 2}, "sprites or GMC"),
-    ({"not_8_bit": 1}, "not_8_bit"), ({"quant_type": 1}, "quant_type 1"),
-    ({"verid": 2, "quarter": 1}, "quarter-sample"), ({"complexity_disable": 0}, "complexity estimation"),
-    ({"partitioned": 1}, "data partitioning"), ({"scalable": 1}, "scalable")],
+    ({"not_8_bit": 1}, "not_8_bit"), ({"quant_type": 1}, None),
+    ({"verid": 2, "quarter": 1}, None), ({"complexity_disable": 0}, "complexity estimation"),
+    ({"partitioned": 1}, None), ({"partitioned": 1, "rvlc": 1}, "RVLC"), ({"scalable": 1}, "scalable")],
     ids=["simple", "verid2", "shape", "interlaced", "obmc", "sprite", "gmc", "not_8_bit", "quant_type", "qpel",
-         "complexity", "partitioned", "scalable"])
+         "complexity", "partitioned", "rvlc", "scalable"])
 def test_vol_tools_outside_simple_profile_are_refused_by_name(fields, what):
+    """The VOL flags of tools the port does not decode raise naming them;
+    interlacing, quant_type 1, quarter-sample motion and data partitioning
+    (the Advanced Simple profile's, read now) give a header and no frame."""
     from mga_yolo_tpu_torch import native
 
     dec = native.Mpeg4Decoder()

@@ -168,6 +168,30 @@ def lavc_mpeg4(imgs: list, options: dict) -> list:
     return [data for data, _, _ in lavc_encode("mpeg4", imgs, options)]
 
 
+def libav():
+    """(libavutil, libavcodec) of cv2's wheel through ctypes, with the
+    signatures of the encode and decode calls the fixtures use."""
+    import ctypes
+
+    libs = Path(cv2.__file__).resolve().parents[1] / "opencv_python.libs"
+    avutil = ctypes.CDLL(str(next(libs.glob("libavutil-*"))), mode=ctypes.RTLD_GLOBAL)
+    avcodec = ctypes.CDLL(str(next(libs.glob("libavcodec-*"))), mode=ctypes.RTLD_GLOBAL)
+    vp, c = ctypes.c_void_p, ctypes.c_int
+    for lib, name, res, args in (
+            (avcodec, "avcodec_find_encoder_by_name", vp, [ctypes.c_char_p]),
+            (avcodec, "avcodec_find_decoder_by_name", vp, [ctypes.c_char_p]),
+            (avcodec, "avcodec_alloc_context3", vp, [vp]), (avutil, "av_opt_set", c, [vp, ctypes.c_char_p,
+                                                                                       ctypes.c_char_p, c]),
+            (avcodec, "avcodec_open2", c, [vp, vp, vp]), (avutil, "av_frame_alloc", vp, []),
+            (avutil, "av_frame_get_buffer", c, [vp, c]), (avutil, "av_frame_make_writable", c, [vp]),
+            (avcodec, "av_packet_alloc", vp, []), (avcodec, "av_new_packet", c, [vp, c]),
+            (avcodec, "avcodec_send_frame", c, [vp, vp]), (avcodec, "avcodec_receive_packet", c, [vp, vp]),
+            (avcodec, "avcodec_send_packet", c, [vp, vp]), (avcodec, "avcodec_receive_frame", c, [vp, vp]),
+            (avcodec, "av_packet_unref", None, [vp])):
+        getattr(lib, name).restype, getattr(lib, name).argtypes = res, args
+    return avutil, avcodec
+
+
 def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_pass: bool = False) -> list:
     """(data, key, pts) of each packet of a libavcodec encoder (the one inside
     cv2's wheel, driven through ctypes) for BGR frames of any size, with the
@@ -177,20 +201,8 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
     AVCodecContext field offsets are those of libavutil 60 / libavcodec 62."""
     import ctypes
 
-    libs = Path(cv2.__file__).resolve().parents[1] / "opencv_python.libs"
-    avutil = ctypes.CDLL(str(next(libs.glob("libavutil-*"))), mode=ctypes.RTLD_GLOBAL)
-    avcodec = ctypes.CDLL(str(next(libs.glob("libavcodec-*"))), mode=ctypes.RTLD_GLOBAL)
+    avutil, avcodec = libav()
     vp = ctypes.c_void_p
-    for lib, name, res, args in (
-            (avcodec, "avcodec_find_encoder_by_name", vp, [ctypes.c_char_p]),
-            (avcodec, "avcodec_alloc_context3", vp, [vp]),
-            (avutil, "av_opt_set", ctypes.c_int, [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
-            (avcodec, "avcodec_open2", ctypes.c_int, [vp, vp, vp]), (avutil, "av_frame_alloc", vp, []),
-            (avutil, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
-            (avutil, "av_frame_make_writable", ctypes.c_int, [vp]), (avcodec, "av_packet_alloc", vp, []),
-            (avcodec, "avcodec_send_frame", ctypes.c_int, [vp, vp]),
-            (avcodec, "avcodec_receive_packet", ctypes.c_int, [vp, vp]), (avcodec, "av_packet_unref", None, [vp])):
-        getattr(lib, name).restype, getattr(lib, name).argtypes = res, args
     h, w = imgs[0].shape[:2]
     chroma422 = options.get("pixel_format") == "yuv422p"
     codec = avcodec.avcodec_find_encoder_by_name(encoder.encode())
@@ -608,6 +620,324 @@ def mpeg_clips() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ MPEG-4 Advanced Simple profile
+
+def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: bytes) -> bytes:
+    """An AVI of one video stream under ``fourcc`` (strh's handler and
+    strf's compression), its chunks in the order given (decode order), at
+    rate / scale frames a second, with an idx1 index."""
+    n = len(payloads)
+    avih = struct.pack("<10I4I", 1000000 * scale // rate, 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHH8I4h", b"vids", fourcc, 0, 0, 0, 0, scale, rate, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0)
+
+    def chunk(cid, b):
+        return struct.pack("<4sI", cid, len(b)) + b
+
+    def lst(kind, b):
+        return struct.pack("<4sI", b"LIST", 4 + len(b)) + kind + b
+
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    return pack_avi(b"RIFF\0\0\0\0AVI " + hdrl, payloads)
+
+
+def mp4_bytes(packets: list, w: int, h: int, fps: int, trim: int = 0) -> bytes:
+    """An MP4 of MPEG-4 Part 2 packets (data, key, display index) in decode
+    order, laid out as ffmpeg's mov muxer writes B-VOPs: decode times one
+    frame apart, composition offsets (ctts) to the display times shifted by
+    the reordering delay, and an edit list from that delay on, which shows
+    every frame; ``trim`` frames more left out at the start of the edit. The
+    VOL stays in the first sample and is copied into the esds."""
+    ts, delta = fps * 512, 512
+    n = len(packets)
+    shift = max(dec - shown for dec, (_, _, shown) in enumerate(packets)) + 1
+    offsets = [(shown + shift - dec) * delta for dec, (_, _, shown) in enumerate(packets)]
+    first = packets[0][0]
+    vol = first[:first.find(b"\x00\x00\x01\xb6")]
+
+    def box(t: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I4s", 8 + len(payload), t) + payload
+
+    def desc(tag: int, body: bytes) -> bytes:
+        k = len(body)
+        return bytes([tag, 0x80 | (k >> 21) & 0x7F, 0x80 | (k >> 14) & 0x7F, 0x80 | (k >> 7) & 0x7F, k & 0x7F]) + body
+
+    ftyp = box(b"ftyp", b"isom\0\0\2\0isomiso2mp41")
+    mdat_start = len(ftyp) + 8
+    sizes = [len(d) for d, _, _ in packets]
+    duration = (n - trim) * delta
+    movie_duration = duration * 1000 // ts
+    matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+    mvhd = struct.pack(">IIIII", 0, 0, 0, 1000, movie_duration) + struct.pack(">IH10x", 0x10000, 0x100) + matrix + \
+        b"\0" * 24 + struct.pack(">I", 2)
+    tkhd = struct.pack(">IIIII4xI8xHHH2x", 3, 0, 0, 1, 0, movie_duration, 0, 0, 0) + matrix + \
+        struct.pack(">II", w << 16, h << 16)
+    elst = box(b"elst", struct.pack(">IIIiHH", 0, 1, movie_duration, (shift + trim) * delta, 1, 0))
+    mdhd = struct.pack(">IIIIIHH", 0, 0, 0, ts, n * delta, 0x55C4, 0)
+    hdlr = struct.pack(">II4s12x", 0, 0, b"vide") + b"VideoHandler\0"
+    dref = box(b"dref", struct.pack(">II", 0, 1) + box(b"url ", struct.pack(">I", 1)))
+    dcd = desc(4, struct.pack(">BB3sII", 0x20, 0x11, max(sizes).to_bytes(3, "big"), 0, 0) + desc(5, vol))
+    esds = box(b"esds", struct.pack(">I", 0) + desc(3, struct.pack(">HB", 1, 0) + dcd + desc(6, b"\x02")))
+    mp4v = box(b"mp4v", b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HHIIIH", w, h, 0x480000, 0x480000,
+                                                                                      0, 1) + b"\0" * 32 +
+               struct.pack(">Hh", 24, -1) + esds)
+    runs: list = []
+    for o in offsets:
+        if runs and runs[-1][1] == o:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, o])
+    stbl = box(b"stbl", box(b"stsd", struct.pack(">II", 0, 1) + mp4v) +
+               box(b"stts", struct.pack(">IIII", 0, 1, n, delta)) +
+               box(b"ctts", struct.pack(">II", 0, len(runs)) + b"".join(struct.pack(">II", c, o) for c, o in runs)) +
+               box(b"stss", struct.pack(">II", 0, sum(k for _, k, _ in packets)) +
+                   b"".join(struct.pack(">I", i + 1) for i, (_, k, _) in enumerate(packets) if k)) +
+               box(b"stsc", struct.pack(">IIIII", 0, 1, 1, n, 1)) +
+               box(b"stsz", struct.pack(">III", 0, 0, n) + b"".join(struct.pack(">I", x) for x in sizes)) +
+               box(b"stco", struct.pack(">III", 0, 1, mdat_start)))
+    minf = box(b"minf", box(b"vmhd", struct.pack(">I4H", 1, 0, 0, 0, 0)) + box(b"dinf", dref) + stbl)
+    trak = box(b"trak", box(b"tkhd", tkhd) + box(b"edts", elst) +
+               box(b"mdia", box(b"mdhd", mdhd) + box(b"hdlr", hdlr) + minf))
+    return ftyp + box(b"mdat", b"".join(d for d, _, _ in packets)) + box(b"moov", box(b"mvhd", mvhd) + trak)
+
+
+def woven(n: int, h: int, w: int, seed: int) -> list:
+    """Interlaced frames: each the even rows of one ``moving`` frame and the
+    odd rows of the next (two fields a field period apart), so that an
+    encoder picks field DCT and field motion."""
+    src = moving(2 * n, h, w, seed)
+    out = []
+    for k in range(n):
+        f = src[2 * k].copy()
+        f[1::2] = src[2 * k + 1][1::2]
+        out.append(f)
+    return out
+
+
+def mpeg4_packets(imgs: list, options: dict) -> list:
+    """(data, key, display index) of each packet of libavcodec's mpeg4
+    encoder, in decode order."""
+    return [(d, k, int(p)) for d, k, p in lavc_encode("mpeg4", imgs, options, pts=True)]
+
+
+def user_data(data: bytes, text: bytes) -> bytes:
+    """data with its user data (the encoder's name, 'Lavc...') replaced by
+    text (empty: the user data start code and all taken out)."""
+    i = data.find(b"\x00\x00\x01\xb2")
+    if i < 0:
+        return data
+    j = data.find(b"\x00\x00\x01", i + 4)
+    return data[:i] + (b"\x00\x00\x01\xb2" + text if text else b"") + data[j:]
+
+
+def vop_kind(data: bytes) -> int:
+    """The type of the first VOP in data: 0 I, 1 P, 2 B, 3 S."""
+    i = data.find(b"\x00\x00\x01\xb6")
+    return data[i + 4] >> 6
+
+
+NVOP = b"\x00\x00\x01\xb6\x50\x00"  # a P-VOP of vop_coded 0: DivX's placeholder chunk (time bits left at 0)
+
+
+def pack_divx(payloads: list) -> list:
+    """DivX's packed bitstream from an unpacked one of single B-VOPs: each
+    reference with the B-VOP after it in one chunk, a placeholder N-VOP
+    chunk in the B-VOP's place, and the user data 'DivX503b1393p' (the
+    inverse of ffmpeg's mpeg4_unpack_bframes)."""
+    out, i = [], 0
+    while i < len(payloads):
+        d = payloads[i]
+        if i + 1 < len(payloads) and vop_kind(payloads[i + 1]) == 2:
+            assert i + 2 >= len(payloads) or vop_kind(payloads[i + 2]) != 2, "two B-VOPs in a row"
+            out += [d + payloads[i + 1], NVOP]
+            i += 2
+        else:
+            out.append(d)
+            i += 1
+    out[0] = user_data(out[0], b"DivX503b1393p")
+    return out
+
+
+def vol_matrices(data: bytes, intra: list, inter: list) -> bytes:
+    """data with its VOL (quant_type 1, no matrices loaded) loading intra
+    and inter (values in zigzag order; a list shorter than 64 ends with a 0,
+    the last value repeated)."""
+    m = data.find(b"\x00\x00\x01\x20")
+    end = data.find(b"\x00\x00\x01", m + 4)
+    bits = "".join(f"{b:08b}" for b in data[m + 4:end])
+    p = 1 + 8
+    verid = 1
+    if bits[p] == "1":
+        verid = int(bits[p + 1:p + 5], 2)
+        p += 8
+    else:
+        p += 1
+    p += 4 + (16 if bits[p:p + 4] == "1111" else 0)
+    if bits[p] == "1":  # vol_control_parameters: chroma_format, low_delay, vbv_parameters
+        p += 4
+        p += 1 + (79 if bits[p] == "1" else 0)
+    else:
+        p += 1
+    assert bits[p:p + 2] == "00"
+    p += 2 + 1
+    res = int(bits[p:p + 16], 2)
+    tb = max(1, (res - 1).bit_length())
+    p += 16 + 1
+    p += 1 + (tb if bits[p] == "1" else 0)
+    p += 1 + 13 + 1 + 13 + 1 + 1 + 1 + (1 if verid == 1 else 2) + 1  # marker, w, marker, h, marker, interlaced, obmc, sprite, not_8_bit
+    assert bits[p:p + 3] == "100", "quant_type 1 with no matrices loaded"
+    load = "1" + "".join(f"{v:08b}" for v in intra) + "1" + "".join(f"{v:08b}" for v in inter)
+    bits = bits[:p + 1] + load + bits[p + 3:]
+    body = bits.rstrip("1")[:-1]  # the stuffing (a 0, then 1s) redone
+    body += "0" + "1" * (-(len(body) + 1) % 8)
+    return data[:m + 4] + int(body, 2).to_bytes(len(body) // 8, "big") + data[end:]
+
+
+def lavc_planes(packets: list, fourcc: bytes = b"") -> list:
+    """The Y, U and V planes of each frame libavcodec's mpeg4 decoder (the
+    one inside cv2's wheel, through ctypes) gives for the packets: the oracle
+    of interlaced clips, whose frames cv2 cannot convert (it hands on a stale
+    buffer for a frame flagged interlaced). The AVFrame / AVPacket /
+    AVCodecContext field offsets are those of libavutil 60 / libavcodec 62."""
+    import ctypes
+
+    avutil, avcodec = libav()
+    vp = ctypes.c_void_p
+    codec = avcodec.avcodec_find_decoder_by_name(b"mpeg4")
+    ctx = avcodec.avcodec_alloc_context3(codec)
+    if fourcc:
+        ctypes.cast(ctx, ctypes.POINTER(ctypes.c_uint32))[7] = int.from_bytes(fourcc, "little")  # codec_tag
+    assert avcodec.avcodec_open2(ctx, codec, None) == 0
+    frame, pkt = avutil.av_frame_alloc(), avcodec.av_packet_alloc()
+    out = []
+
+    def drain():
+        while avcodec.avcodec_receive_frame(ctx, frame) == 0:
+            ptrs, ints = ctypes.cast(frame, ctypes.POINTER(vp)), ctypes.cast(frame, ctypes.POINTER(ctypes.c_int))
+            w, h = ints[26], ints[27]
+            planes = []
+            for k, (pw, ph) in enumerate(((w, h), ((w + 1) // 2, (h + 1) // 2), ((w + 1) // 2, (h + 1) // 2))):
+                rows = np.frombuffer(ctypes.string_at(ptrs[k], ints[16 + k] * ph), np.uint8).reshape(ph, -1)
+                planes.append(rows[:, :pw].copy())
+            out.append(planes)
+
+    for data in packets:
+        assert avcodec.av_new_packet(pkt, len(data)) == 0
+        ctypes.memmove(ctypes.cast(pkt, ctypes.POINTER(vp))[3], data, len(data))
+        avcodec.avcodec_send_packet(ctx, pkt)
+        avcodec.av_packet_unref(pkt)
+        drain()
+    avcodec.avcodec_send_packet(ctx, None)
+    drain()
+    return out
+
+
+def plane_digests(frames_: list) -> list:
+    """The SHA-256 of each frame's Y, U and V planes, joined."""
+    return [hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes() for p in f)).hexdigest() for f in frames_]
+
+
+ASP_XVID = {  # the encoder's identity, rewritten: (user data, AVI fourcc)
+    "xvid": (b"XviD0050", b"XVID"), "xvid_fourcc": (b"", b"XVID"), "divx": (b"DivX503b1393", b"DIVX")}
+
+
+def asp_clips() -> dict:
+    """name -> (bytes, oracle) of the MPEG-4 Advanced Simple profile clips
+    of libavcodec's mpeg4 encoder over the moving synthetic angiogram (see
+    ``asp_main``); oracle "cv2", or "planes" (libavcodec's planes) with the
+    packets to decode."""
+    def moving_clip(seed, n=12, h=48, w=64):
+        return moving(n, h, w, seed)
+
+    def avi(packets, w=64, h=48, fourcc=b"XVID", rate=25, scale=1):
+        return avi_bytes([d for d, _, _ in packets], w, h, rate, scale, fourcc)
+
+    bf2 = mpeg4_packets(moving_clip(71), {"bf": "2", "g": "8", "flags": "+mv4"})
+    bf1 = mpeg4_packets(moving_clip(72), {"bf": "1", "flags": "+qpel"})
+    out = {
+        "asp_bf2.avi": (avi(bf2), "cv2"),
+        "asp_bf2.mp4": (mp4_bytes(bf2, 64, 48, 25), "cv2"),
+        "asp_bf2_trim.mp4": (mp4_bytes(bf2, 64, 48, 25, trim=2), "cv2"),
+        "asp_bf2.mkv": (mkv_bytes("V_MPEG4/ISO/ASP", 64, 48, [(d, k, 40 * p) for d, k, p in bf2], doctype="matroska",
+                                  default_duration=40000000, duration=40 * len(bf2)), "cv2"),
+        "asp_bf2.mpg": (ps_bytes(bf2, 25), "cv2"),
+        "asp_bf1.avi": (avi(bf1, rate=30000, scale=1001), "cv2"),
+        "asp_bf1.mp4": (mp4_bytes(bf1, 64, 48, 30), "cv2"),
+        "asp_bf1.mkv": (mkv_bytes("V_MPEG4/ISO/ASP", 64, 48, [(d, k, 40 * p) for d, k, p in bf1], doctype="matroska",
+                                  default_duration=40000000, duration=40 * len(bf1)), "cv2"),
+        "asp_bf1.mpg": (ps_bytes(bf1, 25), "cv2"),
+        "asp_packed.avi": (avi_bytes(pack_divx([d for d, _, _ in mpeg4_packets(moving_clip(73), {"bf": "1"})]), 64, 48,
+                                     25, 1, b"DX50"), "cv2"),
+        "asp_mpegquant.avi": (avi(mpeg4_packets(moving_clip(74), {"mpeg_quant": "1", "bf": "1"})), "cv2"),
+        "asp_qpel.avi": (avi(mpeg4_packets(moving_clip(76), {"flags": "+qpel+mv4"})), "cv2"),
+        "asp_qpel_bf.avi": (avi(mpeg4_packets(moving_clip(77), {"flags": "+qpel+mv4", "bf": "2", "ps": "60"})), "cv2"),
+        "asp_dp.avi": (avi(mpeg4_packets(frames(12, 48, 64, 78), {"data_partitioning": "1", "ps": "60",
+                                                                  "flags": "+mv4"})), "cv2"),
+        "asp_odd97x63.avi": (avi(mpeg4_packets(moving_clip(79, 10, 63, 97), {"bf": "2", "flags": "+qpel+mv4"}), 97, 63),
+                             "cv2"),
+    }
+    loaded = [d for d, _, _ in mpeg4_packets(moving_clip(75), {"mpeg_quant": "1", "bf": "2"})]
+    loaded[0] = vol_matrices(loaded[0], [8] + [12 + i % 23 for i in range(1, 64)], [16 + 3 * i for i in range(20)] + [0])
+    out["asp_mpegquant_loaded.avi"] = (avi_bytes(loaded, 64, 48, 25, 1, b"XVID"), "cv2")
+    out["asp_es.m4v"] = (b"".join(d for d, _, _ in mpeg4_packets(moving_clip(80), {"bf": "2"})), "cv2")
+    for name, opts, seed in (("asp_ilace.avi", {"flags": "+ildct+ilme+mv4", "bf": "2"}, 81),
+                             ("asp_ilace_qpel.avi", {"flags": "+ildct+ilme+qpel", "bf": "1"}, 82),
+                             ("asp_altscan.avi", {"flags": "+ildct+ilme", "alternate_scan": "1", "mpeg_quant": "1"},
+                              83)):
+        packets = [d for d, _, _ in mpeg4_packets(woven(12, 48, 64, seed), opts)]
+        out[name] = (avi_bytes(packets, 64, 48, 25, 1, b"XVID"), ("planes", packets))
+    fresh = [d for d, _, _ in mpeg4_packets(moving_clip(84, 12, 63, 97), {"bf": "1", "flags": "+mv4"})]
+    for kind, (text, fourcc) in ASP_XVID.items():
+        out[f"asp_{kind}.avi"] = (avi_bytes([user_data(d, text) for d in fresh], 97, 63, 25, 1, fourcc), "cv2")
+    big = [d for d, _, _ in mpeg4_packets(moving(16, 512, 512, 85), {"bf": "2", "flags": "+qpel+mv4", "b": "400k",
+                                                                         "qmin": "10", "g": "16"})]
+    out["big512_asp.avi"] = (avi_bytes([user_data(d, b"XviD0050") for d in big], 512, 512, 25, 1, b"XVID"),
+                             "cv2")
+    return out
+
+
+def asp_rewrites() -> dict:
+    """name -> bytes of lavc_tools.avi and xvid.avi with their encoder's
+    identity rewritten three ways (``ASP_XVID``), which the tests make from
+    the committed clips and hold to the digests ``asp.json`` keeps."""
+    out = {}
+    for base in ("lavc_tools.avi", "xvid.avi"):
+        head, chunks = avi_parts((HERE / base).read_bytes())
+        for kind, (text, fourcc) in ASP_XVID.items():
+            out[f"{Path(base).stem}_{kind}.avi"] = pack_avi(head.replace(b"XVID", fourcc),
+                                                            [user_data(c, text) for c in chunks])
+    return out
+
+
+def asp_main() -> None:
+    """Writes the MPEG-4 Advanced Simple profile fixtures and their oracle,
+    ``asp.json``: the SHA-256 of each frame cv2 reads with its fps, count
+    and fourcc, or for the interlaced clips (which cv2 cannot convert) the
+    SHA-256 of libavcodec's planes; and the digests of the rewrites of
+    ``asp_rewrites``, leaving the other fixtures as they are."""
+    meta = {}
+    for name, (data, oracle) in asp_clips().items():
+        (HERE / name).write_bytes(data)
+        if oracle == "cv2":
+            imgs, meta[name] = cv2_read(HERE / name)
+            meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+            meta[name]["sha256"] = digests(imgs)
+        else:
+            planes = lavc_planes(oracle[1], b"XVID")
+            _, meta[name] = cv2_read(HERE / name)  # fps, count and fourcc; its frames are stale buffers
+            assert meta[name]["frames"] == len(planes)
+            meta[name]["oracle"] = "libavcodec's Y, U and V planes (cv2 cannot convert interlaced frames)"
+            meta[name]["planes_sha256"] = plane_digests(planes)
+    for name, data in asp_rewrites().items():
+        path = HERE / f"_{name}"
+        path.write_bytes(data)
+        imgs, meta[name] = cv2_read(path)
+        path.unlink()
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
+    (HERE / "asp.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
+
+
 def main() -> None:
     """Writes every fixture. cv2's Matroska writer draws random UIDs, so
     its ``.mkv`` / ``.webm`` files come out with other bytes (the same
@@ -684,4 +1014,4 @@ def mpeg_main() -> None:
 if __name__ == "__main__":
     import sys
 
-    mpeg_main() if sys.argv[1:] == ["mpeg"] else main()
+    {"mpeg": mpeg_main, "asp": asp_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
