@@ -235,6 +235,15 @@ Then the baseline toolchain and the experiment grid:
              apart; ``cli.predict`` on the seeded flagship over an XviD
              512 px ``.avi`` and a packed DivX one (launches exact, boxes
              against the predictor's).
+21. wmv —    ASF and the MS-MPEG-4 family (``native/msmpeg4.cpp``,
+             ``native/h263.h``, ``data/video_io.py``'s ASF demuxer): the
+             committed fixtures of ``tests/video_fixtures/wmv.json`` (WMV1,
+             WMV2, MP42, MP43 in ASF, AVI and Matroska; mp4v, XVID, MJPG
+             and MPEG-1/2 in ASF) equal to cv2's frame digests, fps, counts and fourccs;
+             decode ms a picture at 512 px, I and P apart, for WMV2 and
+             MP43; ``cli.predict`` on the seeded flagship over a WMV2
+             ``.wmv`` and an MP43 ``.avi`` (launches exact, boxes against
+             the predictor's); the writer's ``.wmv`` read back.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -251,8 +260,9 @@ over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
 images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
-``--matroska-alone``, ``--mpeg-alone`` and ``--asp-alone`` run
-``[matroska]``, ``[mpeg]`` and ``[asp]`` alone.
+``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone`` and
+``--wmv-alone`` run ``[matroska]``, ``[mpeg]``, ``[asp]`` and ``[wmv]``
+alone.
 """
 
 from __future__ import annotations
@@ -4124,6 +4134,118 @@ def asp_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     return counts
 
 
+def wmv_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """ASF and the MS-MPEG-4 family on the card's host (``native/msmpeg4.cpp``,
+    ``native/h263.h``, ``data/video_io.py``'s ASF demuxer) and ``cli.predict``
+    over ``.wmv`` and ``.avi`` clips on the flagship.
+
+    (a) each committed fixture of ``tests/video_fixtures/wmv.json`` (cv2's
+    WMV1, WMV2, MP42 and MP43 in ASF, AVI and Matroska, mp4v at 12.5, 7 and
+    29.97 fps, XVID, MJPG, MPEG-1 and MPEG-2 in ASF, libavcodec's encoders
+    at fixed quantisers)
+    decoded and held to cv2's frame digests, fps, count and fourcc. (b)
+    decode on one host thread, ms a picture at 512 px, I and P apart, for
+    WMV2 (wmv_big512.wmv, its frames over several ASF packets) and MP43
+    (wmv_big512_mp43.avi). (c) ``cli.predict`` on ``best`` over the two (8
+    frames each): each frame's boxes equal to the predictor's on the frames
+    decoded anew, CAM-gate launches exactly 3 a batch. (d) the writer's
+    ``.wmv`` (mp4v in ASF) read back: 12 frames equal to its ``.mp4`` of
+    the same frames read back, at the input's PSNR. Returns (c)'s launches."""
+    import hashlib
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.data.video_io import VideoReader, VideoWriter
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    # (a) the fixtures against cv2's digests, fps, counts and fourccs
+    meta = json.loads((VIDEO_FIXTURES / "wmv.json").read_text())
+    clips = sorted(meta)
+    check(len(clips) >= 30, f"[wmv] {len(clips)} WMV fixtures")
+    tally: dict = {}
+    n_frames = 0
+    for name in clips:
+        m = meta[name]
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in r]
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[wmv] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m['fps'], m['total']}")
+            for k, v in getattr(r, "msmpeg4_tally", {}).items():
+                tally[k] = tally.get(k, 0) + v
+        check(got == m["sha256"], f"[wmv] {name}: frames differ from cv2's digests")
+        n_frames += len(got)
+    check(all(tally.get(k) for k in native.MSMPEG4_TALLY), f"[wmv] tools not decoded: {tally}")
+    print(f"[wmv] (a) {len(clips)} ASF / MS-MPEG-4 family fixtures ({n_frames} frames) decoded on this host with "
+          f"{native.library_path().name}, each frame equal to cv2's digest, fps, count and fourcc as cv2's; "
+          f"MS-MPEG-4 features decoded: " + ", ".join(f"{k} {v}" for k, v in tally.items()))
+
+    # (b) decode times at 512 px, I and P-pictures apart, WMV2 and MP43
+    med = {}
+    for name, fourcc in (("wmv_big512.wmv", b"WMV2"), ("wmv_big512_mp43.avi", b"MP43")):
+        with VideoReader(VIDEO_FIXTURES / name) as big:
+            chunks = [big._sample(s) for s in big.samples]
+            extradata, size = big.extradata, big.size
+        times: dict = {0: [], 1: []}
+        conv = []
+        for _ in range(MKV_TIMING_REPS):
+            dec = native.MsMpeg4Decoder(fourcc, extradata, size)
+            for c in chunks:
+                t0 = time.perf_counter()
+                (y, u, v), kind = dec.decode(c)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                native.yuv_to_bgr(y, u, v, full_range=False)
+                conv.append((time.perf_counter() - t0) * 1e3)
+            dec.close()
+        check(all(times.values()), f"[wmv] {name}: pictures timed {[len(v) for v in times.values()]}")
+        med[fourcc.decode()] = [sorted(times[k])[len(times[k]) // 2] for k in (0, 1)] + \
+            [sorted(conv)[len(conv) // 2], len(times[0]), len(times[1])]
+    print(f"[wmv] (b) decode on one host thread, {card}, 512x512: " + "; ".join(
+        f"{k} {i:.3f} ms an I-picture, {p:.3f} ms a P-picture, {c:.3f} ms the BGR conversion (medians of {ni} and "
+        f"{npp})" for k, (i, p, c, ni, npp) in med.items()))
+
+    # (c) cli.predict over the WMV2 .wmv and the MP43 .avi on the flagship
+    src = tmp / "wmv_src"
+    src.mkdir()
+    for name in ("wmv_big512.wmv", "wmv_big512_mp43.avi"):
+        (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
+    out_dir = tmp / "wmv_predict"
+    n_video = 8 + 8
+    n_batches = -(-n_video // TRAIN_BATCH)
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "wmv", n_video)
+    check(written == {"wmv_big512_pred.mp4", "wmv_big512_mp43_pred.avi"}, f"[wmv] cli.predict wrote {sorted(written)}")
+    check(lines[-3:] == ["wmv_big512.wmv: 8 frames -> wmv_big512_pred.mp4",
+                         "wmv_big512_mp43.avi: 8 frames -> wmv_big512_mp43_pred.avi",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[wmv] cli.predict summary {lines[-3:]}")
+    print(f"[wmv] (c) cli.predict on the seeded flagship over wmv_big512.wmv (WMV2 in ASF) and wmv_big512_mp43.avi "
+          f"(MP43 in AVI), 8 frames each of {VIDEO_SIZE}x{VIDEO_SIZE}: {sorted(written)} as the JAX package names "
+          f"them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew (max abs error "
+          f"{err:.3g}); launches {counts} ({n_batches} batches of {TRAIN_BATCH}); {n_video / wall:.1f} frames/s on "
+          f"one host thread, model load included ({wall:.2f} s), {card}")
+
+    # (d) the writer's .wmv read back, against its .mp4 of the same frames
+    ramp = 40 + np.add.outer(np.arange(48) * 2, np.arange(64) * 1.5)  # smooth ramps, brighter a little each frame
+    imgs = [np.stack([ramp + 5 * i + 10 * c for c in range(3)], -1).astype(np.uint8) for i in range(12)]
+    back = {}
+    for suffix in (".wmv", ".mp4"):
+        with VideoWriter(tmp / f"written{suffix}", 25, (64, 48)) as vw:
+            for img in imgs:
+                vw.write(img)
+        with VideoReader(tmp / f"written{suffix}") as r:
+            back[suffix] = (list(r), r.fps, r.total, r.container)
+    frames_wmv, fps, total, container = back[".wmv"]
+    mse = float(np.mean([(a.astype(np.float64) - b) ** 2 for a, b in zip(frames_wmv, imgs)]))
+    psnr = 10 * float(np.log10(255 ** 2 / mse))
+    check(container == "ASF" and (fps, total) == (25.0, 12) and len(frames_wmv) == 12 and
+          all((a == b).all() for a, b in zip(frames_wmv, back[".mp4"][0])) and psnr >= 30,
+          f"[wmv] the writer's .wmv read back: {container}, {fps} fps, {total} frames, PSNR {psnr:.1f}")
+    print(f"[wmv] (d) the writer's .wmv (mp4v in ASF) read back: 12 frames at {fps} fps, equal to its .mp4 of the "
+          f"same frames read back, PSNR {psnr:.1f} dB against the frames written")
+    print(f"[wmv] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -4165,7 +4287,7 @@ def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
     ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
     64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship),
-    ``[matroska]``, ``[mpeg]`` or ``[asp]`` (the seeded flagship)."""
+    ``[matroska]``, ``[mpeg]``, ``[asp]`` or ``[wmv]`` (the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -4176,8 +4298,8 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag in ("matroska", "mpeg", "asp"):
-            {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase}[tag](
+        if tag in ("matroska", "mpeg", "asp", "wmv"):
+            {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase, "wmv": wmv_phase}[tag](
                 torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
@@ -4277,9 +4399,10 @@ def main() -> int:
         paths["matroska"] = matroska_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mkv_seeded.pt"), Path(tmp))
         paths["mpeg"] = mpeg_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mpeg_seeded.pt"), Path(tmp))
         paths["asp"] = asp_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "asp_seeded.pt"), Path(tmp))
+        paths["wmv"] = wmv_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "wmv_seeded.pt"), Path(tmp))
     # each kernel's launches are those of this slice's path first (cli.predict
-    # over an XviD and a packed DivX .avi), then the earlier slices'
-    # (cli.predict over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
+    # over a WMV2 .wmv and an MP43 .avi), then the earlier slices' (cli.predict
+    # over an XviD and a packed DivX .avi, over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
     # and an MJPEG .mkv, uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
     # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
@@ -4291,7 +4414,7 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("wmv", "asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -4311,7 +4434,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
                         ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"],
-                        ["--asp-alone"]):
+                        ["--asp-alone"], ["--wmv-alone"]):
         import torch
 
         if not torch.cuda.is_available():

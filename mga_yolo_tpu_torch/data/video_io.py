@@ -1,7 +1,7 @@
 """Video files without OpenCV: the containers in Python, the codecs in the
 host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``,
-``native/mpeg12.cpp``, ``native/vp8.cpp``, ``native/gif.cpp``,
-``native/yuv.cpp``).
+``native/mpeg12.cpp``, ``native/msmpeg4.cpp``, ``native/vp8.cpp``,
+``native/gif.cpp``, ``native/yuv.cpp``).
 
 The card's host has no OpenCV and no libavcodec, so the port reads and
 writes the video files the JAX package reads and writes through
@@ -38,6 +38,13 @@ writes the video files the JAX package reads and writes through
   tracks of those codecs, and ``V_UNCOMPRESSED`` I420 (what cv2's writer
   puts in ``.mkv`` for a fourcc of 0). See :meth:`VideoReader._open_mkv`
   for cv2's fps and frame count.
+* It reads ASF (``.wmv``, ``.asf``; by its signature, whatever the suffix:
+  the first video stream's frames put together from the fixed-size data
+  packets) holding the MS-MPEG-4 family (``native.MsMpeg4Decoder``: MS
+  MPEG-4 v2 and v3, WMV1, WMV2, as ffmpeg's own encoders write them),
+  mp4v, MJPEG or MPEG-1/2; the family reads in AVI and Matroska too (its
+  RIFF tags, ``V_MPEG4/MS/V3``). See :meth:`VideoReader._open_asf` for
+  cv2's fps and frame count.
 * :class:`VideoWriter` writes what ``VideoSink`` asks cv2 for, by suffix:
   ``.avi`` as MJPG (``encode_jpeg``'s frames, an ``idx1`` index), ``.mkv``
   as mp4v in Matroska, ``.mp4``, ``.mov`` and ``.m4v`` as mp4v in an MP4
@@ -55,11 +62,15 @@ writes the video files the JAX package reads and writes through
   :meth:`VideoReader._gif_frames`), with its frame count, frame rate and
   fourcc ``gif ``.
 
-H.264 / HEVC, MPEG-4 GMC and RVLC, VP9, AV1, FFV1, fragmented MP4, interlaced MJPEG, Matroska's
-content encodings and laced blocks, MPEG-2 field pictures, dual-prime
-prediction, scalable extensions, 4:4:4 and D-pictures, and ASF / WMV raise
-``ValueError`` naming the file, its container and its codec, as do
-truncated and corrupt files (libavcodec conceals damage; the port refuses).
+H.264 / HEVC, MPEG-4 GMC and RVLC, VP9, AV1, FFV1, HuffYUV, VC-1 / WMV9,
+MS MPEG-4 v1, the MS-MPEG-4 tools ffmpeg's encoders never write (AC
+prediction, DC and vector table 0, WMV2's J-pictures, ABT, mspel, ...),
+fragmented MP4, interlaced MJPEG, Matroska's content encodings and laced
+blocks, ASF's compressed payloads, payload extensions and encryption,
+MPEG-2 field pictures, dual-prime prediction, scalable extensions, 4:4:4
+and D-pictures raise ``ValueError`` naming the file, its container and its
+codec, as do truncated and corrupt files (libavcodec conceals damage; the
+port refuses).
 Frames of odd height take swscale's scaled path as cv2's do
 (``native.yuv_to_bgr``), but for full-range (MJPEG), 4:2:2 and very short
 (under 9 rows) ones, which keep the unscaled rule (``ROADMAP.md`` section 3).
@@ -89,20 +100,24 @@ I420_TAGS = {b"I420", b"IYUV", b"i420", b"iyuv"}
 MPEG12_TAGS = {b"mpg1", b"MPG1", b"PIM1", b"VCR2", b"mpg2", b"MPG2", b"PIM2", b"DVR ", b"MMES", b"mmes", b"LMP2",
                b"slif", b"MPEG", b"mpeg", b"hdv1", b"hdv2", b"hdv3", b"hdv5", b"hdv6", b"hdv7", b"hdv8", b"hdv9",
                b"xdv1", b"xdv2", b"xdv3", b"xdv4", b"xdv5", b"xdv6", b"xdv7", b"xdv8", b"xdv9", b"xdva", b"xdvb",
-               b"xdvc", b"xdvd", b"xdve", b"xdvf", b"mx5p", b"MPG3", b"BW10"}
+               b"xdvc", b"xdvd", b"xdve", b"xdvf", b"mx5p", b"BW10"}
 # the esds objectTypeIndication of MPEG-2 (0x60-0x65: its profiles) and MPEG-1 (0x6A) video in MP4
 MP4_MPEG12_OTI = {0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A}
 # frame_rate_code 1-8 of a sequence header, as fractions
 MPEG12_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001), 5: (30, 1), 6: (50, 1), 7: (60000, 1001),
                 8: (60, 1)}
 NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.264", b"X264": "H.264",
-              b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"DIV3": "MS MPEG-4 v3",
-              b"MP42": "MS MPEG-4 v2", b"WMV3": "WMV9", b"vp09": "VP9", b"av01": "AV1"}
+              b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"MP41": "MS MPEG-4 v1",
+              b"MPG4": "MS MPEG-4 v1", b"WMV3": "VC-1 / WMV9", b"WVC1": "VC-1 / WMV9", b"WMVA": "VC-1 / WMV9",
+              b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1", b"FFV1": "FFV1", b"HFYU": "HuffYUV",
+              b"FFVH": "HuffYUV", b"FLV1": "FLV1 (Sorenson H.263)"}
+# the MS-MPEG-4 family's codecs by native.MSMPEG4_VERSIONS' version
+MSMPEG4_CODECS = {2: "msmpeg4v2", 3: "msmpeg4v3", 4: "wmv1", 5: "wmv2"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
 CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif ",
-              "vp8": b"VP80", "mpeg1": b"mpg1", "mpeg2": b"mpg2"}
-REFUSED_CONTAINERS = {".wmv": "ASF/WMV"}
-_SIGNATURES = ((b"\x30\x26\xb2\x75", "ASF/WMV"),)
+              "vp8": b"VP80", "mpeg1": b"mpg1", "mpeg2": b"mpg2", "msmpeg4v2": b"MP42", "msmpeg4v3": b"MP43",
+              "wmv1": b"wmv1", "wmv2": b"wmv2"}
+ASF_MAGIC = b"\x30\x26\xb2\x75"
 PS_PACK, PS_END, PS_SYSTEM = 0xBA, 0xB9, 0xBB
 PS_TICKS = 90000  # the system clock's PTS / DTS units a second
 EBML_MAGIC = b"\x1a\x45\xdf\xa3"
@@ -118,7 +133,7 @@ MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead":
        "CueClusterPosition": 0xF1, "Tags": 0x1254C367, "Chapters": 0x1043A770, "Attachments": 0x1941A469}
 MKV_TOP_LEVEL = {MKV[k] for k in ("SeekHead", "Info", "Tracks", "Cluster", "Cues", "Tags", "Chapters", "Attachments")}
 MKV_CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4",
-              "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12"}
+              "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12", "V_MPEG4/MS/V3": "msmpeg4v3"}
 MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
              "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MS/VFW/FOURCC": "VfW"}
 # ffmpeg's standard frame rates (get_std_framerate), as fractions over 12 * 1001
@@ -154,7 +169,8 @@ def _codec_of(tag: bytes) -> Optional[str]:
         return "i420"
     if tag in MPEG12_TAGS:
         return "mpeg12"
-    return None
+    version = native.MSMPEG4_VERSIONS.get(tag.upper())
+    return MSMPEG4_CODECS[version] if version else None
 
 
 def mpeg12_kind(data: bytes) -> Optional[str]:
@@ -171,9 +187,17 @@ def mpeg12_kind(data: bytes) -> Optional[str]:
 def vol_header(data: bytes) -> Tuple[int, int, int]:
     """(vop_time_increment_resolution, width, height) of the first MPEG-4 VOL
     in data ((0, 0, 0) without one)."""
+    res, _, w, h = vol_fields(data)
+    return res, w, h
+
+
+def vol_fields(data: bytes) -> Tuple[int, int, int, int]:
+    """(vop_time_increment_resolution, fixed_vop_time_increment (0 without a
+    fixed rate), width, height) of the first MPEG-4 VOL in data (zeros
+    without one)."""
     m = re.search(rb"\x00\x00\x01[\x20-\x2f]", data)
     if m is None:
-        return 0, 0, 0
+        return 0, 0, 0, 0
     bits = "".join(f"{b:08b}" for b in data[m.end():m.end() + 32])
     p = 1 + 8  # random_accessible_vol, video_object_type_indication
     p += 1 + (7 if bits[p] == "1" else 0)  # is_object_layer_identifier: verid, priority
@@ -186,9 +210,14 @@ def vol_header(data: bytes) -> Tuple[int, int, int]:
     p += 2 + 1  # video_object_layer_shape, marker
     res = int(bits[p:p + 16] or "0", 2)
     p += 16 + 1  # marker
-    p += 1 + (max(1, (res - 1).bit_length()) if bits[p:p + 1] == "1" else 0)  # fixed_vop_rate
+    fixed = 0
+    if bits[p:p + 1] == "1":  # fixed_vop_rate, fixed_vop_time_increment
+        k = max(1, (res - 1).bit_length())
+        fixed = int(bits[p + 1:p + 1 + k] or "0", 2)
+        p += k
+    p += 1
     w, h = int(bits[p + 1:p + 14] or "0", 2), int(bits[p + 15:p + 28] or "0", 2)
-    return res, w, h
+    return res, fixed, w, h
 
 
 def vol_time_resolution(data: bytes) -> int:
@@ -304,17 +333,22 @@ class VideoReader:
         elif head.startswith(b"\x00\x00\x01") and (head[3] <= 0x2F or head[3] in (0xB0, 0xB2, 0xB5, 0xB6)):
             self.container = "MPEG-4 video"
             self._open_m4v()
+        elif head.startswith(ASF_MAGIC):
+            self.container = "ASF"
+            self._open_asf()
         else:
-            what = next((n for s, n in _SIGNATURES if head.startswith(s)), None)
-            what = what or REFUSED_CONTAINERS.get(self.path.suffix.lower())
-            if what:
-                raise ValueError(f"{self.path}: the {what} container is not supported (the port reads GIF, AVI, "
-                                 f"MP4/MOV, MPEG-PS and Matroska/WebM)")
             raise ValueError(f"{self.path}: not a video file the port reads (GIF, AVI, MP4, MOV, MPEG-PS, MPEG "
-                             f"video, MPEG-4 video, Matroska, WebM)")
+                             f"video, MPEG-4 video, Matroska, WebM, ASF / WMV)")
         if self.codec == "mpeg12":
             self.codec = self._mpeg12_kind()
         self.fourcc = CV2_FOURCC[self.codec]
+
+    def _sample(self, sample) -> bytes:
+        """A sample's bytes: (offset, size), or an ASF frame's fragments as a
+        tuple of them."""
+        if isinstance(sample[0], tuple):
+            return b"".join(self._read(o, n) for o, n in sample)
+        return self._read(*sample)
 
     def _refuse(self, what: str) -> NoReturn:
         raise ValueError(f"{self.path}: {self.container} with {what} is not supported")
@@ -386,7 +420,7 @@ class VideoReader:
             if self.codec is None:
                 name = NAMED_TAGS.get(tag, NAMED_TAGS.get(handler, f"the '{_tag(tag)}' codec"))
                 self._refuse(f"{name} video ('{_tag(tag)}')")
-            if self.codec == "mpeg4" and len(strf) > 40:
+            if self.codec not in ("mjpeg", "i420", "mpeg12") and len(strf) > 40:
                 self.extradata = strf[40:]
             self.codec_tag = tag
         self.size = (abs(width), abs(height))
@@ -816,7 +850,7 @@ class VideoReader:
             self.codec = "i420"
         if self.codec is None:
             self._refuse(f"{MKV_NAMED.get(cid, f'the {cid!r} codec')} video ('{cid}')")
-        if self.codec in ("mpeg4", "mpeg12"):
+        if self.codec not in ("mjpeg", "i420", "vp8"):
             self.extradata = private
 
     def _mkv_cluster(self, off: int, size: Optional[int], seg_end: int, blocks: list) -> int:
@@ -1057,7 +1091,7 @@ class VideoReader:
         return w, h
 
     def _mpeg12_kind(self) -> str:
-        data = self.extradata + b"".join(self._read(o, n) for o, n in self.samples[:4])
+        data = self.extradata + b"".join(map(self._sample, self.samples[:4]))
         kind = mpeg12_kind(data)
         if kind is None:
             raise ValueError(f"{self.path}: {self.container} with MPEG-1/2 video without a sequence header")
@@ -1087,7 +1121,7 @@ class VideoReader:
         dec = native.Mpeg12Decoder()
         try:
             chunks = self._es_chunks(b"\x00\x00\x01\x00") if self.container in ("MPEG-PS", "MPEG video") else \
-                (self._read(o, n) for o, n in self.samples)
+                map(self._sample, self.samples)
             for chunk in itertools.chain([self.extradata] if self.extradata else [], chunks):
                 try:
                     got = dec.decode(chunk)
@@ -1100,6 +1134,248 @@ class VideoReader:
             self.mpeg12_tally = dec.tally()
         finally:
             dec.close()
+
+    # ---- ASF
+
+    def _asf_objects(self, off: int, end: int) -> Iterator[Tuple[bytes, int, int]]:
+        """(GUID, data offset, data size) of the objects in [off, end)."""
+        while off + 24 <= end:
+            guid, n = self._read(off, 16), struct.unpack("<Q", self._read(off + 16, 8))[0]
+            if n < 24 or off + n > end:
+                raise ValueError(f"{self.path}: corrupt or truncated ASF file (an object of {n} bytes at {off})")
+            yield guid, off + 24, n - 24
+            off += n
+
+    def _open_asf(self) -> None:
+        """ASF (``.wmv``, ``.asf``) as ffmpeg's asf demuxer reads it for cv2:
+        the Header Object's File Properties (preroll, packet size, play
+        duration) and first video Stream Properties (a BITMAPINFOHEADER and
+        its extradata), then the Data Object's packets of that size: error
+        correction data, the length types, several payloads a packet, each a
+        fragment of a media object (a frame) with the object's size and
+        presentation time, put together by object number and offset, and
+        padding; other streams' payloads skipped. A frame's time is its
+        presentation time less the preroll (ms).
+
+        ``fps`` is ffmpeg's frame rate as cv2 reads it. For mp4v it comes
+        from the packets' durations, which ffmpeg's mpeg4 parser derives from
+        the VOL's time resolution (1000 / resolution ms, rounded down, where
+        that is at least 1 ms), rounded to a standard rate within 1 %: 25
+        for a clip written at 12.5 fps (a resolution of 25), 85/12 for 7
+        fps. For MPEG-1 it is the sequence header's rate in fields (50 for
+        25: ffmpeg trusts that rate). For the others, and mp4v whose
+        resolution is 1000 or more, it is the rate ffmpeg's r_frame_rate
+        estimate picks from the first frames' millisecond times
+        (:meth:`_asf_rate`): 359/12 (29.9167) for 8 frames at 29.97.
+        ``total`` is cv2's floor(duration * fps + 0.5) over the File
+        Properties' play duration less the preroll. Measured against cv2 at
+        25, 29.97, 12.5 and 7 fps for mp4v, MJPEG and the MS-MPEG-4 family,
+        and at 25 for XVID, MPEG-1 and MPEG-2."""
+        g = ASF_GUID
+        guid, n = struct.unpack("<16sQ", self._read(0, 24))
+        if guid != g["header"] or n < 30 or n > self._size:
+            raise ValueError(f"{self.path}: corrupt or truncated ASF file (a Header Object of {n} bytes)")
+        fileprops = stream = None
+        for oguid, o, size in self._asf_objects(30, n):
+            if oguid == g["file"]:
+                fileprops = self._read(o, size)
+            elif oguid == g["stream"] and stream is None:
+                body = self._read(o, size)
+                if body[:16] == g["video"]:
+                    stream = body
+            elif oguid == g["extension"]:
+                for eguid, _, _ in self._asf_objects(o + 22, o + size):
+                    if eguid == g["ext_stream"]:
+                        self._refuse("Extended Stream Properties (payload extensions)")
+            elif oguid in (g["encryption"], g["ext_encryption"]):
+                self._refuse("content encryption")
+        if fileprops is None or len(fileprops) < 80:
+            raise ValueError(f"{self.path}: corrupt ASF file (no File Properties)")
+        file_size, _, _, play, _, preroll, flags, packet, max_packet = struct.unpack("<QQQQQQIII", fileprops[16:76])
+        if flags & 1:
+            self._refuse("a broadcast (live) stream, of no duration")
+        if abs(self._size - file_size) >= min(self._size, file_size) / 20:
+            raise ValueError(f"{self.path}: truncated ASF file ({self._size} bytes of the {file_size} its header "
+                             f"gives)")
+        if packet != max_packet or packet < 24:
+            self._refuse(f"packets of varying size ({packet} to {max_packet} bytes)")
+        if stream is None:
+            raise ValueError(f"{self.path}: ASF file without a video stream")
+        ts_len, _, sflags = struct.unpack("<IIH", stream[40:50])
+        number = sflags & 0x7F
+        if sflags & 0x8000:
+            self._refuse("an encrypted video stream")
+        specific = stream[54:54 + ts_len]
+        width, height, _, fmt_size = struct.unpack("<IIBH", specific[:11])
+        bih = specific[11:11 + fmt_size]
+        if len(bih) < 40:
+            raise ValueError(f"{self.path}: corrupt ASF file (a BITMAPINFOHEADER of {len(bih)} bytes)")
+        tag = bih[16:20]
+        self.codec = _codec_of(tag)
+        if self.codec in (None, "i420"):
+            self._refuse(f"{NAMED_TAGS.get(tag, f'the {_tag(tag)!r} codec')} video ('{_tag(tag)}')")
+        self.codec_tag = tag
+        self.extradata = bih[40:struct.unpack("<I", bih[:4])[0]]
+        bw, bh = struct.unpack("<ii", bih[4:12])
+        self.size = (abs(bw) or width, abs(bh) or height)
+        # the Data Object: its header, then packets of the fixed size
+        data = n
+        guid, dsize = struct.unpack("<16sQ", self._read(data, 24))
+        if guid != g["data"] or dsize < 50:
+            raise ValueError(f"{self.path}: corrupt ASF file (no Data Object after the header)")
+        end = min(self._size, data + dsize)
+        frames, pending = [], {}  # (time ms, data offsets and sizes), object number -> [size, time, parts, filled]
+        for p in range(data + 50, end - packet + 1, packet):
+            for obj, off, size, osize, ms, pos in self._asf_payloads(self._read(p, packet), p, packet, number):
+                got = pending.get(obj)
+                if got is None:
+                    if off:
+                        raise ValueError(f"{self.path}: corrupt ASF file (object {obj} starts at offset {off})")
+                    got = pending[obj] = [osize, ms, [], 0]
+                if off != got[3] or off + size > got[0]:
+                    raise ValueError(f"{self.path}: corrupt ASF file (a fragment of object {obj} at {off} of "
+                                     f"{got[0]} bytes, {got[3]} put together)")
+                got[2].append((pos, size))
+                got[3] += size
+                if got[3] == got[0]:
+                    frames.append((got[1], got[2]))
+                    del pending[obj]
+        if pending or (end - data - 50) % packet:
+            raise ValueError(f"{self.path}: truncated ASF file (a frame or a packet cut short)")
+        self.samples = [parts[0] if len(parts) == 1 else tuple(parts) for _, parts in frames]
+        stamps = [ms - preroll for ms, _ in frames]
+        # the decoder's frame rate: mp4v's from its VOL, MPEG-1/2's from the
+        # sequence header (doubled: ffmpeg counts their fields), none for the others
+        rate, mpeg2 = (0, 1), False
+        if self.codec == "mpeg4":
+            res, fixed = vol_fields(self.extradata)[:2]
+            rate = (res, fixed or 1)
+        elif self.codec == "mpeg12" and self.samples:
+            head = self.extradata + self._sample(self.samples[0])
+            num, den = mpeg12_rate(head)
+            rate, mpeg2 = (2 * num, den), mpeg12_kind(head) == "mpeg2"
+        # a packet's duration as ffmpeg's mpeg4 parser gives it (ms, rounded
+        # down); the other codecs have no parser in ASF, and so none
+        duration = 1000 * rate[1] // rate[0] if self.codec == "mpeg4" and rate[0] and rate[1] * 1000 > rate[0] else 0
+        # ffmpeg estimates r_frame_rate from the times unless the decoder's rate
+        # is a time base it trusts (tb_unreliable: 5 to 100 fps, not mp4v, not MPEG-2)
+        trusted = 5 * rate[1] <= rate[0] < 101 * rate[1] and tag != b"mp4v" and not mpeg2
+        num, den = self._asf_rate(stamps, duration, not trusted)
+        if not num:  # r_frame_rate then: the decoder's rate if at most 1000, else the time base's
+            num, den = rate if rate[0] and rate[0] <= 1000 * rate[1] else (1000, 1)
+        self.fps = num / den
+        seconds = (play // 10000 - preroll) / 1000
+        self.total = int(math.floor(seconds * self.fps + 0.5))
+
+    def _asf_payloads(self, pk: bytes, at: int, packet: int, number: int):
+        """(object number, offset in the object, size, object size, time ms,
+        file offset) of each payload of stream ``number`` in the data packet
+        pk (at file offset ``at``), as ffmpeg's asf_get_packet and
+        asf_read_frame_header read them."""
+        def field(kind: int, p: int) -> Tuple[int, int]:
+            k = (0, 1, 2, 4)[kind & 3]
+            return (int.from_bytes(pk[p:p + k], "little") if k else 0), p + k
+
+        p = 0
+        if pk[0] & 0x80:  # error correction data: ffmpeg's muxer writes two bytes (0x82, then 0, 0)
+            if (pk[0] & 0x8F) != 0x82 or pk[1] or pk[2]:
+                raise ValueError(f"{self.path}: corrupt ASF file (error correction data 0x{pk[0]:02x} in the packet "
+                                 f"at {at})")
+            p = 3
+        lflags, prop = pk[p], pk[p + 1]
+        length, p = field(lflags >> 5, p + 2)
+        _, p = field(lflags >> 1, p)  # sequence
+        padding, p = field(lflags >> 3, p)
+        p += 6  # send time, duration
+        length = length or packet
+        if length > packet or padding >= length:
+            raise ValueError(f"{self.path}: corrupt ASF file (a packet of {length} bytes, {padding} of padding, "
+                             f"at {at})")
+        single = not lflags & 1  # one payload, to the packet's end (before its padding)
+        count, kind = (1, 0) if single else (pk[p] & 0x3F, pk[p] >> 6)
+        p += 0 if single else 1
+        stop = length - padding
+        for _ in range(count):
+            stream = pk[p] & 0x7F
+            obj, p = field(prop >> 4, p + 1)
+            off, p = field(prop >> 2, p)
+            rep, p = field(prop, p)
+            if rep == 1:
+                self._refuse("compressed payloads")
+            if rep and rep < 8:
+                raise ValueError(f"{self.path}: corrupt ASF file (replicated data of {rep} bytes at {at + p})")
+            osize, ms = struct.unpack("<II", pk[p:p + 8]) if rep else (0, 0)
+            p += rep
+            size, p = (stop - p, p) if single else field(kind, p)
+            if p + size > stop or not rep:
+                raise ValueError(f"{self.path}: corrupt ASF file (a payload of {size} bytes at {at + p})")
+            if stream == number:
+                yield obj, off, size, osize, ms, at + p
+            p += size
+
+    @staticmethod
+    def _asf_rate(stamps: list, duration: int, estimate: bool) -> Tuple[int, int]:
+        """ffmpeg's frame rate of a stream of millisecond times, as
+        avformat_find_stream_info estimates it over the frames it reads (up
+        to 41 of them, or until the packets' durations add up to 5 s):
+        with ``duration`` (each packet's, in ms) the mean rate rounded to a
+        standard rate within 1 %; without, with ``estimate``, r_frame_rate
+        from ff_rfps_calculate (the standard rate whose frame times fit the
+        timestamps best), which becomes the average rate when its period is
+        within 1 ms of the mean interval; else (0, 1)."""
+        dts, total = [], 0
+        for k, t in enumerate(stamps[:41]):
+            if k >= 2:
+                if total * 1000 >= 5000000:
+                    break
+                total += duration
+            dts.append(t)
+        if total:
+            rate = len(dts[2:]) * 1000 / total
+            best, best_error = 0, 0.01
+            for std in _STD_RATES:
+                error = abs(rate / (std / (12 * 1001)) - 1)
+                if error < best_error:
+                    best, best_error = std, error
+            return av_reduce(best, 12 * 1001, 2 ** 31 - 1) if best else av_reduce(len(dts[2:]) * 1000, total, 60000)
+        if not estimate:
+            return 0, 1
+        rates = np.array(_STD_RATES, np.float64)
+        err = np.zeros((2, 2, len(rates)))
+        alive = np.ones(len(rates), bool)
+        n, summed, gcd, last = 0, 0, 0, None
+        for t in dts:
+            if last is not None and t > last:
+                sdts = t / 1000 * rates / (12 * 1001)
+                for j in (0, 1):
+                    e = sdts - np.rint(sdts + j * 0.5) + j * 0.5
+                    err[j, 0] += np.where(alive, e, 0)
+                    err[j, 1] += np.where(alive, e * e, 0)
+                n += 1
+                summed += t - last
+                if n % 10 == 0:
+                    var = err[:, 1] / n - (err[:, 0] / n) ** 2
+                    alive &= ~((var[0] > 0.04) & (var[1] > 0.04))
+                if n > 3:
+                    gcd = math.gcd(gcd, t - last)
+            last = t
+        if n > 15 and gcd > 2:
+            r = av_reduce(1000, gcd, 2 ** 31 - 1)
+        else:
+            r = (0, 1)
+            if n > 1:
+                best, best_error = 0, 0.01
+                for i, std in enumerate(_STD_RATES):
+                    if not alive[i] or std < 12 * 1001 or summed / n / 1000 < 12 * 1001 * 0.8 / std:
+                        continue
+                    for j in (0, 1):
+                        a = err[j, 0, i] / n
+                        error = err[j, 1, i] / n - a * a
+                        if error < best_error and best_error > 1e-9:
+                            best, best_error = std, error
+                if best and best / (12 * 1001) < 1.01 * 1000:
+                    r = av_reduce(best, 12 * 1001, 2 ** 31 - 1)
+        return r  # also the average rate when it is within 1 ms of the mean interval; cv2 takes it either way
 
     # ---- GIF
 
@@ -1183,13 +1459,15 @@ class VideoReader:
         if self.codec == "vp8":
             yield from self._vp8_frames()
             return
+        if self.codec in MSMPEG4_CODECS.values():
+            yield from self._msmpeg4_frames()
+            return
         if self.codec in ("mpeg1", "mpeg2"):
             yield from self._mpeg12_frames()
             return
         order = self.shown if self.shown is not None else range(len(self.samples))
         for i in order:
-            o, n = self.samples[i]
-            data = self._read(o, n)
+            data = self._sample(self.samples[i])
             try:
                 img = self._still(data)
             except ValueError as e:
@@ -1273,7 +1551,7 @@ class VideoReader:
             if self.extradata:
                 dec.decode(self.extradata)
             chunks = self._mpeg4_chunks() if self.container in ("MPEG-PS", "MPEG-4 video") else \
-                (self._read(o, n) for o, n in self.samples[start:])
+                map(self._sample, self.samples[start:])
             k = 0  # frames out so far
             for chunk in chunks:
                 got = dec.decode(chunk)
@@ -1287,6 +1565,28 @@ class VideoReader:
             self.mpeg4_tally = dec.tally()
         except ValueError as e:
             raise ValueError(f"{self.path}: {self.container} with MPEG-4 video: {e}") from None
+        finally:
+            dec.close()
+
+    def _msmpeg4_frames(self) -> Iterator[np.ndarray]:
+        """Each picture of an MS-MPEG-4 family stream (``native.MsMpeg4Decoder``:
+        no reordering, so one a chunk), converted as MPEG-4's are (swscale's
+        limited-range BT.601)."""
+        tag = CV2_FOURCC[self.codec].upper()  # the version's own fourcc, whatever alias the file gives
+        what = f"{self.container} with {native.MSMPEG4_NAMES[native.MSMPEG4_VERSIONS[tag]]} video"
+        try:
+            dec = native.MsMpeg4Decoder(tag, self.extradata, self.size)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {what}: {e}") from None
+        try:
+            for i, sample in enumerate(self.samples):
+                try:
+                    got = dec.decode(self._sample(sample))
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: {what}, frame {i}: {e}") from None
+                if got is not None:
+                    yield native.yuv_to_bgr(*got[0], full_range=False)
+            self.msmpeg4_tally = dec.tally()
         finally:
             dec.close()
 
@@ -1349,7 +1649,9 @@ ASF_GUID = {name: _guid(g) for name, g in (
     ("stream", "b7dc0791-a9b7-11cf-8ee6-00c00c205365"), ("video", "bc19efc0-5b4d-11cf-a8fd-00805f5c442b"),
     ("no_ec", "20fb5700-5b55-11cf-a8fd-00805f5c442b"), ("codecs", "86d15240-311d-11d0-a3a4-00a0c90348f6"),
     ("reserved2", "86d15241-311d-11d0-a3a4-00a0c90348f6"), ("data", "75b22636-668e-11cf-a6d9-00aa0062ce6c"),
-    ("index", "33000890-e5b1-11cf-89f4-00a0c90349cb"))}
+    ("index", "33000890-e5b1-11cf-89f4-00a0c90349cb"), ("ext_stream", "14e6a5cb-c672-4332-8399-a96952065b5a"),
+    ("encryption", "2211b3fb-bd23-11d2-b4b7-00a0c955fc6e"),
+    ("ext_encryption", "298ae614-2622-4c17-b935-dae07ee9289c"))}
 
 
 def gif_still_names(path: Path):

@@ -3,15 +3,17 @@ rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
 ``mga_yolo_tpu/native``), ``jpeg.cpp`` (JPEG decoding and encoding, and
 MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
-encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding), ``tiff.cpp``
+encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding),
+``msmpeg4.cpp`` (MS MPEG-4 v2 and v3, WMV1 and WMV2 decoding), ``tiff.cpp``
 (TIFF's LZW, PackBits, CCITT fax codes and predictor), ``webp.cpp``
 (WebP's VP8L bitstream, and the upsampling of a lossy still), ``vp8.cpp``
 (VP8 key and inter frames, for WebM / Matroska video and WebP stills),
 ``gif.cpp`` (GIF's blocks and LZW, and cv2's GIF encoder) and
 ``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
-``simple_idct.h`` and ``xvid_idct.h``.
+``simple_idct.h``, ``xvid_idct.h``, ``h263.h`` (what ``mpeg4.cpp`` and
+``msmpeg4.cpp`` share) and ``msmpeg4_tables.h``.
 
-The eleven sources are compiled at first use, together, with ``g++ -O3
+The twelve sources are compiled at first use, together, with ``g++ -O3
 -shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
@@ -38,8 +40,8 @@ import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
 CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "mpeg12.cpp",
-                                                                 "tiff.cpp", "webp.cpp", "vp8.cpp", "gif.cpp",
-                                                                 "raster.cpp"))
+                                                                 "msmpeg4.cpp", "tiff.cpp", "webp.cpp", "vp8.cpp",
+                                                                 "gif.cpp", "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -52,7 +54,7 @@ def sources() -> tuple[Path, ...]:
     return (*CODEC_SOURCES, SOURCE)
 
 
-HEADERS = (Path(__file__).with_name("simple_idct.h"), Path(__file__).with_name("xvid_idct.h"))
+HEADERS = tuple(Path(__file__).with_name(f) for f in ("simple_idct.h", "xvid_idct.h", "h263.h", "msmpeg4_tables.h"))
 
 
 def library_path() -> Path:
@@ -199,6 +201,16 @@ def _open(target: Path):
     lib.mga_mpeg12_pop.restype = None
     lib.mga_mpeg12_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
     lib.mga_mpeg12_tally.restype = c
+    lib.mga_msmpeg4_new.argtypes = [c, buf, n64, c, c, buf, c]
+    lib.mga_msmpeg4_new.restype = ctypes.c_void_p
+    lib.mga_msmpeg4_free.argtypes = [ctypes.c_void_p]
+    lib.mga_msmpeg4_free.restype = None
+    lib.mga_msmpeg4_decode.argtypes = [ctypes.c_void_p, buf, n64, i32p, buf, c]
+    lib.mga_msmpeg4_decode.restype = c
+    lib.mga_msmpeg4_frame.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
+    lib.mga_msmpeg4_frame.restype = None
+    lib.mga_msmpeg4_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_msmpeg4_tally.restype = c
     return lib, None
 
 
@@ -668,6 +680,80 @@ class Mpeg12Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.mga_mpeg12_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what an MsMpeg4Decoder counts (msmpeg4.cpp's Tally, in its order)
+MSMPEG4_TALLY = ("pictures_i", "pictures_p", "mb_intra", "mb_intra_in_p", "mb_inter", "mb_skipped", "blocks_table_0",
+                 "blocks_table_1", "blocks_table_2", "blocks_table_3", "blocks_table_4", "blocks_table_5",
+                 "escapes_1", "escapes_2", "escapes_3", "esc3_lengths_low_q", "esc3_lengths_high_q", "dc_escapes",
+                 "mv_escapes", "inter_intra_mbs", "no_rounding_pictures", "cbp_table_0", "cbp_table_1",
+                 "cbp_table_2", "loop_filter_pictures")
+# the MS-MPEG-4 family's fourccs as libavformat's RIFF tags name them (compared in upper case), by version
+MSMPEG4_VERSIONS = {b"MP42": 2, b"DIV2": 2, b"MP43": 3, b"DIV3": 3, b"MPG3": 3, b"DIV4": 3, b"DIV5": 3, b"DIV6": 3,
+                    b"DVX3": 3, b"AP41": 3, b"COL1": 3, b"WMV1": 4, b"WMV2": 5}
+MSMPEG4_NAMES = {2: "MS MPEG-4 v2", 3: "MS MPEG-4 v3", 4: "WMV1", 5: "WMV2"}
+
+
+class MsMpeg4Decoder:
+    """A decoder of the MS-MPEG-4 family (``msmpeg4.cpp``: MS MPEG-4 v2 and
+    v3, WMV1, WMV2) for a stream under the container's ``fourcc`` (one of
+    ``MSMPEG4_VERSIONS``), its ``extradata`` (WMV2's header) and its picture
+    ``size`` (width, height), which the streams do not carry. Feed it the
+    stream's chunks in order, a picture each; every picture comes out at once
+    (no reordering), so :meth:`flush` has none. Raises ValueError naming what
+    it does not decode. Holds its frames; :meth:`close` frees them."""
+
+    def __init__(self, fourcc: bytes, extradata: bytes, size: tuple[int, int]):
+        self._h = None
+        self._lib = load()
+        version = MSMPEG4_VERSIONS.get(bytes(fourcc[:4]).upper())
+        if version is None:
+            raise ValueError(f"'{bytes(fourcc).decode('latin-1')}' is not a fourcc of the MS-MPEG-4 family")
+        extradata = bytes(extradata)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._h = self._lib.mga_msmpeg4_new(version, extradata, len(extradata), int(size[0]), int(size[1]), err,
+                                            _ERR_LEN)
+        if not self._h:
+            raise ValueError(err.value.decode())
+        self.version = version
+
+    def decode(self, chunk: bytes):
+        """(y, u, v) planes and the picture type (0 I, 1 P) of the chunk's
+        picture, or None for an empty chunk (a dropped frame)."""
+        if not self._h:
+            raise ValueError("the MS-MPEG-4 decoder is closed")
+        chunk = bytes(chunk)
+        info = (ctypes.c_int32 * 3)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = self._lib.mga_msmpeg4_decode(self._h, chunk, len(chunk), info, err, _ERR_LEN)
+        if rc < 0:
+            raise ValueError(err.value.decode())
+        if rc == 0:
+            return None
+        w, h = info[0], info[1]
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.mga_msmpeg4_frame(self._h, _u8(y), _u8(u), _u8(v))
+        return (y, u, v), info[2]
+
+    def flush(self):
+        """None: the family has no reordering, so nothing is left at the end."""
+        return None
+
+    def tally(self) -> dict:
+        """The features decoded so far, counted (``MSMPEG4_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(MSMPEG4_TALLY))()
+        self._lib.mga_msmpeg4_tally(self._h, out, len(MSMPEG4_TALLY))
+        return dict(zip(MSMPEG4_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_msmpeg4_free(self._h)
             self._h = None
 
     def __del__(self):

@@ -47,51 +47,16 @@
 #include <stdexcept>
 #include <vector>
 
+#include "h263.h"
 #include "simple_idct.h"
 #include "xvid_idct.h"
 
 namespace {
 
-struct Refused : std::runtime_error {
-  using std::runtime_error::runtime_error;
-};
-
-[[noreturn]] void refuse(const char* fmt, ...) {
-  char buf[256];
-  va_list ap;
-  va_start(ap, fmt);
-  vsnprintf(buf, sizeof buf, fmt, ap);
-  va_end(ap);
-  throw Refused(buf);
-}
-
-void set_error(char* err, int errlen, const char* msg) {
-  if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", msg);
-}
-
-template <class F>
-int guarded(char* err, int errlen, F&& f) {
-  try {
-    f();
-    return 0;
-  } catch (const Refused& e) {
-    set_error(err, errlen, e.what());
-  } catch (const std::bad_alloc&) {
-    set_error(err, errlen, "out of memory");
-  } catch (const std::exception& e) {
-    set_error(err, errlen, e.what());
-  }
-  return -1;
-}
+using namespace h263;
 
 // ------------------------------------------------------------------ tables
-// The variable-length codes of ISO/IEC 14496-2 Annex B (H.263's where shared),
-// as (code, length).
-
-struct Code {
-  uint16_t code;
-  uint8_t len;
-};
+// MPEG-4's own codes (the ones it shares with msmpeg4.cpp are in h263.h).
 
 // MCBPC of an I-VOP: cbpc 0-3 of Intra, of IntraQ, then stuffing.
 constexpr Code kMcbpcI[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4}, {1, 6}, {2, 6}, {3, 6}, {1, 9}};
@@ -99,84 +64,6 @@ constexpr Code kMcbpcI[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4}, {1, 6}, {2,
 constexpr Code kMcbpcP[21] = {{1, 1}, {3, 4}, {2, 4}, {5, 6}, {3, 5}, {4, 8}, {3, 8}, {3, 7}, {3, 3}, {7, 7}, {6, 7},
                               {5, 9}, {4, 6}, {4, 9}, {3, 9}, {2, 9}, {2, 3}, {5, 7}, {4, 7}, {5, 8}, {1, 9}};
 enum { kInter = 0, kIntra = 1, kInterQ = 2, kIntraQ = 3, kInter4V = 4 };
-constexpr Code kCbpy[16] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4}, {2, 6}, {11, 4},
-                            {2, 5}, {3, 6}, {5, 4}, {10, 4}, {4, 4}, {8, 4}, {6, 4}, {3, 2}};
-// Motion vector differences 0..32 (a sign bit follows a nonzero one).
-constexpr Code kMvd[33] = {{1, 1},   {1, 2},   {1, 3},   {1, 4},   {3, 6},   {5, 7},   {4, 7},   {3, 7},   {11, 9},
-                           {10, 9},  {9, 9},   {17, 10}, {16, 10}, {15, 10}, {14, 10}, {13, 10}, {12, 10}, {11, 10},
-                           {10, 10}, {9, 10},  {8, 10},  {7, 10},  {6, 10},  {5, 10},  {4, 10},  {7, 11},  {6, 11},
-                           {5, 11},  {4, 11},  {3, 11},  {2, 11},  {3, 12},  {2, 12}};
-constexpr Code kDcLum[13] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3}, {1, 4}, {1, 5},
-                             {1, 6}, {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}};
-constexpr Code kDcChrom[13] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},  {1, 5},  {1, 6},
-                               {1, 7}, {1, 8}, {1, 9}, {1, 10}, {1, 11}, {1, 12}};
-
-// Coefficient tables: 102 (last, run, level) codes, a sign bit after each, then ESCAPE.
-struct TcoefTable {
-  Code vlc[103];
-  int8_t run[102], level[102];
-  int last_start;  // first index with last = 1
-};
-
-constexpr TcoefTable kInterTcoef = {
-    {{0x2, 2},   {0xf, 4},   {0x15, 6},  {0x17, 7},  {0x1f, 8},  {0x25, 9},  {0x24, 9},  {0x21, 10}, {0x20, 10},
-     {0x7, 11},  {0x6, 11},  {0x20, 11}, {0x6, 3},   {0x14, 6},  {0x1e, 8},  {0xf, 10},  {0x21, 11}, {0x50, 12},
-     {0xe, 4},   {0x1d, 8},  {0xe, 10},  {0x51, 12}, {0xd, 5},   {0x23, 9},  {0xd, 10},  {0xc, 5},   {0x22, 9},
-     {0x52, 12}, {0xb, 5},   {0xc, 10},  {0x53, 12}, {0x13, 6},  {0xb, 10},  {0x54, 12}, {0x12, 6},  {0xa, 10},
-     {0x11, 6},  {0x9, 10},  {0x10, 6},  {0x8, 10},  {0x16, 7},  {0x55, 12}, {0x15, 7},  {0x14, 7},  {0x1c, 8},
-     {0x1b, 8},  {0x21, 9},  {0x20, 9},  {0x1f, 9},  {0x1e, 9},  {0x1d, 9},  {0x1c, 9},  {0x1b, 9},  {0x1a, 9},
-     {0x22, 11}, {0x23, 11}, {0x56, 12}, {0x57, 12}, {0x7, 4},   {0x19, 9},  {0x5, 11},  {0xf, 6},   {0x4, 11},
-     {0xe, 6},   {0xd, 6},   {0xc, 6},   {0x13, 7},  {0x12, 7},  {0x11, 7},  {0x10, 7},  {0x1a, 8},  {0x19, 8},
-     {0x18, 8},  {0x17, 8},  {0x16, 8},  {0x15, 8},  {0x14, 8},  {0x13, 8},  {0x18, 9},  {0x17, 9},  {0x16, 9},
-     {0x15, 9},  {0x14, 9},  {0x13, 9},  {0x12, 9},  {0x11, 9},  {0x7, 10},  {0x6, 10},  {0x5, 10},  {0x4, 10},
-     {0x24, 11}, {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12}, {0x5a, 12}, {0x5b, 12}, {0x5c, 12},
-     {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7}},
-    {0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  1,  1,  1,  2,  2,  2,  2,  3,  3,  3,  4,
-     4,  4,  5,  5,  5,  6,  6,  6,  7,  7,  8,  8,  9,  9,  10, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-     21, 22, 23, 24, 25, 26, 0,  0,  0,  1,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16,
-     17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40},
-    {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 1, 2, 3, 1,
-     2, 3, 1, 2, 3, 1, 2, 3, 1, 2,  1,  2,  1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-     1, 1, 1, 1, 1, 1, 1, 2, 3, 1,  2,  1,  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-     1, 1, 1, 1, 1, 1, 1, 1, 1, 1,  1,  1,  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
-    58};
-
-constexpr TcoefTable kIntraTcoef = {
-    {{0x2, 2},   {0x6, 3},   {0xf, 4},   {0xd, 5},   {0xc, 5},   {0x15, 6},  {0x13, 6},  {0x12, 6},  {0x17, 7},
-     {0x1f, 8},  {0x1e, 8},  {0x1d, 8},  {0x25, 9},  {0x24, 9},  {0x23, 9},  {0x21, 9},  {0x21, 10}, {0x20, 10},
-     {0xf, 10},  {0xe, 10},  {0x7, 11},  {0x6, 11},  {0x20, 11}, {0x21, 11}, {0x50, 12}, {0x51, 12}, {0x52, 12},
-     {0xe, 4},   {0x14, 6},  {0x16, 7},  {0x1c, 8},  {0x20, 9},  {0x1f, 9},  {0xd, 10},  {0x22, 11}, {0x53, 12},
-     {0x55, 12}, {0xb, 5},   {0x15, 7},  {0x1e, 9},  {0xc, 10},  {0x56, 12}, {0x11, 6},  {0x1b, 8},  {0x1d, 9},
-     {0xb, 10},  {0x10, 6},  {0x22, 9},  {0xa, 10},  {0xd, 6},   {0x1c, 9},  {0x8, 10},  {0x12, 7},  {0x1b, 9},
-     {0x54, 12}, {0x14, 7},  {0x1a, 9},  {0x57, 12}, {0x19, 8},  {0x9, 10},  {0x18, 8},  {0x23, 11}, {0x17, 8},
-     {0x19, 9},  {0x18, 9},  {0x7, 10},  {0x58, 12}, {0x7, 4},   {0xc, 6},   {0x16, 8},  {0x17, 9},  {0x6, 10},
-     {0x5, 11},  {0x4, 11},  {0x59, 12}, {0xf, 6},   {0x16, 9},  {0x5, 10},  {0xe, 6},   {0x4, 10},  {0x11, 7},
-     {0x24, 11}, {0x10, 7},  {0x25, 11}, {0x13, 7},  {0x5a, 12}, {0x15, 8},  {0x5b, 12}, {0x14, 8},  {0x13, 8},
-     {0x1a, 8},  {0x15, 9},  {0x14, 9},  {0x13, 9},  {0x12, 9},  {0x11, 9},  {0x26, 11}, {0x27, 11}, {0x5c, 12},
-     {0x5d, 12}, {0x5e, 12}, {0x5f, 12}, {0x3, 7}},
-    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,
-     0, 1, 1, 1, 1, 1, 1, 1, 1, 1,  1,  2,  2,  2,  2,  2,  3,  3,  3,  3,  4,  4,  4,  5,  5,  5,
-     6, 6, 6, 7, 7, 7, 8, 8, 9, 9,  10, 11, 12, 13, 14, 0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,
-     2, 2, 3, 3, 4, 4, 5, 5, 6, 6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20},
-    {1,  2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-     27, 1, 2, 3, 4, 5, 6, 7, 8, 9,  10, 1,  2,  3,  4,  5,  1,  2,  3,  4,  1,  2,  3,  1,  2,  3,
-     1,  2, 3, 1, 2, 3, 1, 2, 1, 2,  1,  1,  1,  1,  1,  1,  2,  3,  4,  5,  6,  7,  8,  1,  2,  3,
-     1,  2, 1, 2, 1, 2, 1, 2, 1, 2,  1,  1,  1,  1,  1,  1,  1,  1,  1,  1,  1,  1,  1,  1},
-    67};
-
-constexpr uint8_t kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-                                 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-                                 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-                                 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
-constexpr uint8_t kAltHorizontal[64] = {0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14,
-                                        13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
-                                        30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
-                                        46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
-constexpr uint8_t kAltVertical[64] = {0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49,
-                                      41, 33, 26, 18, 3,  11, 4,  12, 19, 27, 34, 42, 50, 58, 35, 43,
-                                      51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44, 52, 60, 37, 45,
-                                      53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
-
 constexpr int kDquant[4] = {-1, -2, 1, 2};
 // B-VOP macroblock types: direct '1', interpolated '01', backward '001', forward '0001'.
 constexpr Code kMbTypeB[4] = {{1, 1}, {1, 2}, {1, 3}, {1, 4}};
@@ -196,67 +83,8 @@ constexpr int kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};  // intra_dc_vl
 
 inline int y_dc_scale(int q) { return q < 5 ? 8 : q < 9 ? 2 * q : q < 25 ? q + 8 : 2 * q - 16; }
 inline int c_dc_scale(int q) { return q < 5 ? 8 : q < 25 ? (q + 13) / 2 : q - 6; }
-inline int mid3(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
-inline int rounded_div(int a, int b) { return (a > 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
 
-// A decoding table: the next `bits` bits -> (symbol, length); length 0 marks no code.
-struct Vlc {
-  int bits = 0;
-  std::vector<int16_t> sym;
-  std::vector<uint8_t> len;
-  void build(const Code* codes, int n, int maxbits) {
-    bits = maxbits;
-    sym.assign((size_t)1 << bits, 0);
-    len.assign((size_t)1 << bits, 0);
-    for (int i = 0; i < n; ++i) {
-      const int l = codes[i].len, lo = codes[i].code << (bits - l), hi = (codes[i].code + 1) << (bits - l);
-      for (int j = lo; j < hi; ++j) {
-        sym[j] = (int16_t)i;
-        len[j] = (uint8_t)l;
-      }
-    }
-  }
-};
-
-// ------------------------------------------------------------------ bits
-
-struct BitReader {
-  const uint8_t* d = nullptr;
-  size_t nbytes = 0, pos = 0;  // pos in bits
-  BitReader() = default;
-  BitReader(const uint8_t* d_, size_t n_) : d(d_), nbytes(n_) {}
-  uint32_t peek(int k) const {  // 1 <= k <= 32; zeros past the end
-    const size_t b = pos >> 3;
-    uint64_t v = 0;
-    if (b + 8 <= nbytes) {
-      for (int i = 0; i < 8; ++i) v = (v << 8) | d[b + i];
-    } else {
-      for (int i = 0; i < 8; ++i) v = (v << 8) | (b + i < nbytes ? d[b + i] : 0);
-    }
-    v <<= (pos & 7);
-    return (uint32_t)(v >> (64 - k));
-  }
-  uint32_t get(int k) {
-    if (k == 0) return 0;
-    const uint32_t v = peek(k);
-    pos += (size_t)k;
-    return v;
-  }
-  int get1() { return (int)get(1); }
-  void marker(const char* what) {
-    if (!get1()) refuse("corrupt MPEG-4 video: a marker bit is 0 in the %s", what);
-  }
-  bool overran() const { return pos > nbytes * 8; }
-  size_t left() const { return pos >= nbytes * 8 ? 0 : nbytes * 8 - pos; }
-  int vlc(const Vlc& t, const char* what) {
-    const uint32_t p = peek(t.bits);
-    const int l = t.len[p];
-    if (!l) refuse("corrupt MPEG-4 video: no %s code matches", what);
-    pos += (size_t)l;
-    return t.sym[p];
-  }
-};
-
+// The encoder's bits, high bit first.
 struct BitWriter {
   std::vector<uint8_t> out;
   uint64_t acc = 0;
@@ -283,22 +111,6 @@ struct BitWriter {
 };
 
 // ------------------------------------------------------------------ frames
-
-struct Plane {
-  int w = 0, h = 0;  // allocated: whole macroblocks
-  std::vector<uint8_t> px;
-  void alloc(int w_, int h_) {
-    w = w_;
-    h = h_;
-    px.assign((size_t)w * h, 128);
-  }
-  uint8_t* at(int x, int y) { return px.data() + (size_t)y * w + x; }
-  uint8_t get(int x, int y) const {  // clamped to the allocation
-    x = x < 0 ? 0 : x >= w ? w - 1 : x;
-    y = y < 0 ? 0 : y >= h ? h - 1 : y;
-    return px[(size_t)y * w + x];
-  }
-};
 
 // What a B-VOP's direct mode and skip rule read of the reference after it.
 enum : uint8_t { kMbIntra = 1, kMbSkip = 2, kMb16 = 4, kMb8x8 = 8, kMbField = 16 };
@@ -1227,46 +1039,6 @@ struct Decoder {
 
   // ---- motion compensation (ffmpeg's mpegvideo_motion.c for an H.263-family decoder)
 
-  enum Op { kPut, kPutNoRnd, kAvg };
-
-  // rows x cols samples of plane p from column x, frame row y, every step-th
-  // row; with emu, coordinates clamped to the edge (ew, eh) as ffmpeg's
-  // emulated_edge_mc extends a reference, else read where they lie.
-  static void fetch(const Plane& p, int x, int y, int step, int rows, int cols, bool emu, int ew, int eh, uint8_t* o,
-                    int os) {
-    for (int r = 0; r < rows; ++r) {
-      int yy = y + r * step;
-      if (emu) yy = yy < 0 ? 0 : yy >= eh ? eh - 1 : yy;
-      for (int c = 0; c < cols; ++c) {
-        int xx = x + c;
-        if (emu) xx = xx < 0 ? 0 : xx >= ew ? ew - 1 : xx;
-        o[r * os + c] = p.get(xx, yy);
-      }
-    }
-  }
-
-  static inline void store(uint8_t* d, int v, Op op) { *d = (uint8_t)(op == kAvg ? (*d + v + 1) >> 1 : v); }
-
-  // half-sample prediction of a w x h block (dxy: bit 0 horizontal, bit 1 vertical)
-  static void hpel(uint8_t* dst, int ds, const uint8_t* s, int ss, int w, int h, int dxy, Op op) {
-    const int r = op == kPutNoRnd ? 0 : 1;
-    for (int y = 0; y < h; ++y) {
-      const uint8_t* a = s + y * ss;
-      const uint8_t* b = a + ss;
-      uint8_t* o = dst + (ptrdiff_t)y * ds;
-      for (int x = 0; x < w; ++x) {
-        int v;
-        switch (dxy) {
-          case 0: v = a[x]; break;
-          case 1: v = (a[x] + a[x + 1] + r) >> 1; break;
-          case 2: v = (a[x] + b[x] + r) >> 1; break;
-          default: v = (a[x] + a[x + 1] + b[x] + b[x + 1] + 1 + r) >> 2; break;
-        }
-        store(o + x, v, op);
-      }
-    }
-  }
-
   // MPEG-4's quarter-sample 8-tap filter over n + 1 samples, mirrored at the block's edges.
   static inline int qtap(const uint8_t* s, int step, int n, int i) {
     const auto at = [&](int k) { return (int)s[(k < 0 ? -k - 1 : k > n ? 2 * n + 1 - k : k) * step]; };
@@ -1287,7 +1059,6 @@ struct Decoder {
     for (int y = 0; y < rows; ++y)
       for (int x = 0; x < n; ++x) store(dst + y * ds + x, (a[y * as + x] + b[y * bs + x] + r) >> 1, op);
   }
-  static uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
   // An n x n quarter-sample prediction (ffmpeg's qpel{8,16}_mcXY), from src
   // holding (n + 1) x (n + 1) samples.
@@ -1325,35 +1096,11 @@ struct Decoder {
     l2(dst, ds, halfH + (fy == 3) * n, n, halfHV, n, n, n, op);
   }
 
-  // ffmpeg's mpeg_motion for an H.263-family stream: a 16 x h prediction of
-  // the macroblock (a field of it with field_based) and its chroma.
+  // ffmpeg's mpeg_motion (h263.h) into the picture being decoded, with the
+  // stream's half-sample field chroma workaround.
   void mpeg_motion(const Pic& ref, int mx, int my, bool fb, int bottom, int fsel, int vx, int vy, int h, Op op) {
-    Pic& pic = pics[cur];
-    const int dxy = ((vy & 1) << 1) | (vx & 1);
-    const int src_x = mx * 16 + (vx >> 1), src_y = (my << (4 - fb)) + (vy >> 1);
-    int uvdxy, uvsrc_x, uvsrc_y;
-    if ((bugs & kBugHpelChroma) && fb) {
-      const int cx = (vx >> 1) | (vx & 1), cy = vy >> 1;
-      uvdxy = ((cy & 1) << 1) | (cx & 1);
-      uvsrc_x = mx * 8 + (cx >> 1);
-      uvsrc_y = (my << (3 - fb)) + (cy >> 1);
-    } else {
-      uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1);
-      uvsrc_x = src_x >> 1;
-      uvsrc_y = src_y >> 1;
-    }
-    const int vedge = v_edge >> fb;
-    const bool emu = (unsigned)src_x >= (unsigned)std::max(h_edge - (vx & 1) - 15, 0) ||
-                     (unsigned)src_y >= (unsigned)std::max(vedge - (vy & 1) - h + 1, 0);
-    uint8_t s[18 * 17];
-    const int step = fb ? 2 : 1;
-    fetch(ref.p[0], src_x, src_y * step + fsel, step, h + 1, 17, emu, h_edge, v_edge, s, 17);
-    const int dy = my * 16 + bottom, ds = pic.p[0].w * step;
-    hpel(pic.p[0].at(mx * 16, dy), ds, s, 17, 16, h, dxy, op);
-    for (int c = 1; c < 3; ++c) {
-      fetch(ref.p[c], uvsrc_x, uvsrc_y * step + fsel, step, h / 2 + 1, 9, emu, h_edge >> 1, v_edge >> 1, s, 9);
-      hpel(pic.p[c].at(mx * 8, my * 8 + bottom), pic.p[c].w * step, s, 9, 8, h / 2, uvdxy, op);
-    }
+    h263::mpeg_motion(pics[cur].p, ref.p, mx, my, fb, bottom, fsel, vx, vy, h, op, h_edge, v_edge,
+                      (bugs & kBugHpelChroma) != 0);
   }
 
   // ffmpeg's qpel_motion: the same with quarter-sample luma.

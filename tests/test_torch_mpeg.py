@@ -209,9 +209,9 @@ def _refused(kind: str, tmp_path: Path):
         k = b.find(b"\x00\x00\x01\xb8")
         b[k:k] = b"\x00\x00\x01\xb5\x50\x00"
         data, what = ps_bytes([(bytes(b), True, 0)], 25), "sequence scalable extension"
-    else:  # ASF / WMV: refused by its signature and its suffix
+    else:  # ASF / WMV reads now (tests/test_torch_wmv.py): a header cut at 64 bytes raises naming ASF
         path = tmp_path / "clip.wmv"
-        data, what = b"\x30\x26\xb2\x75" + bytes(60), r"the ASF/WMV container is not supported"
+        data, what = b"\x30\x26\xb2\x75" + bytes(60), r"corrupt or truncated ASF file"
     path.write_bytes(data)
     return path, what
 
@@ -319,7 +319,7 @@ def test_wmv_writer_is_read_by_cv2(tmp_path, fps):
     """``.wmv`` is mp4v in ASF (3200-byte packets, a simple index): cv2 reads
     it back equal to the port's reader of the same frames in ``.mpg``, with
     the fps and count cv2 gives its own ``.wmv`` of them; the port's reader
-    refuses ASF by name."""
+    reads it back as cv2 does (frames, fps and count)."""
     from mga_yolo_tpu_torch.data.video_io import VideoWriter
 
     imgs = frames(12, 48, 64, 7)
@@ -336,8 +336,8 @@ def test_wmv_writer_is_read_by_cv2(tmp_path, fps):
         vw.write(img)
     vw.release()
     assert meta == cv2_read(tmp_path / "c.wmv")[1]
-    with pytest.raises(ValueError, match="ASF/WMV container is not supported"):
-        read_all(tmp_path / "a.wmv")
+    got, r = read_all(tmp_path / "a.wmv")
+    assert sha(got) == sha(want) and (r.fps, r.total) == meta[:2]
 
 
 def test_gif_writer_writes_cv2s_numbered_stills(tmp_path):

@@ -192,12 +192,14 @@ def libav():
     return avutil, avcodec
 
 
-def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_pass: bool = False) -> list:
+def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_pass: bool = False,
+                extradata: list | None = None) -> list:
     """(data, key, pts) of each packet of a libavcodec encoder (the one inside
     cv2's wheel, driven through ctypes) for BGR frames of any size, with the
     encoder's own options; ``pts`` numbers the frames 0, 1, ... (libvpx wants
     timestamps), ``two_pass`` runs a first pass and hands its statistics to
-    the second (libvpx's alt-ref frames need both). The AVFrame / AVPacket /
+    the second (libvpx's alt-ref frames need both); the encoder's extradata
+    is appended to ``extradata`` when one is given. The AVFrame / AVPacket /
     AVCodecContext field offsets are those of libavutil 60 / libavcodec 62."""
     import ctypes
 
@@ -252,6 +254,9 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
         avcodec.avcodec_send_frame(ctx, None)
         drain()
         del keep
+        if extradata is not None:  # AVCodecContext.extradata and extradata_size
+            size = ctypes.cast(ctx, ctypes.POINTER(ctypes.c_int))[20]
+            extradata.append(ctypes.string_at(ctypes.cast(ctx, ctypes.POINTER(vp))[9], size) if size else b"")
         return ctx, packets
 
     if not two_pass:
@@ -622,14 +627,15 @@ def mpeg_clips() -> dict:
 
 # ------------------------------------------------------------------ MPEG-4 Advanced Simple profile
 
-def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: bytes) -> bytes:
+def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: bytes, extradata: bytes = b"") -> bytes:
     """An AVI of one video stream under ``fourcc`` (strh's handler and
-    strf's compression), its chunks in the order given (decode order), at
-    rate / scale frames a second, with an idx1 index."""
+    strf's compression, ``extradata`` after its BITMAPINFOHEADER), its
+    chunks in the order given (decode order), at rate / scale frames a
+    second, with an idx1 index."""
     n = len(payloads)
     avih = struct.pack("<10I4I", 1000000 * scale // rate, 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
     strh = struct.pack("<4s4sIHH8I4h", b"vids", fourcc, 0, 0, 0, 0, scale, rate, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, w, h)
-    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0) + extradata
 
     def chunk(cid, b):
         return struct.pack("<4sI", cid, len(b)) + b
@@ -992,6 +998,7 @@ def main() -> None:
         meta[name]["sha256"] = digests(imgs)
     (HERE / "meta.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
     mpeg_main()
+    wmv_main()
 
 
 def mpeg_main() -> None:
@@ -1011,7 +1018,88 @@ def mpeg_main() -> None:
     (HERE / "mpeg.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
 
 
+WMV_CV2 = {  # name: (fourcc, fps, source frames) for cv2's writer
+    "wmv_wmv2.wmv": ("WMV2", 25, lambda: moving(12, 48, 64, 81)),
+    "wmv_wmv1.wmv": ("WMV1", 29.97, lambda: frames(8, 48, 64, 82)),
+    "wmv_mp43.wmv": ("MP43", 12.5, lambda: moving(12, 48, 64, 83)),
+    "wmv_mp42.wmv": ("MP42", 7, lambda: frames(12, 48, 64, 84)),
+    "wmv_mp4v_12.5.wmv": ("mp4v", 12.5, lambda: frames(8, 48, 64, 85)),
+    "wmv_mp4v_7.wmv": ("mp4v", 7, lambda: moving(12, 48, 64, 86)),
+    "wmv_mp4v_29.97.wmv": ("mp4v", 29.97, lambda: frames(8, 48, 64, 87)),
+    "wmv_mjpg.wmv": ("MJPG", 25, lambda: frames(12, 48, 64, 88)),
+    "wmv_xvid.wmv": ("XVID", 25, lambda: frames(12, 48, 64, 97)),
+    "wmv_pim1.wmv": ("PIM1", 25, lambda: moving(12, 48, 64, 98)),
+    "wmv_mpg2.wmv": ("mpg2", 25, lambda: frames(12, 48, 64, 99)),
+    "wmv_mp43.avi": ("MP43", 25, lambda: frames(12, 50, 66, 89)),
+    "wmv_mp42.avi": ("MP42", 25, lambda: moving(12, 66, 50, 90)),
+    "wmv_wmv1.avi": ("WMV1", 25, lambda: moving(12, 50, 66, 91)),
+    "wmv_wmv2.avi": ("WMV2", 25, lambda: frames(12, 66, 50, 92)),
+    "wmv_mp43.mkv": ("MP43", 25, lambda: frames(12, 48, 64, 93)),
+    "wmv_mp42.mkv": ("MP42", 25, lambda: frames(12, 48, 64, 94)),
+    "wmv_wmv1.mkv": ("WMV1", 25, lambda: moving(12, 48, 64, 95)),
+    "wmv_wmv2.mkv": ("WMV2", 25, lambda: moving(12, 48, 64, 96)),
+    "wmv_big512.wmv": ("WMV2", 25, lambda: moving(8, 512, 512, 61)),
+    "wmv_big512_mp43.avi": ("MP43", 25, lambda: moving(8, 512, 512, 62)),
+}
+
+
+def blocks(n: int, h: int, w: int, seed: int) -> list:
+    """``frames`` with its upper left quarter a random board of black and
+    white 8x8 blocks, whose DC differences are past the DC tables' codes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for img in frames(n, h, w, seed):
+        board = np.kron(rng.integers(0, 2, (h // 16 + 1, w // 16 + 1)) * 255, np.ones((8, 8), int))
+        img[:h // 2, :w // 2] = board[:h // 2, :w // 2, None].astype(np.uint8)
+        out.append(img)
+    return out
+
+
+WMV_LAVC = {  # name: (encoder, source frames, options) for libavcodec's encoders, in AVI: the tools cv2's writer
+    # leaves off (fixed quantisers, short GOPs, a bit rate low enough for WMV1's inter-intra prediction, WMV2's
+    # loop filter)
+    "wmv_lavc_mp43_q3.avi": ("msmpeg4", lambda: frames(12, 48, 64, 101), {"qmin": "3", "qmax": "3", "g": "5"}),
+    "wmv_lavc_mp43_q24.avi": ("msmpeg4", lambda: moving(12, 48, 64, 102), {"qmin": "24", "qmax": "24", "g": "5"}),
+    "wmv_lavc_mp43_97x63.avi": ("msmpeg4", lambda: frames(12, 63, 97, 103), {"qmin": "4", "qmax": "4", "g": "5"}),
+    "wmv_lavc_wmv1_q3.avi": ("wmv1", lambda: blocks(12, 48, 64, 104), {"qmin": "3", "qmax": "3", "g": "5",
+                                                                        "b": "100000"}),
+    "wmv_lavc_wmv1_q12.avi": ("wmv1", lambda: frames(12, 48, 64, 105), {"qmin": "12", "qmax": "12", "g": "5",
+                                                                         "b": "100000"}),
+    "wmv_lavc_wmv2_q12.avi": ("wmv2", lambda: frames(12, 48, 64, 106), {"qmin": "12", "qmax": "12", "g": "5"}),
+    "wmv_lavc_wmv2_q24.avi": ("wmv2", lambda: moving(12, 48, 64, 107), {"qmin": "24", "qmax": "24", "g": "5"}),
+    "wmv_lavc_wmv2_loop.avi": ("wmv2", lambda: frames(12, 48, 64, 109), {"qmin": "8", "qmax": "8", "g": "5",
+                                                                         "flags": "+loop"}),
+    "wmv_lavc_mp42_q24.avi": ("msmpeg4v2", lambda: moving(12, 48, 64, 108), {"qmin": "24", "qmax": "24",
+                                                                              "g": "5"}),
+}
+LAVC_FOURCC = {"msmpeg4v2": b"MP42", "msmpeg4": b"MP43", "wmv1": b"WMV1", "wmv2": b"WMV2"}
+
+
+def wmv_main() -> None:
+    """Writes the ASF / WMV and MS-MPEG-4 family fixtures and their oracle,
+    ``wmv.json`` (the SHA-256 of each frame cv2 reads, its fps, count and
+    fourcc), leaving the other fixtures as they are: cv2's writer's WMV1,
+    WMV2, MP42 and MP43 in ``.wmv``, ``.avi`` and ``.mkv``, its mp4v in
+    ``.wmv`` at 12.5, 7 and 29.97 fps, XVID, MJPG, MPEG-1 and MPEG-2 in
+    ``.wmv``, two 512 x 512
+    clips (WMV2 in ASF, its frames over several packets, and MP43 in AVI),
+    and libavcodec's encoders with fixed quantisers in AVI (``WMV_LAVC``)."""
+    meta = {}
+    for name, (fourcc, fps, make) in WMV_CV2.items():
+        cv2_write(HERE / name, fourcc, fps, make())
+    for name, (encoder, make, options) in WMV_LAVC.items():
+        imgs, extradata = make(), []
+        packets = [data for data, _, _ in lavc_encode(encoder, imgs, options, extradata=extradata)]
+        h, w = imgs[0].shape[:2]
+        (HERE / name).write_bytes(avi_bytes(packets, w, h, 25, 1, LAVC_FOURCC[encoder], extradata[0]))
+    for name in [*WMV_CV2, *WMV_LAVC]:
+        imgs, meta[name] = cv2_read(HERE / name)
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
+    (HERE / "wmv.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
+
+
 if __name__ == "__main__":
     import sys
 
-    {"mpeg": mpeg_main, "asp": asp_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
+    {"mpeg": mpeg_main, "asp": asp_main, "wmv": wmv_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
