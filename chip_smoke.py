@@ -244,6 +244,18 @@ Then the baseline toolchain and the experiment grid:
              MP43; ``cli.predict`` on the seeded flagship over a WMV2
              ``.wmv`` and an MP43 ``.avi`` (launches exact, boxes against
              the predictor's); the writer's ``.wmv`` read back.
+22. h264 —   H.264 Constrained Baseline (``native/h264.cpp``,
+             ``native/h264_tables.h``, ``data/video_io.py``'s avc1 / avcC,
+             ``V_MPEG4/ISO/AVC`` and AVI ``H264`` tracks): the committed
+             fixtures of ``tests/video_fixtures/h264.json`` (the tests'
+             writer's syntax clips over every tool the decoder counts, and a
+             512 px angiogram in MP4 and Matroska) checked by their own
+             SHA-256 and equal to cv2's frame digests, fps, counts and
+             fourccs, every tool counted; decode ms a 512 px I and P
+             picture; ``cli.predict`` on the seeded flagship over the two
+             512 px clips, 16 frames in one batch (exactly 3 CAM-gate
+             launches, boxes equal to the predictor's, max error 0); cv2's
+             one-row MJPG clips against their digests.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -260,9 +272,9 @@ over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
 images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
-``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone`` and
-``--wmv-alone`` run ``[matroska]``, ``[mpeg]``, ``[asp]`` and ``[wmv]``
-alone.
+``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone``, ``--wmv-alone``
+and ``--h264-alone`` run ``[matroska]``, ``[mpeg]``, ``[asp]``, ``[wmv]``
+and ``[h264]`` alone.
 """
 
 from __future__ import annotations
@@ -4246,6 +4258,116 @@ def wmv_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     return counts
 
 
+H264_TIMING_REPS = 5  # h264_big512.mp4 decoded 5 times for its per-picture times
+
+
+def h264_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """H.264 Constrained Baseline on the card's host (``native/h264.cpp``,
+    ``data/video_io.py``'s avc1 / Matroska / AVI tracks) and ``cli.predict``
+    over ``.mp4`` and ``.mkv`` clips on the flagship.
+
+    (a) each committed H.264 fixture of ``tests/video_fixtures/h264.json``
+    (the tests' writer's syntax clips in AVI, MP4, MOV and Matroska, and the
+    512 px angiogram in MP4 and Matroska) checked by its own SHA-256,
+    decoded and held to cv2's frame digests, fps, count and fourcc, every
+    tool of ``native.H264_TALLY`` counted. (b) decode on one host thread, ms
+    a 512 px picture, the IDR picture and the P pictures apart, and the BGR
+    conversion. (c) ``cli.predict`` on ``best`` over the two 512 px clips (8
+    frames each, 16 in one batch): exactly 3 CAM-gate launches, each frame's
+    boxes equal to the predictor's on the frames decoded anew, max abs error
+    0. (d) cv2's MJPG clips one row high against their digests. Returns (c)'s
+    launches."""
+    import hashlib
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    meta = json.loads((VIDEO_FIXTURES / "h264.json").read_text())
+    for name, m in meta.items():
+        digest = hashlib.sha256((VIDEO_FIXTURES / name).read_bytes()).hexdigest()
+        check(digest == m["file_sha256"], f"[h264] {name}: the file is not the one h264.json records")
+    # (a) the fixtures against cv2's digests, fps, counts and fourccs
+    clips = sorted(n for n in meta if n.startswith("h264_"))
+    check(len(clips) >= 14, f"[h264] {len(clips)} H.264 fixtures")
+    tally = dict.fromkeys(native.H264_TALLY, 0)
+    n_frames = 0
+    for name in clips:
+        m = meta[name]
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in r]
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[h264] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m['fps'], m['total']}")
+            for k, v in r.h264_tally.items():
+                tally[k] += v
+        check(got == m["sha256"], f"[h264] {name}: frames differ from cv2's digests")
+        n_frames += len(got)
+    check(all(tally.values()), f"[h264] tools not decoded: {[k for k, v in tally.items() if not v]}")
+    print(f"[h264] (a) {len(clips)} H.264 fixtures ({n_frames} frames) decoded on this host with "
+          f"{native.library_path().name}, each file's SHA-256 as recorded, each frame equal to cv2's digest, fps, "
+          f"count and fourcc as cv2's; all {len(tally)} tools counted: " +
+          ", ".join(f"{k} {v}" for k, v in tally.items()))
+
+    # (b) decode times at 512 px, the IDR picture and the P pictures apart
+    with VideoReader(VIDEO_FIXTURES / "h264_big512.mp4") as big:
+        chunks = [big._sample(s) for s in big.samples]
+        extradata, size = big.extradata, big.size
+    times: dict = {1: [], 2: []}
+    conv = []
+    for _ in range(H264_TIMING_REPS):
+        dec = native.H264Decoder(extradata, size)
+        for c in chunks:
+            t0 = time.perf_counter()
+            got = dec.decode(c)
+            dt = (time.perf_counter() - t0) * 1e3
+            check(len(got) == 1, f"[h264] h264_big512.mp4: {len(got)} frames out of one sample")
+            (y, u, v), info = got[0]
+            times[info["type"]].append(dt)
+            t0 = time.perf_counter()
+            native.yuv_to_bgr(y, u, v, full_range=info["full_range"], chroma_left=True)
+            conv.append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    mc = sorted(conv)[len(conv) // 2]
+    per_frame = (med[1] + 7 * med[2]) / 8 + mc
+    print(f"[h264] (b) decode on one host thread, {card}, 512x512: {med[1]:.3f} ms the IDR picture, {med[2]:.3f} ms "
+          f"a P picture, {mc:.3f} ms the BGR conversion (medians of {len(times[1])}, {len(times[2])} and "
+          f"{len(conv)}); {1e3 / per_frame:.1f} frames/s decoded and converted over the clip's 1 IDR + 7 P")
+
+    # (c) cli.predict over the 512 px .mp4 and .mkv on the flagship, 16 frames in one batch
+    src = tmp / "h264_src"
+    src.mkdir()
+    for name in ("h264_big512.mp4", "h264_big512.mkv"):
+        (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
+    out_dir = tmp / "h264_predict"
+    n_video = 8 + 8
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "h264", n_video)
+    check(counts.get("cam_gate") == 3, f"[h264] cli.predict launched {counts}, want exactly 3 CAM gates")
+    check(err == 0.0, f"[h264] cli.predict boxes differ from the predictor's by {err}")
+    check(written == {"h264_big512_pred.mp4", "h264_big512_2_pred.mp4"}, f"[h264] cli.predict wrote {sorted(written)}")
+    check(lines[-3:] == ["h264_big512.mkv: 8 frames -> h264_big512_pred.mp4",
+                         "h264_big512.mp4: 8 frames -> h264_big512_2_pred.mp4",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[h264] cli.predict summary {lines[-3:]}")
+    print(f"[h264] (c) cli.predict on the seeded flagship over h264_big512.mp4 and h264_big512.mkv (H.264 in MP4 "
+          f"and Matroska), 8 frames each of 512x512, {TRAIN_BATCH} frames a batch: {sorted(written)} as the JAX "
+          f"package names them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew "
+          f"(max abs error {err:.3g}); launches {counts}; {n_video / wall:.1f} frames/s on one host thread, model "
+          f"load included ({wall:.2f} s), {card}")
+
+    # (d) cv2's MJPG clips one row high
+    rows = sorted(n for n in meta if n.startswith("mjpg_row"))
+    check(len(rows) == 5, f"[h264] {len(rows)} one-row MJPG clips")
+    for name in rows:
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in r]
+        check(got == meta[name]["sha256"], f"[h264] {name}: frames differ from cv2's digests")
+    print(f"[h264] (d) {len(rows)} MJPG clips one row high ({', '.join(rows)}) equal to cv2's digests")
+    print(f"[h264] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -4287,7 +4409,8 @@ def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
     ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
     64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship),
-    ``[matroska]``, ``[mpeg]``, ``[asp]`` or ``[wmv]`` (the seeded flagship)."""
+    ``[matroska]``, ``[mpeg]``, ``[asp]``, ``[wmv]`` or ``[h264]`` (the
+    seeded flagship)."""
     import numpy as np
     import torch
 
@@ -4298,8 +4421,9 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag in ("matroska", "mpeg", "asp", "wmv"):
-            {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase, "wmv": wmv_phase}[tag](
+        if tag in ("matroska", "mpeg", "asp", "wmv", "h264"):
+            {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase, "wmv": wmv_phase,
+             "h264": h264_phase}[tag](
                 torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
@@ -4400,9 +4524,10 @@ def main() -> int:
         paths["mpeg"] = mpeg_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "mpeg_seeded.pt"), Path(tmp))
         paths["asp"] = asp_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "asp_seeded.pt"), Path(tmp))
         paths["wmv"] = wmv_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "wmv_seeded.pt"), Path(tmp))
+        paths["h264"] = h264_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "h264_seeded.pt"), Path(tmp))
     # each kernel's launches are those of this slice's path first (cli.predict
-    # over a WMV2 .wmv and an MP43 .avi), then the earlier slices' (cli.predict
-    # over an XviD and a packed DivX .avi, over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
+    # over an H.264 .mp4 and .mkv), then the earlier slices' (cli.predict over a
+    # WMV2 .wmv and an MP43 .avi, over an XviD and a packed DivX .avi, over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
     # and an MJPEG .mkv, uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
     # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
@@ -4414,7 +4539,7 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("wmv", "asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("h264", "wmv", "asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -4434,7 +4559,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
                         ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"],
-                        ["--asp-alone"], ["--wmv-alone"]):
+                        ["--asp-alone"], ["--wmv-alone"], ["--h264-alone"]):
         import torch
 
         if not torch.cuda.is_available():

@@ -72,8 +72,8 @@ and D-pictures raise ``ValueError`` naming the file, its container and its
 codec, as do truncated and corrupt files (libavcodec conceals damage; the
 port refuses).
 Frames of odd height take swscale's scaled path as cv2's do
-(``native.yuv_to_bgr``), but for full-range (MJPEG), 4:2:2 and very short
-(under 9 rows) ones, which keep the unscaled rule (``ROADMAP.md`` section 3).
+(``native.yuv_to_bgr``), but for 4:2:2 and short (3 to 7 rows) ones, which
+keep the unscaled rule (``ROADMAP.md`` section 3).
 """
 
 from __future__ import annotations
@@ -106,8 +106,9 @@ MP4_MPEG12_OTI = {0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A}
 # frame_rate_code 1-8 of a sequence header, as fractions
 MPEG12_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001), 5: (30, 1), 6: (50, 1), 7: (60000, 1001),
                 8: (60, 1)}
-NAMED_TAGS = {b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.264", b"X264": "H.264",
-              b"x264": "H.264", b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"MP41": "MS MPEG-4 v1",
+# H.264's tags in AVI (libavformat's RIFF tags) and MP4's sample entries
+H264_TAGS = {b"avc1", b"avc3", b"H264", b"h264", b"X264", b"x264"}
+NAMED_TAGS = {b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"MP41": "MS MPEG-4 v1",
               b"MPG4": "MS MPEG-4 v1", b"WMV3": "VC-1 / WMV9", b"WVC1": "VC-1 / WMV9", b"WMVA": "VC-1 / WMV9",
               b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1", b"FFV1": "FFV1", b"HFYU": "HuffYUV",
               b"FFVH": "HuffYUV", b"FLV1": "FLV1 (Sorenson H.263)"}
@@ -116,7 +117,7 @@ MSMPEG4_CODECS = {2: "msmpeg4v2", 3: "msmpeg4v3", 4: "wmv1", 5: "wmv2"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
 CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif ",
               "vp8": b"VP80", "mpeg1": b"mpg1", "mpeg2": b"mpg2", "msmpeg4v2": b"MP42", "msmpeg4v3": b"MP43",
-              "wmv1": b"wmv1", "wmv2": b"wmv2"}
+              "wmv1": b"wmv1", "wmv2": b"wmv2", "h264": b"h264"}
 ASF_MAGIC = b"\x30\x26\xb2\x75"
 PS_PACK, PS_END, PS_SYSTEM = 0xBA, 0xB9, 0xBB
 PS_TICKS = 90000  # the system clock's PTS / DTS units a second
@@ -133,8 +134,9 @@ MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead":
        "CueClusterPosition": 0xF1, "Tags": 0x1254C367, "Chapters": 0x1043A770, "Attachments": 0x1941A469}
 MKV_TOP_LEVEL = {MKV[k] for k in ("SeekHead", "Info", "Tracks", "Cluster", "Cues", "Tags", "Chapters", "Attachments")}
 MKV_CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4",
-              "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12", "V_MPEG4/MS/V3": "msmpeg4v3"}
-MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
+              "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12", "V_MPEG4/MS/V3": "msmpeg4v3",
+              "V_MPEG4/ISO/AVC": "h264"}
+MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
              "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MS/VFW/FOURCC": "VfW"}
 # ffmpeg's standard frame rates (get_std_framerate), as fractions over 12 * 1001
 _STD_RATES = [(i + 1) * 1001 for i in range(30 * 12)] + [(i + 61) * 1001 * 12 for i in range(30)] + \
@@ -169,6 +171,8 @@ def _codec_of(tag: bytes) -> Optional[str]:
         return "i420"
     if tag in MPEG12_TAGS:
         return "mpeg12"
+    if tag in H264_TAGS:
+        return "h264"
     version = native.MSMPEG4_VERSIONS.get(tag.upper())
     return MSMPEG4_CODECS[version] if version else None
 
@@ -547,6 +551,12 @@ class VideoReader:
             self._refuse(f"{name} video ('{_tag(fmt)}')")
         width, height = struct.unpack(">HH", entry[32:36])
         self.size = (width, height)
+        if self.codec == "h264":
+            at = entry.find(b"avcC", 86)
+            if at < 4:
+                raise ValueError(f"{self.path}: an '{_tag(fmt)}' sample entry without an 'avcC' box")
+            n_avcc = struct.unpack(">I", entry[at - 4:at])[0]
+            self.extradata = entry[at + 4:at - 4 + n_avcc]
         if self.codec == "mpeg4":
             esds = entry.find(b"esds")
             if esds < 0:
@@ -839,17 +849,17 @@ class VideoReader:
             tag = private[16:20]
             self.codec = _codec_of(tag)
             self.codec_tag = tag
-            if self.codec is None:
-                self._refuse(f"{NAMED_TAGS.get(tag, f'the {_tag(tag)!r} codec')} video ('V_MS/VFW/FOURCC', "
-                             f"'{_tag(tag)}')")
+            if self.codec is None or self.codec == "h264" and self.container == "WebM":
+                name = "H.264" if self.codec else NAMED_TAGS.get(tag, f"the {_tag(tag)!r} codec")
+                self._refuse(f"{name} video ('V_MS/VFW/FOURCC', '{_tag(tag)}')")
             private = private[40:]
         elif cid == "V_UNCOMPRESSED":
             space = track.get("colour_space", b"")
             if space[:4] not in I420_TAGS:
                 self._refuse(f"uncompressed video of ColourSpace '{_tag(space[:4])}'")
             self.codec = "i420"
-        if self.codec is None:
-            self._refuse(f"{MKV_NAMED.get(cid, f'the {cid!r} codec')} video ('{cid}')")
+        if self.codec is None or self.codec == "h264" and self.container == "WebM":
+            self._refuse(f"{MKV_NAMED.get(cid, 'H.264' if self.codec else f'the {cid!r} codec')} video ('{cid}')")
         if self.codec not in ("mjpeg", "i420", "vp8"):
             self.extradata = private
 
@@ -1212,8 +1222,9 @@ class VideoReader:
             raise ValueError(f"{self.path}: corrupt ASF file (a BITMAPINFOHEADER of {len(bih)} bytes)")
         tag = bih[16:20]
         self.codec = _codec_of(tag)
-        if self.codec in (None, "i420"):
-            self._refuse(f"{NAMED_TAGS.get(tag, f'the {_tag(tag)!r} codec')} video ('{_tag(tag)}')")
+        if self.codec in (None, "i420", "h264"):
+            name = "H.264" if self.codec == "h264" else NAMED_TAGS.get(tag, f"the {_tag(tag)!r} codec")
+            self._refuse(f"{name} video ('{_tag(tag)}')")
         self.codec_tag = tag
         self.extradata = bih[40:struct.unpack("<I", bih[:4])[0]]
         bw, bh = struct.unpack("<ii", bih[4:12])
@@ -1462,6 +1473,9 @@ class VideoReader:
         if self.codec in MSMPEG4_CODECS.values():
             yield from self._msmpeg4_frames()
             return
+        if self.codec == "h264":
+            yield from self._h264_frames()
+            return
         if self.codec in ("mpeg1", "mpeg2"):
             yield from self._mpeg12_frames()
             return
@@ -1527,16 +1541,25 @@ class VideoReader:
         if buf:
             yield bytes(buf)
 
-    def _mpeg4_frames(self) -> Iterator[np.ndarray]:
-        """Each frame in display order, as libavcodec gives them (B-VOPs
-        reordered, one chunk late); an MP4 edit list's frames only, the
-        decoder's k-th frame being the sample with the k-th display time."""
+    def _display_order(self) -> Tuple[int, list, Optional[set]]:
+        """(the first sample to decode, the samples in display order from
+        it, the samples an MP4 edit list shows or None for all): the
+        decoder's k-th frame is the sample with the k-th display time, and
+        an edit list's first frame decodes from the sync sample before it."""
         n = len(self.samples)
         wanted = set(self.shown) if self.shown is not None else None
-        start = 0  # an edit list's first frame decodes from the sync sample before it
+        start = 0
         if wanted and self.keyframes:
             start = max((k for k in self.keyframes if k <= min(wanted)), default=0)
-        order = sorted(range(start, n), key=lambda i: (self.pts[i], i)) if self.pts is not None else range(start, n)
+        order = sorted(range(start, n), key=lambda i: (self.pts[i], i)) if self.pts is not None else \
+            list(range(start, n))
+        return start, order, wanted
+
+    def _mpeg4_frames(self) -> Iterator[np.ndarray]:
+        """Each frame in display order, as libavcodec gives them (B-VOPs
+        reordered, one chunk late); an MP4 edit list's frames only
+        (:meth:`_display_order`)."""
+        start, order, wanted = self._display_order()
         dec = native.Mpeg4Decoder(self.codec_tag)
 
         def shown(got, k):
@@ -1587,6 +1610,44 @@ class VideoReader:
                 if got is not None:
                     yield native.yuv_to_bgr(*got[0], full_range=False)
             self.msmpeg4_tally = dec.tally()
+        finally:
+            dec.close()
+
+    def _h264_frames(self) -> Iterator[np.ndarray]:
+        """Each frame of an H.264 stream (``native.H264Decoder``) in
+        libavcodec's output order, an MP4 edit list's frames only (as
+        :meth:`_display_order`), cropped as libavcodec crops it and converted
+        as cv2 converts MPEG-4's (its chroma left-sited), in the range the
+        VUI flags: a full-range stream as yuvj420p."""
+        start, order, wanted = self._display_order()
+        what = f"{self.container} with H.264 video"
+        try:
+            dec = native.H264Decoder(self.extradata, self.size)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {what}: {e}") from None
+        k = 0  # frames out so far
+
+        def shown(frames):
+            nonlocal k
+            for (y, u, v), info in frames:
+                k += 1
+                if wanted is not None and (k > len(order) or order[k - 1] not in wanted):
+                    continue
+                yield native.yuv_to_bgr(y, u, v, full_range=info["full_range"], chroma_left=True)
+
+        try:
+            for i in range(start, len(self.samples)):
+                try:
+                    got = dec.decode(self._sample(self.samples[i]))
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: {what}, sample {i}: {e}") from None
+                yield from shown(got)
+            try:
+                got = dec.flush()
+            except ValueError as e:
+                raise ValueError(f"{self.path}: {what}, at its end: {e}") from None
+            yield from shown(got)
+            self.h264_tally = dec.tally()
         finally:
             dec.close()
 

@@ -4,17 +4,19 @@ rows, sub-byte samples, Adam7 and 16-bit samples, the port's copy of
 MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
 encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding),
-``msmpeg4.cpp`` (MS MPEG-4 v2 and v3, WMV1 and WMV2 decoding), ``tiff.cpp``
+``msmpeg4.cpp`` (MS MPEG-4 v2 and v3, WMV1 and WMV2 decoding), ``h264.cpp``
+(H.264 Constrained Baseline decoding), ``tiff.cpp``
 (TIFF's LZW, PackBits, CCITT fax codes and predictor), ``webp.cpp``
 (WebP's VP8L bitstream, and the upsampling of a lossy still), ``vp8.cpp``
 (VP8 key and inter frames, for WebM / Matroska video and WebP stills),
 ``gif.cpp`` (GIF's blocks and LZW, and cv2's GIF encoder) and
 ``raster.cpp`` (PNM numbers, Radiance HDR scanlines), with
 ``simple_idct.h``, ``xvid_idct.h``, ``h263.h`` (what ``mpeg4.cpp`` and
-``msmpeg4.cpp`` share) and ``msmpeg4_tables.h``.
+``msmpeg4.cpp`` share), ``msmpeg4_tables.h`` and ``h264_tables.h``.
 
-The twelve sources are compiled at first use, together, with ``g++ -O3
--shared -fPIC -std=c++17`` into ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
+The thirteen sources are compiled at first use, each in a process of its
+own and all at once, with ``g++ -O3 -fPIC -std=c++17``, and linked into
+``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
 import time. The data pipeline and the image codecs have no other path: when
 the library cannot be built or loaded, :func:`load` (and so every entry
@@ -40,7 +42,7 @@ import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
 CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "mpeg12.cpp",
-                                                                 "msmpeg4.cpp", "tiff.cpp", "webp.cpp", "vp8.cpp",
+                                                                 "msmpeg4.cpp", "h264.cpp", "tiff.cpp", "webp.cpp", "vp8.cpp",
                                                                  "gif.cpp", "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -54,7 +56,8 @@ def sources() -> tuple[Path, ...]:
     return (*CODEC_SOURCES, SOURCE)
 
 
-HEADERS = tuple(Path(__file__).with_name(f) for f in ("simple_idct.h", "xvid_idct.h", "h263.h", "msmpeg4_tables.h"))
+HEADERS = tuple(Path(__file__).with_name(f) for f in ("simple_idct.h", "xvid_idct.h", "h263.h", "msmpeg4_tables.h",
+                                                       "h264_tables.h"))
 
 
 def library_path() -> Path:
@@ -64,20 +67,57 @@ def library_path() -> Path:
 
 
 def _compile(target: Path) -> Optional[str]:
-    """Build the library into ``target``; the compiler's message on failure."""
+    """Build the library into ``target``; the compiler's message on failure.
+    Each source compiles in a process of its own, all at once, then one link;
+    the first source that fails stops the others. A lock file beside the
+    target keeps processes that build the same library at once (test workers)
+    from building it twice: the later ones wait, then load it."""
+    import fcntl
+    import shutil
+    import time
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = ["g++", *CXX_FLAGS, *map(str, sources()), "-o", str(tmp)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
-    except subprocess.CalledProcessError as e:
-        tmp.unlink(missing_ok=True)
-        return f"{' '.join(cmd)} failed:\n{e.stderr}"
-    except (subprocess.SubprocessError, OSError) as e:
-        tmp.unlink(missing_ok=True)
-        return f"{' '.join(cmd)} did not run: {e}"
-    os.replace(tmp, target)
-    return None
+    with open(target.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            return None
+        objs = target.with_name(f"{target.stem}.{os.getpid()}.objs")
+        objs.mkdir(exist_ok=True)
+        try:
+            running = []
+            for src in sources():
+                cmd = ["g++", *(f for f in CXX_FLAGS if f != "-shared"), "-c", str(src), "-o",
+                       str(objs / f"{src.stem}.o")]
+                running.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            error, start = None, time.monotonic()
+            while running and error is None:
+                for cmd, proc in list(running):
+                    if proc.poll() is None:
+                        continue
+                    running.remove((cmd, proc))
+                    if proc.returncode:
+                        error = f"{' '.join(cmd)} failed:\n{proc.stderr.read()}"
+                if running and time.monotonic() - start > 300:
+                    error = f"{' '.join(running[0][0])} did not finish in 300 s"
+                time.sleep(0.02)
+            for _, proc in running:
+                proc.kill()
+                proc.wait()
+            if error is not None:
+                return error
+            tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+            cmd = ["g++", "-shared", *(str(objs / f"{src.stem}.o") for src in sources()), "-o", str(tmp)]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
+            except subprocess.CalledProcessError as e:
+                tmp.unlink(missing_ok=True)
+                return f"{' '.join(cmd)} failed:\n{e.stderr}"
+            os.replace(tmp, target)
+            return None
+        except (subprocess.SubprocessError, OSError) as e:
+            return f"g++ did not run: {e}"
+        finally:
+            shutil.rmtree(objs, ignore_errors=True)
 
 
 def load() -> ctypes.CDLL:
@@ -137,7 +177,7 @@ def _open(target: Path):
     lib.mga_jpeg_decode_planes.restype = n64
     lib.mga_yuv_to_bgr.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, c, u8p]
     lib.mga_yuv_to_bgr.restype = None
-    lib.mga_yuv420_to_bgr_scaled.argtypes = [u8p, c, u8p, u8p, c, c, c, c, u8p]
+    lib.mga_yuv420_to_bgr_scaled.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, u8p]
     lib.mga_yuv420_to_bgr_scaled.restype = None
     lib.mga_bgr_to_yuv420.argtypes = [u8p, c, c, u8p, u8p, u8p]
     lib.mga_bgr_to_yuv420.restype = None
@@ -211,6 +251,20 @@ def _open(target: Path):
     lib.mga_msmpeg4_frame.restype = None
     lib.mga_msmpeg4_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
     lib.mga_msmpeg4_tally.restype = c
+    lib.mga_h264_new.argtypes = [buf, n64, c, c, buf, c]
+    lib.mga_h264_new.restype = ctypes.c_void_p
+    lib.mga_h264_free.argtypes = [ctypes.c_void_p]
+    lib.mga_h264_free.restype = None
+    lib.mga_h264_decode.argtypes = [ctypes.c_void_p, buf, n64, buf, c]
+    lib.mga_h264_decode.restype = c
+    lib.mga_h264_flush.argtypes = [ctypes.c_void_p, buf, c]
+    lib.mga_h264_flush.restype = c
+    lib.mga_h264_peek.argtypes = [ctypes.c_void_p, i32p]
+    lib.mga_h264_peek.restype = c
+    lib.mga_h264_pop.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
+    lib.mga_h264_pop.restype = None
+    lib.mga_h264_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_h264_tally.restype = c
     return lib, None
 
 
@@ -446,12 +500,13 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool,
     """(H, W, 3) BGR uint8 from a luma plane and two chroma planes of half
     (4:2:0) or half-width (4:2:2) or equal size, as cv2.VideoCapture converts
     a frame (swscale's unscaled yuv2rgb, chroma replicated; JPEG's range when
-    ``full_range``, else limited; BT.601). A limited-range 4:2:0 frame of
-    odd height takes swscale's scaled path, as cv2's does, its chroma
-    upsampled from where the codec sites it (``chroma_left``: MPEG-2 and
-    MPEG-4; centred: MPEG-1, VP8); a full-range or 4:2:2 frame, or one
-    under 9 rows (swscale's 1- and 2-tap paths), of odd height keeps the
-    unscaled rule (``ROADMAP.md`` section 3)."""
+    ``full_range``, else limited; BT.601). A 4:2:0 frame of odd height (9
+    rows or more) takes swscale's scaled path, as cv2's does, its chroma
+    upsampled from where the codec sites it (``chroma_left``: MPEG-2, MPEG-4
+    and H.264; centred: MPEG-1, VP8), in either range; a frame one row high
+    takes the scaled path's one-tap output stage (swscale's C tables); a
+    4:2:2 frame, or one of 3 to 7 rows (swscale's 1- and 2-tap paths), of
+    odd height keeps the unscaled rule (``ROADMAP.md`` section 3)."""
     lib = load()
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     h, w = y.shape
@@ -461,8 +516,12 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool,
     if u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
         raise ValueError(f"chroma planes of {u.shape} for luma of {y.shape}")
     out = np.empty((h, w, 3), np.uint8)
-    if h & 1 and h >= 9 and sx and sy and not full_range:
-        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), _u8(out))
+    if h == 1 and u.shape[1] == (w + 1) // 2:  # one row: 4:2:0 (and 4:2:2) take the scaled path's 1-tap stage
+        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
+                                     _u8(out))
+    elif h & 1 and h >= 9 and sx and sy:
+        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
+                                     _u8(out))
     else:
         lib.mga_yuv_to_bgr(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(full_range), _u8(out))
     return out
@@ -754,6 +813,93 @@ class MsMpeg4Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.mga_msmpeg4_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what an H264Decoder counts (h264.cpp's Tally, in its order)
+H264_TALLY = ("pictures_idr", "pictures_i", "pictures_p", "pictures_non_ref", "slices", "multi_slice_pictures",
+              "annex_b", "nal_length_1", "nal_length_2", "nal_length_4", "emulation_prevention", "nal_skipped",
+              "profile_66", "profile_77", "profile_100", "poc_type_0", "poc_type_1", "poc_type_2", "cropped",
+              "full_range", "mb_i4x4", "mb_i16x16", "mb_pcm", "mb_intra_in_p", "mb_p16x16", "mb_p16x8", "mb_p8x16",
+              "mb_p8x8", "mb_p8x8ref0", "mb_skip", "sub_8x8", "sub_8x4", "sub_4x8", "sub_4x4",
+              *(f"i4x4_mode_{k}" for k in range(9)), *(f"i16x16_mode_{k}" for k in range(4)),
+              *(f"i16x16_cbp_chroma_{k}" for k in range(3)), "i16x16_ac", *(f"chroma_mode_{k}" for k in range(4)),
+              "qp_delta", *(f"coeff_token_{k}" for k in range(4)), "coeff_token_chroma_dc",
+              *(f"suffix_length_{k}" for k in range(7)), "level_prefix_14", "level_prefix_15", "total_zeros",
+              "run_before_long", "luma_dc", "chroma_dc", "chroma_ac", "mv_median", "mv_16x8", "mv_8x16", "skip_zero",
+              "skip_predicted", "luma_full", "luma_half", "luma_quarter", "chroma_fraction", "mc_off_picture",
+              "ref_idx_nonzero", "long_term_refs", "list_mod_0", "list_mod_1", "list_mod_2", "sliding_window",
+              *(f"mmco_{k}" for k in range(1, 7)), "idr_long_term", *(f"deblock_idc_{k}" for k in range(3)),
+              "deblock_offsets", "bs_1", "bs_2", "bs_3", "bs_4", "constrained_intra")
+
+
+class H264Decoder:
+    """An H.264 decoder (``h264.cpp``: CAVLC I and P slices, see its top) for
+    a stream with ``extradata`` (an avcC record, whose NAL length size the
+    samples then use; parameter sets with start codes; or nothing, for
+    samples with start codes) in a container that gives its picture ``size``
+    (width, height; (0, 0) for none), which replaces the SPS's cropped size
+    as in libavcodec. Feed it the samples in order, an access unit each, then
+    :meth:`flush`; frames come out in libavcodec's output order, cropped as
+    cv2 crops them. Raises ValueError naming what it does not decode. Holds
+    its reference frames; :meth:`close` frees them."""
+
+    def __init__(self, extradata: bytes = b"", size: tuple[int, int] = (0, 0)):
+        self._h = None
+        self._lib = load()
+        extradata = bytes(extradata)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._h = self._lib.mga_h264_new(extradata, len(extradata), int(size[0]), int(size[1]), err, _ERR_LEN)
+        if not self._h:
+            raise ValueError(err.value.decode())
+
+    def _ready(self) -> list:
+        out = []
+        info = (ctypes.c_int32 * 7)()
+        while self._lib.mga_h264_peek(self._h, info):
+            w, h, cw, ch, full, kind, key = list(info)
+            y = np.empty((h, w), np.uint8)
+            u = np.empty((ch, cw), np.uint8)
+            v = np.empty_like(u)
+            self._lib.mga_h264_pop(self._h, _u8(y), _u8(u), _u8(v))
+            out.append(((y, u, v), {"full_range": bool(full), "type": kind, "key": bool(key)}))
+        return out
+
+    def decode(self, chunk: bytes) -> list:
+        """The frames ready after the sample: ((y, u, v), info) each, info
+        the picture's ``full_range`` (the VUI's flag), ``type`` (1 I, 2 P)
+        and ``key`` (an IDR picture)."""
+        if not self._h:
+            raise ValueError("the H.264 decoder is closed")
+        chunk = bytes(chunk)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        if self._lib.mga_h264_decode(self._h, chunk, len(chunk), err, _ERR_LEN) < 0:
+            raise ValueError(err.value.decode())
+        return self._ready()
+
+    def flush(self) -> list:
+        """The frames left at the end of the stream."""
+        if not self._h:
+            raise ValueError("the H.264 decoder is closed")
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        if self._lib.mga_h264_flush(self._h, err, _ERR_LEN) < 0:
+            raise ValueError(err.value.decode())
+        return self._ready()
+
+    def tally(self) -> dict:
+        """The tools decoded so far, counted (``H264_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(H264_TALLY))()
+        n = self._lib.mga_h264_tally(self._h, out, len(H264_TALLY))
+        if n != len(H264_TALLY):
+            raise RuntimeError(f"h264.cpp counts {n} tools, H264_TALLY names {len(H264_TALLY)}")
+        return dict(zip(H264_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_h264_free(self._h)
             self._h = None
 
     def __del__(self):

@@ -8,11 +8,12 @@
 // raw I420 frames limited range; both BT.601. The coefficients are derived
 // here from the BT.601 inverse matrix, as swscale derives its own.
 //
-// A limited-range 4:2:0 frame of odd height is another matter: swscale's
-// unscaled converter takes even heights only, so cv2 gets swscale's scaled
-// path at the same size with SWS_BICUBIC (mga_yuv420_to_bgr_scaled, measured
-// against cv2 to the bit on MPEG-1, MPEG-2, MPEG-4 and VP8 frames of odd
-// height). Chroma is upsampled by swscale's initFilter bicubic filters (B 0,
+// A 4:2:0 frame of odd height is another matter: swscale's unscaled
+// converter takes even heights only, so cv2 gets swscale's scaled path at
+// the same size with SWS_BICUBIC (mga_yuv420_to_bgr_scaled, measured against
+// cv2 to the bit on MPEG-1, MPEG-2, MPEG-4 and VP8 frames of odd height, and
+// on H.264 frames of odd height in both ranges; a full-range frame takes the
+// same path with the full-range matrix and luma table). Chroma is upsampled by swscale's initFilter bicubic filters (B 0,
 // C 0.6): vertically from ceil(h/2) rows to h, and horizontally where the
 // chroma siting differs (MPEG-2 and MPEG-4 left-sited, MPEG-1 and VP8
 // centred) or the width is odd; an odd width forces full horizontal chroma
@@ -20,8 +21,10 @@
 // and its C output stage (one rounding of 13-bit coefficients at 2^22); an
 // even width takes the x86 packed path (each tap a pmulhw, a rounder of 4,
 // then the unscaled converter's arithmetic), but for the last two rows,
-// which swscale writes with its C functions (its yuv2rgb tables). Frames
-// under 9 rows (swscale's 1- and 2-tap vertical paths) are not covered.
+// which swscale writes with its C functions (its yuv2rgb tables). A frame one
+// row high is all last rows: its one-tap stage is those C functions
+// (measured on MJPEG frames 1 to 64 samples wide). Frames of 3 to 7 rows
+// (swscale's 1- and 2-tap vertical paths) are not covered.
 //
 // BGR24 -> YUV 4:2:0 for the MPEG-4 writer: BT.601 limited range (what
 // cv2's writer hands the mp4v encoder), luma per pixel and chroma from the
@@ -46,8 +49,8 @@ inline int round16(int64_t x) {  // to a 16-bit coefficient, rounded
 inline uint8_t sat(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
 // The BT.601 inverse matrix in 16.16 (Cr->R, Cb->B, Cb->G, Cr->G), limited range.
-constexpr int64_t kCrv = 104597, kCbu = 132201, kCgu = -25675, kCgv = -53279;
-constexpr int64_t kCy = (int64_t(1) << 16) * 255 / 219, kOy = int64_t(16) << 16;
+constexpr int64_t kCrvL = 104597, kCbuL = 132201, kCguL = -25675, kCgvL = -53279;
+constexpr int64_t kCyL = (int64_t(1) << 16) * 255 / 219, kOyL = int64_t(16) << 16;
 
 // A filter as swscale's initFilter makes it for a bicubic upscale (srcW <=
 // dstW): dstW rows of `size` coefficients summing to `one`, from source
@@ -223,9 +226,14 @@ void mga_yuv_to_bgr(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_
 // scaled path gives it to cv2 (see the top). left: the chroma is left-sited
 // (MPEG-2, MPEG-4), else centred.
 void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_t* v, int32_t cs, int32_t h,
-                              int32_t w, int32_t left, uint8_t* out) {
+                              int32_t w, int32_t left, int32_t full_range, uint8_t* out) {
   const int ch = (h + 1) / 2, csw = (w + 1) / 2;
   const bool full = w & 1;  // full horizontal chroma
+  // the range's matrix, as mga_yuv_to_bgr's: full-range chroma scaled by 224 / 255, limited-range luma by 255 / 219
+  const int64_t kCy = full_range ? int64_t(1) << 16 : kCyL, kOy = full_range ? 0 : kOyL;
+  const int64_t kCrv = full_range ? kCrvL * 224 / 255 : kCrvL, kCbu = full_range ? kCbuL * 224 / 255 : kCbuL;
+  const int64_t kCgu = full_range ? kCguL * 224 / 255 : kCguL, kCgv = full_range ? kCgvL * 224 / 255 : kCgvL;
+  const int64_t yoffs = full_range ? 384 : 326;  // swscale's offset into its luma table
   const int cw = full ? w : csw;
   const int hpos = left ? 0 : -513;
   const std::vector<int> U = hscale(u, cs, ch, csw, cw, local_pos(1, hpos), local_pos(full ? 0 : 1, -513));
@@ -237,7 +245,7 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
             fug = round16(kCgu * 8192), fvg = round16(kCgv * 8192);
   const int yc = fy, yo = round16(kOy * 8);
   // the C tables' coefficients, in luma steps, and their luma offset
-  auto in_y = [](int64_t c) { return (int64_t)((c * 65536 + 0x8000) / kCy); };
+  auto in_y = [kCy](int64_t c) { return (int64_t)((c * 65536 + 0x8000) / kCy); };
   const int64_t tr = in_y(kCrv), tb = in_y(kCbu), tgu = in_y(kCgu), tgv = in_y(kCgv);
   std::vector<int64_t> ua(cw), va(cw);
   for (int r = 0; r < h; ++r) {
@@ -273,7 +281,7 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
                               Y + ((uu * tgu) >> 16) - (tgu >> 9) + ((vv * tgv) >> 16) - (tgv >> 9),
                               Y + ((vv * tr) >> 16) - (tr >> 9)};
         for (int k = 0; k < 3; ++k)
-          o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, ((326 + t[k]) * kCy - (384 << 16) - kOy + 0x8000) >> 16));
+          o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, ((yoffs + t[k]) * kCy - (384 << 16) - kOy + 0x8000) >> 16));
       } else {
         const int yy = high16((int)(Y * 8 + 4) - yo, yc);
         const int uu = (int)ua[c >> 1] - 1024, vv = (int)va[c >> 1] - 1024;

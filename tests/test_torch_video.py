@@ -201,7 +201,8 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
     mp4 = (FIXTURES / "mp4v.mp4").read_bytes()
     head, chunks = avi_parts((FIXTURES / "xvid.avi").read_bytes())
     if kind == "avc1":
-        data, what = _mp4_with(mp4, b"mp4v", b"avc1"), r"MP4 with H\.264 video \('avc1'\)"
+        # H.264 reads now (tests/test_torch_h264.py): an avc1 sample entry without its configuration does not
+        data, what = _mp4_with(mp4, b"mp4v", b"avc1"), r"an 'avc1' sample entry without an 'avcC' box"
     elif kind == "hvc1":
         data, what = _mp4_with(mp4, b"mp4v", b"hvc1"), r"MP4 with HEVC video \('hvc1'\)"
     elif kind == "moof":
@@ -262,7 +263,10 @@ def test_what_the_port_does_not_read_raises_naming_it(tmp_path, kind):
     B-VOPs and packed bitstreams, once refused, now read
     (``tests/test_torch_mpeg4_asp.py`` holds them): the B-VOP case is one
     before a second reference, which the port passes over as cv2 does, and
-    the packed case a packed chunk of three VOPs, which it refuses."""
+    the packed case a packed chunk of three VOPs, which it refuses. H.264,
+    once refused, now reads (``tests/test_torch_h264.py`` holds it): the
+    avc1 case is a sample entry without its avcC record, and the AVI case
+    MPEG-4 data under an H.264 tag, which the decoder refuses as corrupt."""
     from mga_yolo_tpu_torch.data.video_io import VideoReader
 
     if kind == "gif":

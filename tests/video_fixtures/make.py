@@ -647,19 +647,21 @@ def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: byt
     return pack_avi(b"RIFF\0\0\0\0AVI " + hdrl, payloads)
 
 
-def mp4_bytes(packets: list, w: int, h: int, fps: int, trim: int = 0) -> bytes:
+def mp4_bytes(packets: list, w: int, h: int, fps: int, trim: int = 0, entry: bytes | None = None) -> bytes:
     """An MP4 of MPEG-4 Part 2 packets (data, key, display index) in decode
     order, laid out as ffmpeg's mov muxer writes B-VOPs: decode times one
     frame apart, composition offsets (ctts) to the display times shifted by
     the reordering delay, and an edit list from that delay on, which shows
     every frame; ``trim`` frames more left out at the start of the edit. The
-    VOL stays in the first sample and is copied into the esds."""
+    VOL stays in the first sample and is copied into the esds. ``entry``:
+    another sample entry box in place of the mp4v one (an avc1 of H.264
+    samples, ``h264_writer.avc1_entry``)."""
     ts, delta = fps * 512, 512
     n = len(packets)
     shift = max(dec - shown for dec, (_, _, shown) in enumerate(packets)) + 1
     offsets = [(shown + shift - dec) * delta for dec, (_, _, shown) in enumerate(packets)]
     first = packets[0][0]
-    vol = first[:first.find(b"\x00\x00\x01\xb6")]
+    vol = first[:first.find(b"\x00\x00\x01\xb6")] if entry is None else b""
 
     def box(t: bytes, payload: bytes) -> bytes:
         return struct.pack(">I4s", 8 + len(payload), t) + payload
@@ -693,7 +695,7 @@ def mp4_bytes(packets: list, w: int, h: int, fps: int, trim: int = 0) -> bytes:
             runs[-1][0] += 1
         else:
             runs.append([1, o])
-    stbl = box(b"stbl", box(b"stsd", struct.pack(">II", 0, 1) + mp4v) +
+    stbl = box(b"stbl", box(b"stsd", struct.pack(">II", 0, 1) + (mp4v if entry is None else entry)) +
                box(b"stts", struct.pack(">IIII", 0, 1, n, delta)) +
                box(b"ctts", struct.pack(">II", 0, len(runs)) + b"".join(struct.pack(">II", c, o) for c, o in runs)) +
                box(b"stss", struct.pack(">II", 0, sum(k for _, k, _ in packets)) +
@@ -799,17 +801,18 @@ def vol_matrices(data: bytes, intra: list, inter: list) -> bytes:
     return data[:m + 4] + int(body, 2).to_bytes(len(body) // 8, "big") + data[end:]
 
 
-def lavc_planes(packets: list, fourcc: bytes = b"") -> list:
+def lavc_planes(packets: list, fourcc: bytes = b"", decoder: str = "mpeg4") -> list:
     """The Y, U and V planes of each frame libavcodec's mpeg4 decoder (the
     one inside cv2's wheel, through ctypes) gives for the packets: the oracle
     of interlaced clips, whose frames cv2 cannot convert (it hands on a stale
-    buffer for a frame flagged interlaced). The AVFrame / AVPacket /
+    buffer for a frame flagged interlaced); ``decoder`` another of its
+    decoders (``h264``: the reference pictures of ``h264_writer.encode``). The AVFrame / AVPacket /
     AVCodecContext field offsets are those of libavutil 60 / libavcodec 62."""
     import ctypes
 
     avutil, avcodec = libav()
     vp = ctypes.c_void_p
-    codec = avcodec.avcodec_find_decoder_by_name(b"mpeg4")
+    codec = avcodec.avcodec_find_decoder_by_name(decoder.encode())
     ctx = avcodec.avcodec_alloc_context3(codec)
     if fourcc:
         ctypes.cast(ctx, ctypes.POINTER(ctypes.c_uint32))[7] = int.from_bytes(fourcc, "little")  # codec_tag
@@ -1099,7 +1102,115 @@ def wmv_main() -> None:
     (HERE / "wmv.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
 
 
+# ------------------------------------------------------------------ H.264
+
+# name: (seed, macroblocks across and down, frames, SPS options, PPS options, choices (h264_writer.syntax_clip),
+#        container layout: NAL length size (0: start codes), rate (frames a second, as num / den), container size)
+H264_SYNTAX = {
+    "h264_intra.avi": (211, (6, 4), 4, {}, {"cqp": 3},
+                       {"p": 0.0, "qp_range": (0, 51), "slices": 3, "deblock_idc": [0, 1, 2], "idr_every": 2,
+                        "i4": 0.6, "pcm": 0.08}, 0, (25, 1), None),
+    "h264_inter.mp4": (212, (5, 4), 10, {"refs": 4}, {"refs": 3},
+                       {"qp_range": (8, 40), "slices": 2, "deblock_idc": [0, 2], "mods": 0.5, "mmco": 0.3,
+                        "big_mvd": 0.2}, 4, (25, 1), None),
+    "h264_longterm.mkv": (213, (4, 3), 12, {"refs": 5}, {"refs": 4},
+                          {"qp_range": (14, 40), "slices": 2, "deblock_idc": [0, 1, 2], "mods": 0.6, "mmco": 0.6,
+                           "idr_long": 1.0}, 2, (25, 1), None),
+    "h264_mmco5.avi": (214, (3, 2), 14, {"refs": 3}, {"refs": 2},
+                       {"qp_range": (14, 40), "deblock_idc": [0], "mods": 0.5, "mmco": 0.5, "mmco5": 0.3,
+                        "non_ref": 0.3, "aud": True}, 0, (30000, 1001), None),
+    "h264_poc1.mp4": (215, (2, 2), 10, {"refs": 2, "profile": 77, "poc_type": 1, "poc1": (0, 1, 0, [2])},
+                      {"refs": 2}, {"qp_range": (32, 44), "non_ref": 0.3, "pcm": 0.0, "slices": 4,
+                                    "deblock_idc": [0]}, 1, (30, 1), None),
+    "h264_poc2.avi": (216, (4, 2), 10, {"refs": 2, "poc_type": 2}, {"refs": 2},
+                      {"qp_range": (10, 40), "non_ref": 0.3, "deblock_idc": [0, 2], "sei": True}, 0, (30, 1), None),
+    "h264_crop_full.mkv": (217, (7, 4), 6, {"refs": 2, "profile": 100, "crop": (0, 7, 1, 1), "full_range": 1},
+                           {"refs": 2, "cqp": -4, "cqp2": 6}, {"qp_range": (10, 40), "deblock_idc": [0]}, 4,
+                           (30000, 1001), None),
+    "h264_odd_full.mp4": (218, (7, 4), 4, {"refs": 1, "full_range": 1}, {},
+                          {"qp_range": (10, 40), "deblock_idc": [0]}, 4, (25, 1), (97, 63)),
+    "h264_constrained.avi": (219, (5, 4), 8, {"refs": 2}, {"refs": 2, "constrained": 1},
+                             {"qp_range": (10, 40), "slices": 3, "deblock_idc": [0, 2], "intra_in_p": 0.4}, 0,
+                             (25, 1), None),
+    "h264_wrap.avi": (220, (2, 1), 22, {"refs": 2, "log2_max_frame_num": 4}, {"refs": 2},
+                      {"qp_range": (20, 40), "mods": 0.5, "non_ref": 0.1, "deblock_idc": [0]}, 0, (25, 1), None),
+    "h264_reorder.avi": (221, (3, 2), 10, {"refs": 2, "log2_max_poc_lsb": 5}, {"refs": 2},
+                         {"qp_range": (20, 40), "poc_step": 4, "deblock_idc": [0]}, 0, (25, 1), None),
+    "h264_clip.mov": (222, (4, 3), 8, {"refs": 2, "timing": (1001, 60000)}, {"refs": 2},
+                      {"qp_range": (10, 40), "deblock_idc": [0, 1]}, 4, (30, 1), None),
+}
+H264_BIG = ("h264_big512.mp4", "h264_big512.mkv")  # the same stream of moving(8, 512, 512, 63) in each
+H264_BIG_QP = 30
+MJPEG_ROWS = (1, 2, 8, 16, 64)  # the widths of cv2's one-row MJPG clips, 3 frames each
+
+
+def h264_pack(name: str, units: list, w: int, h: int, size: int, rate: tuple) -> bytes:
+    """The access units in the container of name's suffix: AVI (start codes, tag H264), MP4 / MOV (an avc1
+    sample entry, NAL lengths of ``size`` bytes) or Matroska (V_MPEG4/ISO/AVC, its avcC in CodecPrivate)."""
+    from tests.video_fixtures import h264_writer as hw
+
+    if name.endswith(".avi"):
+        return avi_bytes([hw.annex_b(u, long_codes=i % 2 == 0) for i, u in enumerate(units)], w, h, rate[0], rate[1],
+                         b"H264")
+    sps = [n for n in units[0] if n[0] & 0x1F == 7]
+    pps = [n for n in units[0] if n[0] & 0x1F == 8]
+    config = hw.avcc(sps, pps, size)
+    samples = [hw.length_prefixed([n for n in u if n[0] & 0x1F not in (7, 8)], size) for u in units]
+    if size == 1:
+        assert all(len(n) < 256 for u in units for n in u), "a NAL unit too long for a length of one byte"
+    if name.endswith(".mkv"):
+        ms = 1000 * rate[1] / rate[0]
+        return mkv_bytes("V_MPEG4/ISO/AVC", w, h, [(d, i == 0, round(i * ms)) for i, d in enumerate(samples)],
+                         doctype="matroska", private=config, default_duration=round(1e9 * rate[1] / rate[0]),
+                         duration=len(samples) * ms)
+    data = mp4_bytes([(d, i == 0, i) for i, d in enumerate(samples)], w, h, rate[0] // rate[1],
+                     entry=hw.avc1_entry(w, h, config))
+    return data.replace(b"isom\0\0\2\0isomiso2mp41", b"qt  \0\0\2\0qt  qt  mp41") if name.endswith(".mov") else data
+
+
+def h264_clips() -> dict:
+    """name -> bytes of the H.264 fixtures (see ``h264_main``)."""
+    from tests.video_fixtures import h264_writer as hw
+
+    out = {}
+    for name, (seed, (mw, mh), n, sps, pps, choices, size, rate, shown) in H264_SYNTAX.items():
+        units, _, _ = hw.syntax_clip(seed, mw, mh, n, sps, pps, choices)
+        w, h = shown or (16 * mw - 2 * sum(sps.get("crop", (0, 0, 0, 0))[:2]),
+                         16 * mh - 2 * sum(sps.get("crop", (0, 0, 0, 0))[2:]))
+        out[name] = h264_pack(name, units, w, h, size, rate)
+    planes = []
+    for img in moving(8, 512, 512, 63):
+        yuv = cv2.cvtColor(img, cv2.COLOR_BGR2YUV_I420)
+        planes.append((yuv[:512], yuv[512:640].reshape(256, 256), yuv[640:].reshape(256, 256)))
+    units = hw.encode(planes, H264_BIG_QP, lambda us: lavc_planes([hw.annex_b(u) for u in us], decoder="h264")[-1])
+    for name in H264_BIG:
+        out[name] = h264_pack(name, units, 512, 512, 4, (25, 1))
+    return out
+
+
+def h264_main() -> None:
+    """Writes the H.264 fixtures and their oracle, ``h264.json`` (the
+    SHA-256 of each frame cv2 reads, its fps, count and fourcc, and each
+    file's own SHA-256), leaving the other fixtures as they are: the syntax
+    clips of ``H264_SYNTAX`` (``h264_writer.syntax_clip``'s random choices
+    over every tool the decoder counts, in AVI, MP4, MOV and Matroska), the
+    512 x 512 angiogram in MP4 and Matroska (``h264_writer.encode``, its
+    references from libavcodec), and cv2's MJPG clips one row high."""
+    meta = {}
+    for name, data in h264_clips().items():
+        (HERE / name).write_bytes(data)
+    rng = np.random.default_rng(64)
+    for w in MJPEG_ROWS:
+        cv2_write(HERE / f"mjpg_row{w}.avi", "MJPG", 25, [rng.integers(0, 256, (1, w, 3), np.uint8) for _ in range(3)])
+    for name in [*H264_SYNTAX, *H264_BIG, *(f"mjpg_row{w}.avi" for w in MJPEG_ROWS)]:
+        imgs, meta[name] = cv2_read(HERE / name)
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
+        meta[name]["file_sha256"] = hashlib.sha256((HERE / name).read_bytes()).hexdigest()
+    (HERE / "h264.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
+
+
 if __name__ == "__main__":
     import sys
 
-    {"mpeg": mpeg_main, "asp": asp_main, "wmv": wmv_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
+    {"mpeg": mpeg_main, "asp": asp_main, "wmv": wmv_main, "h264": h264_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
