@@ -244,18 +244,22 @@ Then the baseline toolchain and the experiment grid:
              MP43; ``cli.predict`` on the seeded flagship over a WMV2
              ``.wmv`` and an MP43 ``.avi`` (launches exact, boxes against
              the predictor's); the writer's ``.wmv`` read back.
-22. h264 —   H.264 Constrained Baseline (``native/h264.cpp``,
-             ``native/h264_tables.h``, ``data/video_io.py``'s avc1 / avcC,
-             ``V_MPEG4/ISO/AVC`` and AVI ``H264`` tracks): the committed
-             fixtures of ``tests/video_fixtures/h264.json`` (the tests'
-             writer's syntax clips over every tool the decoder counts, and a
-             512 px angiogram in MP4 and Matroska) checked by their own
+22. h264 —   H.264, the progressive tools of the Baseline, Main and High
+             profiles (``native/h264.cpp``, ``native/h264_tables.h``,
+             ``data/video_io.py``'s avc1 / avcC, ``V_MPEG4/ISO/AVC`` and AVI
+             ``H264`` tracks): the committed fixtures of
+             ``tests/video_fixtures/h264.json`` (the tests' writer's syntax
+             clips over every tool the decoder counts: CAVLC and CABAC, I, P
+             and B slices, direct prediction, weights, the 8x8 transform,
+             scaling matrices; a 512 px angiogram in the Baseline and in the
+             High profile, each in MP4 and Matroska) checked by their own
              SHA-256 and equal to cv2's frame digests, fps, counts and
-             fourccs, every tool counted; decode ms a 512 px I and P
-             picture; ``cli.predict`` on the seeded flagship over the two
-             512 px clips, 16 frames in one batch (exactly 3 CAM-gate
-             launches, boxes equal to the predictor's, max error 0); cv2's
-             one-row MJPG clips against their digests.
+             fourccs, every tool counted; decode ms a 512 px Baseline I and
+             P picture, and a 512 px High (CABAC, 8x8 transform) IDR, P and
+             B picture; ``cli.predict`` on the seeded flagship over the
+             Baseline and the High 512 px ``.mp4``, 16 frames in one batch
+             (exactly 3 CAM-gate launches, boxes equal to the predictor's,
+             max error 0); cv2's one-row MJPG clips against their digests.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -4258,25 +4262,50 @@ def wmv_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     return counts
 
 
-H264_TIMING_REPS = 5  # h264_big512.mp4 decoded 5 times for its per-picture times
+H264_TIMING_REPS = 5  # each 512 px clip decoded 5 times for its per-picture times
+
+
+def h264_picture_kind(sample: bytes, length_size: int) -> str:
+    """"IDR", "I", "P" or "B": the first slice's of an access unit (NAL lengths of length_size bytes, 0 for start
+    codes), read from its first_mb_in_slice and slice_type."""
+    i = 0
+    while i < len(sample):
+        if length_size:
+            n = int.from_bytes(sample[i:i + length_size], "big")
+            nal, i = sample[i + length_size:i + length_size + n], i + length_size + n
+        else:
+            j = sample.find(b"\x00\x00\x01", i)
+            k = sample.find(b"\x00\x00\x01", j + 3)
+            nal, i = sample[j + 3:k if k >= 0 else len(sample)], k if k >= 0 else len(sample)
+        if nal and nal[0] & 0x1F in (1, 5):
+            bits = "".join(f"{b:08b}" for b in nal[1:9])
+            vals, p = [], 0
+            for _ in range(2):  # two ue(v)
+                z = bits.index("1", p) - p
+                vals.append(int(bits[p + z:p + 2 * z + 1], 2) - 1)
+                p += 2 * z + 1
+            return "IDR" if nal[0] & 0x1F == 5 else ("P", "B", "I", "SP", "SI")[vals[1] % 5]
+    return "none"
 
 
 def h264_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
-    """H.264 Constrained Baseline on the card's host (``native/h264.cpp``,
+    """H.264 Baseline, Main and High on the card's host (``native/h264.cpp``,
     ``data/video_io.py``'s avc1 / Matroska / AVI tracks) and ``cli.predict``
-    over ``.mp4`` and ``.mkv`` clips on the flagship.
+    over ``.mp4`` clips on the flagship.
 
     (a) each committed H.264 fixture of ``tests/video_fixtures/h264.json``
     (the tests' writer's syntax clips in AVI, MP4, MOV and Matroska, and the
-    512 px angiogram in MP4 and Matroska) checked by its own SHA-256,
-    decoded and held to cv2's frame digests, fps, count and fourcc, every
-    tool of ``native.H264_TALLY`` counted. (b) decode on one host thread, ms
-    a 512 px picture, the IDR picture and the P pictures apart, and the BGR
-    conversion. (c) ``cli.predict`` on ``best`` over the two 512 px clips (8
-    frames each, 16 in one batch): exactly 3 CAM-gate launches, each frame's
-    boxes equal to the predictor's on the frames decoded anew, max abs error
-    0. (d) cv2's MJPG clips one row high against their digests. Returns (c)'s
-    launches."""
+    512 px angiogram in the Baseline and the High profile, each in MP4 and
+    Matroska) checked by its own SHA-256, decoded and held to cv2's frame
+    digests, fps, count and fourcc, every tool of ``native.H264_TALLY``
+    counted. (b) decode on one host thread, ms a 512 px picture by kind: the
+    Baseline clip's IDR and P pictures, the High clip's (CABAC, the 8x8
+    transform, a pyramid of B pictures) IDR, P and B pictures; and the BGR
+    conversion. (c) ``cli.predict`` on ``best`` over the Baseline and the
+    High 512 px ``.mp4`` (8 frames each, 16 in one batch): exactly 3 CAM-gate
+    launches, each frame's boxes equal to the predictor's on the frames
+    decoded anew, max abs error 0. (d) cv2's MJPG clips one row high against
+    their digests. Returns (c)'s launches."""
     import hashlib
 
     from mga_yolo_tpu_torch import native
@@ -4290,7 +4319,7 @@ def h264_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
         check(digest == m["file_sha256"], f"[h264] {name}: the file is not the one h264.json records")
     # (a) the fixtures against cv2's digests, fps, counts and fourccs
     clips = sorted(n for n in meta if n.startswith("h264_"))
-    check(len(clips) >= 14, f"[h264] {len(clips)} H.264 fixtures")
+    check(len(clips) >= 26, f"[h264] {len(clips)} H.264 fixtures")
     tally = dict.fromkeys(native.H264_TALLY, 0)
     n_frames = 0
     for name in clips:
@@ -4309,52 +4338,62 @@ def h264_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
           f"count and fourcc as cv2's; all {len(tally)} tools counted: " +
           ", ".join(f"{k} {v}" for k, v in tally.items()))
 
-    # (b) decode times at 512 px, the IDR picture and the P pictures apart
-    with VideoReader(VIDEO_FIXTURES / "h264_big512.mp4") as big:
-        chunks = [big._sample(s) for s in big.samples]
-        extradata, size = big.extradata, big.size
-    times: dict = {1: [], 2: []}
+    # (b) decode times at 512 px by picture kind, the Baseline and the High profile's clips
+    med: dict = {}
     conv = []
-    for _ in range(H264_TIMING_REPS):
-        dec = native.H264Decoder(extradata, size)
-        for c in chunks:
-            t0 = time.perf_counter()
-            got = dec.decode(c)
-            dt = (time.perf_counter() - t0) * 1e3
-            check(len(got) == 1, f"[h264] h264_big512.mp4: {len(got)} frames out of one sample")
-            (y, u, v), info = got[0]
-            times[info["type"]].append(dt)
-            t0 = time.perf_counter()
-            native.yuv_to_bgr(y, u, v, full_range=info["full_range"], chroma_left=True)
-            conv.append((time.perf_counter() - t0) * 1e3)
-        dec.close()
-    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    for clip, kinds in (("h264_big512.mp4", ("IDR", "P")), ("h264_high512.mp4", ("IDR", "P", "B"))):
+        with VideoReader(VIDEO_FIXTURES / clip) as big:
+            chunks = [big._sample(s) for s in big.samples]
+            extradata, size = big.extradata, big.size
+        length_size = (extradata[4] & 3) + 1
+        kind_of = [h264_picture_kind(c, length_size) for c in chunks]
+        check(set(kind_of) == set(kinds), f"[h264] {clip}: pictures {kind_of}")
+        times: dict = {k: [] for k in kinds}
+        for _ in range(H264_TIMING_REPS):
+            dec = native.H264Decoder(extradata, size)
+            out = []
+            for c, kind in zip(chunks, kind_of):
+                t0 = time.perf_counter()
+                out += dec.decode(c)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+            out += dec.flush()
+            check(len(out) == len(chunks), f"[h264] {clip}: {len(out)} frames out of {len(chunks)} samples")
+            for (y, u, v), info in out:
+                t0 = time.perf_counter()
+                native.yuv_to_bgr(y, u, v, full_range=info["full_range"], chroma_left=True)
+                conv.append((time.perf_counter() - t0) * 1e3)
+            dec.close()
+        med[clip] = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        med[clip]["n"] = {k: len(v) for k, v in times.items()}
     mc = sorted(conv)[len(conv) // 2]
-    per_frame = (med[1] + 7 * med[2]) / 8 + mc
-    print(f"[h264] (b) decode on one host thread, {card}, 512x512: {med[1]:.3f} ms the IDR picture, {med[2]:.3f} ms "
-          f"a P picture, {mc:.3f} ms the BGR conversion (medians of {len(times[1])}, {len(times[2])} and "
-          f"{len(conv)}); {1e3 / per_frame:.1f} frames/s decoded and converted over the clip's 1 IDR + 7 P")
+    base, high = med["h264_big512.mp4"], med["h264_high512.mp4"]
+    print(f"[h264] (b) decode on one host thread, {card}, 512x512: Baseline (CAVLC) {base['IDR']:.3f} ms the IDR "
+          f"picture, {base['P']:.3f} ms a P picture; High (CABAC, 8x8 transform, B pyramid) {high['IDR']:.3f} ms the "
+          f"IDR picture, {high['P']:.3f} ms a P picture, {high['B']:.3f} ms a B picture (medians of "
+          f"{base['n']} and {high['n']} samples); {mc:.3f} ms the BGR conversion (median of {len(conv)}); "
+          f"{1e3 / ((high['IDR'] + 2 * high['P'] + 5 * high['B']) / 8 + mc):.1f} frames/s decoded and converted over "
+          f"the High clip's 1 IDR + 2 P + 5 B")
 
-    # (c) cli.predict over the 512 px .mp4 and .mkv on the flagship, 16 frames in one batch
+    # (c) cli.predict over the Baseline and the High 512 px .mp4 on the flagship, 16 frames in one batch
     src = tmp / "h264_src"
     src.mkdir()
-    for name in ("h264_big512.mp4", "h264_big512.mkv"):
+    for name in ("h264_big512.mp4", "h264_high512.mp4"):
         (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
     out_dir = tmp / "h264_predict"
     n_video = 8 + 8
     counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "h264", n_video)
     check(counts.get("cam_gate") == 3, f"[h264] cli.predict launched {counts}, want exactly 3 CAM gates")
     check(err == 0.0, f"[h264] cli.predict boxes differ from the predictor's by {err}")
-    check(written == {"h264_big512_pred.mp4", "h264_big512_2_pred.mp4"}, f"[h264] cli.predict wrote {sorted(written)}")
-    check(lines[-3:] == ["h264_big512.mkv: 8 frames -> h264_big512_pred.mp4",
-                         "h264_big512.mp4: 8 frames -> h264_big512_2_pred.mp4",
+    check(written == {"h264_big512_pred.mp4", "h264_high512_pred.mp4"}, f"[h264] cli.predict wrote {sorted(written)}")
+    check(lines[-3:] == ["h264_big512.mp4: 8 frames -> h264_big512_pred.mp4",
+                         "h264_high512.mp4: 8 frames -> h264_high512_pred.mp4",
                          f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
           f"[h264] cli.predict summary {lines[-3:]}")
-    print(f"[h264] (c) cli.predict on the seeded flagship over h264_big512.mp4 and h264_big512.mkv (H.264 in MP4 "
-          f"and Matroska), 8 frames each of 512x512, {TRAIN_BATCH} frames a batch: {sorted(written)} as the JAX "
-          f"package names them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew "
-          f"(max abs error {err:.3g}); launches {counts}; {n_video / wall:.1f} frames/s on one host thread, model "
-          f"load included ({wall:.2f} s), {card}")
+    print(f"[h264] (c) cli.predict on the seeded flagship over h264_big512.mp4 (Baseline) and h264_high512.mp4 "
+          f"(High: CABAC, 8x8 transform, B pictures), 8 frames each of 512x512, {TRAIN_BATCH} frames a batch: "
+          f"{sorted(written)} as the JAX package names them; {n_boxes} boxes, each frame's equal to the predictor's on "
+          f"the frames decoded anew (max abs error {err:.3g}); launches {counts}; {n_video / wall:.1f} frames/s on one "
+          f"host thread, model load included ({wall:.2f} s), {card}")
 
     # (d) cv2's MJPG clips one row high
     rows = sorted(n for n in meta if n.startswith("mjpg_row"))

@@ -585,9 +585,8 @@ class VideoReader:
             raise ValueError(f"{self.path}: corrupt {self.container} sample table ({len(offsets)} offsets for "
                              f"{len(sizes)} samples)")
         durations = []
-        for count, delta in self._table(box, b"stts", ">II"):
-            durations += [delta] * count
-        durations = durations[:len(sizes)]
+        for count, delta in self._table(box, b"stts", ">II"):  # a run no longer than the samples left to time
+            durations += [delta] * min(count, len(sizes) - len(durations))
         if b"stss" in box:
             self.keyframes = {k - 1 for (k,) in self._table(box, b"stss", ">I")}
         total_duration = sum(durations)
@@ -603,7 +602,7 @@ class VideoReader:
             version = self._read(box[b"ctts"][0], 1)[0]
             offsets = []
             for count, off in self._table(box, b"ctts", ">Ii" if version else ">II"):
-                offsets += [off] * count
+                offsets += [off] * min(count, len(times) - len(offsets))
             offsets = (offsets + [0] * len(times))[:len(times)]
             self.pts = [t + off for t, off in zip(times, offsets)]
             times = self.pts
@@ -1617,14 +1616,16 @@ class VideoReader:
         """Each frame of an H.264 stream (``native.H264Decoder``) in
         libavcodec's output order, an MP4 edit list's frames only (as
         :meth:`_display_order`), cropped as libavcodec crops it and converted
-        as cv2 converts MPEG-4's (its chroma left-sited), in the range the
-        VUI flags: a full-range stream as yuvj420p."""
+        as cv2 converts MPEG-4's, its chroma sited as the VUI says (left, or
+        centred without one), in the range the VUI flags: a full-range stream
+        as yuvj420p."""
         start, order, wanted = self._display_order()
         what = f"{self.container} with H.264 video"
         try:
             dec = native.H264Decoder(self.extradata, self.size)
         except ValueError as e:
             raise ValueError(f"{self.path}: {what}: {e}") from None
+        dec.delay = self._h264_probed_delay()
         k = 0  # frames out so far
 
         def shown(frames):
@@ -1633,7 +1634,10 @@ class VideoReader:
                 k += 1
                 if wanted is not None and (k > len(order) or order[k - 1] not in wanted):
                     continue
-                yield native.yuv_to_bgr(y, u, v, full_range=info["full_range"], chroma_left=True)
+                # the VUI's chroma siting as libavcodec reports it to cv2's swscale: left-sited (locations 1, 3,
+                # 5: a VUI without chroma_loc_info, x264's and phones') or centred (0, no VUI: unspecified; 2, 4, 6)
+                yield native.yuv_to_bgr(y, u, v, full_range=info["full_range"],
+                                        chroma_left=info["chroma_location"] in (1, 3, 5))
 
         try:
             for i in range(start, len(self.samples)):
@@ -1648,6 +1652,27 @@ class VideoReader:
                 raise ValueError(f"{self.path}: {what}, at its end: {e}") from None
             yield from shown(got)
             self.h264_tally = dec.tally()
+        finally:
+            dec.close()
+
+    def _h264_probed_delay(self) -> int:
+        """The output delay cv2's decoder starts with: ffmpeg's avformat_find_stream_info decodes the first
+        samples until the delay (has_b_frames) is the SPS's num_reorder_frames (libavcodec's:
+        ``H264Decoder.reorder_hint``) or it has seen 7 frames out (18 at a delay of 3, 20 above), or the whole
+        stream, and hands the delay it reached to the decoder cv2 opens. Damage raises in the decoding
+        proper."""
+        dec = native.H264Decoder(self.extradata, self.size)
+        out = 0
+        try:
+            for o, n in self.samples:
+                out += len(dec.decode(self._sample((o, n))))
+                if (dec.delay and dec.delay == dec.reorder_hint) or \
+                        out >= (7 if dec.delay < 3 else 18 if dec.delay < 4 else 20):
+                    return dec.delay
+            dec.flush()
+            return dec.delay
+        except ValueError:
+            return dec.delay
         finally:
             dec.close()
 

@@ -5,7 +5,7 @@ MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
 encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding),
 ``msmpeg4.cpp`` (MS MPEG-4 v2 and v3, WMV1 and WMV2 decoding), ``h264.cpp``
-(H.264 Constrained Baseline decoding), ``tiff.cpp``
+(H.264 Baseline, Main and High decoding), ``tiff.cpp``
 (TIFF's LZW, PackBits, CCITT fax codes and predictor), ``webp.cpp``
 (WebP's VP8L bitstream, and the upsampling of a lossy still), ``vp8.cpp``
 (VP8 key and inter frames, for WebM / Matroska video and WebP stills),
@@ -263,6 +263,10 @@ def _open(target: Path):
     lib.mga_h264_peek.restype = c
     lib.mga_h264_pop.argtypes = [ctypes.c_void_p, u8p, u8p, u8p]
     lib.mga_h264_pop.restype = None
+    lib.mga_h264_delay.argtypes = [ctypes.c_void_p, c]
+    lib.mga_h264_delay.restype = c
+    lib.mga_h264_reorder_hint.argtypes = [ctypes.c_void_p]
+    lib.mga_h264_reorder_hint.restype = c
     lib.mga_h264_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
     lib.mga_h264_tally.restype = c
     return lib, None
@@ -500,26 +504,28 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool,
     """(H, W, 3) BGR uint8 from a luma plane and two chroma planes of half
     (4:2:0) or half-width (4:2:2) or equal size, as cv2.VideoCapture converts
     a frame (swscale's unscaled yuv2rgb, chroma replicated; JPEG's range when
-    ``full_range``, else limited; BT.601). A 4:2:0 frame of odd height (9
-    rows or more) takes swscale's scaled path, as cv2's does, its chroma
-    upsampled from where the codec sites it (``chroma_left``: MPEG-2, MPEG-4
-    and H.264; centred: MPEG-1, VP8), in either range; a frame one row high
-    takes the scaled path's one-tap output stage (swscale's C tables); a
-    4:2:2 frame, or one of 3 to 7 rows (swscale's 1- and 2-tap paths), of
-    odd height keeps the unscaled rule (``ROADMAP.md`` section 3)."""
+    ``full_range``, else limited; BT.601). A 4:2:0 frame of odd height takes
+    swscale's scaled path, as cv2's does, its chroma upsampled from where the
+    codec sites it (``chroma_left``: MPEG-2, MPEG-4 and H.264 with a VUI;
+    centred: MPEG-1, VP8, JPEG, H.264 without one), in either range; frames
+    of 1 to 7 rows, whose chroma filter has 1 or 2 taps, through swscale's
+    yuv2packed1 stage. A 4:2:2 frame of odd height keeps the unscaled rule
+    (``ROADMAP.md`` section 3)."""
     lib = load()
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     h, w = y.shape
     if u.shape != v.shape:
         raise ValueError(f"chroma planes of {u.shape} and {v.shape}")
-    sy, sx = (0 if u.shape[0] == h else 1), (0 if u.shape[1] == w else 1)
+    # (a frame one sample wide has chroma as wide as its luma either way: read as 4:2:0 where its height says so)
+    sy = 0 if u.shape[0] == h else 1
+    sx = 0 if u.shape[1] == w and not (w == 1 and sy) else 1
     if u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
         raise ValueError(f"chroma planes of {u.shape} for luma of {y.shape}")
     out = np.empty((h, w, 3), np.uint8)
     if h == 1 and u.shape[1] == (w + 1) // 2:  # one row: 4:2:0 (and 4:2:2) take the scaled path's 1-tap stage
         lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
                                      _u8(out))
-    elif h & 1 and h >= 9 and sx and sy:
+    elif h & 1 and sx and sy:
         lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
                                      _u8(out))
     else:
@@ -833,11 +839,22 @@ H264_TALLY = ("pictures_idr", "pictures_i", "pictures_p", "pictures_non_ref", "s
               "skip_predicted", "luma_full", "luma_half", "luma_quarter", "chroma_fraction", "mc_off_picture",
               "ref_idx_nonzero", "long_term_refs", "list_mod_0", "list_mod_1", "list_mod_2", "sliding_window",
               *(f"mmco_{k}" for k in range(1, 7)), "idr_long_term", *(f"deblock_idc_{k}" for k in range(3)),
-              "deblock_offsets", "bs_1", "bs_2", "bs_3", "bs_4", "constrained_intra")
+              "deblock_offsets", "bs_1", "bs_2", "bs_3", "bs_4", "constrained_intra",
+              # the Main and High profiles' tools
+              "pictures_b", "pictures_b_ref", "cabac_slices", *(f"cabac_init_{k}" for k in range(3)), "cabac_pcm",
+              "cabac_coeff_escape", "mb_b_direct16x16", "mb_b_skip", "mb_b16x16", "mb_b16x8", "mb_b8x16", "mb_b8x8",
+              "mb_intra_in_b", "pred_l0", "pred_l1", "pred_bi", "sub_b_direct", "sub_b8x8", "sub_b8x4", "sub_b4x8",
+              "sub_b4x4", "direct_spatial", "direct_temporal", "direct_zero_refs", "direct_col_zero",
+              "direct_long_term", "direct_no_inference", "weights_explicit_p", "weights_explicit_b",
+              "weights_implicit", "weights_implicit_default", "weights_same_picture", "list_swap", "list_mod_l1",
+              "transform_8x8", "mb_i8x8", *(f"i8x8_mode_{k}" for k in range(9)), "scaling_sps", "scaling_pps",
+              "scaling_sent", "scaling_default", "scaling_fallback_a", "scaling_fallback_b", "deblock_8x8_coded",
+              "luma_dc_coarse")
 
 
 class H264Decoder:
-    """An H.264 decoder (``h264.cpp``: CAVLC I and P slices, see its top) for
+    """An H.264 decoder (``h264.cpp``: the progressive 8-bit 4:2:0 tools of the
+    Baseline, Main and High profiles, CAVLC or CABAC, I, P and B slices; see its top) for
     a stream with ``extradata`` (an avcC record, whose NAL length size the
     samples then use; parameter sets with start codes; or nothing, for
     samples with start codes) in a container that gives its picture ``size``
@@ -858,20 +875,22 @@ class H264Decoder:
 
     def _ready(self) -> list:
         out = []
-        info = (ctypes.c_int32 * 7)()
+        info = (ctypes.c_int32 * 8)()
         while self._lib.mga_h264_peek(self._h, info):
-            w, h, cw, ch, full, kind, key = list(info)
+            w, h, cw, ch, full, kind, key, loc = list(info)
             y = np.empty((h, w), np.uint8)
             u = np.empty((ch, cw), np.uint8)
             v = np.empty_like(u)
             self._lib.mga_h264_pop(self._h, _u8(y), _u8(u), _u8(v))
-            out.append(((y, u, v), {"full_range": bool(full), "type": kind, "key": bool(key)}))
+            out.append(((y, u, v), {"full_range": bool(full), "type": kind, "key": bool(key), "chroma_location": loc}))
         return out
 
     def decode(self, chunk: bytes) -> list:
         """The frames ready after the sample: ((y, u, v), info) each, info
-        the picture's ``full_range`` (the VUI's flag), ``type`` (1 I, 2 P)
-        and ``key`` (an IDR picture)."""
+        the picture's ``full_range`` (the VUI's flag), ``type`` (1 I, 2 P, 3 B),
+        ``key`` (an IDR picture) and ``chroma_location`` (libavcodec's
+        AVChromaLocation from the VUI: 0 unspecified when the SPS has none,
+        1 left when it has one without chroma_loc_info, else the type + 1)."""
         if not self._h:
             raise ValueError("the H.264 decoder is closed")
         chunk = bytes(chunk)
@@ -888,6 +907,22 @@ class H264Decoder:
         if self._lib.mga_h264_flush(self._h, err, _ERR_LEN) < 0:
             raise ValueError(err.value.decode())
         return self._ready()
+
+    @property
+    def delay(self) -> int:
+        """The output rule's delay, libavcodec's has_b_frames: the pictures held back for reordering."""
+        return self._lib.mga_h264_delay(self._h, -1)
+
+    @delay.setter
+    def delay(self, n: int) -> None:
+        self._lib.mga_h264_delay(self._h, int(n))
+
+    @property
+    def reorder_hint(self) -> int:
+        """The active SPS's num_reorder_frames as libavcodec keeps it: the VUI's
+        bitstream restriction, else the level's DPB size over the picture's
+        macroblocks (at most 15); -1 before a picture."""
+        return self._lib.mga_h264_reorder_hint(self._h)
 
     def tally(self) -> dict:
         """The tools decoded so far, counted (``H264_TALLY``'s names)."""

@@ -24,7 +24,11 @@
 // which swscale writes with its C functions (its yuv2rgb tables). A frame one
 // row high is all last rows: its one-tap stage is those C functions
 // (measured on MJPEG frames 1 to 64 samples wide). Frames of 3 to 7 rows
-// (swscale's 1- and 2-tap vertical paths) are not covered.
+// have a chroma filter of 1 or 2 taps, which swscale's yuv2packed1 applies:
+// on the x86 rows the first tap's row or the two rows' plain mean, on the C
+// rows the rows blended by their taps (measured against libswscale through
+// ctypes on 1 to 97 samples wide, either range and siting, and against cv2's
+// MJPG and H.264 clips of 2 to 7 rows).
 //
 // BGR24 -> YUV 4:2:0 for the MPEG-4 writer: BT.601 limited range (what
 // cv2's writer hands the mp4v encoder), luma per pixel and chroma from the
@@ -254,7 +258,30 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
     const int* taps = &f.coef[(size_t)r * f.size];
     const int p0 = f.pos[r];
     const int mode = full ? 0 : r >= h - 2 ? 1 : 2;  // full C, packed C (tables), packed x86
+    // a chroma filter of 1 tap, or of 2 summing to 4096 (frames of 3 to 8 rows): swscale's yuv2packed1. On the
+    // x86 packed path it takes the first tap's row when the second tap weighs under 2048, else the two rows'
+    // plain mean; its C form blends the rows by the taps, which for packed rows is the general filter's sum and
+    // for full chroma that sum without its rounder (measured against libswscale)
+    const bool two = f.size == 2 && taps[0] + taps[1] == 4096 && (unsigned)taps[1] <= 4096u;
+    const bool packed1 = f.size == 1 || (two && mode != 1);
+    const bool mean = packed1 && f.size == 2 && taps[1] >= 2048;
     for (int x = 0; x < cw; ++x) {
+      if (packed1) {
+        const int64_t u0 = U[(size_t)p0 * cw + x], v0 = V[(size_t)p0 * cw + x];
+        const int64_t u1 = mean ? U[(size_t)(p0 + 1) * cw + x] : 0, v1 = mean ? V[(size_t)(p0 + 1) * cw + x] : 0;
+        if (mode == 0) {  // yuv2rgb_full_1
+          const int64_t t1 = f.size == 2 ? taps[1] : 0, t0 = 4096 - t1;
+          ua[x] = (u0 * t0 + (t1 ? U[(size_t)(p0 + 1) * cw + x] * t1 : 0) - (int64_t(128) << 19)) >> 10;
+          va[x] = (v0 * t0 + (t1 ? V[(size_t)(p0 + 1) * cw + x] * t1 : 0) - (int64_t(128) << 19)) >> 10;
+        } else if (mode == 1) {  // yuv2rgb_1's C tables, which clip their chroma index to 0..255
+          ua[x] = std::min<int64_t>(255, std::max<int64_t>(0, mean ? (u0 + u1 + 128) >> 8 : (u0 + 64) >> 7));
+          va[x] = std::min<int64_t>(255, std::max<int64_t>(0, mean ? (v0 + v1 + 128) >> 8 : (v0 + 64) >> 7));
+        } else {  // the x86 yuv2bgr24_1: a 16-bit sum shifted logically, or one row shifted arithmetically
+          ua[x] = mean ? (int64_t)((uint16_t)(u0 + u1) >> 5) : (int64_t)((int16_t)u0 >> 4);
+          va[x] = mean ? (int64_t)((uint16_t)(v0 + v1) >> 5) : (int64_t)((int16_t)v0 >> 4);
+        }
+        continue;
+      }
       int64_t a = mode == 0 ? (1 << 9) - (128 << 19) : mode == 1 ? 1 << 18 : 4, b = a;
       for (int j = 0; j < f.size && p0 + j < ch; ++j) {
         const int64_t cu = U[(size_t)(p0 + j) * cw + x], cv = V[(size_t)(p0 + j) * cw + x];
@@ -269,6 +296,7 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
       ua[x] = mode == 0 ? a >> 10 : mode == 1 ? std::min<int64_t>(255, std::max<int64_t>(0, a >> 19)) : a;
       va[x] = mode == 0 ? b >> 10 : mode == 1 ? std::min<int64_t>(255, std::max<int64_t>(0, b >> 19)) : b;
     }
+    const int yround = packed1 ? 0 : 4;  // the x86 packed path's luma: 8 Y, plus the vertical filter's rounder
     for (int c = 0; c < w; ++c) {
       const int64_t Y = yr[c];
       if (mode == 0) {
@@ -283,7 +311,7 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
         for (int k = 0; k < 3; ++k)
           o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, ((yoffs + t[k]) * kCy - (384 << 16) - kOy + 0x8000) >> 16));
       } else {
-        const int yy = high16((int)(Y * 8 + 4) - yo, yc);
+        const int yy = high16((int)(Y * 8 + yround) - yo, yc);
         const int uu = (int)ua[c >> 1] - 1024, vv = (int)va[c >> 1] - 1024;
         o[3 * c] = sat(yy + high16(uu, round16(kCbu * 8192)));
         o[3 * c + 1] = sat(yy + high16(uu, round16(kCgu * 8192)) + high16(vv, round16(kCgv * 8192)));

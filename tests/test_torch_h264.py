@@ -5,24 +5,26 @@ tracks) against the JAX package's reader, ``cv2.VideoCapture``, on the CPU.
 Nothing in cv2's wheel encodes H.264, so the committed clips
 (``python -m tests.video_fixtures.make h264``) come from the tests' own
 writer (``tests/video_fixtures/h264_writer.py``): syntax clips of seeded
-random choices over every tool the decoder counts (``native.H264_TALLY``),
-in AVI (start codes), MP4 and MOV (NAL lengths of 1, 2 and 4 bytes) and
-Matroska, and a 512 x 512 angiogram in MP4 and Matroska. Every frame equals
-cv2's to the bit (tolerance 0; the SHA-256 stored in ``h264.json``, and cv2
-read live) with cv2's fps, frame count and fourcc; fresh clips of the writer
-too. cv2's MJPG clips one row high, whose conversion this slice repaired,
-are held to cv2 the same way.
+random choices over every tool the decoder counts (``native.H264_TALLY``:
+the Baseline tools, and the Main and High profiles' CABAC, B slices, direct
+prediction, weights, the 8x8 transform and scaling matrices), in AVI (start
+codes), MP4 and MOV (NAL lengths of 1, 2 and 4 bytes; composition offsets
+and edit lists for B pictures) and Matroska, and a 512 x 512 angiogram in
+the Baseline and in the High profile, each in MP4 and Matroska. Every frame
+equals cv2's to the bit (tolerance 0; the SHA-256 stored in ``h264.json``,
+and cv2 read live) with cv2's fps, frame count and fourcc; fresh clips of the
+writer too. cv2's MJPG clips one row high are held to cv2 the same way, and
+frames 2 to 7 rows high of MJPG and of cropped H.264 written anew.
 
 What the port does not decode is refused by name, each found by flipping
 one bit of a clip (the first flip, in order, whose ValueError names it):
-CABAC, B and SP / SI slices, field and MBAFF pictures, the 8x8 transform,
-scaling matrices, weighted prediction, FMO, ASO, redundant pictures, data
-partitioning, chroma formats other than 4:2:0 and bit depths above 8; HEVC
-by its tags. Damage libavcodec conceals (a gap in frame_num, a lost slice, a
-stream without its IDR picture) is refused; cut and flipped files raise
-ValueError naming the file or give frames. ``iter_source`` and
-``cli.predict`` over the 512 px ``.mp4`` equal the JAX package's, boxes
-within ``tests/test_torch_predict.py``'s 1e-3 px.
+SP / SI slices, field and MBAFF pictures, FMO, ASO, redundant pictures, data
+partitioning, chroma formats other than 4:2:0 (4:0:0, 4:2:2), bit depths
+above 8 and lossless coding; HEVC by its tags. Damage libavcodec conceals
+(a gap in frame_num, a lost slice, a stream without its IDR picture) is
+refused; cut and flipped files raise ValueError naming the file or give
+frames. ``iter_source`` and ``cli.predict`` over the 512 px ``.mp4`` equal
+the JAX package's, boxes within ``tests/test_torch_predict.py``'s 1e-3 px.
 """
 
 from __future__ import annotations
@@ -94,7 +96,10 @@ def test_fixtures_cover_every_container_and_kind():
     assert {META[n]["fps"] for n in CLIPS} == {25.0, 30.0, 30000 / 1001}
     assert all(META[n]["fourcc"] == int.from_bytes(b"h264", "little") for n in CLIPS)
     assert [META[n]["shape"] for n in ROWS] == [[1, w, 3] for w in (1, 16, 2, 64, 8)]
-    assert sum((FIXTURES / n).stat().st_size for n in META) < 300_000
+    assert META["h264_high512.mp4"]["sha256"] == META["h264_high512.mkv"]["sha256"]  # the High profile's stream
+    trim, full = META["h264_b_cabac_trim.mp4"], META["h264_b_cabac.mp4"]
+    assert trim["sha256"] == full["sha256"][2:]  # an edit list from the third frame: frames after the reordering
+    assert sum((FIXTURES / n).stat().st_size for n in META) < 1_000_000
 
 
 @pytest.mark.parametrize("name", CLIPS + ROWS)
@@ -123,6 +128,18 @@ TOOLS = {
     "h264_constrained.avi": ("constrained_intra", "mb_intra_in_p", "deblock_idc_2"),
     "h264_wrap.avi": ("sliding_window",),
     "h264_big512.mp4": ("mb_i16x16", "mb_skip", "skip_zero", "bs_2", "i16x16_ac"),
+    "h264_cabac_intra.avi": ("cabac_slices", "cabac_pcm", "mb_i8x8", "i8x8_mode_4", "cabac_coeff_escape"),
+    "h264_cabac_p.mp4": ("weights_explicit_p", "weights_same_picture", "cabac_init_2", "mb_p8x8"),
+    "h264_b_cavlc.avi": ("pictures_b", "pictures_b_ref", "direct_spatial", "direct_no_inference", "transform_8x8",
+                         "deblock_8x8_coded", "sub_b4x4"),
+    "h264_b_cabac.mp4": ("mb_b_skip", "mb_b8x8", "sub_b_direct", "weights_implicit", "direct_temporal",
+                         "direct_col_zero"),
+    "h264_b_noreorder.mkv": ("pictures_b", "mb_b_direct16x16", "pred_bi", "mb_intra_in_b"),
+    "h264_b_weighted.mov": ("weights_explicit_b", "pred_l1", "mb_b16x8"),
+    "h264_b_longterm.mkv": ("direct_long_term", "weights_implicit_default", "list_swap", "list_mod_l1"),
+    "h264_scaling_sps.mp4": ("scaling_sps", "scaling_default", "scaling_fallback_a", "luma_dc_coarse"),
+    "h264_scaling_pps.avi": ("scaling_pps", "scaling_fallback_b", "scaling_sent"),
+    "h264_high512.mp4": ("cabac_slices", "transform_8x8", "mb_b_direct16x16", "weights_implicit", "list_mod_0"),
 }
 
 
@@ -151,6 +168,14 @@ FRESH = {  # seed: (macroblocks across and down, frames, SPS, PPS, choices) of c
         {"non_ref": 0.3, "intra_in_p": 0.4, "deblock_idc": [0]}),
     3: ((4, 1), 6, {"refs": 4}, {"refs": 4}, {"mmco": 0.6, "mods": 0.5, "qp_range": (0, 20), "deblock_idc": [0, 1]}),
     4: ((1, 4), 5, {"refs": 1, "profile": 100}, {"cqp": 5, "cqp2": -7}, {"qp_range": (20, 51), "deblock_idc": [0]}),
+    # the Main and High profiles: CABAC, B pictures, weights, the 8x8 transform, scaling matrices
+    5: ((3, 2), 8, {"refs": 3, "profile": 77, "log2_max_poc_lsb": 8}, {"cabac": 1, "refs": 2, "refs1": 2},
+        {"b": 1, "pyramid": 1, "slices": 2, "deblock_idc": [0, 2]}),
+    6: ((2, 3), 8, {"refs": 3, "profile": 100, "log2_max_poc_lsb": 8}, {"t8x8": 1, "bipred": 2, "refs": 2, "refs1": 2},
+        {"b": 1, "mods": 0.4, "deblock_idc": [0]}),
+    7: ((3, 2), 7, {"refs": 3, "profile": 100, "log2_max_poc_lsb": 8, "scaling": 1},
+        {"cabac": 1, "t8x8": 1, "weighted": 1, "bipred": 1, "refs": 2, "refs1": 2, "cqp": 2},
+        {"b": 1, "dup": 0.5, "deblock_idc": [0, 1]}),
 }
 
 
@@ -184,6 +209,159 @@ def test_one_row_mjpeg_equals_cv2(tmp_path, width):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("height", range(2, 8))
+def test_frames_two_to_seven_rows_high_equal_cv2(tmp_path, height):
+    """Frames 2 to 7 rows high written anew: cv2's MJPG clips 1, 2, 17 and 64
+    samples wide (3 frames of random pixels), and H.264 clips 32 wide whose
+    SPS crops them to an even height (the AVI's size crops an odd one), in
+    both ranges: equal to cv2's frames at tolerance 0. Odd heights take
+    swscale's scaled path, whose chroma filter has one or two taps here
+    (``native/yuv.cpp``)."""
+    from tests.video_fixtures.make import h264_pack
+
+    for w in (1, 2, 17, 64):
+        path = tmp_path / f"m{w}.avi"
+        rng = np.random.default_rng(height * 100 + w)
+        vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25, (w, height))
+        for _ in range(3):
+            vw.write(rng.integers(0, 256, (height, w, 3), np.uint8))
+        vw.release()
+        got, _ = read_all(path)
+        want, _ = cv2_read(path)
+        assert len(got) == len(want) == 3
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x, err_msg=f"MJPG {w} x {height}")
+    for full in (0, 1):
+        sps = {"refs": 1, "crop": (0, 0, 0, (16 - height - (height & 1)) // 2), **({"full_range": 1} if full else {})}
+        units, _, _ = hw.syntax_clip(300 + height, 2, 1, 3, sps, {}, {"deblock_idc": [0], "qp_range": (10, 40)})
+        path = tmp_path / f"h{full}.avi"
+        path.write_bytes(h264_pack(path.name, units, 32, height, 4, (25, 1)))
+        got, _ = read_all(path)
+        want, _ = cv2_read(path)
+        assert len(got) == len(want) == 3 and got[0].shape == (height, 32, 3)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x, err_msg=f"H.264 32 x {height}, full range {full}")
+
+
+@pytest.mark.parametrize("height", [3, 5, 7, 9, 11, 13, 15])
+def test_odd_heights_of_h264_equal_cv2_in_either_siting(tmp_path, height):
+    """H.264 clips of odd height (the SPS's crop to the even height above,
+    the AVI's size to the odd one) 16 to 96 wide: without a VUI libavcodec
+    leaves the chroma siting unspecified, which swscale takes as centred;
+    with one (the full-range clips) it is left-sited. Both equal cv2's frames
+    at tolerance 0."""
+    from tests.video_fixtures.make import h264_pack
+
+    mh = (height + 15) // 16
+    for full in (0, 1):
+        for w in (16, 48, 96):
+            sps = {"refs": 1, "crop": (0, 0, 0, (16 * mh - height - 1) // 2), **({"full_range": 1} if full else {})}
+            units, _, _ = hw.syntax_clip(500 + height + w, w // 16, mh, 2, sps, {}, {"deblock_idc": [0],
+                                                                                      "qp_range": (10, 40)})
+            path = tmp_path / f"o{w}_{full}.avi"
+            path.write_bytes(h264_pack(path.name, units, w, height, 4, (25, 1)))
+            got, _ = read_all(path)
+            want, _ = cv2_read(path)
+            assert len(got) == len(want) == 2
+            for g, x in zip(got, want):
+                np.testing.assert_array_equal(g, x, err_msg=f"{w} x {height}, full range {full}")
+
+
+def _swscale_bgr(y, u, v, full: bool, left: bool):
+    """libswscale's BGR24 of 4:2:0 planes (the one in cv2's wheel, through
+    ctypes), as cv2 calls it: SWS_BICUBIC at the same size, the planes in
+    buffers aligned and padded as libavcodec's, the chroma left-sited or
+    centred (unspecified). swscale reads past the edge at odd widths.
+    """
+    import ctypes
+
+    libs = Path(cv2.__file__).resolve().parents[1] / "opencv_python.libs"
+    avutil = ctypes.CDLL(str(next(libs.glob("libavutil-*"))), mode=ctypes.RTLD_GLOBAL)
+    sws = ctypes.CDLL(str(next(libs.glob("libswscale-*"))), mode=ctypes.RTLD_GLOBAL)
+    vp = ctypes.c_void_p
+    sws.sws_alloc_context.restype = vp
+    sws.sws_init_context.argtypes = [vp, vp, vp]
+    sws.sws_scale.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_int)]
+    sws.sws_freeContext.argtypes = [vp]
+    avutil.av_opt_set_int.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    avutil.av_log_set_level(8)
+    h, w = y.shape
+    ctx = sws.sws_alloc_context()
+    for key, val in ((b"srcw", w), (b"srch", h), (b"src_format", 12 if full else 0), (b"dstw", w), (b"dsth", h),
+                     (b"dst_format", 3), (b"sws_flags", 4), *(((b"src_h_chr_pos", 0),) if left else ())):
+        assert avutil.av_opt_set_int(ctx, key, val, 0) >= 0, key
+    assert sws.sws_init_context(ctx, None, None) >= 0
+
+    def aligned(rows, cols):
+        raw = np.zeros(rows * cols + 64, np.uint8)
+        off = -raw.ctypes.data % 64
+        return raw[off:off + rows * cols].reshape(rows, cols)
+    bufs = []
+    for p in (y, u, v):  # past its edge a row repeats its last sample, as a decoder's padded buffer does
+        b = aligned(p.shape[0] + 4, (p.shape[1] + 63) // 64 * 64 + 64)
+        b[:] = np.pad(p, ((0, 4), (0, b.shape[1] - p.shape[1])), mode="edge")
+        bufs.append(b)
+    out = aligned(h + 2, (w * 3 + 63) // 64 * 64 + 64)  # room for the SIMD converter's last 8-pixel block
+    src = (vp * 4)(*[b.ctypes.data for b in bufs], None)
+    strides = (ctypes.c_int * 4)(*[b.shape[1] for b in bufs], 0)
+    sws.sws_scale(ctx, src, strides, 0, h, (vp * 4)(out.ctypes.data, None, None, None),
+                  (ctypes.c_int * 4)(out.shape[1], 0, 0, 0))
+    sws.sws_freeContext(ctx)
+    return out[:h, :w * 3].reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("height", [1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 17])
+def test_colour_conversion_equals_libswscale(height):
+    """``native.yuv_to_bgr`` against libswscale itself (cv2's, through
+    ctypes) on video-like 4:2:0 planes 1 to 97 samples wide, in both ranges
+    and both sitings: equal at tolerance 0, the short frames whose chroma
+    filter has one or two taps (swscale's yuv2packed1) included."""
+    from mga_yolo_tpu_torch import native
+
+    rng = np.random.default_rng(height)
+
+    def smooth(shape):
+        yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+        base = 128 + 60 * np.sin(xx / 7.0 + rng.random() * 6) * np.cos(yy / 5.0 + rng.random() * 6)
+        return np.clip(base + rng.normal(0, 6, shape), 0, 255).astype(np.uint8)
+    for full in (False, True):
+        for left in (False, True):
+            for w in (1, 2, 3, 16, 17, 32, 63, 64, 97):
+                y = smooth((height, w))
+                u, v = smooth(((height + 1) // 2, (w + 1) // 2)), smooth(((height + 1) // 2, (w + 1) // 2))
+                np.testing.assert_array_equal(native.yuv_to_bgr(y, u, v, full_range=full, chroma_left=left),
+                                              _swscale_bgr(y, u, v, full, left),
+                                              err_msg=f"{w} x {height}, full range {full}, left {left}")
+
+
+def test_reader_starts_with_the_delay_ffmpeg_probes(decoded):
+    """Without the VUI's bitstream restriction libavcodec's output delay
+    grows at the first B picture, too late for a picture already passed, which
+    it drops; cv2's decoder starts with the delay ffmpeg's stream probing
+    reached, and so does the reader, which gives every frame. The probe stops
+    early where the delay is the SPS's num_reorder_frames."""
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+
+    name = "h264_b_noreorder.mkv"
+    with VideoReader(FIXTURES / name) as r:
+        samples = [r._sample(s) for s in r.samples]
+        delay = r._h264_probed_delay()
+        dec = native.H264Decoder(r.extradata, r.size)
+    out = sum(len(dec.decode(x)) for x in samples) + len(dec.flush())
+    assert delay > 0 and dec.delay == delay
+    assert out < META[name]["frames"] == len(decoded[name][0])
+    # the probe's other stop, libavcodec's num_reorder_frames: the level's DPB over 6 macroblocks, at most 15,
+    # here; the VUI's value (2) where the SPS sends it, which the delay reaches at the first picture
+    assert dec.reorder_hint == 15
+    with VideoReader(FIXTURES / "h264_b_cabac.mp4") as r:
+        assert r._h264_probed_delay() == 2
+        first = native.H264Decoder(r.extradata, r.size)
+        first.decode(r._sample(r.samples[0]))
+        assert first.delay == first.reorder_hint == 2
 
 
 # ---------------------------------------------------------------- refusals
@@ -262,11 +440,11 @@ def _refused_by_flip(tmp_path, name: str, kind: int, sample: int, what: str, nth
 
 
 @pytest.mark.parametrize("name, kind, sample, what", [
-    ("h264_intra.avi", 8, 0, "CABAC"), ("h264_intra.avi", 8, 0, "FMO"),
-    ("h264_intra.avi", 8, 0, "weighted prediction"), ("h264_intra.avi", 8, 0, "redundant pictures"),
-    ("h264_intra.avi", 7, 0, "field or MBAFF"), ("h264_crop_full.mkv", 8, -1, "the 8x8 transform"),
-    ("h264_crop_full.mkv", 8, -1, "scaling matrices"), ("h264_crop_full.mkv", 7, -1, "chroma format"),
-    ("h264_crop_full.mkv", 7, -1, "bit depth"), ("h264_inter.mp4", 1, 1, "B slices"),
+    ("h264_cabac_intra.avi", 7, 0, "4:0:0"), ("h264_intra.avi", 8, 0, "FMO"),
+    ("h264_b_cabac.mp4", 7, -1, "4:2:2"), ("h264_intra.avi", 8, 0, "redundant pictures"),
+    ("h264_intra.avi", 7, 0, "field or MBAFF"), ("h264_b_cavlc.avi", 7, 0, "bit depth 10"),
+    ("h264_scaling_pps.avi", 7, 0, "lossless"), ("h264_crop_full.mkv", 7, -1, "chroma format"),
+    ("h264_crop_full.mkv", 7, -1, "bit depth"), ("h264_high512.mkv", 7, -1, "field or MBAFF"),
     ("h264_inter.mp4", 1, 2, "SP / SI slices"), ("h264_inter.mp4", 1, 1, "data partitioning")])
 def test_each_refused_feature_raises_naming_it(tmp_path, name, kind, sample, what):
     """A feature the port does not decode, switched on by one flipped bit of
@@ -346,7 +524,9 @@ def test_left_crop_libavutil_realigns_is_refused(tmp_path):
         read_all(path)
 
 
-@pytest.mark.parametrize("name", ["h264_intra.avi", "h264_inter.mp4", "h264_longterm.mkv", "h264_mmco5.avi"])
+@pytest.mark.parametrize("name", ["h264_intra.avi", "h264_inter.mp4", "h264_longterm.mkv", "h264_mmco5.avi",
+                                  "h264_cabac_intra.avi", "h264_b_cabac.mp4", "h264_b_cavlc.avi",
+                                  "h264_scaling_sps.mp4"])
 def test_cut_and_flipped_files_raise_value_errors_or_give_frames(tmp_path, name):
     """Cut at 40 seeded places, or a bit flipped at 120: a ValueError naming
     the file, or frames of the header's size; never a crash. libavcodec
@@ -394,19 +574,23 @@ def flagship(tmp_path_factory):
     return dict(jmodel=jmodel, v=v, tmodel=tmodel, ckpt=ckpt, root=root)
 
 
-def _source_dir(root: Path) -> Path:
+def _source_dir(root: Path, names=("h264_big512.mp4", "h264_clip.mov")) -> Path:
     src = root / "src"
     src.mkdir(parents=True, exist_ok=True)
-    for name in ("h264_big512.mp4", "h264_clip.mov"):
+    for name in names:
         shutil.copy(FIXTURES / name, src / name)
     return src
 
 
 def test_iter_source_over_h264_clips_equals_jax(tmp_path):
+    """Baseline, Main and High clips (B pictures in MP4 with composition
+    offsets, one whose edit list starts after the reordering, Matroska and
+    MOV) read through ``iter_source`` as the JAX package reads them."""
     from mga_yolo_tpu.data import sources as J
     from mga_yolo_tpu_torch.data import sources as P
 
-    src = _source_dir(tmp_path)
+    src = _source_dir(tmp_path, ("h264_big512.mp4", "h264_clip.mov", "h264_high512.mp4", "h264_b_cabac_trim.mp4",
+                                 "h264_b_longterm.mkv"))
     assert P.list_files(src) == J.list_files(src)
     for cap in (0, 3):
         got, want = list(P.iter_source(src, max_frames=cap)), list(J.iter_source(src, max_frames=cap))
@@ -414,7 +598,7 @@ def test_iter_source_over_h264_clips_equals_jax(tmp_path):
             [(f.path, f.index, f.is_video, f.fps, f.total) for f in want]
         for f, jf in zip(got, want):
             np.testing.assert_array_equal(f.img, jf.img)
-    assert sum(f.is_video for f in got) == 6
+    assert sum(f.is_video for f in got) == 15
 
 
 def test_cli_predict_on_h264_clips_writes_what_the_jax_cli_writes(flagship, tmp_path, monkeypatch, capsys):

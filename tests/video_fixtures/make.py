@@ -1139,14 +1139,63 @@ H264_SYNTAX = {
     "h264_clip.mov": (222, (4, 3), 8, {"refs": 2, "timing": (1001, 60000)}, {"refs": 2},
                       {"qp_range": (10, 40), "deblock_idc": [0, 1]}, 4, (30, 1), None),
 }
+# the Main and High profiles' syntax clips, laid out as H264_SYNTAX's (in MP4 and Matroska at their display
+# times); each list of scaling_lists' values a list's zigzag order
+_W = [59, 20, 24, 30, 17, 40, 45, 12, 33, 51, 28, 19, 38, 25, 41, 55]  # an Intra Y list of odd DC weight
+_W8 = [int(v) for v in np.random.default_rng(8).integers(6, 60, 64)]
+H264_HIGH = {
+    "h264_cabac_intra.avi": (231, (5, 3), 4, {"profile": 100, "refs": 1}, {"cabac": 1, "t8x8": 1, "cqp": 2, "cqp2": -2},
+                             {"p": 0.0, "qp_range": (0, 51), "slices": 2, "deblock_idc": [0, 1, 2], "pcm": 0.08,
+                              "i8": 0.6, "idr_every": 2}, 0, (25, 1), None),
+    "h264_cabac_p.mp4": (232, (4, 3), 8, {"profile": 77, "refs": 3}, {"cabac": 1, "weighted": 1, "refs": 3},
+                         {"qp_range": (10, 40), "slices": 2, "deblock_idc": [0, 2], "dup": 0.5, "mods": 0.3}, 4,
+                         (25, 1), None),
+    "h264_b_cavlc.avi": (233, (4, 3), 10, {"profile": 100, "refs": 3, "log2_max_poc_lsb": 8, "direct8x8": 0},
+                         {"t8x8": 1, "refs": 2, "refs1": 2},
+                         {"b": 1, "b_max": 3, "pyramid": 1, "qp_range": (10, 40), "deblock_idc": [0]}, 0, (25, 1),
+                         None),
+    "h264_b_cabac.mp4": (234, (4, 3), 12, {"profile": 100, "refs": 4, "log2_max_poc_lsb": 8, "reorder": 2},
+                         {"cabac": 1, "t8x8": 1, "bipred": 2, "refs": 3, "refs1": 2},
+                         {"b": 1, "b_max": 3, "pyramid": 1, "qp_range": (10, 40), "deblock_idc": [0], "skip": 0.3},
+                         4, (25, 1), None),
+    "h264_b_noreorder.mkv": (235, (3, 2), 12, {"profile": 77, "refs": 3, "log2_max_poc_lsb": 8},
+                             {"cabac": 1, "refs": 2, "refs1": 1},
+                             {"b": 1, "b_max": 4, "pyramid": 1, "qp_range": (10, 40), "deblock_idc": [0]}, 4,
+                             (30000, 1001), None),
+    "h264_b_weighted.mov": (236, (3, 3), 9, {"profile": 77, "refs": 3, "log2_max_poc_lsb": 8, "reorder": 3},
+                            {"cabac": 1, "weighted": 1, "bipred": 1, "refs": 2, "refs1": 2},
+                            {"b": 1, "b_max": 2, "qp_range": (10, 40), "deblock_idc": [0]}, 4, (30, 1), None),
+    "h264_b_longterm.mkv": (244, (3, 2), 14, {"profile": 77, "refs": 4, "log2_max_poc_lsb": 8},
+                            {"bipred": 2, "refs": 3, "refs1": 2},
+                            {"b": 1, "b_max": 3, "pyramid": 1, "mmco": 0.4, "mods": 0.4, "idr_long": 1.0,
+                             "qp_range": (10, 40), "deblock_idc": [0]}, 2, (25, 1), None),
+    "h264_scaling_sps.mp4": (238, (4, 3), 6, {"profile": 100, "refs": 2, "log2_max_poc_lsb": 8,
+                                              "scaling": [_W[::-1], None, "default", None, [16, 20, 28] + [28] * 13,
+                                                          None, _W8, "default"]},
+                             {"cabac": 1, "t8x8": 1, "refs": 2, "refs1": 1},
+                             {"b": 1, "qp_range": (0, 40), "deblock_idc": [0]}, 4, (25, 1), None),
+    "h264_scaling_pps.avi": (239, (4, 3), 6, {"profile": 100, "refs": 2, "log2_max_poc_lsb": 8,
+                                              "scaling": [None, [12] * 16, None, _W, None, None, None, _W8]},
+                             {"t8x8": 1, "refs": 2, "refs1": 1,
+                              "scaling": [_W, None, [30] * 16, None, "default", None, None, None]},
+                             {"b": 1, "qp_range": (24, 29), "deblock_idc": [0], "i4": 0.2}, 0, (25, 1), None),
+}
+H264_TRIM = {"h264_b_cabac_trim.mp4": ("h264_b_cabac.mp4", 2)}  # a clip's stream with its edit list from frame 2
 H264_BIG = ("h264_big512.mp4", "h264_big512.mkv")  # the same stream of moving(8, 512, 512, 63) in each
+H264_BIG_HIGH = ("h264_high512.mp4", "h264_high512.mkv")  # h264_writer.encode_high of moving(8, 512, 512, 64)
+H264_HIGH_QP = 30
 H264_BIG_QP = 30
 MJPEG_ROWS = (1, 2, 8, 16, 64)  # the widths of cv2's one-row MJPG clips, 3 frames each
 
 
-def h264_pack(name: str, units: list, w: int, h: int, size: int, rate: tuple) -> bytes:
+def h264_pack(name: str, units: list, w: int, h: int, size: int, rate: tuple, shown: list | None = None,
+              keys: list | None = None, trim: int = 0) -> bytes:
     """The access units in the container of name's suffix: AVI (start codes, tag H264), MP4 / MOV (an avc1
-    sample entry, NAL lengths of ``size`` bytes) or Matroska (V_MPEG4/ISO/AVC, its avcC in CodecPrivate)."""
+    sample entry, NAL lengths of ``size`` bytes; composition offsets and an edit list from the display indices
+    ``shown``, ``trim`` frames left out at its start) or Matroska (V_MPEG4/ISO/AVC, its avcC in CodecPrivate;
+    blocks at their display times). ``keys``: the key (IDR) samples, the first alone unless given."""
+    shown = list(range(len(units))) if shown is None else shown
+    keys = [i == 0 for i in range(len(units))] if keys is None else keys
     from tests.video_fixtures import h264_writer as hw
 
     if name.endswith(".avi"):
@@ -1160,10 +1209,10 @@ def h264_pack(name: str, units: list, w: int, h: int, size: int, rate: tuple) ->
         assert all(len(n) < 256 for u in units for n in u), "a NAL unit too long for a length of one byte"
     if name.endswith(".mkv"):
         ms = 1000 * rate[1] / rate[0]
-        return mkv_bytes("V_MPEG4/ISO/AVC", w, h, [(d, i == 0, round(i * ms)) for i, d in enumerate(samples)],
+        return mkv_bytes("V_MPEG4/ISO/AVC", w, h, [(d, keys[i], round(shown[i] * ms)) for i, d in enumerate(samples)],
                          doctype="matroska", private=config, default_duration=round(1e9 * rate[1] / rate[0]),
                          duration=len(samples) * ms)
-    data = mp4_bytes([(d, i == 0, i) for i, d in enumerate(samples)], w, h, rate[0] // rate[1],
+    data = mp4_bytes([(d, keys[i], shown[i]) for i, d in enumerate(samples)], w, h, rate[0] // rate[1], trim=trim,
                      entry=hw.avc1_entry(w, h, config))
     return data.replace(b"isom\0\0\2\0isomiso2mp41", b"qt  \0\0\2\0qt  qt  mp41") if name.endswith(".mov") else data
 
@@ -1185,6 +1234,25 @@ def h264_clips() -> dict:
     units = hw.encode(planes, H264_BIG_QP, lambda us: lavc_planes([hw.annex_b(u) for u in us], decoder="h264")[-1])
     for name in H264_BIG:
         out[name] = h264_pack(name, units, 512, 512, 4, (25, 1))
+    streams = {}
+    for name, (seed, (mw, mh), n, sps, pps, choices, size, rate, _) in H264_HIGH.items():
+        info: dict = {}
+        units, _, _ = hw.syntax_clip(seed, mw, mh, n, sps, pps, choices, info)
+        period = np.cumsum(info["idr"])
+        order = sorted(range(n), key=lambda i: (period[i], info["poc"][i]))
+        shown = [order.index(i) for i in range(n)]
+        streams[name] = (units, 16 * mw, 16 * mh, size, rate, shown, info["idr"])
+        out[name] = h264_pack(name, *streams[name])
+    for name, (src, trim) in H264_TRIM.items():
+        out[name] = h264_pack(name, *streams[src], trim=trim)
+    planes = []
+    for img in moving(8, 512, 512, 64):
+        yuv = cv2.cvtColor(img, cv2.COLOR_BGR2YUV_I420)
+        planes.append((yuv[:512], yuv[512:640].reshape(256, 256), yuv[640:].reshape(256, 256)))
+    units, shown = hw.encode_high(planes, H264_HIGH_QP, lambda us: lavc_planes([hw.annex_b(u) for u in us],
+                                                                               decoder="h264"))
+    for name in H264_BIG_HIGH:
+        out[name] = h264_pack(name, units, 512, 512, 4, (25, 1), shown)
     return out
 
 
@@ -1192,17 +1260,21 @@ def h264_main() -> None:
     """Writes the H.264 fixtures and their oracle, ``h264.json`` (the
     SHA-256 of each frame cv2 reads, its fps, count and fourcc, and each
     file's own SHA-256), leaving the other fixtures as they are: the syntax
-    clips of ``H264_SYNTAX`` (``h264_writer.syntax_clip``'s random choices
-    over every tool the decoder counts, in AVI, MP4, MOV and Matroska), the
-    512 x 512 angiogram in MP4 and Matroska (``h264_writer.encode``, its
-    references from libavcodec), and cv2's MJPG clips one row high."""
+    clips of ``H264_SYNTAX`` and ``H264_HIGH`` (``h264_writer.syntax_clip``'s
+    random choices over every tool the decoder counts, Baseline and then Main
+    and High, in AVI, MP4, MOV and Matroska; ``H264_TRIM`` one of them in an
+    MP4 whose edit list leaves its first frames out), the 512 x 512 angiogram
+    in the Baseline profile (``h264_writer.encode``) and in the High profile
+    (``h264_writer.encode_high``), each in MP4 and Matroska with its
+    references from libavcodec, and cv2's MJPG clips one row high."""
     meta = {}
     for name, data in h264_clips().items():
         (HERE / name).write_bytes(data)
     rng = np.random.default_rng(64)
     for w in MJPEG_ROWS:
         cv2_write(HERE / f"mjpg_row{w}.avi", "MJPG", 25, [rng.integers(0, 256, (1, w, 3), np.uint8) for _ in range(3)])
-    for name in [*H264_SYNTAX, *H264_BIG, *(f"mjpg_row{w}.avi" for w in MJPEG_ROWS)]:
+    for name in [*H264_SYNTAX, *H264_BIG, *H264_HIGH, *H264_TRIM, *H264_BIG_HIGH,
+                 *(f"mjpg_row{w}.avi" for w in MJPEG_ROWS)]:
         imgs, meta[name] = cv2_read(HERE / name)
         meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
         meta[name]["sha256"] = digests(imgs)
