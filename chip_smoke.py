@@ -260,6 +260,17 @@ Then the baseline toolchain and the experiment grid:
              Baseline and the High 512 px ``.mp4``, 16 frames in one batch
              (exactly 3 CAM-gate launches, boxes equal to the predictor's,
              max error 0); cv2's one-row MJPG clips against their digests.
+23. lossless — PNG frames, FFV1, HuffYUV and FFVHuff (``native/ffv1.cpp``,
+             ``native/huffyuv.cpp``, ``data/video_io.py``'s lossless codecs
+             in AVI, Matroska, MP4 / MOV and ASF): the committed fixtures of
+             ``tests/video_fixtures/lossless.json`` checked by their own
+             SHA-256 and equal to cv2's frame digests (libpng's for the Adam7
+             clip), fps, counts and fourccs, every tool of ``FFV1_TALLY`` and
+             ``HUFFYUV_TALLY`` counted; decode ms a 512 px frame by codec and
+             pixel format (FFV1 grey, HuffYUV RGB24) and of the conversion;
+             ``cli.predict`` on the seeded flagship over the FFV1 ``.mkv``
+             and the HuffYUV ``.avi``, 16 frames in one batch (exactly 3
+             CAM-gate launches, boxes equal to the predictor's, max error 0).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -276,9 +287,9 @@ over the space ranks, the detection loss counted k times, the max's ties
 counted on one band). ``--formats-alone`` and ``--formats2-alone`` run
 ``[formats]`` and ``[formats2]`` alone, on a synthetic set of 64 + 16
 images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
-``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone``, ``--wmv-alone``
-and ``--h264-alone`` run ``[matroska]``, ``[mpeg]``, ``[asp]``, ``[wmv]``
-and ``[h264]`` alone.
+``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone``, ``--wmv-alone``,
+``--h264-alone`` and ``--lossless-alone`` run ``[matroska]``, ``[mpeg]``,
+``[asp]``, ``[wmv]``, ``[h264]`` and ``[lossless]`` alone.
 """
 
 from __future__ import annotations
@@ -4407,6 +4418,108 @@ def h264_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
     return counts
 
 
+LOSSLESS_TIMING_REPS = 3  # each 512 px clip decoded 3 times for its per-frame times
+
+
+def lossless_phase(torch, np, best: Path, tmp: Path, device: str = "cuda") -> dict:
+    """PNG frames, FFV1, HuffYUV and FFVHuff on the card's host
+    (``native/ffv1.cpp``, ``native/huffyuv.cpp``, ``data/video_io.py``) and
+    ``cli.predict`` over lossless clips on the flagship.
+
+    (a) each committed fixture of ``tests/video_fixtures/lossless.json``
+    (cv2's writer's PNG, FFV1, HuffYUV and FFVHuff in AVI, Matroska, ASF,
+    MOV and MP4; libavcodec's encoders over every version, coder, predictor
+    and pixel format; the tests' own HuffYUV writer's clips) checked by its
+    own SHA-256, decoded and held to cv2's frame digests (libpng's for the
+    Adam7 clip), fps, count and fourcc, every tool of ``native.FFV1_TALLY``
+    and ``native.HUFFYUV_TALLY`` counted. (b) decode on one host thread, ms a
+    512 px frame: FFV1 grey and HuffYUV RGB24, and their conversions to BGR.
+    (c) ``cli.predict`` on ``best`` over the FFV1 ``.mkv`` and the HuffYUV
+    ``.avi`` (8 frames each of a 512 px grey angiogram, 16 in one batch):
+    exactly 3 CAM-gate launches, each frame's boxes equal to the predictor's
+    on the frames decoded anew, max abs error 0. Returns (c)'s launches."""
+    import hashlib
+
+    from mga_yolo_tpu_torch import native
+    from mga_yolo_tpu_torch.data.video_io import VideoReader
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power() if device == "cuda" else "the CPU"
+    meta = json.loads((VIDEO_FIXTURES / "lossless.json").read_text())
+    # (a) the fixtures against cv2's digests, fps, counts and fourccs
+    check(len(meta) >= 58, f"[lossless] {len(meta)} lossless fixtures")
+    tallies = {"ffv1": dict.fromkeys(native.FFV1_TALLY, 0), "huffyuv": dict.fromkeys(native.HUFFYUV_TALLY, 0)}
+    n_frames = 0
+    for name, m in sorted(meta.items()):
+        data = (VIDEO_FIXTURES / name).read_bytes()
+        check(hashlib.sha256(data).hexdigest() == m["file_sha256"],
+              f"[lossless] {name}: the file is not the one lossless.json records")
+        with VideoReader(VIDEO_FIXTURES / name) as r:
+            got = [hashlib.sha256(g.tobytes()).hexdigest() for g in r]
+            check((r.fps, r.total, int.from_bytes(r.fourcc, "little")) == (m["fps"], m["total"], m["fourcc"]),
+                  f"[lossless] {name}: fps {r.fps}, total {r.total}, fourcc {r.fourcc}; cv2 {m['fps'], m['total']}")
+            for attr, key in (("ffv1_tally", "ffv1"), ("huffyuv_tally", "huffyuv"), ("ffvhuff_tally", "huffyuv")):
+                for k, v in getattr(r, attr, {}).items():
+                    tallies[key][k] += v
+        check(got == m["sha256"], f"[lossless] {name}: frames differ from the oracle's digests ({m['oracle']})")
+        n_frames += len(got)
+    for key, tally in tallies.items():
+        check(all(tally.values()), f"[lossless] {key} tools not decoded: {[k for k, v in tally.items() if not v]}")
+    print(f"[lossless] (a) {len(meta)} PNG, FFV1, HuffYUV and FFVHuff fixtures ({n_frames} frames) decoded on this "
+          f"host with {native.library_path().name}, each file's SHA-256 as recorded, each frame equal to cv2's digest "
+          f"(libpng's for the Adam7 PNG clip), fps, count and fourcc as cv2's; all {len(tallies['ffv1'])} FFV1 and "
+          f"{len(tallies['huffyuv'])} HuffYUV tools counted: FFV1 " +
+          ", ".join(f"{k} {v}" for k, v in tallies["ffv1"].items()) + "; HuffYUV " +
+          ", ".join(f"{k} {v}" for k, v in tallies["huffyuv"].items()))
+
+    # (b) decode times of a 512 px frame by codec and pixel format, on one host thread
+    med = {}
+    for clip, label in (("ffv1_big512.mkv", "FFV1 grey"), ("hfyu_big512.avi", "HuffYUV RGB24")):
+        with VideoReader(VIDEO_FIXTURES / clip) as big:
+            chunks = [big._sample(s) for s in big.samples]
+            extradata, size, bits = big.extradata, big.size, big.bits_per_coded_sample
+        dec_ms, conv_ms = [], []
+        for _ in range(LOSSLESS_TIMING_REPS):
+            dec = native.Ffv1Decoder(extradata, size) if clip.startswith("ffv1") else \
+                native.HuffyuvDecoder(False, extradata, bits, size)
+            for c in chunks:
+                t0 = time.perf_counter()
+                planes = dec.decode(c)
+                t1 = time.perf_counter()
+                native.planes_to_bgr(dec.pix_fmt, planes, dec.subsampling)
+                dec_ms.append((t1 - t0) * 1e3)
+                conv_ms.append((time.perf_counter() - t1) * 1e3)
+            dec.close()
+        med[label] = (sorted(dec_ms)[len(dec_ms) // 2], sorted(conv_ms)[len(conv_ms) // 2], len(dec_ms))
+    print(f"[lossless] (b) decode on one host thread, {card}, 512x512: " + "; ".join(
+        f"{label} {d:.3f} ms a frame, {c:.3f} ms its BGR conversion (medians of {n}), {1e3 / (d + c):.1f} frames/s"
+        for label, (d, c, n) in med.items()))
+
+    # (c) cli.predict over the FFV1 .mkv and the HuffYUV .avi on the flagship, 16 frames in one batch
+    src = tmp / "lossless_src"
+    src.mkdir()
+    for name in ("ffv1_big512.mkv", "hfyu_big512.avi"):
+        (src / name).write_bytes((VIDEO_FIXTURES / name).read_bytes())
+    out_dir = tmp / "lossless_predict"
+    n_video = 8 + 8
+    counts, written, n_boxes, err, wall, lines = predict_recorded(np, best, src, out_dir, device, "lossless", n_video)
+    check(counts.get("cam_gate") == 3, f"[lossless] cli.predict launched {counts}, want exactly 3 CAM gates")
+    check(err == 0.0, f"[lossless] cli.predict boxes differ from the predictor's by {err}")
+    check(written == {"ffv1_big512_pred.mp4", "hfyu_big512_pred.avi"},
+          f"[lossless] cli.predict wrote {sorted(written)}")
+    check(lines[-3:] == ["ffv1_big512.mkv: 8 frames -> ffv1_big512_pred.mp4",
+                         "hfyu_big512.avi: 8 frames -> hfyu_big512_pred.avi",
+                         f"[mga-predict] 0 images, {n_video} video frames -> {out_dir}"],
+          f"[lossless] cli.predict summary {lines[-3:]}")
+    print(f"[lossless] (c) cli.predict on the seeded flagship over ffv1_big512.mkv (FFV1 grey) and hfyu_big512.avi "
+          f"(HuffYUV RGB24), 8 frames each of 512x512, {TRAIN_BATCH} frames a batch: {sorted(written)} as the JAX "
+          f"package names them; {n_boxes} boxes, each frame's equal to the predictor's on the frames decoded anew "
+          f"(max abs error {err:.3g}); launches {counts}; {n_video / wall:.1f} frames/s on one host thread, model load "
+          f"included ({wall:.2f} s), {card}")
+    print(f"[lossless] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def planted_faults(tag: str, faults: dict) -> int:
     """``chip_smoke.py --{tag}-faults``: ``[tag]`` alone (``--{tag}-alone``)
     on a copy of this checkout, then on a copy with each of ``faults``
@@ -4448,8 +4561,8 @@ def phase_alone(tag: str) -> int:
     """``chip_smoke.py --{tag}-alone``: build the kernels and run ``[ddp]``,
     ``[spatial]``, ``[formats]``, ``[formats2]`` (on a synthetic set of
     64 + 16 images; ``[formats2]``'s cli.predict on the seeded flagship),
-    ``[matroska]``, ``[mpeg]``, ``[asp]``, ``[wmv]`` or ``[h264]`` (the
-    seeded flagship)."""
+    ``[matroska]``, ``[mpeg]``, ``[asp]``, ``[wmv]``, ``[h264]`` or
+    ``[lossless]`` (the seeded flagship)."""
     import numpy as np
     import torch
 
@@ -4460,9 +4573,9 @@ def phase_alone(tag: str) -> int:
     _build.build(KERNEL_SOURCES)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if tag in ("matroska", "mpeg", "asp", "wmv", "h264"):
+        if tag in ("matroska", "mpeg", "asp", "wmv", "h264", "lossless"):
             {"matroska": matroska_phase, "mpeg": mpeg_phase, "asp": asp_phase, "wmv": wmv_phase,
-             "h264": h264_phase}[tag](
+             "h264": h264_phase, "lossless": lossless_phase}[tag](
                 torch, np, seeded_checkpoint(torch, Path(tmp) / "seeded.pt"), Path(tmp))
         elif tag in ("formats", "formats2"):
             data_yaml = write_synthetic_dataset(Path(tmp) / "ds", n=64, size=512, max_boxes=MAX_BOXES, seed=0, n_val=16)
@@ -4564,9 +4677,12 @@ def main() -> int:
         paths["asp"] = asp_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "asp_seeded.pt"), Path(tmp))
         paths["wmv"] = wmv_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "wmv_seeded.pt"), Path(tmp))
         paths["h264"] = h264_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "h264_seeded.pt"), Path(tmp))
+        paths["lossless"] = lossless_phase(torch, np, seeded_checkpoint(torch, Path(tmp) / "lossless_seeded.pt"),
+                                           Path(tmp))
     # each kernel's launches are those of this slice's path first (cli.predict
-    # over an H.264 .mp4 and .mkv), then the earlier slices' (cli.predict over a
-    # WMV2 .wmv and an MP43 .avi, over an XviD and a packed DivX .avi, over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
+    # over an FFV1 .mkv and a HuffYUV .avi), then the earlier slices' (cli.predict
+    # over an H.264 .mp4 and .mkv, over a WMV2 .wmv and an MP43 .avi, over an
+    # XviD and a packed DivX .avi, over an MPEG-2 .mpg and an MPEG-1 .mpeg, over a VP8 WebM
     # and an MJPEG .mkv, uploads of
     # CCITT TIFF, GIF, PNM / PAM / PFM, Sun raster and HDR served, micro-steps
     # fed from T.6 masks, cli.predict over GIF clips, uploads of the still
@@ -4578,7 +4694,8 @@ def main() -> int:
     # micro-steps, the data-parallel run, micro-steps and NCCL group, the
     # predictor, device augmentation, the training run, the loader-fed train
     # step, prob_mode, SPADE, plain YOLOv8), else MaskECA's, else the flagship's
-    order = ("h264", "wmv", "asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export", "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
+    order = ("lossless", "h264", "wmv", "asp", "mpeg", "matroska", "formats2", "formats", "video", "jpeg", "export",
+             "base", "spatial_fit_dev", "spatial_fit", "spatial", "ddp_fit", "ddp", "ddp_nccl", "predict",
              "fit_dev", "data_dev", "fit", "train_data", "train_prob", "serve_spade", "train_spade", "serve_base",
              "train_base", "train_eca", "serve_eca", "train", "serve")
     for k in kernels:
@@ -4598,7 +4715,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
                         ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"],
-                        ["--asp-alone"], ["--wmv-alone"], ["--h264-alone"]):
+                        ["--asp-alone"], ["--wmv-alone"], ["--h264-alone"], ["--lossless-alone"]):
         import torch
 
         if not torch.cuda.is_available():

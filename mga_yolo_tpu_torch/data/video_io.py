@@ -1,6 +1,7 @@
 """Video files without OpenCV: the containers in Python, the codecs in the
 host C++ library (``native/jpeg.cpp``, ``native/mpeg4.cpp``,
 ``native/mpeg12.cpp``, ``native/msmpeg4.cpp``, ``native/vp8.cpp``,
+``native/h264.cpp``, ``native/ffv1.cpp``, ``native/huffyuv.cpp``,
 ``native/gif.cpp``, ``native/yuv.cpp``).
 
 The card's host has no OpenCV and no libavcodec, so the port reads and
@@ -62,18 +63,26 @@ writes the video files the JAX package reads and writes through
   :meth:`VideoReader._gif_frames`), with its frame count, frame rate and
   fourcc ``gif ``.
 
-H.264 / HEVC, MPEG-4 GMC and RVLC, VP9, AV1, FFV1, HuffYUV, VC-1 / WMV9,
+* It reads the lossless codecs cv2 reads, in AVI, Matroska (``V_FFV1``,
+  VfW), MP4 / MOV (their sample entries with a ``glbl`` box, PNG's mp4v of
+  object type 0x6D) and ASF: PNG frames (ffmpeg's png decoder's pixel
+  formats, as swscale turns them into BGR: :func:`png_frame`), FFV1
+  (``native.Ffv1Decoder``: versions 0, 1 and 3, 8 bits a sample) and HuffYUV
+  and FFVHuff (``native.HuffyuvDecoder``: versions 1 to 3), each frame
+  converted as cv2 converts its pixel format (``native.planes_to_bgr``);
+  cv2's fourccs ``MPNG``, ``ffv1``, ``HFYU`` and ``FFVH``.
+
+HEVC, MPEG-4 GMC and RVLC, VP9, AV1, VC-1 / WMV9,
 MS MPEG-4 v1, the MS-MPEG-4 tools ffmpeg's encoders never write (AC
 prediction, DC and vector table 0, WMV2's J-pictures, ABT, mspel, ...),
 fragmented MP4, interlaced MJPEG, Matroska's content encodings and laced
 blocks, ASF's compressed payloads, payload extensions and encryption,
 MPEG-2 field pictures, dual-prime prediction, scalable extensions, 4:4:4
-and D-pictures raise ``ValueError`` naming the file, its container and its
-codec, as do truncated and corrupt files (libavcodec conceals damage; the
-port refuses).
-Frames of odd height take swscale's scaled path as cv2's do
-(``native.yuv_to_bgr``), but for 4:2:2 and short (3 to 7 rows) ones, which
-keep the unscaled rule (``ROADMAP.md`` section 3).
+and D-pictures, FFV1 and FFVHuff above 8 bits, 16-bit RGB PNG frames and
+APNG raise ``ValueError`` naming the file, its container and its codec, as do
+truncated and corrupt files (libavcodec conceals damage; the port refuses).
+Frames of odd height, and 4:4:4 frames, take swscale's scaled path as cv2's do
+(``native.yuv_to_bgr``).
 """
 
 from __future__ import annotations
@@ -90,7 +99,7 @@ from typing import BinaryIO, Iterator, List, NoReturn, Optional, Tuple
 import numpy as np
 
 from mga_yolo_tpu_torch import native
-from mga_yolo_tpu_torch.data.image_io import GIF_SIGNATURES, encode_jpeg
+from mga_yolo_tpu_torch.data.image_io import GIF_SIGNATURES, PNG_SIGNATURE, _png, encode_jpeg
 
 MJPEG_TAGS = {b"MJPG", b"mjpg", b"AVRn", b"AVDJ", b"dmb1", b"JPEG", b"jpeg", b"IJPG", b"JPGL", b"mjpa"}
 MPEG4_TAGS = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"mp4v", b"MP4V", b"M4S2",
@@ -110,14 +119,19 @@ MPEG12_RATES = {1: (24000, 1001), 2: (24, 1), 3: (25, 1), 4: (30000, 1001), 5: (
 H264_TAGS = {b"avc1", b"avc3", b"H264", b"h264", b"X264", b"x264"}
 NAMED_TAGS = {b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"MP41": "MS MPEG-4 v1",
               b"MPG4": "MS MPEG-4 v1", b"WMV3": "VC-1 / WMV9", b"WVC1": "VC-1 / WMV9", b"WMVA": "VC-1 / WMV9",
-              b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1", b"FFV1": "FFV1", b"HFYU": "HuffYUV",
-              b"FFVH": "HuffYUV", b"FLV1": "FLV1 (Sorenson H.263)"}
+              b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1", b"FLV1": "FLV1 (Sorenson H.263)", b"apng": "APNG"}
+# the lossless codecs' tags (libavformat's RIFF and MOV tags, compared in upper case)
+LOSSLESS_TAGS = {b"HFYU": "huffyuv", b"FFVH": "ffvhuff", b"FFV1": "ffv1", b"MPNG": "png", b"PNG1": "png",
+                 b"PNG ": "png"}
+LOSSLESS_NAMES = {"huffyuv": "HuffYUV", "ffvhuff": "FFVHuff", "ffv1": "FFV1", "png": "PNG"}
+MP4_PNG_OTI = 0x6D  # the esds objectTypeIndication of PNG frames (cv2's .mp4 of png)
 # the MS-MPEG-4 family's codecs by native.MSMPEG4_VERSIONS' version
 MSMPEG4_CODECS = {2: "msmpeg4v2", 3: "msmpeg4v3", 4: "wmv1", 5: "wmv2"}
 # what cv2's CAP_PROP_FOURCC reports: the codec's own tag, not the file's
 CV2_FOURCC = {"mjpeg": b"MJPG", "mpeg4": b"FMP4", "bgr24": b"\0\0\0\0", "i420": b"\0\0\0\0", "gif": b"gif ",
               "vp8": b"VP80", "mpeg1": b"mpg1", "mpeg2": b"mpg2", "msmpeg4v2": b"MP42", "msmpeg4v3": b"MP43",
-              "wmv1": b"wmv1", "wmv2": b"wmv2", "h264": b"h264"}
+              "wmv1": b"wmv1", "wmv2": b"wmv2", "h264": b"h264", "huffyuv": b"HFYU", "ffvhuff": b"FFVH",
+              "ffv1": b"ffv1", "png": b"MPNG"}
 ASF_MAGIC = b"\x30\x26\xb2\x75"
 PS_PACK, PS_END, PS_SYSTEM = 0xBA, 0xB9, 0xBB
 PS_TICKS = 90000  # the system clock's PTS / DTS units a second
@@ -135,9 +149,9 @@ MKV = {"EBML": 0x1A45DFA3, "DocType": 0x4282, "Segment": 0x18538067, "SeekHead":
 MKV_TOP_LEVEL = {MKV[k] for k in ("SeekHead", "Info", "Tracks", "Cluster", "Cues", "Tags", "Chapters", "Attachments")}
 MKV_CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/ASP": "mpeg4",
               "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12", "V_MPEG4/MS/V3": "msmpeg4v3",
-              "V_MPEG4/ISO/AVC": "h264"}
-MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC", "V_FFV1": "FFV1",
-             "V_THEORA": "Theora", "V_PRORES": "ProRes", "V_MS/VFW/FOURCC": "VfW"}
+              "V_MPEG4/ISO/AVC": "h264", "V_FFV1": "ffv1"}
+MKV_NAMED = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC", "V_THEORA": "Theora", "V_PRORES": "ProRes",
+             "V_MS/VFW/FOURCC": "VfW"}
 # ffmpeg's standard frame rates (get_std_framerate), as fractions over 12 * 1001
 _STD_RATES = [(i + 1) * 1001 for i in range(30 * 12)] + [(i + 61) * 1001 * 12 for i in range(30)] + \
     [r * 1001 * 12 for r in (80, 120, 240)] + [r * 1000 * 12 for r in (24, 30, 60, 12, 15, 48)]
@@ -173,6 +187,8 @@ def _codec_of(tag: bytes) -> Optional[str]:
         return "mpeg12"
     if tag in H264_TAGS:
         return "h264"
+    if tag.upper() in LOSSLESS_TAGS:
+        return LOSSLESS_TAGS[tag.upper()]
     version = native.MSMPEG4_VERSIONS.get(tag.upper())
     return MSMPEG4_CODECS[version] if version else None
 
@@ -281,6 +297,41 @@ def cv2_fps_fraction(fps: float) -> Tuple[int, int]:
     return num, den
 
 
+def png_frame(data: bytes, size: Tuple[int, int]) -> np.ndarray:
+    """One PNG video frame as cv2 gives it: ffmpeg's png decoder (no gamma,
+    no EXIF orientation; 1-, 2- and 4-bit grey scaled to 8 bits; a palette
+    index past PLTE black), then swscale to BGR24, which drops alpha, copies
+    8-bit samples and rounds 16-bit grey to (v + 128) >> 8 (all measured
+    against libswscale). 16-bit RGB, which swscale converts through its
+    internal YUV, raises ValueError, as do APNG, a cut frame and a frame of
+    another size than the track's."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("a frame that is not a PNG")
+    if b"acTL" in data[:max(data.find(b"IDAT"), 0)]:
+        raise ValueError("an APNG frame (an animated PNG) is not supported")
+    png = _png(data, "PNG frame")
+    h, w = png.pix.shape[:2]
+    if (w, h) != tuple(size):
+        raise ValueError(f"a PNG frame of {w}x{h} in a track of {size[0]}x{size[1]}")
+    pix, depth, ctype = png.pix, png.depth, png.ctype
+    if depth == 16:
+        if ctype in (2, 6):
+            raise ValueError("16-bit RGB PNG frames (swscale converts them through its internal YUV) are not "
+                             "supported")
+        v = (pix[..., 0].astype(np.int32) << 8) | pix[..., 1]  # the grey sample, big-endian
+        grey = np.minimum((v + 128) >> 8, 255).astype(np.uint8)
+        return np.repeat(grey[:, :, None], 3, axis=2)
+    if ctype in (0, 4):
+        return np.repeat(pix[:, :, :1], 3, axis=2)
+    if ctype == 3:
+        palette = np.zeros((256, 3), np.uint8)
+        if png.palette is None:
+            raise ValueError("a palette PNG frame without a PLTE chunk")
+        palette[:min(len(png.palette), 256)] = png.palette[:256]
+        return np.ascontiguousarray(palette[pix[..., 0]][:, :, ::-1])
+    return np.ascontiguousarray(pix[:, :, 2::-1])
+
+
 # ------------------------------------------------------------------ reading
 
 
@@ -315,6 +366,7 @@ class VideoReader:
         self.shown: Optional[list] = None  # MP4 edit list: the samples shown, None for all
         self.pts: Optional[list] = None  # MP4 composition (display) times where they differ from decode times
         self.codec_tag = b""  # the container's fourcc for the codec (AVI, a Matroska VfW track), as ffmpeg's codec_tag
+        self.bits_per_coded_sample = 0  # BITMAPINFOHEADER's biBitCount, or an MP4 sample entry's depth
         self.bottom_up = False
         if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
             self.container = "AVI"
@@ -427,6 +479,7 @@ class VideoReader:
             if self.codec not in ("mjpeg", "i420", "mpeg12") and len(strf) > 40:
                 self.extradata = strf[40:]
             self.codec_tag = tag
+            self.bits_per_coded_sample = bits
         self.size = (abs(width), abs(height))
         if not (scale and rate):
             raise ValueError(f"{self.path}: corrupt AVI file (stream rate {rate}/{scale})")
@@ -551,6 +604,11 @@ class VideoReader:
             self._refuse(f"{name} video ('{_tag(fmt)}')")
         width, height = struct.unpack(">HH", entry[32:36])
         self.size = (width, height)
+        self.bits_per_coded_sample = struct.unpack(">H", entry[82:84])[0] if len(entry) >= 84 else 0
+        if self.codec in ("huffyuv", "ffvhuff", "ffv1"):  # the codec's header in a 'glbl' box
+            at = entry.find(b"glbl", 86)
+            if at >= 4:
+                self.extradata = entry[at + 4:at - 4 + struct.unpack(">I", entry[at - 4:at])[0]]
         if self.codec == "h264":
             at = entry.find(b"avcC", 86)
             if at < 4:
@@ -564,9 +622,11 @@ class VideoReader:
             oti, self.extradata = self._decoder_specific_info(entry[esds + 4:])
             if oti in MP4_MPEG12_OTI:
                 self.codec = "mpeg12"
+            elif oti == MP4_PNG_OTI:
+                self.codec, self.extradata = "png", b""
             elif oti != 0x20:
-                raise ValueError(f"{self.path}: mp4v track of object type 0x{oti:02x} (not MPEG-4 Visual, MPEG-1 or "
-                                 f"MPEG-2 video) is not supported")
+                raise ValueError(f"{self.path}: mp4v track of object type 0x{oti:02x} (not MPEG-4 Visual, MPEG-1, "
+                                 f"MPEG-2 video or PNG) is not supported")
         # the sample table
         sizes = self._stsz(box)
         chunks = self._chunk_offsets(box)
@@ -851,6 +911,7 @@ class VideoReader:
             if self.codec is None or self.codec == "h264" and self.container == "WebM":
                 name = "H.264" if self.codec else NAMED_TAGS.get(tag, f"the {_tag(tag)!r} codec")
                 self._refuse(f"{name} video ('V_MS/VFW/FOURCC', '{_tag(tag)}')")
+            self.bits_per_coded_sample = struct.unpack("<H", private[14:16])[0]
             private = private[40:]
         elif cid == "V_UNCOMPRESSED":
             space = track.get("colour_space", b"")
@@ -859,7 +920,7 @@ class VideoReader:
             self.codec = "i420"
         if self.codec is None or self.codec == "h264" and self.container == "WebM":
             self._refuse(f"{MKV_NAMED.get(cid, 'H.264' if self.codec else f'the {cid!r} codec')} video ('{cid}')")
-        if self.codec not in ("mjpeg", "i420", "vp8"):
+        if self.codec not in ("mjpeg", "i420", "vp8", "png"):
             self.extradata = private
 
     def _mkv_cluster(self, off: int, size: Optional[int], seg_end: int, blocks: list) -> int:
@@ -1226,6 +1287,7 @@ class VideoReader:
             self._refuse(f"{name} video ('{_tag(tag)}')")
         self.codec_tag = tag
         self.extradata = bih[40:struct.unpack("<I", bih[:4])[0]]
+        self.bits_per_coded_sample = struct.unpack("<H", bih[14:16])[0]
         bw, bh = struct.unpack("<ii", bih[4:12])
         self.size = (abs(bw) or width, abs(bh) or height)
         # the Data Object: its header, then packets of the fixed size
@@ -1478,6 +1540,9 @@ class VideoReader:
         if self.codec in ("mpeg1", "mpeg2"):
             yield from self._mpeg12_frames()
             return
+        if self.codec in LOSSLESS_NAMES:
+            yield from self._lossless_frames()
+            return
         order = self.shown if self.shown is not None else range(len(self.samples))
         for i in order:
             data = self._sample(self.samples[i])
@@ -1518,7 +1583,9 @@ class VideoReader:
         eoi = data.rfind(b"\xff\xd9")
         if meta["height"] * 2 in (self.size[1], self.size[1] - 1) or data.find(b"\xff\xd8", 2, eoi) > 0:
             self._refuse("interlaced MJPEG (two fields per chunk)")
-        return native.yuv_to_bgr(*planes, full_range=True)
+        (h0, v0), (h1, v1) = meta["sampling"][:2]
+        sub = (int(h0 // h1).bit_length() - 1, int(v0 // v1).bit_length() - 1) if h1 and v1 else None
+        return native.yuv_to_bgr(*planes, full_range=True, subsampling=sub if sub in ((0, 0), (1, 0), (1, 1)) else None)
 
     def _mpeg4_chunks(self) -> Iterator[bytes]:
         """A program stream's or a bare stream's MPEG-4 video as ffmpeg's
@@ -1675,6 +1742,45 @@ class VideoReader:
             return dec.delay
         finally:
             dec.close()
+
+    def _lossless_frames(self) -> Iterator[np.ndarray]:
+        """Each frame of a lossless codec (HuffYUV, FFVHuff, FFV1, PNG: every
+        frame decodes on its own but for FFV1's non-key frames, which keep the
+        contexts' states), in decode order, which is the display order, an MP4
+        edit list's frames only; converted as cv2 converts the codec's pixel
+        format (``native.planes_to_bgr``)."""
+        what = f"{self.container} with {LOSSLESS_NAMES[self.codec]} video"
+        wanted = set(self.shown) if self.shown is not None else None
+        try:
+            if self.codec in ("huffyuv", "ffvhuff"):
+                dec = native.HuffyuvDecoder(self.codec == "ffvhuff", self.extradata, self.bits_per_coded_sample,
+                                            self.size)
+            elif self.codec == "ffv1":
+                dec = native.Ffv1Decoder(self.extradata, self.size)
+            else:
+                dec = None
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {what}: {e}") from None
+        try:
+            for i, sample in enumerate(self.samples):
+                if dec is None and wanted is not None and i not in wanted:
+                    continue
+                data = self._sample(sample)
+                try:
+                    if dec is None:
+                        img = png_frame(data, self.size)
+                    else:
+                        planes = dec.decode(data)
+                        img = native.planes_to_bgr(dec.pix_fmt, planes, dec.subsampling)
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: {what}, frame {i}: {e}") from None
+                if wanted is None or i in wanted:
+                    yield img
+            if dec is not None:
+                setattr(self, f"{self.codec}_tally", dec.tally())
+        finally:
+            if dec is not None:
+                dec.close()
 
     def _vp8_frames(self) -> Iterator[np.ndarray]:
         """Each shown frame, its planes converted as MPEG-4's are (swscale's

@@ -5,7 +5,8 @@ MJPEG frames' planes), ``bmp.cpp`` (BMP decoding), ``yuv.cpp`` (video
 colour conversion), ``mpeg4.cpp`` (MPEG-4 Part 2 decoding and I-VOP
 encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding),
 ``msmpeg4.cpp`` (MS MPEG-4 v2 and v3, WMV1 and WMV2 decoding), ``h264.cpp``
-(H.264 Baseline, Main and High decoding), ``tiff.cpp``
+(H.264 Baseline, Main and High decoding), ``huffyuv.cpp`` (HuffYUV and
+FFVHuff decoding), ``ffv1.cpp`` (FFV1 decoding), ``tiff.cpp``
 (TIFF's LZW, PackBits, CCITT fax codes and predictor), ``webp.cpp``
 (WebP's VP8L bitstream, and the upsampling of a lossy still), ``vp8.cpp``
 (VP8 key and inter frames, for WebM / Matroska video and WebP stills),
@@ -14,7 +15,7 @@ encoding), ``mpeg12.cpp`` (MPEG-1 and MPEG-2 video decoding),
 ``simple_idct.h``, ``xvid_idct.h``, ``h263.h`` (what ``mpeg4.cpp`` and
 ``msmpeg4.cpp`` share), ``msmpeg4_tables.h`` and ``h264_tables.h``.
 
-The thirteen sources are compiled at first use, each in a process of its
+The fifteen sources are compiled at first use, each in a process of its
 own and all at once, with ``g++ -O3 -fPIC -std=c++17``, and linked into
 ``mga_yolo_tpu_torch/_build/libmaskops-<hash>.so``,
 keyed by a hash of the sources, and loaded with ctypes. Nothing is built at
@@ -41,9 +42,9 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 
 SOURCE = Path(__file__).with_name("maskops.cpp")
-CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in ("jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "mpeg12.cpp",
-                                                                 "msmpeg4.cpp", "h264.cpp", "tiff.cpp", "webp.cpp", "vp8.cpp",
-                                                                 "gif.cpp", "raster.cpp"))
+CODEC_SOURCES = tuple(Path(__file__).with_name(f) for f in (
+    "jpeg.cpp", "bmp.cpp", "yuv.cpp", "mpeg4.cpp", "mpeg12.cpp", "msmpeg4.cpp", "h264.cpp", "huffyuv.cpp", "ffv1.cpp",
+    "tiff.cpp", "webp.cpp", "vp8.cpp", "gif.cpp", "raster.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -177,8 +178,8 @@ def _open(target: Path):
     lib.mga_jpeg_decode_planes.restype = n64
     lib.mga_yuv_to_bgr.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, c, u8p]
     lib.mga_yuv_to_bgr.restype = None
-    lib.mga_yuv420_to_bgr_scaled.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, u8p]
-    lib.mga_yuv420_to_bgr_scaled.restype = None
+    lib.mga_yuv_to_bgr_scaled.argtypes = [u8p, c, u8p, u8p, c, c, c, c, c, c, c, u8p]
+    lib.mga_yuv_to_bgr_scaled.restype = None
     lib.mga_bgr_to_yuv420.argtypes = [u8p, c, c, u8p, u8p, u8p]
     lib.mga_bgr_to_yuv420.restype = None
     lib.mga_mpeg4_decoder_new.argtypes = [ctypes.c_uint32]
@@ -269,6 +270,24 @@ def _open(target: Path):
     lib.mga_h264_reorder_hint.restype = c
     lib.mga_h264_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
     lib.mga_h264_tally.restype = c
+    lib.mga_huffyuv_new.argtypes = [c, buf, n64, c, c, c, i32p, buf, c]
+    lib.mga_huffyuv_new.restype = ctypes.c_void_p
+    lib.mga_huffyuv_free.argtypes = [ctypes.c_void_p]
+    lib.mga_huffyuv_free.restype = None
+    lib.mga_huffyuv_decode.argtypes = [ctypes.c_void_p, buf, n64, u8p, u8p, u8p, u8p, buf, c]
+    lib.mga_huffyuv_decode.restype = c
+    lib.mga_huffyuv_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_huffyuv_tally.restype = c
+    lib.mga_ffv1_new.argtypes = [buf, n64, c, c, buf, c]
+    lib.mga_ffv1_new.restype = ctypes.c_void_p
+    lib.mga_ffv1_free.argtypes = [ctypes.c_void_p]
+    lib.mga_ffv1_free.restype = None
+    lib.mga_ffv1_decode.argtypes = [ctypes.c_void_p, buf, n64, i32p, buf, c]
+    lib.mga_ffv1_decode.restype = c
+    lib.mga_ffv1_planes.argtypes = [ctypes.c_void_p, u8p, u8p, u8p, u8p]
+    lib.mga_ffv1_planes.restype = None
+    lib.mga_ffv1_tally.argtypes = [ctypes.c_void_p, ctypes.POINTER(n64), c]
+    lib.mga_ffv1_tally.restype = c
     return lib, None
 
 
@@ -500,34 +519,35 @@ def jpeg_decode_planes(data: bytes) -> tuple[list[np.ndarray], dict]:
 
 
 def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, full_range: bool,
-               chroma_left: bool = False) -> np.ndarray:
+               chroma_left: bool = False, subsampling: Optional[tuple[int, int]] = None) -> np.ndarray:
     """(H, W, 3) BGR uint8 from a luma plane and two chroma planes of half
-    (4:2:0) or half-width (4:2:2) or equal size, as cv2.VideoCapture converts
-    a frame (swscale's unscaled yuv2rgb, chroma replicated; JPEG's range when
-    ``full_range``, else limited; BT.601). A 4:2:0 frame of odd height takes
-    swscale's scaled path, as cv2's does, its chroma upsampled from where the
-    codec sites it (``chroma_left``: MPEG-2, MPEG-4 and H.264 with a VUI;
-    centred: MPEG-1, VP8, JPEG, H.264 without one), in either range; frames
-    of 1 to 7 rows, whose chroma filter has 1 or 2 taps, through swscale's
-    yuv2packed1 stage. A 4:2:2 frame of odd height keeps the unscaled rule
-    (``ROADMAP.md`` section 3)."""
+    (4:2:0) or half-width (4:2:2) or equal size (4:4:4), as cv2.VideoCapture
+    converts a frame (BT.601; JPEG's range when ``full_range``, else
+    limited): swscale's unscaled yuv2rgb, chroma replicated, for 4:2:0 and
+    4:2:2 frames of even height; its scaled path for those of odd height, their
+    chroma upsampled from where the codec sites it (``chroma_left``: MPEG-2,
+    MPEG-4 and H.264 with a VUI; centred: MPEG-1, VP8, JPEG, H.264 without
+    one), frames of 1 to 7 rows through its yuv2packed1 stage; and its full
+    chroma stage for 4:4:4. ``subsampling`` is (log2 horizontal, log2
+    vertical) of the chroma, which a frame one sample wide needs; else it is
+    told by the planes' sizes (one sample wide: 4:2:2, or 4:2:0 where the
+    height says so)."""
     lib = load()
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
     h, w = y.shape
     if u.shape != v.shape:
         raise ValueError(f"chroma planes of {u.shape} and {v.shape}")
-    # (a frame one sample wide has chroma as wide as its luma either way: read as 4:2:0 where its height says so)
-    sy = 0 if u.shape[0] == h else 1
-    sx = 0 if u.shape[1] == w and not (w == 1 and sy) else 1
-    if u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
+    if subsampling is None:
+        sy = 0 if u.shape[0] == h else 1
+        sx = 0 if u.shape[1] == w and w > 1 else 1
+    else:
+        sx, sy = subsampling
+    if (sx, sy) not in ((0, 0), (1, 0), (1, 1)) or u.shape != (-(-h // (1 << sy)), -(-w // (1 << sx))):
         raise ValueError(f"chroma planes of {u.shape} for luma of {y.shape}")
     out = np.empty((h, w, 3), np.uint8)
-    if h == 1 and u.shape[1] == (w + 1) // 2:  # one row: 4:2:0 (and 4:2:2) take the scaled path's 1-tap stage
-        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
-                                     _u8(out))
-    elif h & 1 and sx and sy:
-        lib.mga_yuv420_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, int(chroma_left), int(full_range),
-                                     _u8(out))
+    if h & 1 or not sx:  # odd heights and 4:4:4 take swscale's scaled path
+        lib.mga_yuv_to_bgr_scaled(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(chroma_left),
+                                  int(full_range), _u8(out))
     else:
         lib.mga_yuv_to_bgr(_u8(y), w, _u8(u), _u8(v), u.shape[1], h, w, sx, sy, int(full_range), _u8(out))
     return out
@@ -935,6 +955,148 @@ class H264Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.mga_h264_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what a HuffyuvDecoder counts (huffyuv.cpp's Tally, in its order)
+HUFFYUV_TALLY = ("frames", "huffyuv", "ffvhuff", "v1_classic_tables", "v2", "v3", "pred_left", "pred_plane",
+                 "pred_median", "decorrelate", "interlaced", "per_frame_tables", "yuv422", "yuv420", "rgb24", "rgb32",
+                 "gray", "yuv444", "yuva", "gbrp", "odd_width", "long_codes")
+# a decoded frame's layout by huffyuv.cpp's format number: pixel format, chroma (log2 horizontal, vertical) or None
+HUFFYUV_FORMATS = {0: ("yuv422p", (1, 0)), 1: ("yuv420p", (1, 1)), 2: ("bgr0", None), 3: ("bgra", None),
+                   4: ("gray", None), 5: ("yuv444p", (0, 0)), 6: ("gbrp", None), 7: ("yuva420p", (1, 1)),
+                   8: ("yuva422p", (1, 0)), 9: ("yuva444p", (0, 0))}
+
+
+def planes_to_bgr(pix_fmt: str, planes: list, subsampling: Optional[tuple[int, int]] = None) -> np.ndarray:
+    """(H, W, 3) BGR uint8 of a lossless codec's decoded planes as cv2 turns
+    them into BGR24 with swscale (each measured against libswscale): grey
+    copied into B, G and R (swscale takes grey as full range), packed BGR0 /
+    BGRA and planar GBR copied, YUV (alpha dropped) through
+    :func:`yuv_to_bgr` in limited range, its chroma centred."""
+    if pix_fmt == "gray":
+        return gray_to_bgr(planes[0])
+    if pix_fmt in ("bgr0", "bgra"):
+        h = planes[0].shape[0]
+        return np.ascontiguousarray(planes[0].reshape(h, -1, 4)[:, :, :3])
+    if pix_fmt == "gbrp":
+        return np.stack([planes[1], planes[0], planes[2]], axis=2)
+    return yuv_to_bgr(planes[0], planes[1], planes[2], full_range=False, subsampling=subsampling)
+
+
+class HuffyuvDecoder:
+    """A HuffYUV or FFVHuff decoder (``huffyuv.cpp``, libavcodec's
+    huffyuvdec.c: versions 1 to 3, the left, plane and median predictors,
+    interlacing, decorrelated RGB, per-frame tables; 8 bits a sample) for a
+    stream of ``size`` (width, height) with the container's ``extradata`` and
+    ``bits_per_coded_sample`` (biBitCount, or an MP4 sample entry's depth).
+    Every frame is a key frame. Raises ValueError naming what it does not
+    decode, and on a cut or corrupt frame."""
+
+    def __init__(self, ffvhuff: bool, extradata: bytes, bits_per_coded_sample: int, size: tuple[int, int]):
+        self._h = None
+        self._lib = load()
+        extradata = bytes(extradata)
+        info = (ctypes.c_int32 * 9)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._h = self._lib.mga_huffyuv_new(int(ffvhuff), extradata, len(extradata), int(bits_per_coded_sample),
+                                            int(size[0]), int(size[1]), info, err, _ERR_LEN)
+        if not self._h:
+            raise ValueError(err.value.decode())
+        self.pix_fmt, self.subsampling = HUFFYUV_FORMATS[info[0]]
+        self._shapes = [(info[2 + 2 * p], info[1 + 2 * p]) for p in range(4) if info[1 + 2 * p]]
+
+    def decode(self, chunk: bytes) -> list:
+        """The frame's planes (uint8, as :func:`planes_to_bgr` takes them)."""
+        if not self._h:
+            raise ValueError("the HuffYUV decoder is closed")
+        chunk = bytes(chunk)
+        planes = [np.empty(s, np.uint8) for s in self._shapes]
+        ptrs = [_u8(p) for p in planes] + [None] * (4 - len(planes))
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        if self._lib.mga_huffyuv_decode(self._h, chunk, len(chunk), *ptrs, err, _ERR_LEN) < 0:
+            raise ValueError(err.value.decode())
+        return planes
+
+    def tally(self) -> dict:
+        """The tools decoded so far, counted (``HUFFYUV_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(HUFFYUV_TALLY))()
+        n = self._lib.mga_huffyuv_tally(self._h, out, len(HUFFYUV_TALLY))
+        if n != len(HUFFYUV_TALLY):
+            raise RuntimeError(f"huffyuv.cpp counts {n} tools, HUFFYUV_TALLY names {len(HUFFYUV_TALLY)}")
+        return dict(zip(HUFFYUV_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_huffyuv_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# what an Ffv1Decoder counts (ffv1.cpp's Tally, in its order)
+FFV1_TALLY = ("frames", "key_frames", "non_key_frames", "version_0", "version_1", "version_3", "golomb_rice",
+              "range_default", "range_custom", "initial_states", "multi_slice", "slice_crc", "gray", "yuv420",
+              "yuv422", "yuv444", "alpha", "rgb", "runs", "run_breaks", "golomb_escape", "five_input_contexts",
+              "odd_size")
+# a decoded frame's layout by ffv1.cpp's format number: pixel format, chroma (log2 horizontal, vertical) or None
+FFV1_FORMATS = {0: ("gray", None), 1: ("yuv420p", (1, 1)), 2: ("yuv422p", (1, 0)), 3: ("yuv444p", (0, 0)),
+                4: ("yuva420p", (1, 1)), 5: ("yuva422p", (1, 0)), 6: ("yuva444p", (0, 0)), 7: ("bgr0", None),
+                8: ("bgra", None)}
+
+
+class Ffv1Decoder:
+    """An FFV1 decoder (``ffv1.cpp``, RFC 9043 as libavcodec's ffv1dec.c
+    decodes it: versions 0, 1 and 3, 8 bits a sample, Golomb-Rice or range
+    coding with the default or a custom state table, slices with their CRCs,
+    grey, YUV 4:2:0 / 4:2:2 / 4:4:4 with or without alpha, RGB by the JPEG
+    2000 RCT) for a stream of ``size`` (width, height) with the container's
+    ``extradata`` (version 3's configuration record; none for versions 0 and
+    1). Feed it the frames in order: a non-key frame keeps the contexts of
+    the frames before it. Raises ValueError naming what it does not decode,
+    and on a cut or corrupt frame."""
+
+    def __init__(self, extradata: bytes, size: tuple[int, int]):
+        self._h = None
+        self._lib = load()
+        extradata = bytes(extradata)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        self._h = self._lib.mga_ffv1_new(extradata, len(extradata), int(size[0]), int(size[1]), err, _ERR_LEN)
+        if not self._h:
+            raise ValueError(err.value.decode())
+        self.pix_fmt, self.subsampling = None, None
+
+    def decode(self, chunk: bytes) -> list:
+        """The frame's planes (uint8, as :func:`planes_to_bgr` takes them, in
+        the format ``pix_fmt`` then names)."""
+        if not self._h:
+            raise ValueError("the FFV1 decoder is closed")
+        chunk = bytes(chunk)
+        info = (ctypes.c_int32 * 8)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        fmt = self._lib.mga_ffv1_decode(self._h, chunk, len(chunk), info, err, _ERR_LEN)
+        if fmt < 0:
+            raise ValueError(err.value.decode())
+        self.pix_fmt, self.subsampling = FFV1_FORMATS[fmt]
+        planes = [np.empty((info[2 * p + 1], info[2 * p]), np.uint8) for p in range(4) if info[2 * p]]
+        self._lib.mga_ffv1_planes(self._h, *([_u8(p) for p in planes] + [None] * (4 - len(planes))))
+        return planes
+
+    def tally(self) -> dict:
+        """The tools decoded so far, counted (``FFV1_TALLY``'s names)."""
+        out = (ctypes.c_int64 * len(FFV1_TALLY))()
+        n = self._lib.mga_ffv1_tally(self._h, out, len(FFV1_TALLY))
+        if n != len(FFV1_TALLY):
+            raise RuntimeError(f"ffv1.cpp counts {n} tools, FFV1_TALLY names {len(FFV1_TALLY)}")
+        return dict(zip(FFV1_TALLY, out))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mga_ffv1_free(self._h)
             self._h = None
 
     def __del__(self):

@@ -10,7 +10,7 @@
 //
 // A 4:2:0 frame of odd height is another matter: swscale's unscaled
 // converter takes even heights only, so cv2 gets swscale's scaled path at
-// the same size with SWS_BICUBIC (mga_yuv420_to_bgr_scaled, measured against
+// the same size with SWS_BICUBIC (mga_yuv_to_bgr_scaled, measured against
 // cv2 to the bit on MPEG-1, MPEG-2, MPEG-4 and VP8 frames of odd height, and
 // on H.264 frames of odd height in both ranges; a full-range frame takes the
 // same path with the full-range matrix and luma table). Chroma is upsampled by swscale's initFilter bicubic filters (B 0,
@@ -29,6 +29,14 @@
 // rows the rows blended by their taps (measured against libswscale through
 // ctypes on 1 to 97 samples wide, either range and siting, and against cv2's
 // MJPG and H.264 clips of 2 to 7 rows).
+//
+// 4:2:2 frames of odd height take the same scaled path, whose vertical chroma
+// filter is then swscale's unscaled one (a tap a row, so yuv2packed1 on every
+// row), and 4:4:4 frames of any size take it with full horizontal chroma
+// ("Forcing full internal H chroma due to input having non subsampled
+// chroma"): both measured against libswscale on random planes and against
+// cv2's MJPEG, HuffYUV, FFVHuff and FFV1 clips. The full chroma stage sums in
+// 32 bits, which wrap for chroma far outside 0..255, as swscale's C does.
 //
 // BGR24 -> YUV 4:2:0 for the MPEG-4 writer: BT.601 limited range (what
 // cv2's writer hands the mp4v encoder), luma per pixel and chroma from the
@@ -68,6 +76,14 @@ struct Filter {
 int64_t rounded_div(int64_t a, int64_t b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
 
 Filter bicubic_filter(int64_t xInc, int srcW, int dstW, int align, int64_t one, int srcPos, int dstPos) {
+  if (std::llabs(xInc - 0x10000) < 10 && srcPos == dstPos) {  // unscaled: one tap a row
+    Filter out;
+    out.size = 1;
+    out.pos.resize(dstW);
+    for (int i = 0; i < dstW; ++i) out.pos[i] = i;
+    out.coef.assign(dstW, (int)one);
+    return out;
+  }
   const int64_t fone = int64_t(1) << 54;  // an upscale: av_log2(srcW / dstW) is 0
   int size = std::max(std::min(1 + 4, srcW - 2), 1);
   std::vector<int64_t> f((size_t)dstW * size);
@@ -226,13 +242,16 @@ void mga_yuv_to_bgr(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_
   }
 }
 
-// (h, w, 3) BGR from a limited-range 4:2:0 frame of odd height h, as swscale's
-// scaled path gives it to cv2 (see the top). left: the chroma is left-sited
-// (MPEG-2, MPEG-4), else centred.
-void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_t* v, int32_t cs, int32_t h,
-                              int32_t w, int32_t left, int32_t full_range, uint8_t* out) {
-  const int ch = (h + 1) / 2, csw = (w + 1) / 2;
-  const bool full = w & 1;  // full horizontal chroma
+// (h, w, 3) BGR as swscale's scaled path gives it to cv2 (see the top): a
+// 4:2:0 (sx, sy 1, 1) or 4:2:2 (1, 0) frame of odd height, or a 4:4:4 (0, 0)
+// frame of any size. left: the chroma is left-sited (MPEG-2, MPEG-4), else
+// centred. A 4:2:2 or 4:4:4 frame's vertical chroma filter is swscale's
+// unscaled one, one tap a row, so every row is yuv2packed1's; a 4:4:4 frame
+// forces full horizontal chroma ("input having non subsampled chroma").
+void mga_yuv_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, const uint8_t* v, int32_t cs, int32_t h,
+                           int32_t w, int32_t sx, int32_t sy, int32_t left, int32_t full_range, uint8_t* out) {
+  const int ch = sy ? (h + 1) / 2 : h, csw = sx ? (w + 1) / 2 : w;
+  const bool full = (w & 1) || !sx;  // full horizontal chroma
   // the range's matrix, as mga_yuv_to_bgr's: full-range chroma scaled by 224 / 255, limited-range luma by 255 / 219
   const int64_t kCy = full_range ? int64_t(1) << 16 : kCyL, kOy = full_range ? 0 : kOyL;
   const int64_t kCrv = full_range ? kCrvL * 224 / 255 : kCrvL, kCbu = full_range ? kCbuL * 224 / 255 : kCbuL;
@@ -240,10 +259,10 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
   const int64_t yoffs = full_range ? 384 : 326;  // swscale's offset into its luma table
   const int cw = full ? w : csw;
   const int hpos = left ? 0 : -513;
-  const std::vector<int> U = hscale(u, cs, ch, csw, cw, local_pos(1, hpos), local_pos(full ? 0 : 1, -513));
-  const std::vector<int> V = hscale(v, cs, ch, csw, cw, local_pos(1, hpos), local_pos(full ? 0 : 1, -513));
+  const std::vector<int> U = hscale(u, cs, ch, csw, cw, local_pos(sx, hpos), local_pos(full ? 0 : 1, -513));
+  const std::vector<int> V = hscale(v, cs, ch, csw, cw, local_pos(sx, hpos), local_pos(full ? 0 : 1, -513));
   const int64_t vinc = ((int64_t(ch) << 16) + (h >> 1)) / h;
-  const Filter f = bicubic_filter(vinc, ch, h, 2, 1 << 12, local_pos(1, -513), local_pos(0, -513));
+  const Filter f = bicubic_filter(vinc, ch, h, 2, 1 << 12, local_pos(sy, -513), local_pos(0, -513));
   // the full path's coefficients (13-bit, rounded to 16 bits) and the packed path's (as mga_yuv_to_bgr's)
   const int fy = round16(kCy * 8192), fyo = round16(kOy * 512), fvr = round16(kCrv * 8192), fub = round16(kCbu * 8192),
             fug = round16(kCgu * 8192), fvg = round16(kCgv * 8192);
@@ -299,10 +318,13 @@ void mga_yuv420_to_bgr_scaled(const uint8_t* y, int32_t ys, const uint8_t* u, co
     const int yround = packed1 ? 0 : 4;  // the x86 packed path's luma: 8 Y, plus the vertical filter's rounder
     for (int c = 0; c < w; ++c) {
       const int64_t Y = yr[c];
-      if (mode == 0) {
+      if (mode == 0) {  // yuv2rgb_write_full: sums in 32 bits, which wrap for chroma far outside 0..255
         const int64_t yy = ((Y << 9) - fyo) * fy + (1 << 21), uu = ua[c], vv = va[c];
         const int64_t chan[3] = {yy + uu * fub, yy + uu * fug + vv * fvg, yy + vv * fvr};
-        for (int k = 0; k < 3; ++k) o[3 * c + k] = (uint8_t)std::min<int64_t>(255, std::max<int64_t>(0, chan[k] >> 22));
+        for (int k = 0; k < 3; ++k) {
+          const int32_t v = (int32_t)(uint32_t)chan[k];
+          o[3 * c + k] = (uint8_t)(v < 0 ? 0 : v >= (1 << 30) ? 255 : v >> 22);
+        }
       } else if (mode == 1) {
         const int64_t uu = ua[c >> 1], vv = va[c >> 1];
         const int64_t t[3] = {Y + ((uu * tb) >> 16) - (tb >> 9),

@@ -168,10 +168,10 @@ def test_sources_kinds_equal_jax_and_video_raises(pair, tmp_path):
     for src in (0, "0", "rtsp://127.0.0.1/stream", "http://127.0.0.1/a.mp4"):
         with pytest.raises(NotImplementedError, match="camera|stream URLs"):
             list(P.iter_source(src))
-    with pytest.raises(ValueError, match=r"clip\.mkv: Matroska with FFV1 video \('V_FFV1'\) is not supported"):
-        from tests.video_fixtures.make import mkv_bytes
+    with pytest.raises(ValueError, match=r"clip\.mkv: Matroska with Theora video \('V_THEORA'\) is not supported"):
+        from tests.video_fixtures.make import mkv_bytes  # FFV1, once refused here, reads now
 
-        (tmp_path / "clip.mkv").write_bytes(mkv_bytes("V_FFV1", 56, 40, [(b"\0" * 8, True, 0)], doctype="matroska"))
+        (tmp_path / "clip.mkv").write_bytes(mkv_bytes("V_THEORA", 56, 40, [(b"\0" * 8, True, 0)], doctype="matroska"))
         list(P.iter_source(tmp_path / "clip.mkv"))
     sink = P.VideoSink(tmp_path / "out.mp4", 0.0)
     for f in got[:3]:

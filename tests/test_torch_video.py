@@ -221,12 +221,12 @@ def _refused(kind: str, tmp_path: Path) -> tuple[Path, str]:
     elif kind == "interlaced":
         mhead, mchunks = avi_parts((FIXTURES / "mjpg.avi").read_bytes())
         data, what = pack_avi(mhead, [c + c for c in mchunks]), r"interlaced MJPEG \(two fields per chunk\)"
-    elif kind in ("mkv", "webm"):  # Matroska and WebM read now: the codecs in them the port still refuses
+    elif kind in ("mkv", "webm"):  # Matroska and WebM read now: codecs in them the port still refuses (FFV1 reads)
         from tests.video_fixtures.make import mkv_blocks, mkv_bytes
 
         mj = (FIXTURES / "mjpg.mkv").read_bytes()
         packets = [(mj[o:o + n], True, 40 * i) for i, (o, n) in enumerate(mkv_blocks(mj))]
-        cid, what = ("V_FFV1", r"Matroska with FFV1 video \('V_FFV1'\)") if kind == "mkv" else \
+        cid, what = ("V_THEORA", r"Matroska with Theora video \('V_THEORA'\)") if kind == "mkv" else \
             ("V_VP9", r"WebM with VP9 video \('V_VP9'\)")
         path = tmp_path / f"clip.{kind}"
         path.write_bytes(mkv_bytes(cid, 64, 48, packets, doctype="matroska" if kind == "mkv" else "webm"))

@@ -282,6 +282,8 @@ def test_asf_forms_ffmpegs_muxer_does_not_write_raise_naming_them(tmp_path, kind
 @pytest.mark.parametrize("fourcc, what", [("FFV1", "FFV1"), ("HFYU", "HuffYUV"), ("FLV1", "FLV1"),
                                           ("VP90", "VP9"), ("I420", "I420")])
 def test_codecs_cv2_puts_in_asf_that_the_port_does_not_decode_raise_naming_them(tmp_path, fourcc, what):
+    """FFV1 and HuffYUV, once refused, now read as cv2 reads them
+    (``tests/test_torch_lossless.py`` holds the rest); the others raise."""
     path = tmp_path / f"{fourcc}.wmv"
     vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 25, (64, 48))
     if not vw.isOpened():
@@ -289,6 +291,10 @@ def test_codecs_cv2_puts_in_asf_that_the_port_does_not_decode_raise_naming_them(
     for img in frames(4, 48, 64, 3):
         vw.write(img)
     vw.release()
+    if fourcc in ("FFV1", "HFYU"):
+        got, want = read_all(path)[0], cv2_read(path)[0]
+        assert len(got) == len(want) == 4 and all((g == w).all() for g, w in zip(got, want))
+        return
     with pytest.raises(ValueError, match=rf"^{path}: ASF with .*{what}.* video \('{fourcc}'\) is not supported"):
         read_all(path)
 

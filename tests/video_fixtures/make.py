@@ -44,6 +44,7 @@ from __future__ import annotations
 import hashlib
 import json
 import struct
+import zlib
 from pathlib import Path
 
 import cv2
@@ -273,6 +274,90 @@ def lavc_encode(encoder: str, imgs: list, options: dict, pts: bool = False, two_
             run.stats_out = i
             return run({"flags": "+pass2"}, ctypes.string_at(p))[1]
     raise RuntimeError("no first-pass statistics in the codec context")
+
+
+PACKED_BYTES = {"bgr0": 4, "bgra": 4, "rgb24": 3, "bgr24": 3, "rgba": 4, "ya8": 2, "gray16be": 2, "ya16be": 4,
+                "rgb48be": 6, "rgba64be": 8}  # bytes a pixel of the packed formats
+
+
+def lavc_encode_planes(encoder: str, frames_: list, pix_fmt: str, options: dict, extradata: list | None = None,
+                       width: int = 0, two_pass: bool = False) -> list:
+    """(data, key, pts) of each packet of a libavcodec encoder (the one inside
+    cv2's wheel, through ctypes) for frames given as their planes in
+    ``pix_fmt`` (a list of 2-D uint8 arrays each, a packed format's one plane
+    (h, w x bytes a pixel), ``width`` given where that does not tell it),
+    with the encoder's own options (``flags`` among them); the encoder's
+    extradata is appended to ``extradata`` when one is given. ``two_pass``
+    runs a first pass and hands its statistics (text) to the second, as
+    ``lavc_encode`` does (FFV1 then codes its contexts' initial states). The
+    field offsets are ``lavc_encode``'s."""
+    import ctypes
+
+    avutil, avcodec = libav()
+    avutil.av_get_pix_fmt.argtypes, avutil.av_get_pix_fmt.restype = [ctypes.c_char_p], ctypes.c_int
+    vp = ctypes.c_void_p
+    h = frames_[0][0].shape[0]
+    codec = avcodec.avcodec_find_encoder_by_name(encoder.encode())
+    assert codec, encoder
+    fmt = avutil.av_get_pix_fmt(pix_fmt.encode())
+    assert fmt >= 0, pix_fmt
+    w = width or frames_[0][0].shape[1] // PACKED_BYTES.get(pix_fmt, 1)
+
+    def run(extra: dict, stats: bytes | None = None):
+        ctx = avcodec.avcodec_alloc_context3(codec)
+        for k, v in {"video_size": f"{w}x{h}", "pixel_format": pix_fmt, "time_base": "1/25", **options,
+                     **extra}.items():
+            assert avutil.av_opt_set(ctx, k.encode(), str(v).encode(), 1) >= 0, k
+        keep = None
+        if stats is not None:  # AVCodecContext.stats_in, the pointer after stats_out
+            keep = ctypes.create_string_buffer(stats)
+            ctypes.cast(ctx, ctypes.POINTER(vp))[run.stats_out + 1] = ctypes.addressof(keep)
+        assert avcodec.avcodec_open2(ctx, codec, None) == 0, (encoder, pix_fmt, options)
+        frame, pkt = avutil.av_frame_alloc(), avcodec.av_packet_alloc()
+        ints, ptrs = ctypes.cast(frame, ctypes.POINTER(ctypes.c_int)), ctypes.cast(frame, ctypes.POINTER(vp))
+        ints[26], ints[27], ints[29] = w, h, fmt
+        assert avutil.av_frame_get_buffer(frame, 0) == 0
+        packets = []
+
+        def drain():
+            while avcodec.avcodec_receive_packet(ctx, pkt) == 0:
+                words, fields = ctypes.cast(pkt, ctypes.POINTER(vp)), ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int))
+                packets.append((ctypes.string_at(words[3], fields[8]), bool(fields[10] & 1),
+                                ctypes.cast(pkt, ctypes.POINTER(ctypes.c_int64))[1]))
+                avcodec.av_packet_unref(pkt)
+
+        stats = []  # a first pass's statistics (text), after each frame
+        for i, planes in enumerate(frames_):
+            assert avutil.av_frame_make_writable(frame) == 0
+            for k, plane in enumerate(planes):
+                for r in range(plane.shape[0]):
+                    ctypes.memmove(ptrs[k] + r * ints[16 + k], np.ascontiguousarray(plane[r]).ctypes.data,
+                                   plane.shape[1])
+            ctypes.cast(frame, ctypes.POINTER(ctypes.c_int64))[17] = i  # AVFrame.pts
+            assert avcodec.avcodec_send_frame(ctx, frame) == 0
+            drain()
+            if "pass1" in extra.get("flags", ""):
+                stats.append(first_pass_stats(ctx))
+        avcodec.avcodec_send_frame(ctx, None)
+        drain()
+        del keep
+        if extradata is not None and "pass1" not in extra.get("flags", ""):
+            size = ctypes.cast(ctx, ctypes.POINTER(ctypes.c_int))[20]  # AVCodecContext.extradata, extradata_size
+            extradata.append(ctypes.string_at(ctypes.cast(ctx, ctypes.POINTER(vp))[9], size) if size else b"")
+        if "pass1" in extra.get("flags", ""):
+            stats.append(first_pass_stats(ctx))
+        return b"".join(stats), packets
+
+    def first_pass_stats(ctx) -> bytes:
+        """AVCodecContext.stats_out (the word 62 of libavcodec 62's context), text or none."""
+        run.stats_out = 62
+        p = ctypes.cast(ctx, ctypes.POINTER(vp))[run.stats_out]
+        return ctypes.string_at(p) if p else b""
+
+    if not two_pass:
+        return run({})[1]
+    stats, _ = run({"flags": "+pass1"})
+    return run({"flags": "+pass2"}, stats)[1]
 
 
 def moving(n: int, h: int, w: int, seed: int) -> list:
@@ -627,18 +712,19 @@ def mpeg_clips() -> dict:
 
 # ------------------------------------------------------------------ MPEG-4 Advanced Simple profile
 
-def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: bytes, extradata: bytes = b"") -> bytes:
+def avi_bytes(payloads: list, w: int, h: int, rate: int, scale: int, fourcc: bytes, extradata: bytes = b"",
+              bits: int = 24) -> bytes:
     """An AVI of one video stream under ``fourcc`` (strh's handler and
-    strf's compression, ``extradata`` after its BITMAPINFOHEADER), its
-    chunks in the order given (decode order), at rate / scale frames a
-    second, with an idx1 index."""
+    strf's compression, ``extradata`` after its BITMAPINFOHEADER of ``bits``
+    a pixel), its chunks in the order given (decode order), at rate / scale
+    frames a second, with an idx1 index."""
     n = len(payloads)
     avih = struct.pack("<10I4I", 1000000 * scale // rate, 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
     strh = struct.pack("<4s4sIHH8I4h", b"vids", fourcc, 0, 0, 0, 0, scale, rate, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, w, h)
-    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0) + extradata
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, bits, fourcc, w * h * 3, 0, 0, 0, 0) + extradata
 
-    def chunk(cid, b):
-        return struct.pack("<4sI", cid, len(b)) + b
+    def chunk(cid, b):  # padded to an even size, as RIFF wants
+        return struct.pack("<4sI", cid, len(b)) + b + b"\0" * (len(b) & 1)
 
     def lst(kind, b):
         return struct.pack("<4sI", b"LIST", 4 + len(b)) + kind + b
@@ -1282,7 +1368,337 @@ def h264_main() -> None:
     (HERE / "h264.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
 
 
+# ---------------------------------------------------------------- the lossless codecs
+
+LOSSLESS_SIZE = (30, 40)  # (h, w) of the small clips
+
+
+def lossless_planes(fmt: str, img: np.ndarray, seed: int) -> list:
+    """The planes of a BGR frame in a libavcodec pixel format, as
+    ``lavc_encode_planes`` takes them: YUV by cv2's BT.601 (chroma
+    subsampled by cv2's I420, or resized for 4:4:4), alpha seeded noise."""
+    h, w = img.shape[:2]
+    hh, ww = h + (h & 1), w + (w & 1)
+    yuv = cv2.cvtColor(cv2.copyMakeBorder(img, 0, hh - h, 0, ww - w, cv2.BORDER_REPLICATE),
+                       cv2.COLOR_BGR2YUV_I420).ravel()
+    cs = (hh // 2) * (ww // 2)
+    y = yuv[:hh * ww].reshape(hh, ww)[:h, :w]
+    u, v = yuv[hh * ww:hh * ww + cs].reshape(hh // 2, ww // 2), yuv[hh * ww + cs:].reshape(hh // 2, ww // 2)
+    a = np.random.default_rng(seed).integers(0, 256, (h, w), np.uint8)
+    g = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    return {"gray": [g], "yuv420p": [y, u, v], "yuv422p": [y, np.repeat(u, 2, 0)[:h], np.repeat(v, 2, 0)[:h]],
+            "yuv444p": [y, cv2.resize(u, (w, h)), cv2.resize(v, (w, h))], "yuva420p": [y, u, v, a],
+            "gbrp": [img[..., 1], img[..., 0], img[..., 2]],
+            "bgr0": [np.dstack([img, np.zeros((h, w), np.uint8)]).reshape(h, 4 * w)],
+            "bgra": [np.dstack([img, a]).reshape(h, 4 * w)], "rgb24": [img[..., ::-1].reshape(h, 3 * w).copy()],
+            "rgba": [np.dstack([img[..., ::-1], a]).reshape(h, 4 * w)], "ya8": [np.dstack([g, a]).reshape(h, 2 * w)],
+            "gray16be": [(g.astype(">u2") * 257 + a).view(np.uint8).reshape(h, 2 * w)],
+            "ya16be": [np.dstack([g.astype(">u2") * 257 + a, np.full((h, w), 65535, ">u2")]).view(np.uint8)
+                       .reshape(h, 4 * w)],
+            "monob": [np.packbits(g > 128, axis=1)], "pal8": [g // 17, np.random.default_rng(seed).integers(
+                0, 256, (1, 1024), np.uint8)]}[fmt]
+
+
+def bitmap_header(w: int, h: int, bits: int, fourcc: bytes, extradata: bytes = b"") -> bytes:
+    """A BITMAPINFOHEADER and its extradata (a Matroska VfW track's CodecPrivate)."""
+    return struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, bits, fourcc, w * h * 3, 0, 0, 0, 0) + extradata
+
+
+def _box(t: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), t) + payload
+
+
+def visual_entry(fourcc: bytes, w: int, h: int, depth: int = 24, boxes: bytes = b"") -> bytes:
+    """An MP4 / MOV visual sample entry of ``fourcc`` with its boxes (a
+    ``glbl`` of the codec's extradata, an ``esds``)."""
+    return _box(fourcc, b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HHIIIH", w, h, 0x480000,
+                                                                                     0x480000, 0, 1) +
+                b"\0" * 32 + struct.pack(">Hh", depth, -1) + boxes)
+
+
+def png_mp4v_entry(w: int, h: int) -> bytes:
+    """The mp4v sample entry ffmpeg's mp4 muxer writes for PNG frames: an
+    esds of objectTypeIndication 0x6D and no decoder specific info."""
+    def desc(tag: int, body: bytes) -> bytes:
+        k = len(body)
+        return bytes([tag, 0x80 | (k >> 21) & 0x7F, 0x80 | (k >> 14) & 0x7F, 0x80 | (k >> 7) & 0x7F, k & 0x7F]) + body
+    dcd = desc(4, struct.pack(">BB3sII", 0x6D, 0x11, b"\0\0\0", 0, 0))
+    return visual_entry(b"mp4v", w, h, 24, _box(b"esds", struct.pack(">I", 0) +
+                                                 desc(3, struct.pack(">HB", 1, 0) + dcd + desc(6, b"\x02"))))
+
+
+def lossless_mux(container: str, packets: list, w: int, h: int, tag: bytes, extradata: bytes = b"",
+                 bits: int = 24) -> bytes:
+    """``packets`` (bytes each, every one a key frame for the container) at
+    25 fps in AVI (``tag`` and ``bits`` in its BITMAPINFOHEADER), Matroska
+    (``V_FFV1`` for FFV1, else a VfW track), or MP4 / MOV (a ``tag`` sample
+    entry with a ``glbl`` box of the extradata, or PNG's mp4v)."""
+    if container == "avi":
+        return avi_bytes(packets, w, h, 25, 1, tag, extradata, bits)
+    if container == "mkv":
+        blocks = [(d, True, 40 * i) for i, d in enumerate(packets)]
+        if tag == b"FFV1":
+            return mkv_bytes("V_FFV1", w, h, blocks, doctype="matroska", private=extradata, default_duration=40000000,
+                             duration=40.0 * len(packets))
+        return mkv_bytes("V_MS/VFW/FOURCC", w, h, blocks, doctype="matroska", default_duration=40000000,
+                         private=bitmap_header(w, h, bits, tag, extradata), duration=40.0 * len(packets))
+    entry = png_mp4v_entry(w, h) if tag == b"mp4v" else \
+        visual_entry(tag, w, h, bits, _box(b"glbl", extradata) if extradata else b"")
+    return mp4_bytes([(d, True, i) for i, d in enumerate(packets)], w, h, 25, entry=entry)
+
+
+def smooth_angiogram(n: int, h: int, w: int, seed: int) -> list:
+    """Grey angiogram-like frames that lossless codecs keep small: a smooth
+    background, dark vessels drawn anti-aliased that drift a little each
+    frame, no noise."""
+    rng = np.random.default_rng(seed)
+    yy = np.mgrid[0:h, 0:w][0].astype(np.float64)
+    base = 140 + 40 * yy / h  # a slow vertical ramp: most samples equal their left neighbour
+    paths = [(rng.uniform(0, w), rng.uniform(0, h), rng.uniform(-1, 1) * w, rng.uniform(-1, 1) * h) for _ in range(6)]
+    out = []
+    for i in range(n):
+        f = np.clip(base, 0, 255).astype(np.uint8)
+        for k, (x0, y0, dx, dy) in enumerate(paths):
+            cv2.line(f, (int(x0 + 2 * i), int(y0)), (int(x0 + dx), int(y0 + dy + 3 * i)), 55 + 10 * k, 3 + k % 3,
+                     cv2.LINE_AA)
+        out.append(cv2.GaussianBlur(f, (5, 5), 1.2))
+    return out
+
+
+def png_frames(kind: str, n: int, seed: int) -> list:
+    """PNG frames that libavcodec's encoder does not write, from the still
+    fixtures' writer: grey of 2 and 4 bits, palettes of 1, 2 and 4 bits with
+    tRNS and indices past PLTE, a gAMA and an eXIf chunk (neither applied
+    by ffmpeg), Adam7."""
+    from tests.still_fixtures.writers import png_bytes
+
+    h, w = LOSSLESS_SIZE
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in (cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in frames(n, h, w, seed)):
+        if kind == "grey2":
+            out.append(png_bytes((g >> 6)[..., None], 2, 0))
+        elif kind == "grey4_gamma_exif":
+            data = png_bytes((g >> 4)[..., None], 4, 0, orientation=6)
+            out.append(data[:33] + struct.pack(">I4sI", 4, b"gAMA", 100000) + struct.pack(">I", zlib.crc32(
+                b"gAMA" + struct.pack(">I", 100000))) + data[33:])
+        elif kind == "pal4_trns":
+            pal = rng.integers(0, 256, (12, 3), np.uint8)  # indices 12-15 past PLTE: black in ffmpeg
+            out.append(png_bytes((g >> 4)[..., None], 4, 3, palette=pal, trns=bytes(range(0, 240, 40))))
+        elif kind == "pal1":
+            out.append(png_bytes((g > 128).astype(np.uint8)[..., None], 1, 3, palette=[[10, 200, 30], [250, 5, 90]]))
+        elif kind == "rgb8_adam7":
+            out.append(png_bytes(cv2.cvtColor(g, cv2.COLOR_GRAY2RGB) + np.array([0, 9, 20], np.uint8), 8, 2,
+                                 interlace=True))
+    return out
+
+
+def lossless_clips() -> dict:
+    """name -> (file bytes, oracle) of the lossless fixtures this module lays
+    out; oracle "cv2", or "libpng" (cv2.imdecode of each frame, for PNG
+    frames cv2 cannot convert: Adam7 flags them interlaced)."""
+    h, w = LOSSLESS_SIZE
+    imgs = frames(4, h, w, 230)
+    odd = frames(3, 37, 45, 231)
+    tall = frames(3, 40, 40, 232)
+    noisy = frames(3, h, w, 233)
+    for f in noisy:  # golomb escapes and long Huffman codes
+        f[::3, ::2] = np.random.default_rng(7).integers(0, 256, f[::3, ::2].shape, np.uint8)
+    out = {}
+
+    def add(name, encoder, fmt, src, options, container, tag, bits=24, strip=False, **kw):
+        ex = []
+        packets = [d for d, _, _ in lavc_encode_planes(encoder, [lossless_planes(fmt, f, i) for i, f in enumerate(src)],
+                                                       fmt, options, ex, **kw)]
+        sh, sw = src[0].shape[:2]
+        out[name] = (lossless_mux(container, packets, sw, sh, tag, b"" if strip else ex[0], bits), "cv2")
+
+    # FFV1: versions 0, 1 and 3, both coders and the custom table, contexts, slices and CRCs, each pixel format
+    add("ffv1_v0_golomb_gray.avi", "ffv1", "gray", imgs, {"level": 0, "coder": 0}, "avi", b"FFV1")
+    add("ffv1_v0_range_yuv420p_g2.mkv", "ffv1", "yuv420p", imgs, {"level": 0, "coder": -2, "g": 2}, "mkv", b"FFV1")
+    add("ffv1_v1_custom_yuv422p_ctx1_odd.avi", "ffv1", "yuv422p", odd, {"level": 1, "coder": 1, "context": 1,
+                                                                         "g": 2}, "avi", b"FFV1")
+    add("ffv1_v1_golomb_yuv444p_noisy.mp4", "ffv1", "yuv444p", noisy, {"level": 1, "coder": 0, "context": 1}, "mp4",
+        b"FFV1")
+    add("ffv1_v3_golomb_yuva420p_4slices.mkv", "ffv1", "yuva420p", imgs, {"level": 3, "coder": 0, "slices": 4,
+                                                                          "slicecrc": 1, "g": 2}, "mkv", b"FFV1")
+    add("ffv1_v3_range_gray_16slices_nocrc.mov", "ffv1", "gray", tall, {"level": 3, "coder": -2, "slices": 16,
+                                                                        "slicecrc": 0}, "mp4", b"FFV1")
+    add("ffv1_v3_custom_bgr0_ctx1.mp4", "ffv1", "bgr0", imgs, {"level": 3, "coder": 1, "context": 1, "slices": 4,
+                                                               "g": 2}, "mp4", b"FFV1", 32)
+    add("ffv1_v3_golomb_bgr0_odd.avi", "ffv1", "bgr0", odd, {"level": 3, "coder": 0, "slices": 4}, "avi", b"FFV1", 32)
+    add("ffv1_v3_range_yuv444p_states.avi", "ffv1", "yuv444p", imgs, {"level": 3, "coder": 1, "slices": 4},
+        "avi", b"FFV1", two_pass=True)
+    # HuffYUV (v2) and FFVHuff (v2 and v3): the three predictors, interlacing, per-frame tables, each pixel format
+    add("hfyu_yuv422p_left.avi", "huffyuv", "yuv422p", imgs, {"pred": "left"}, "avi", b"HFYU", 16)
+    add("hfyu_yuv422p_plane_ilace.mkv", "huffyuv", "yuv422p", tall, {"pred": "plane", "flags": "+ilme"}, "mkv",
+        b"HFYU", 16)
+    add("hfyu_yuv422p_median.avi", "huffyuv", "yuv422p", imgs, {"pred": "median"}, "avi", b"HFYU", 16)
+    add("hfyu_rgb24_left.mov", "huffyuv", "rgb24", imgs, {"pred": "left"}, "mov", b"HFYU", 24)
+    add("hfyu_rgb24_plane_ilace_odd.avi", "huffyuv", "rgb24", odd, {"pred": "plane", "flags": "+ilme"}, "avi",
+        b"HFYU", 24)
+    add("hfyu_bgra_left_noisy.avi", "huffyuv", "bgra", noisy, {"pred": "left"}, "avi", b"HFYU", 32)
+    for name, decorrelate in (("hfyu_v1_classic_rgb24.avi", False), ("hfyu_v1_classic_decorrelated.avi", True)):
+        _, packets = huffyuv_rgb(imgs, classic=True, decorrelate=decorrelate)
+        out[name] = (lossless_mux("avi", packets, w, h, b"HFYU", b"", 26 if decorrelate else 24), "cv2")
+    add("ffvh_yuv420p_median_ctx1.avi", "ffvhuff", "yuv420p", imgs, {"pred": "median", "context": 1}, "avi",
+        b"FFVH", 12)
+    add("ffvh_yuv420p_plane_ilace.mkv", "ffvhuff", "yuv420p", tall, {"pred": "plane", "flags": "+ilme"}, "mkv",
+        b"FFVH", 12)
+    add("ffvh_gray_median_2rows.avi", "ffvhuff", "gray", [f[:2, :33] for f in odd], {"pred": "median"}, "avi",
+        b"FFVH", 8)
+    add("ffvh_gray_left_odd.mov", "ffvhuff", "gray", odd, {"pred": "left", "context": 1}, "mov", b"FFVH", 8)
+    add("ffvh_yuv444p_plane.avi", "ffvhuff", "yuv444p", imgs, {"pred": "plane"}, "avi", b"FFVH", 24)
+    add("ffvh_yuv444p_median_ilace.mkv", "ffvhuff", "yuv444p", tall, {"pred": "median", "flags": "+ilme"}, "mkv",
+        b"FFVH", 24)
+    add("ffvh_gbrp_median.avi", "ffvhuff", "gbrp", imgs, {"pred": "median"}, "avi", b"FFVH", 24)
+    add("ffvh_yuva420p_left.avi", "ffvhuff", "yuva420p", imgs, {"pred": "left"}, "avi", b"FFVH", 32)
+    # PNG frames: libavcodec's encoder for its pixel formats, the stills' writer for the rest
+    for fmt, container, tag in (("gray", "avi", b"MPNG"), ("gray16be", "mkv", b"png "), ("ya8", "avi", b"MPNG"),
+                                ("ya16be", "mov", b"png "), ("monob", "avi", b"MPNG"), ("pal8", "avi", b"PNG1"),
+                                ("rgba", "mp4", b"mp4v"), ("rgb24", "avi", b"MPNG")):
+        ex = []
+        packets = [d for d, _, _ in lavc_encode_planes("png", [lossless_planes(fmt, f, i) for i, f in enumerate(imgs)],
+                                                       fmt, {"pred": "mixed"} if fmt == "rgb24" else {}, ex,
+                                                       width=w)]
+        out[f"png_{fmt}.{container}"] = (lossless_mux(container, packets, w, h, tag), "cv2")
+    for kind in ("grey2", "grey4_gamma_exif", "pal4_trns", "pal1"):
+        out[f"png_{kind}.avi"] = (lossless_mux("avi", png_frames(kind, 3, 240), w, h, b"MPNG"), "cv2")
+    out["png_rgb8_adam7.avi"] = (lossless_mux("avi", png_frames("rgb8_adam7", 3, 241), w, h, b"MPNG"), "libpng")
+    # the 512 px clips of chip_smoke.py's [lossless]: a grey angiogram, FFV1 in Matroska and HuffYUV RGB in AVI
+    big = smooth_angiogram(8, 512, 512, 242)
+    ex = []
+    packets = [d for d, _, _ in lavc_encode_planes("ffv1", [[g] for g in big], "gray", {"level": 3, "g": 8}, ex)]
+    out["ffv1_big512.mkv"] = (lossless_mux("mkv", packets, 512, 512, b"FFV1", ex[0]), "cv2")
+    extradata, packets = huffyuv_rgb([cv2.cvtColor(g, cv2.COLOR_GRAY2BGR) for g in big])
+    out["hfyu_big512.avi"] = (lossless_mux("avi", packets, 512, 512, b"HFYU", extradata), "cv2")
+    return out
+
+
+def classic_huffyuv_table() -> tuple:
+    """(lengths, codes) of HuffYUV's classic luma table, which files without
+    extradata take (as ``native/huffyuv.cpp`` holds it: kShiftLuma run-length
+    coded as extradata's tables are, kAddLuma)."""
+    import re
+
+    src = (HERE.parents[1] / "mga_yolo_tpu_torch" / "native" / "huffyuv.cpp").read_text()
+    shift, add = ([int(v) for v in re.search(name + r"\[[^\]]*\] = \{([^}]*)\}", src).group(1).split(",")]
+                  for name in ("kShiftLuma", "kAddLuma"))
+    bits, lens = "".join(f"{b:08b}" for b in shift), []
+    while len(lens) < 256:
+        rep, val, bits = int(bits[:3], 2), int(bits[3:8], 2), bits[8:]
+        if not rep:
+            rep, bits = int(bits[:8], 2), bits[8:]
+        lens += [val] * rep
+    return np.array(lens, np.int64), np.array(add, np.int64)
+
+
+def huffyuv_rgb(imgs: list, classic: bool = False, decorrelate: bool = True) -> tuple:
+    """(extradata, frames) of HuffYUV RGB24, left-predicted, with code
+    lengths fitted to the frames' own differences (libavcodec's encoder
+    takes fixed generic tables, which cost a 512 px grey clip more than 6
+    bits a pixel); with ``classic``, the classic tables and no extradata (a
+    version 1 file, whose BITMAPINFOHEADER's bits a pixel then say 24, or 26
+    when ``decorrelate``). Bottom-up rows; the first pixel raw (R, G, B and a
+    byte), then the left differences in one stream across rows, G, B - G and
+    R - G (or B, G, R), packed MSB first and byte-swapped in 32-bit words."""
+    import heapq
+
+    def symbols(img):  # the first pixel, then (n, 3) symbols in stream order, each with its table (0 B, 1 G, 2 R)
+        flat = img[::-1].reshape(-1, 3).astype(np.int64)  # B, G, R bottom-up
+        d = (flat[1:] - flat[:-1]) & 255
+        if not decorrelate:
+            return flat[0], d, (0, 1, 2)
+        return flat[0], np.stack([d[:, 1], (d[:, 0] - d[:, 1]) & 255, (d[:, 2] - d[:, 1]) & 255], 1), (1, 0, 2)
+
+    if classic:
+        lens, codes = [classic_huffyuv_table()[0]] * 3, [classic_huffyuv_table()[1]] * 3
+    else:
+        counts = np.ones((3, 256), np.int64)  # by table; every symbol coded
+        for img in imgs:
+            _, sym, tables = symbols(img)
+            for c, t in enumerate(tables):
+                counts[t] += np.bincount(sym[:, c], minlength=256)
+        lens, codes = [], []
+        for t in range(3):  # Huffman code lengths, then ff_huffyuv_generate_bits_table's codes, the longest first
+            heap = [(int(n), i, (i,)) for i, n in enumerate(counts[t])]
+            heapq.heapify(heap)
+            depth, k = np.zeros(256, np.int64), 256
+            while len(heap) > 1:
+                n1, _, a = heapq.heappop(heap)
+                n2, _, b = heapq.heappop(heap)
+                depth[list(a + b)] += 1
+                heapq.heappush(heap, (n1 + n2, k, a + b))
+                k += 1
+            assert depth.max() <= 31
+            code, bits = np.zeros(256, np.int64), 0
+            for k in range(32, 0, -1):
+                for i in np.flatnonzero(depth == k):
+                    code[i], bits = bits, bits + 1
+                bits >>= 1
+            lens.append(depth)
+            codes.append(code)
+
+    def table(ln):  # run-length coded lengths: 3 bits of repeat (0: 8 more bits), 5 of length
+        out, i = "", 0
+        while i < 256:
+            j = i
+            while j < 256 and ln[j] == ln[i] and j - i < 255:
+                j += 1
+            rep = j - i
+            out += f"{rep:03b}{ln[i]:05b}" if rep < 8 else f"000{ln[i]:05b}{rep:08b}"
+            i = j
+        return out
+
+    head = "".join(table(ln) for ln in lens)
+    head += "0" * (-len(head) % 8)
+    extradata = b"" if classic else bytes([0x40, 24, 0x20, 0]) + int(head, 2).to_bytes(len(head) // 8, "big")
+    packets = []
+    for img in imgs:
+        first, sym, tables = symbols(img)
+        ln = np.stack([lens[t][sym[:, c]] for c, t in enumerate(tables)], 1).ravel()
+        cd = np.stack([codes[t][sym[:, c]] for c, t in enumerate(tables)], 1).ravel()
+        prefix = "".join(f"{v:08b}" for v in (int(first[2]), int(first[1]), int(first[0]), 0))
+        bits = np.concatenate([np.array([int(b) for b in prefix], np.uint8)] +
+                              [((cd[:, None] >> (ln[:, None] - 1 - np.arange(32)[None, :])) & 1)
+                               [np.arange(32)[None, :] < ln[:, None]].astype(np.uint8)])
+        bits = np.concatenate([bits, np.zeros(-len(bits) % 32, np.uint8)])
+        packets.append(np.packbits(bits).reshape(-1, 4)[:, ::-1].tobytes())  # the decoder byte-swaps 32-bit words
+    return extradata, packets
+
+
+# cv2's own writer: each lossless fourcc in every container it writes it to
+LOSSLESS_CV2 = {"png ": (".avi", ".mkv", ".wmv", ".mov", ".mp4"), "FFV1": (".avi", ".mkv", ".wmv", ".mov", ".mp4"),
+                "HFYU": (".avi", ".mkv", ".wmv", ".mov"), "FFVH": (".avi", ".mkv", ".wmv", ".mov")}
+
+
+def lossless_main() -> None:
+    """Writes the lossless fixtures (``lossless_clips`` and cv2's writer's
+    ``cv2_*`` clips) and their oracle, ``lossless.json``: the SHA-256 of each
+    frame cv2 reads (libpng's, for Adam7 PNG frames), its fps, count and
+    fourcc, and each file's own SHA-256."""
+    meta = {}
+    clips = lossless_clips()
+    h, w = LOSSLESS_SIZE
+    for fourcc, suffixes in LOSSLESS_CV2.items():
+        for suffix in suffixes:
+            name = f"cv2_{fourcc.strip().lower()}{suffix}"
+            cv2_write(HERE / name, fourcc, 25, frames(3, h, w, 250))
+            clips[name] = ((HERE / name).read_bytes(), "cv2")
+    for name, (data, oracle) in clips.items():
+        (HERE / name).write_bytes(data)
+        imgs, meta[name] = cv2_read(HERE / name)
+        meta[name]["oracle"] = "cv2, as the SHA-256 of each frame"
+        if oracle == "libpng":  # cv2 hands on a stale buffer for a frame flagged interlaced
+            imgs = [cv2.imdecode(np.frombuffer(d, np.uint8), cv2.IMREAD_COLOR) for d in avi_parts(data)[1]]
+            meta[name]["oracle"] = "libpng (cv2.imdecode of each frame), as the SHA-256 of each frame"
+        meta[name]["sha256"] = digests(imgs)
+        meta[name]["file_sha256"] = hashlib.sha256(data).hexdigest()
+    (HERE / "lossless.json").write_text(json.dumps(meta, indent=1, sort_keys=True) + "\n")
+
+
 if __name__ == "__main__":
     import sys
 
-    {"mpeg": mpeg_main, "asp": asp_main, "wmv": wmv_main, "h264": h264_main}.get(sys.argv[1] if sys.argv[1:] else "", main)()
+    {"mpeg": mpeg_main, "asp": asp_main, "wmv": wmv_main, "h264": h264_main, "lossless": lossless_main}.get(
+        sys.argv[1] if sys.argv[1:] else "", main)()
