@@ -23,10 +23,13 @@ Phases, each of which fails the run when it fails:
              plain version, and its time at the train batch too; the device
              kernels one call runs (torch.profiler: CAM gate 1, NMS 2,
              masked pool 1); the CAM gate's and the masked pool's autograd
-             gradients against plain autograd; the masked reductions (the
-             masked pool's second entry, which the spatial mesh runs on each
-             band) at the band shapes of a 640 px row split in two, in bf16
-             and float32, an odd band and a channel slice.
+             gradients against plain autograd; the masked reductions
+             (``csrc/masked_reductions.cu``, which the spatial mesh runs on
+             each band) at the band shapes of a 640 px row split in two, in
+             bf16 and float32, on rows TMA cannot take, channel slices, a
+             plane larger than a stage, fewer groups than SMs, no-pixel and
+             tiny masks and ten calls captured in a graph, with each band's
+             time warm (inputs in L2) and cold (a 64 MB write between calls).
 Then, for each of four models at full width and depth, 640 px, random
 weights from ``torch.manual_seed(0)``: the flagship YOLOv8n-MGA (MaskCBAM,
 tags ``[parity]`` ... ``[train]``), YOLOv8n-MGA-ECA (MaskECA, the same tags
@@ -290,6 +293,12 @@ images (``[formats2]``'s ``cli.predict`` on the seeded flagship);
 ``--matroska-alone``, ``--mpeg-alone``, ``--asp-alone``, ``--wmv-alone``,
 ``--h264-alone`` and ``--lossless-alone`` run ``[matroska]``, ``[mpeg]``,
 ``[asp]``, ``[wmv]``, ``[h264]`` and ``[lossless]`` alone.
+``--reductions-alone [PARENT]`` runs the masked reductions' ``[kernels]``
+phase alone, then times the planner's plan beside two others at the band
+shapes; given PARENT, an unpacked checkout of an earlier commit whose
+``csrc/masked_pool.cu`` has the ``masked_reductions_launch`` entry, it
+builds that and times it beside the new kernel in turns (parent, new, new,
+parent), warm and cold.
 """
 
 from __future__ import annotations
@@ -308,7 +317,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-KERNEL_SOURCES = ("cam_gate", "nms_suppress", "dfl_bwd", "masked_pool")  # csrc/<name>.cu
+KERNEL_SOURCES = ("cam_gate", "nms_suppress", "dfl_bwd", "masked_pool", "masked_reductions")  # csrc/<name>.cu
 IMGSZ, BATCH = 640, 8
 TRAIN_BATCH, NBS, MAX_BOXES = 16, 64, 8  # config.py defaults: batch 16, nbs 64
 CAM_SHAPES = ((80, 80, 64, 4), (40, 40, 128, 8), (20, 20, 256, 16))  # (H, W, C, hidden) at 640 px
@@ -364,11 +373,13 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, reps: int = 5, after=None) -> float:
+def time_ms(torch, fn, iters: int, reps: int = 5, after=None, before_each=None) -> float:
     """Median device ms of one ``fn()`` call: ``iters`` calls captured in a
     CUDA graph, replayed ``reps`` times between CUDA events (so host launch
     overhead is not counted). ``after()``, if given, runs once the timed
-    replays are done, while the graph's outputs are alive."""
+    replays are done, while the graph's outputs are alive;
+    ``before_each()``, if given, is captured before each call (and timed
+    with it)."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -378,6 +389,8 @@ def time_ms(torch, fn, iters: int, reps: int = 5, after=None) -> float:
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(iters):
+            if before_each is not None:
+                before_each()
             fn()
     g.replay()
     torch.cuda.synchronize()
@@ -395,12 +408,15 @@ def time_ms(torch, fn, iters: int, reps: int = 5, after=None) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def device_kernels(torch, fn, n: int = 10) -> tuple[float, dict]:
+def device_kernels(torch, fn, n: int = 10, fixed: bool = True) -> tuple[float, dict]:
     """Device kernels that one ``fn()`` call runs, and device ms per call by
     kernel name (torch.profiler over ``n`` calls, after a warm call). Now
     and then the profiler's trace comes back without a single device event
     (one session of about fifty on the card, on code that traced before and
-    after); such a session is profiled again, at most twice."""
+    after), or without one of them (19 events for 10 calls of a function
+    that launches the same 2 kernels on every call); such a trace, where a
+    kernel's count is not a whole multiple of ``n`` though ``fixed`` says
+    every call launches the same kernels, is profiled again, at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -412,9 +428,10 @@ def device_kernels(torch, fn, n: int = 10) -> tuple[float, dict]:
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if rows:
+        if rows and (not fixed or all(e.count % n == 0 for e in rows)):
             break
-        print("[kernels] the profiler saw no device event; profiling again")
+        print(f"[kernels] the profiler saw {sum(e.count for e in rows)} device events in {n} calls "
+              f"({', '.join(f'{e.key[:40]} {e.count}' for e in rows)}); profiling again")
     return sum(e.count for e in rows) / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
 
 
@@ -751,22 +768,91 @@ def kernel_phase_pool_grad(torch) -> None:
 
 RED_SHAPES = tuple((h // 2, w, c) for h, w, c in POOL_SHAPES)  # a band of a 640 px row split in two: 40/20/10 rows
 RED_TOL = (1e-5, 1e-6)  # the sums / N: float32 sums in another order (both dtypes sum in float32)
+FLUSH_BYTES = 64 << 20  # written between the cold calls: more than the card's 50 MB L2
+ROUTES = ("registers, element loads", "TMA bulk copies", "registers, 16-byte loads")  # ELEMENTS, BULK, VECTORS
+RED_MORE = ((TRAIN_BATCH, 80, 160, 64), (TRAIN_BATCH, 40, 80, 128), (TRAIN_BATCH, 20, 40, 256),  # 1280 px bands
+            (TRAIN_BATCH, 160, 320, 64),  # a 2560 px image's P3 band: bulk copies, 25 chunks
+            (1, 320, 320, 8),             # bulk copies: 8 blocks, planes of 7 chunks
+            (300, 4, 8, 8),               # 16-byte loads: an image a block
+            (4, 41, 43, 64))              # rows not on 16 bytes: element loads
 
 
-def kernel_phase_reductions(torch) -> dict:
-    """The masked-reductions entry (``csrc/masked_pool.cu``
-    ``masked_reductions_launch``) against ``_reductions`` on the spatial
-    path's band shapes (B=16, 40/20/10 rows of 80/40/20, C=64/128/256) in
-    bf16 and float32, an odd band (N = 41 x 43), a channel slice, and the
-    no-pixel and tiny masks: msum, wsum and gsum / N within ``RED_TOL``, mmax
-    and cnt exact. Its time at the band shapes (bf16), CUDA events over graph
-    replays, beside the plain twin's and the bound."""
+def cold_ms(torch, fn, iters: int = 20) -> float:
+    """Device ms of one ``fn()`` call on inputs out of L2: ``iters`` calls,
+    each after a FLUSH_BYTES write, captured in a graph, less the writes'
+    own time in a graph of their own (the same count)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def write():
+        flush.fill_(1)
+
+    both = time_ms(torch, fn, iters=iters, before_each=write)
+    alone = time_ms(torch, lambda: None, iters=iters, before_each=write)
+    return both - alone
+
+
+def parent_reductions(torch, root: Path):
+    """The parent commit's 3b entry (``csrc/masked_pool.cu``
+    ``masked_reductions_launch``, #3's grid and plan) built from ``root``
+    (an unpacked checkout of it) into the build directory: a function of
+    (x, m) writing the five reductions as that commit's wrapper did."""
+    import ctypes
+
+    from mga_yolo_tpu_torch.kernels import _build
+    from mga_yolo_tpu_torch.ops.masked_pool import DTYPES, pool_plan
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "parent_masked_pool.so"
+    run = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                          str(root / "mga_yolo_tpu_torch" / "csrc" / "masked_pool.cu")],
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"[kernels] the parent's masked_pool.cu did not build:\n{run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(str(so))
+    fn = lib.masked_reductions_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 6)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run_parent(x, m):
+        B, C, H, W = x.shape
+        tile, wpc, _ = pool_plan(B, C, n_sm)
+        out = torch.empty((3 * B * C + 2 * B,), dtype=torch.float32, device=x.device)
+        msum, cnt, wsum, gsum, mmax = out.split([B, B, B * C, B * C, B * C])
+        err = fn(DTYPES[x.dtype], x.data_ptr(), m.data_ptr(), x.stride(0), x.stride(1), m.stride(0), B, C, H * W,
+                 tile, wpc, msum.data_ptr(), wsum.data_ptr(), gsum.data_ptr(), mmax.data_ptr(), cnt.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "parent masked_reductions_launch")
+        return msum.view(B, 1), wsum.view(B, C), gsum.view(B, C), mmax.view(B, C), cnt.view(B, 1)
+
+    return run_parent
+
+
+def kernel_phase_reductions(torch, parent: Path | None = None) -> dict:
+    """The masked reductions (``csrc/masked_reductions.cu``) against the
+    plain version (``reduction_buffers_ref``) on the spatial path's band
+    shapes (B=16, 40/20/10 rows of 80/40/20, C=64/128/256) in bf16 and
+    float32 and those of a 1280 px image, on rows not on 16 bytes (N = 41 x
+    43), channel slices at an aligned and an unaligned offset, planes larger
+    than a stage, fewer groups than SMs, several groups a block, the
+    no-pixel and tiny masks, and ten calls captured in a CUDA graph replayed
+    on new inputs, every route: msum, wsum and gsum / N within ``RED_TOL``,
+    mmax and cnt exact; one launch and one device kernel a call. Its time at
+    the band shapes (bf16), CUDA events over graph replays, warm (the same
+    inputs, in L2) and cold (:func:`cold_ms`), beside the plain version's
+    and the bound; with ``parent``, the parent commit's kernel built from
+    that checkout, timed in turns (parent, new, new, parent, twice) in both
+    conditions, at those shapes and at one shape of each other route
+    (``RED_MORE``)."""
     from mga_yolo_tpu_torch.ops import masked_reductions as mr
 
     max_err = 0.0
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-    def compare(x, m, what: str) -> float:
-        got, want = mr.masked_reductions(x, m), mr.masked_reductions_ref(x, m)
+    def compare(got, x, m, what: str) -> float:
+        want = mr.masked_reductions_ref(x, m)
+        torch.cuda.synchronize()
         n = x.shape[2] * x.shape[3]
         errs = []
         for name, g, w in zip(("msum", "wsum", "gsum", "mmax", "cnt"), got, want):
@@ -779,40 +865,130 @@ def kernel_phase_reductions(torch) -> dict:
             errs.append(float(((g - w) / (1 if name in ("mmax", "cnt") else n)).abs().max()))
         return max(errs)
 
-    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    def case(x, m, what: str) -> None:
+        nonlocal max_err
+        B, C, H, W = x.shape
+        aligned = mr.tma_rows(x.data_ptr(), m.data_ptr(), x.stride(0), x.stride(1), m.stride(0), H * W,
+                              x.element_size())
+        p = mr.reductions_plan(B, C, H * W, x.element_size(), n_sm, aligned)
+        before = mr.launches
+        got = mr.masked_reductions(x, m)
+        check(mr.launches == before + 1, f"{what}: {mr.launches - before} launches")
+        check(len({t.untyped_storage().data_ptr() for t in got}) == 1, f"{what}: outputs in several allocations")
+        err = compare(got, x, m, what)
+        max_err = max(max_err, err)
+        print(f"[kernels] masked_reductions {what}: {ROUTES[p.route]}, {p.q} group(s) an "
+              f"image of <= {p.gmax} channels, {p.nch} chunk(s) of {p.L} px, {p.S} stage(s) of {p.stage} B, "
+              f"{p.grid} blocks, {p.smem} B shared; max_abs_err (sums / N) {err:.3e}")
+
     cases = [(TRAIN_BATCH, h, w, c, dt, "random") for h, w, c in RED_SHAPES for dt in dts]
-    cases += [(3, 41, 43, 72, "f32", "random"), (4, 41, 43, 64, "bf16", "random"),  # N odd: one element a load
+    cases += [(TRAIN_BATCH, 2 * h, 2 * w, c, "bf16", "random") for h, w, c in RED_SHAPES]  # a 1280 px image's
+    cases += [(3, 41, 43, 72, "f32", "random"), (4, 41, 43, 64, "bf16", "random"),  # N odd: element loads
+              (300, 3, 5, 8, "f32", "random"),            # element loads, an image a block
+              (2, 160, 160, 8, "f32", "random"), (2, 160, 160, 8, "bf16", "random"),  # a row of 8 warps
+              (1, 320, 320, 8, "f32", "random"), (1, 320, 320, 8, "bf16", "random"),  # bulk: planes over a stage
+              (TRAIN_BATCH, 160, 320, 64, "bf16", "random"),  # bulk: a 2560 px image's P3 band
+              (300, 4, 8, 8, "bf16", "random"),           # 16-byte loads, an image a block
+              (300, 256, 264, 1, "bf16", "random"),       # bulk: several groups a block
+              (1, 40, 80, 16, "bf16", "random"),          # 16 groups: fewer than the SMs
+              (TRAIN_BATCH, 10, 20, 600, "bf16", "random"),  # 38 channels a group, 4 threads a row
               (TRAIN_BATCH, 20, 40, 128, "bf16", "no_pixel"), (TRAIN_BATCH, 40, 80, 64, "f32", "tiny")]
     for i, (b, h, w, c, dt, kind) in enumerate(cases):
         x, m = pool_inputs(torch, b, h, w, c, dts[dt], kind, seed=50 + i)
-        what = f"masked_reductions B={b} {h}x{w} C={c} {dt} {kind}"
-        err = compare(x, m, what)
-        print(f"[kernels] {what}: max_abs_err (sums / N) {err:.3e}")
-        max_err = max(max_err, err)
+        case(x, m, f"B={b} {h}x{w} C={c} {dt} {kind}")
     x, m = pool_inputs(torch, TRAIN_BATCH, 20, 40, 128, torch.bfloat16, seed=60)
-    err = compare(x[:, 32:96], m, "masked_reductions channel slice 32:96 of C=128 bf16")
-    print(f"[kernels] masked_reductions channel slice 32:96 of B={TRAIN_BATCH} 20x40 C=128 bf16 (strides "
-          f"{x[:, 32:96].stride()}): max_abs_err {err:.3e}")
-    max_err = max(max_err, err)
+    case(x[:, 32:96], m, f"channel slice 32:96 of B={TRAIN_BATCH} 20x40 C=128 bf16 (aligned)")
+    x, m = pool_inputs(torch, TRAIN_BATCH, 5, 7, 48, torch.bfloat16, seed=61)
+    case(x[:, 7:40], m, f"channel slice 7:40 of B={TRAIN_BATCH} 5x7 C=48 bf16 (unaligned)")
 
-    ms = plain = bound = 0.0
-    for h, w, c in RED_SHAPES:
-        b = TRAIN_BATCH
+    x, m = pool_inputs(torch, TRAIN_BATCH, 20, 40, 128, torch.bfloat16, seed=62)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mr.masked_reductions(x, m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [mr.masked_reductions(x, m) for _ in range(10)]
+    for seed in (63, 64):
+        fresh = pool_inputs(torch, TRAIN_BATCH, 20, 40, 128, torch.bfloat16, seed=seed)
+        x.copy_(fresh[0])
+        m.copy_(fresh[1])
+        graph.replay()
+        for i, got in enumerate(outs):
+            max_err = max(max_err, compare(got, x, m, f"masked_reductions graph replay {seed}, call {i}"))
+    del graph, outs
+    print("[kernels] masked_reductions: ten calls captured in a CUDA graph, replayed on two new inputs, each "
+          "equal to the plain version")
+
+    run_parent = parent_reductions(torch, parent) if parent is not None else None
+    ms = cold = plain = bound = 0.0
+    parent_ms = {"warm": 0.0, "cold": 0.0}
+    card = gpu_name_and_power()
+    timers = (("warm", lambda f: time_ms(torch, f, iters=50)), ("cold", lambda f: cold_ms(torch, f)))
+
+    def timed(b, h, w, c):
+        """One shape in bf16: the kernel's device kernels a call, its bound,
+        and with the parent, both timed in turns; (warm, cold, parent warm,
+        parent cold, bound, plan, the turns' text)."""
+        nonlocal max_err
         x, m = pool_inputs(torch, b, h, w, c, torch.bfloat16, seed=b + c)
-        k_ms = time_ms(torch, lambda: mr.masked_reductions(x, m), iters=50)
-        p_ms = time_ms(torch, lambda: mr.masked_reductions_ref(x, m), iters=10)
-        n_kern, _ = device_kernels(torch, lambda: mr.masked_reductions(x, m))
-        check(n_kern == 1, f"masked_reductions ran {n_kern} device kernels per call at {h}x{w}, want 1")
+        kernel = lambda: mr.masked_reductions(x, m)  # noqa: E731
+        n_kern, by_name = device_kernels(torch, kernel)
+        check(n_kern == 1, f"masked_reductions ran {n_kern} device kernels per call at {b}x{h}x{w}x{c}, want 1")
         n = h * w
         b_ms, _ = bound_ms(2 * (b * n * c + b * n) + 4 * (3 * b * c + 2 * b), b * (4 * n * c + 2 * n))
-        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
-        print(f"[kernels] masked_reductions B={b} {h}x{w} C={c} bf16: {k_ms * 1e3:.2f} us (plain {p_ms * 1e3:.1f} "
-              f"us, bound {b_ms * 1e3:.2f} us by bytes); 1 device kernel per call")
-    print(f"[kernels] masked_reductions, the three bands of a micro-step: {ms * 1e3:.2f} us (bf16)")
-    return {"name": "masked_reductions", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/masked_pool.cu",
-            "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:36", "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "device_kernels_per_call": 1}
+        aligned = mr.tma_rows(x.data_ptr(), m.data_ptr(), x.stride(0), x.stride(1), m.stride(0), n, 2)
+        plan = mr.reductions_plan(b, c, n, 2, torch.cuda.get_device_properties(0).multi_processor_count, aligned)
+        if run_parent is None:
+            return time_ms(torch, kernel, iters=50), cold_ms(torch, kernel), None, None, b_ms, plan, by_name, ""
+        max_err = max(max_err, compare(run_parent(x, m), x, m, f"the parent's masked_reductions {b}x{h}x{w}x{c}"))
+        parent_fn = lambda: run_parent(x, m)  # noqa: E731
+        turns = {}
+        for cond, timer in timers:
+            got = {"new": [], "parent": []}
+            for who in ("parent", "new", "new", "parent") * 2:
+                got[who].append(timer(kernel if who == "new" else parent_fn))
+            turns[cond] = got
+        mean = {cond: {who: sum(v) / len(v) for who, v in t.items()} for cond, t in turns.items()}
+        text = "; " + "; ".join(
+            f"{cond}: new {' / '.join(f'{v * 1e3:.3f}' for v in t['new'])} us, parent "
+            f"{' / '.join(f'{v * 1e3:.3f}' for v in t['parent'])} us" for cond, t in turns.items()
+        ) + " (turns parent, new, new, parent, twice)"
+        return (mean["warm"]["new"], mean["cold"]["new"], mean["warm"]["parent"], mean["cold"]["parent"], b_ms, plan,
+                by_name, text)
+
+    for h, w, c in RED_SHAPES:
+        b = TRAIN_BATCH
+        k_warm, k_cold, p_warm, p_cold, b_ms, plan, by_name, extra = timed(b, h, w, c)
+        if p_warm is not None:
+            parent_ms["warm"] += p_warm
+            parent_ms["cold"] += p_cold
+        x, m = pool_inputs(torch, b, h, w, c, torch.bfloat16, seed=b + c)
+        p_ms = time_ms(torch, lambda: mr.masked_reductions_ref(x, m), iters=10)
+        ms, cold, plain, bound = ms + k_warm, cold + k_cold, plain + p_ms, bound + b_ms
+        print(f"[kernels] masked_reductions B={b} {h}x{w} C={c} bf16 ({ROUTES[plan.route]}): warm {k_warm * 1e3:.3f} "
+              f"us, cold {k_cold * 1e3:.3f} us (plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.3f} us by bytes: "
+              f"{b_ms / k_warm:.0%} warm, {b_ms / k_cold:.0%} cold); 1 device kernel per call (profiler: "
+              f"{', '.join(f'{k} {v * 1e3:.2f} us' for k, v in by_name.items())}){extra}; {card}")
+    print(f"[kernels] masked_reductions, the three bands of a micro-step (bf16): warm {ms * 1e3:.3f} us, cold "
+          f"{cold * 1e3:.3f} us, bound {bound * 1e3:.3f} us ({bound / ms:.0%} / {bound / cold:.0%})"
+          + (f"; the parent's warm {parent_ms['warm'] * 1e3:.3f} us, cold {parent_ms['cold'] * 1e3:.3f} us"
+             if run_parent is not None else "") + f"; {card}")
+    if run_parent is not None:
+        for b, h, w, c in RED_MORE:
+            k_warm, k_cold, p_warm, p_cold, b_ms, plan, _, extra = timed(b, h, w, c)
+            print(f"[kernels] masked_reductions B={b} {h}x{w} C={c} bf16 ({ROUTES[plan.route]}, {plan.grid} blocks, "
+                  f"{plan.nch} chunk(s), {plan.S} stage(s)): warm {k_warm * 1e3:.3f} us against the parent's "
+                  f"{p_warm * 1e3:.3f}, cold {k_cold * 1e3:.3f} against {p_cold * 1e3:.3f} (bound "
+                  f"{b_ms * 1e3:.3f} us){extra}; {card}")
+    out = {"name": "masked_reductions", "route": "cuda", "source": "mga_yolo_tpu_torch/csrc/masked_reductions.cu",
+           "replaces": "mga_yolo_tpu/ops/pallas/masked_pool.py:36", "max_abs_err": max_err, "ms": ms,
+           "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "ms_cold": cold,
+           "device_kernels_per_call": 1}
+    if run_parent is not None:
+        out["parent_ms"], out["parent_ms_cold"] = parent_ms["warm"], parent_ms["cold"]
+    return out
 
 
 # --------------------------------------------------------------------- path
@@ -1590,7 +1766,8 @@ def data_dev_phase(torch, np, data_yaml, fed: dict, n_steps: int = 12) -> dict:
           f"images/s; {n_bytes / 1e6:.1f} MB a batch to the card (canvas {rb['canvas'].nbytes / 1e6:.1f}, mask "
           f"canvas {rb['mask_canvas'].nbytes / 1e6:.1f}) against {host_bytes / 1e6:.1f} MB of a finished batch")
 
-    dev_ms, names = device_kernels(torch, lambda: augment(dev, dev["canvas"].shape[1] // cm), n=5)
+    dev_ms, names = device_kernels(torch, lambda: augment(dev, dev["canvas"].shape[1] // cm), n=5,
+                                   fixed=False)  # not every call launches the same kernels
     top = sorted(names.items(), key=lambda kv: -kv[1])[:3]
     aug_dev = sum(names.values())
     print(f"[data-dev] augment B={TRAIN_BATCH}: {aug_dev:.3f} ms of device kernels a batch ({dev_ms:.0f} kernels); "
@@ -2699,8 +2876,7 @@ _SPATIAL, _DET = "mga_yolo_tpu_torch/parallel/spatial.py", "mga_yolo_tpu_torch/l
 SPATIAL_FAULTS = {
     "halo-row-dropped": [(_SPATIAL, "        up.append(pad if g < 0 else", "        up.append(pad if g < 0 or i == 0 else")],
     "reductions-not-all-reduced": [
-        (_SPATIAL, "        sums = _all_reduce_(torch.cat([msum, wsum, gsum, cnt], 1), mesh)\n",
-         "        sums = torch.cat([msum, wsum, gsum, cnt], 1)\n"),
+        (_SPATIAL, "        sums = _all_reduce_(sums, mesh)\n", ""),
         (_SPATIAL, "        mmax = _all_reduce_(mmax, mesh, dist.ReduceOp.MAX)\n", "")],
     "detection-loss-k-times": [(_DET, "        total = total / share.space\n", "")],
     "n-ties-local": [(_SPATIAL, "        buf = _all_reduce_(torch.cat([*parts, is_max.float().sum(-1)], 1), _mesh())\n",
@@ -4712,7 +4888,32 @@ def main() -> int:
     return 0
 
 
+def reductions_alone(parent: Path | None) -> int:
+    """``chip_smoke.py --reductions-alone [PARENT]``: build the kernels and
+    run the masked reductions' ``[kernels]`` phase alone; with PARENT (an
+    unpacked checkout of the parent commit), the parent's kernel timed beside
+    the new one in turns."""
+    import torch
+
+    from mga_yolo_tpu_torch.kernels import _build
+
+    print(gpu_name_and_power())
+    secs = _build.build(KERNEL_SOURCES)
+    print(f"[build] per source {secs}")
+    for line in _build.library_path("masked_reductions").with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower() or "warning" in line.lower():
+            print(f"[build] masked_reductions: {line.strip()}")
+    print(json.dumps({"kernels": [kernel_phase_reductions(torch, parent)]}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--reductions-alone"] and len(sys.argv) <= 3:
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: CUDA is not available; this script runs on a CUDA card only")
+        sys.exit(reductions_alone(Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else None))
     if sys.argv[1:] in (["--ddp-faults"], ["--ddp-alone"], ["--spatial-faults"], ["--spatial-alone"],
                         ["--formats-alone"], ["--formats2-alone"], ["--matroska-alone"], ["--mpeg-alone"],
                         ["--asp-alone"], ["--wmv-alone"], ["--h264-alone"], ["--lossless-alone"]):

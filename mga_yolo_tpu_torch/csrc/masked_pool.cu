@@ -29,14 +29,6 @@
 // channel also sum the mask, so each pixel of m is counted once a block;
 // the other channels' mask loads hit L1 / L2. The wrapper (ops/masked_pool.py
 // pool_plan) picks tile and wpc so the grid holds about two blocks per SM.
-//
-// A second entry, masked_reductions_launch, writes the five float32
-// reductions themselves (what _kernel writes before _combine) for a band of
-// rows of the images, which the spatial mesh sums and maxes over the ranks
-// before the combine (parallel/spatial.py): msum (B, 1), wsum, gsum, mmax
-// (B, C) and cnt (B, 1), with mmax = -3e38 (the JAX _NEG) where no pixel has
-// m > 0.5. It is the same grid and the same register and shared-memory
-// reduction (block_partials), with the combine left out.
 
 #include "masked_reduce.cuh"
 
@@ -127,34 +119,6 @@ masked_pool_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_s
   store(mxd + o, any > 0.f ? mx : gap);
 }
 
-// The same blocks; the five reductions in float32, (B, C) and (B, 1) contiguous.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-masked_reductions_kernel(const T* __restrict__ x, const T* __restrict__ m, int64_t x_sb,
-                         int64_t x_sc, int64_t m_sb, int C, int N, int tile, int wpc,
-                         float* __restrict__ msum, float* __restrict__ wsum,
-                         float* __restrict__ gsum, float* __restrict__ mmax,
-                         float* __restrict__ cnt) {
-  __shared__ Partials s;
-  const int tiles = (C + tile - 1) / tile;
-  const int b = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x - b * tiles) * tile;
-  block_partials<T, V>(s, x, m, x_sb, x_sc, m_sb, C, N, tile, wpc, b, c0);
-
-  const int j = threadIdx.x;
-  if (j >= tile || c0 + j >= C) return;
-  float tot, any, w, g, mx;
-  channel_totals(s, j, wpc, tot, any, w, g, mx);
-  const int64_t o = (int64_t)b * C + c0 + j;
-  wsum[o] = w;
-  gsum[o] = g;
-  mmax[o] = mx;
-  if (c0 == 0 && j == 0) {  // one thread of the image's first tile writes the mask's two
-    msum[b] = tot;
-    cnt[b] = any;
-  }
-}
-
 template <typename T>
 int launch(const void* x, const void* m, long long x_sb, long long x_sc, long long m_sb, int B,
            int C, int N, int tile, int wpc, float tiny_thr, float eps, void* avg, void* mx,
@@ -166,20 +130,6 @@ int launch(const void* x, const void* m, long long x_sb, long long x_sc, long lo
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(m), (int64_t)x_sb, (int64_t)x_sc,
       (int64_t)m_sb, C, N, tile, wpc, tiny_thr, eps, static_cast<T*>(avg), static_cast<T*>(mx));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_reductions(const void* x, const void* m, long long x_sb, long long x_sc, long long m_sb,
-                      int B, int C, int N, int tile, int wpc, float* msum, float* wsum,
-                      float* gsum, float* mmax, float* cnt, void* stream) {
-  constexpr int V = 16 / sizeof(T);
-  const unsigned blocks = (unsigned)B * (unsigned)((C + tile - 1) / tile);
-  auto kernel = vector_rows(x, m, x_sb, x_sc, m_sb, N, V) ? masked_reductions_kernel<T, V>
-                                                          : masked_reductions_kernel<T, 1>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(m), (int64_t)x_sb, (int64_t)x_sc,
-      (int64_t)m_sb, C, N, tile, wpc, msum, wsum, gsum, mmax, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -206,23 +156,6 @@ int masked_pool_launch(int dtype, const void* x, const void* m, long long x_sb, 
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, tiny_thr, eps, avg,
                                  mx, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The five reductions of the same (B, C, N) call into float32 msum (B, 1),
-// wsum, gsum, mmax (B, C) and cnt (B, 1), contiguous; the same plan and
-// return value.
-int masked_reductions_launch(int dtype, const void* x, const void* m, long long x_sb,
-                             long long x_sc, long long m_sb, int B, int C, int N, int tile,
-                             int wpc, float* msum, float* wsum, float* gsum, float* mmax,
-                             float* cnt, void* stream) {
-  if (bad_plan(B, C, N, tile, wpc)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_reductions<float>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, msum, wsum, gsum,
-                                    mmax, cnt, stream);
-  if (dtype == 1)
-    return launch_reductions<__nv_bfloat16>(x, m, x_sb, x_sc, m_sb, B, C, N, tile, wpc, msum, wsum,
-                                            gsum, mmax, cnt, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

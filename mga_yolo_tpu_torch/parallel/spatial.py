@@ -293,9 +293,10 @@ def gather_rows(tensors: list) -> list:
 class SpaceReductions(torch.autograd.Function):
     """``(x (B, C, h, W), m (B, 1, h, W)) -> msum (B, 1), wsum, gsum, mmax
     (B, C), cnt (B, 1)``, float32, over the whole images: this band's five
-    masked reductions (TPU kernel #3's, ``ops/masked_reductions.py``; the
-    kernel on the card), then one all-reduce of the sums and one of the
-    max over the space ranks.
+    masked reductions (TPU kernel 3b, ``ops/masked_reductions.py``; the
+    kernel on the card, which writes the sums as one (B, 2C + 2) buffer),
+    then one all-reduce of that buffer and one of the max over the space
+    ranks.
 
     Backward (plain PyTorch, the JAX package's ``_bwd`` written for the
     reductions): the cotangents summed over the space ranks and the number
@@ -308,9 +309,9 @@ class SpaceReductions(torch.autograd.Function):
     def forward(ctx, x, m):
         mesh = _mesh()
         ctx.set_materialize_grads(False)
-        msum, wsum, gsum, mmax, cnt = masked_reductions.masked_reductions(x, m)
+        sums, mmax = masked_reductions.reduction_buffers(x, m)  # msum | wsum | gsum | cnt, and mmax
         C = x.shape[1]
-        sums = _all_reduce_(torch.cat([msum, wsum, gsum, cnt], 1), mesh)
+        sums = _all_reduce_(sums, mesh)
         mmax = _all_reduce_(mmax, mesh, dist.ReduceOp.MAX)
         msum, wsum, gsum, cnt = (t.clone() for t in sums.split([1, C, C, 1], 1))  # outputs of their own
         ctx.save_for_backward(x, m, mmax)

@@ -20,8 +20,8 @@ where a pixel has m > 0.5 (a max is the same in any order), the rest rtol
 1e-5 / atol 1e-6 in float32 (float32 sums in another order) and one bf16 ulp
 in bfloat16 (the same sums rounded once to bf16), its x and m gradients
 rtol 1e-4 / atol 1e-5 of autograd through the plain version; the masked
-reductions (the masked pool's second entry) in float32 whatever the input
-type: msum, wsum and gsum / N rtol 1e-5 / atol 1e-6 (float32 sums in another
+reductions (csrc/masked_reductions.cu) in float32 whatever the input type:
+msum, wsum and gsum / N rtol 1e-5 / atol 1e-6 (float32 sums in another
 order), mmax and cnt exactly.
 """
 
@@ -719,6 +719,122 @@ def test_masked_reductions_kernel_on_a_channel_slice(card):
     x, m = (a.to(card, torch.bfloat16) for a in _pool_case(h=20, w=40, c=128, b=4, seed=50))
     xs = x[:, 32:96]
     _assert_reductions_close(tmr.masked_reductions(xs, m), tmr.masked_reductions_ref(xs, m), 800)
+
+
+RED_CASES = {
+    # the spatial mesh's bands of a 640 px image split in two (B=16): 40/20/10 rows of 80/40/20
+    "band_p3": dict(b=16, h=40, w=80, c=64, seed=60),
+    "band_p4": dict(b=16, h=20, w=40, c=128, seed=61),
+    "band_p5": dict(b=16, h=10, w=20, c=256, seed=62),
+    # the same bands of a 1280 px image: up to 25 16-byte loads a thread
+    "band_1280_p3": dict(b=16, h=80, w=160, c=64, seed=74),
+    "band_1280_p4": dict(b=16, h=40, w=80, c=128, seed=75),
+    "odd_plane_41x43": dict(b=3, h=41, w=43, c=72, seed=63),  # rows not on 16 bytes: element loads
+    "plane_over_a_stage": dict(b=2, h=160, w=160, c=8, seed=64),  # a row of eight warps, met in shared memory
+    "bulk_chunks": dict(b=1, h=320, w=320, c=8, seed=76),  # bulk copies: planes of 7 chunks round the ring
+    "bulk_groups": dict(b=300, h=256, w=264, c=1, seed=77),  # bulk copies: each block takes several groups
+    "image_a_block": dict(b=300, h=3, w=5, c=8, seed=78),  # element loads: the images fill the card
+    "few_groups": dict(b=1, h=40, w=80, c=16, seed=65),  # 16 groups of one channel: fewer than the SMs
+    "two_groups_a_block": dict(b=16, h=10, w=20, c=600, seed=66),  # 38 channels a group, four threads a row
+    "no_pixel": dict(kind="no_pixel", b=16, h=20, w=40, c=128, seed=67),
+    "tiny": dict(kind="tiny", b=16, h=40, w=80, c=64, seed=68),
+    "sparse_mask": dict(kind="sparse", b=4, h=10, w=20, c=256, seed=69),
+}
+
+
+def _red_case(kind="random", b=2, h=8, w=8, c=32, seed=0):
+    """_pool_case, and a mask with m > 0.5 at a few pixels only ("sparse")."""
+    x, m = _pool_case("random" if kind == "sparse" else kind, b, h, w, c, seed)
+    if kind == "sparse":
+        m = torch.from_numpy((np.random.default_rng(seed).uniform(0, 1, m.shape) > 0.995).astype(np.float32))
+    return x, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(RED_CASES))
+def test_masked_reductions_kernel_at_the_band_shapes_and_edges(card, case, dtype):
+    """The kernel against the plain version at the spatial mesh's band
+    shapes of a 640 px and a 1280 px image, on rows not on 16 bytes, planes
+    larger than a stage, fewer groups than SMs, several groups a block (on
+    both routes), and no-pixel, tiny and sparse masks; the five outputs
+    views of one allocation."""
+    x, m = (a.to(card, dtype) for a in _red_case(**RED_CASES[case]))
+    before = tmr.launches
+    got = tmr.masked_reductions(x, m)
+    torch.cuda.synchronize()
+    assert tmr.launches == before + 1
+    _assert_reductions_close(got, tmr.masked_reductions_ref(x, m), x.shape[2] * x.shape[3])
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("view", ["slice_aligned", "slice_unaligned", "offset_one"])
+def test_masked_reductions_kernel_on_channel_slices(card, dtype, view):
+    """Channels 8..39 of 48 with N = 800: every plane starts on 16 bytes
+    (16-byte loads); channels 7..39 with N = 35 (a 5 x 7 plane): none does
+    (element loads); and a contiguous tensor one element past a 16-byte
+    boundary."""
+    h, w, c0 = {"slice_aligned": (20, 40, 8), "slice_unaligned": (5, 7, 7), "offset_one": (20, 40, 0)}[view]
+    x, m = (a.to(card, dtype) for a in _pool_case(b=4, h=h, w=w, c=48, seed=70))
+    if view == "offset_one":
+        buf = torch.empty(x.numel() + 1, device=card, dtype=dtype)
+        x = buf[1:].view(x.shape).copy_(x)
+    else:
+        x = x[:, c0:40]
+    aligned = tmr.tma_rows(x.data_ptr(), m.data_ptr(), x.stride(0), x.stride(1), m.stride(0), h * w,
+                           x.element_size())
+    assert aligned == (view == "slice_aligned")
+    _assert_reductions_close(tmr.masked_reductions(x, m), tmr.masked_reductions_ref(x, m), h * w)
+
+
+@pytest.mark.cuda
+def test_masked_reductions_kernel_under_graph_capture(card):
+    """Ten calls captured in one CUDA graph, replayed on new inputs copied in
+    place: each of the ten results equals the plain version."""
+    x, m = (a.to(card, torch.bfloat16) for a in _pool_case(b=16, h=20, w=40, c=128, seed=71))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmr.masked_reductions(x, m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tmr.launches
+    with torch.cuda.graph(graph):
+        outs = [tmr.masked_reductions(x, m) for _ in range(10)]
+    assert tmr.launches == before + 10
+    for seed in (72, 73):
+        fresh = [a.to(card, torch.bfloat16) for a in _pool_case(b=16, h=20, w=40, c=128, seed=seed)]
+        x.copy_(fresh[0])
+        m.copy_(fresh[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tmr.masked_reductions_ref(x, m)
+        for got in outs:
+            _assert_reductions_close(got, want, 800)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["band_p3", "odd_plane_41x43", "bulk_chunks"])
+def test_masked_reductions_kernel_is_one_launch_and_one_device_kernel(card, case):
+    """One launch counted and one device kernel a call (torch.profiler over
+    five calls), on each route: into registers 16 bytes or one element a
+    load, and the bulk copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, m = (a.to(card, torch.bfloat16) for a in _red_case(**RED_CASES[case]))
+    tmr.masked_reductions(x, m)
+    torch.cuda.synchronize()
+    before = tmr.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tmr.masked_reductions(x, m)
+        torch.cuda.synchronize()
+    assert tmr.launches == before + 5
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in rows) == 5, [(e.key, e.count) for e in rows]
 
 
 def test_masked_reductions_on_the_cpu_is_the_plain_version():
